@@ -1,0 +1,160 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source under ``csrc/`` exports one C function, ``<name>_launch``, that
+takes raw device pointers, sizes and a CUDA stream, launches its kernel and
+returns ``cudaGetLastError()``. Each compiles on its own into a shared
+library under ``build/kernels/`` at the root of the checkout, named by the
+hash of its source, so an edited source is rebuilt and a stale library is
+never loaded. The ``nvcc`` processes of all sources run at once.
+
+Nothing here runs at import: the first call to :func:`call` (or an explicit
+:func:`build`) compiles, on the machine with the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> argtypes of ``<name>_launch`` (pointers and the stream as c_void_p,
+# so ctypes never cuts a 64-bit address to an int).
+SIGNATURES: dict[str, list] = {
+    # source, idx, val, mask, corr, bvec, B, L, k, alpha, stream
+    "als_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # yty, corr, bvec, n_b, reg, x, B, k, stream
+    "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P],
+    # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, stream
+    "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
+    "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+# Launches of each kernel in this process (see ``kernels.reset_launches``).
+LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc``
+    or ``nvcc`` on ``PATH``."""
+    for cand in (
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc",
+        Path("/usr/local/cuda/bin/nvcc"),
+    ):
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> dict[str, float]:
+    """Compile every kernel whose library is missing, all ``nvcc`` runs in
+    parallel, and load all of them. Returns the seconds each build took
+    (0.0 for one already built). ``verbose`` adds ``-Xptxas -v`` and prints
+    the compiler's report of registers, shared memory and spills."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs: dict[str, tuple[subprocess.Popen, Path, Path, float]] = {}
+        seconds = {name: 0.0 for name in SIGNATURES}
+        for name in SIGNATURES:
+            out = _library_path(name)
+            if out.is_file():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs[name] = (proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            if verbose or proc.returncode:
+                print(f"[kernels] nvcc {name}.cu (rc={proc.returncode}):\n{log}", flush=True)
+            if proc.returncode:
+                failed.append(name)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}")
+        for name in SIGNATURES:
+            if name not in _libs:
+                lib = ctypes.CDLL(str(_library_path(name)))
+                fn = getattr(lib, f"{name}_launch")
+                fn.argtypes = SIGNATURES[name]
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
+        return seconds
+
+
+def call(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on CUDA ``device`` (building all kernels on
+    first use), raise if the launch was refused, and count it in
+    ``kernels.LAUNCHES``. ``args`` are the launch function's arguments
+    before the stream; the launch runs with ``device`` current, on
+    PyTorch's current stream there, whichever device the caller had
+    current."""
+    import torch
+
+    if name not in _libs:
+        build()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_libs[name], f"{name}_launch")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+def on_cpu(kernel: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper runs its plain
+    version); False when all lie on one CUDA device (it launches the
+    kernel); raises ``ValueError`` otherwise. There is no fallback."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return True
+    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"{kernel}: operands must all be on the CPU or on one CUDA device, got {types}")
+
+
+def check_operand(kernel: str, name: str, t, dtype, shape: tuple, device) -> None:
+    """Raise ``ValueError`` unless tensor ``t`` is a contiguous ``dtype``
+    tensor of ``shape`` on ``device``, as kernel ``kernel`` reads it."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")

@@ -1,0 +1,126 @@
+// K1 als_partials: the gathered Gramian correction and b-vector of one ALS
+// bucket, fused with the row gather.
+//
+// Replaces: albedo_tpu/ops/als.py bucket_partial_terms (:108) together with
+// the gather _gather (:62) that feeds it. For each bucket row b over its L
+// padded entries (idx, val, mask):
+//     c1_l   = alpha * val_l,   w_l = 1 + c1_l   (both 0 where mask is false)
+//     corr_b = sum_l c1_l * y_l y_l^T            (k x k)
+//     b_b    = sum_l w_l * y_l                   (k)
+// with y_l = source[idx_l].
+//
+// What bounds it on an H100: the JAX program writes the gathered (B, L, k)
+// block to device memory and reads it back for two einsums; at the bench
+// shape one such block is 400 MB. Here the block never leaves the chip: one
+// CTA per bucket row copies tiles of TILE gathered rows into shared memory
+// and accumulates the k*k correction in registers (16 entries per thread at
+// k = 64). The entry lists and the source rows (which stay in the 50 MB L2:
+// a 30000 x 50 f32 table is 6 MB) are then a small part of the bytes: the
+// (B, k, k) correction it writes, and K2 reads back, is most of them (about
+// 670 of 744 MB per bench iteration), so its bound is set by bytes, not by
+// its 2 k^2 FP32 FLOP per entry. Fusing K1 with K2 removes that round trip.
+// It computes the full square rather than the upper triangle (twice the
+// FMAs of a symmetric accumulation): each product c1 * (y_i * y_j) is formed
+// from the commuted pair, so the result is exactly symmetric. Masked entries
+// contribute nothing; entries past the row's last masked-in entry are not
+// visited at all, so padding slots (all-false masks) cost one mask scan.
+// k is a runtime argument up to 64 (rank 50 pads to 64 inside the kernel).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int KMAX = 64;
+constexpr int THREADS = 256;
+constexpr int TILE = 32;
+constexpr int PER_THREAD = KMAX * KMAX / THREADS;
+
+__global__ void __launch_bounds__(THREADS) als_partials_kernel(
+    const float* __restrict__ source, const int* __restrict__ idx,
+    const float* __restrict__ val, const unsigned char* __restrict__ mask,
+    float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
+    float alpha) {
+  __shared__ float ys[TILE][KMAX];
+  __shared__ float c1s[TILE];
+  __shared__ float ws[TILE];
+  __shared__ int s_end;
+
+  const int tid = threadIdx.x;
+  const long long base = (long long)blockIdx.x * L;
+
+  // One past the row's last masked-in entry.
+  if (tid == 0) s_end = 0;
+  __syncthreads();
+  int my_end = 0;
+  for (int l = tid; l < L; l += THREADS)
+    if (mask[base + l]) my_end = l + 1;
+  if (my_end) atomicMax(&s_end, my_end);
+  __syncthreads();
+  const int end = s_end;
+  const int kk = k * k;
+
+  float acc[PER_THREAD];
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) acc[q] = 0.f;
+  float bacc = 0.f;
+
+  for (int l0 = 0; l0 < end; l0 += TILE) {
+    for (int e = tid; e < TILE * k; e += THREADS) {
+      const int l = e / k;
+      const int c = e - l * k;
+      const int gl = l0 + l;
+      float y = 0.f;
+      if (gl < end && mask[base + gl])
+        y = source[(long long)idx[base + gl] * k + c];
+      ys[l][c] = y;
+    }
+    if (tid < TILE) {
+      const int gl = l0 + tid;
+      float c1 = 0.f, w = 0.f;
+      if (gl < end && mask[base + gl]) {
+        c1 = alpha * val[base + gl];
+        w = 1.f + c1;
+      }
+      c1s[tid] = c1;
+      ws[tid] = w;
+    }
+    __syncthreads();
+    const int nl = min(TILE, end - l0);
+    if (tid < k)
+      for (int l = 0; l < nl; ++l) bacc += ws[l] * ys[l][tid];
+#pragma unroll
+    for (int q = 0; q < PER_THREAD; ++q) {
+      const int p = tid + q * THREADS;
+      if (p < kk) {
+        const int i = p / k;
+        const int j = p - i * k;
+        float a = acc[q];
+        for (int l = 0; l < nl; ++l) a += c1s[l] * (ys[l][i] * ys[l][j]);
+        acc[q] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = corr + (long long)blockIdx.x * kk;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int p = tid + q * THREADS;
+    if (p < kk) out[p] = acc[q];
+  }
+  if (tid < k) bvec[(long long)blockIdx.x * k + tid] = bacc;
+}
+
+}  // namespace
+
+// source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int als_partials_launch(const float* source, const int* idx,
+                                   const float* val, const unsigned char* mask,
+                                   float* corr, float* bvec, int B, int L,
+                                   int k, float alpha, void* stream) {
+  if (B > 0)
+    als_partials_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        source, idx, val, mask, corr, bvec, L, k, alpha);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,209 @@
+// K3 bucket_cg: warm-started Jacobi-preconditioned conjugate gradient on the
+// implicit-ALS normal equations, matrix-free, one bucket row per CTA.
+//
+// Replaces: albedo_tpu/ops/als.py bucket_cg_body (:154). For a row with
+// entries (y_l = source[idx_l], c1_l = alpha val_l, w_l = 1 + c1_l):
+//     b      = sum_l w_l y_l
+//     diag   = max(diag(YtY) + sum_l c1_l y_l^2 + reg n, 1e-12)
+//     A p    = YtY p + sum_l y_l (c1_l (y_l . p)) + reg n p
+// then cg_steps iterations from x0 with the tiny = 1e-30 guards, in the same
+// order as the JAX loop (:205-221).
+//
+// What bounds it on an H100: each matvec streams the row's gathered entries
+// once (L k FMAs twice over). A row reaches L = 7624 entries at the bench
+// scale (7624 x 50 x 4 B = 1.5 MB), so the gathered rows cannot all stay in
+// shared memory: every matvec re-reads them from the source table through
+// TILE-row shared-memory tiles. The table itself (4-6 MB at the bench scale)
+// stays in the 50 MB L2, so the kernel is bound by L2 traffic and by the
+// dependent chain of cg_steps + 1 matvecs per row, not by device memory.
+// YtY (k x k) and the CG vectors live in shared memory for the whole solve;
+// nothing of the (B, L, k) block or the (B, k, k) systems is ever written.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int KMAX = 64;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 32;
+
+struct Shared {
+  float yty[KMAX][KMAX];
+  float ys[TILE][KMAX];
+  float c1s[TILE];
+  float ws[TILE];
+  float ts[TILE];
+  float x[KMAX], r[KMAX], z[KMAX], p[KMAX], ap[KMAX], diag[KMAX], b[KMAX];
+  float red;
+  int end;
+  int count;
+};
+
+// Load entries [l0, l0 + TILE) of the row into the shared tile; entries that
+// are masked out (or past `end`) load as zero rows with zero weights.
+__device__ void load_tile(Shared& s, const float* __restrict__ source,
+                          const int* __restrict__ idx,
+                          const float* __restrict__ val,
+                          const unsigned char* __restrict__ mask,
+                          long long base, int l0, int k, float alpha) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < TILE * k; e += THREADS) {
+    const int l = e / k;
+    const int c = e - l * k;
+    const int gl = l0 + l;
+    float y = 0.f;
+    if (gl < s.end && mask[base + gl])
+      y = source[(long long)idx[base + gl] * k + c];
+    s.ys[l][c] = y;
+  }
+  if (tid < TILE) {
+    const int gl = l0 + tid;
+    float c1 = 0.f, w = 0.f;
+    if (gl < s.end && mask[base + gl]) {
+      c1 = alpha * val[base + gl];
+      w = 1.f + c1;
+    }
+    s.c1s[tid] = c1;
+    s.ws[tid] = w;
+  }
+}
+
+// sum_i a[i] * b[i] over k entries, returned to every thread.
+__device__ float block_dot(Shared& s, const float* a, const float* b, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < k; ++i) acc += a[i] * b[i];
+    s.red = acc;
+  }
+  __syncthreads();
+  return s.red;
+}
+
+// out = A v (see the header), for the whole CTA.
+__device__ void matvec(Shared& s, const float* v, float* out,
+                       const float* __restrict__ source,
+                       const int* __restrict__ idx,
+                       const float* __restrict__ val,
+                       const unsigned char* __restrict__ mask, long long base,
+                       int k, float alpha, float rn) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float acc = 0.f;
+  for (int l0 = 0; l0 < s.end; l0 += TILE) {
+    __syncthreads();
+    load_tile(s, source, idx, val, mask, base, l0, k, alpha);
+    __syncthreads();
+    const int nl = min(TILE, s.end - l0);
+    for (int l = warp; l < nl; l += WARPS) {
+      float d = 0.f;
+      for (int c = lane; c < k; c += 32) d += s.ys[l][c] * v[c];
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (lane == 0) s.ts[l] = s.c1s[l] * d;
+    }
+    __syncthreads();
+    if (tid < k)
+      for (int l = 0; l < nl; ++l) acc += s.ys[l][tid] * s.ts[l];
+  }
+  __syncthreads();
+  if (tid < k) {
+    float yp = 0.f;
+    for (int i = 0; i < k; ++i) yp += v[i] * s.yty[i][tid];
+    out[tid] = yp + acc + rn * v[tid];
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
+    const float* __restrict__ source, const float* __restrict__ yty,
+    const int* __restrict__ idx, const float* __restrict__ val,
+    const unsigned char* __restrict__ mask, const float* __restrict__ x0,
+    float* __restrict__ xout, int L, int k, float reg, float alpha,
+    int cg_steps) {
+  __shared__ Shared s;
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const long long base = row * L;
+
+  if (tid == 0) {
+    s.end = 0;
+    s.count = 0;
+  }
+  for (int p = tid; p < k * k; p += THREADS) s.yty[p / k][p % k] = yty[p];
+  __syncthreads();
+  int my_end = 0, my_count = 0;
+  for (int l = tid; l < L; l += THREADS)
+    if (mask[base + l]) {
+      my_end = l + 1;
+      ++my_count;
+    }
+  if (my_end) {
+    atomicMax(&s.end, my_end);
+    atomicAdd(&s.count, my_count);
+  }
+  __syncthreads();
+  const float rn = reg * (float)s.count;
+
+  // b-vector and the Jacobi diagonal in one pass over the entries.
+  float bacc = 0.f, dacc = 0.f;
+  for (int l0 = 0; l0 < s.end; l0 += TILE) {
+    __syncthreads();
+    load_tile(s, source, idx, val, mask, base, l0, k, alpha);
+    __syncthreads();
+    const int nl = min(TILE, s.end - l0);
+    if (tid < k)
+      for (int l = 0; l < nl; ++l) {
+        const float y = s.ys[l][tid];
+        bacc += s.ws[l] * y;
+        dacc += (y * y) * s.c1s[l];
+      }
+  }
+  if (tid < k) {
+    s.b[tid] = bacc;
+    s.diag[tid] = fmaxf(s.yty[tid][tid] + dacc + rn, 1e-12f);
+    s.x[tid] = x0[row * k + tid];
+  }
+  __syncthreads();
+
+  const float tiny = 1e-30f;
+  matvec(s, s.x, s.ap, source, idx, val, mask, base, k, alpha, rn);
+  if (tid < k) {
+    s.r[tid] = s.b[tid] - s.ap[tid];
+    s.z[tid] = s.r[tid] / s.diag[tid];
+    s.p[tid] = s.z[tid];
+  }
+  float rz = block_dot(s, s.r, s.z, k);
+  for (int it = 0; it < cg_steps; ++it) {
+    matvec(s, s.p, s.ap, source, idx, val, mask, base, k, alpha, rn);
+    const float pap = block_dot(s, s.p, s.ap, k);
+    const float step = rz / (pap + tiny);
+    if (tid < k) {
+      s.x[tid] += step * s.p[tid];
+      s.r[tid] -= step * s.ap[tid];
+      s.z[tid] = s.r[tid] / s.diag[tid];
+    }
+    const float rz_new = block_dot(s, s.r, s.z, k);
+    const float beta = rz_new / (rz + tiny);
+    if (tid < k) s.p[tid] = s.z[tid] + beta * s.p[tid];
+    rz = rz_new;
+    __syncthreads();
+  }
+  if (tid < k) xout[row * k + tid] = s.x[tid];
+}
+
+}  // namespace
+
+// source (n, k); yty (k, k); idx, val, mask (B, L); x0, x (B, k).
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int bucket_cg_launch(const float* source, const float* yty,
+                                const int* idx, const float* val,
+                                const unsigned char* mask, const float* x0,
+                                float* x, int B, int L, int k, float reg,
+                                float alpha, int cg_steps, void* stream) {
+  if (B > 0)
+    bucket_cg_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps);
+  return (int)cudaGetLastError();
+}

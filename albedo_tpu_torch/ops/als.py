@@ -1,0 +1,317 @@
+"""Implicit-feedback ALS normal-equation solves (PyTorch + CUDA).
+
+The math (Hu-Koren-Volinsky implicit ALS, with Spark MLlib's conventions):
+
+- confidence ``c_ui = 1 + alpha * r_ui``; preference ``p_ui = 1`` where ``r > 0``
+- user solve:  ``x_u = (YtY + Y_u^T diag(alpha r_u) Y_u + lambda n_u I)^-1
+  Y_u^T (1 + alpha r_u)``, with ``n_u`` the user's nonzero count (ALS-WR).
+
+Port of ``albedo_tpu/ops/als.py``. Each half-sweep walks the tier-packed
+bucket groups (``datasets.ragged``) and solves every row of a group in one
+kernel launch:
+
+- K1 :func:`bucket_partial_terms` gathers the fixed side's rows and forms the
+  Gramian correction and the b-vector (kernel ``als_partials``);
+- K2 :func:`solve_corrected` is the batched Cholesky solve;
+- K3 :func:`bucket_cg_body` is the warm-started Jacobi-PCG alternative.
+
+Each has a plain PyTorch version beside it (``*_reference``). A wrapper runs
+the plain version only for tensors on the CPU; for CUDA tensors it launches
+its kernel or raises. :func:`half_sweep` lands the solved rows with one
+gather through the precomputed landing permutation, as the JAX sweep does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from albedo_tpu_torch.datasets.ragged import Bucket
+from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+
+KMAX = 64  # the widest factor rank the K1-K3 kernels take
+
+
+def gramian(factors: torch.Tensor) -> torch.Tensor:
+    """``F^T F`` in float32 — the shared ``YtY`` term of every implicit solve."""
+    return factors.T @ factors
+
+
+def _check_rank(kernel: str, k: int) -> None:
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"{kernel}: the CUDA kernel takes ranks 1..{KMAX}, got {k}")
+
+
+# --------------------------------------------------------------------- K1
+
+
+def bucket_partial_terms_reference(
+    source: torch.Tensor,  # (n_source, k) f32 fixed side's factors
+    idx: torch.Tensor,     # (B, L) int32 indices into `source`
+    val: torch.Tensor,     # (B, L) f32 ratings, 0 on padding
+    mask: torch.Tensor,    # (B, L) bool
+    alpha: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: ``corr = sum_l c1 y y^T`` (B, k, k) and
+    ``b = sum_l w y`` (B, k), through the materialized (B, L, k) gather."""
+    gathered = source[idx.long()]
+    c1 = alpha * val
+    w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
+    corr = torch.einsum("blk,bl,blm->bkm", gathered, c1, gathered)
+    b_vec = torch.einsum("blk,bl->bk", gathered, w)
+    return corr, b_vec
+
+
+def bucket_partial_terms(
+    source: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+    mask: torch.Tensor, alpha: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: the Gramian correction and b-vector of a padded bucket, with the
+    row gather fused in (CUDA kernel ``als_partials``; the (B, L, k) block is
+    never materialized)."""
+    if on_cpu("als_partials", source, idx, val, mask):
+        return bucket_partial_terms_reference(source, idx, val, mask, alpha)
+    n, k = source.shape
+    b, length = idx.shape
+    _check_rank("als_partials", k)
+    dev = source.device
+    check_operand("als_partials", "source", source, torch.float32, (n, k), dev)
+    check_operand("als_partials", "idx", idx, torch.int32, (b, length), dev)
+    check_operand("als_partials", "val", val, torch.float32, (b, length), dev)
+    check_operand("als_partials", "mask", mask, torch.bool, (b, length), dev)
+    corr = torch.empty((b, k, k), dtype=torch.float32, device=dev)
+    b_vec = torch.empty((b, k), dtype=torch.float32, device=dev)
+    call(
+        "als_partials", dev, source.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        mask.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), b, length, k,
+        float(alpha),
+    )
+    return corr, b_vec
+
+
+# --------------------------------------------------------------------- K2
+
+
+def solve_corrected_reference(
+    yty: torch.Tensor,    # (k, k)
+    corr: torch.Tensor,   # (B, k, k)
+    b_vec: torch.Tensor,  # (B, k)
+    n_b: torch.Tensor,    # (B,) f32 per-row nonzero counts
+    reg: float,
+) -> torch.Tensor:
+    """Plain version of K2: batched Cholesky solve of
+    ``(YtY + corr + reg n_b I) x = b``. ``cholesky_ex`` does not raise on a
+    padding slot whose ``YtY`` is singular; that row's result is dropped."""
+    k = yty.shape[0]
+    eye = torch.eye(k, dtype=torch.float32, device=yty.device)
+    a_mat = yty[None] + corr + (reg * n_b)[:, None, None] * eye
+    chol = torch.linalg.cholesky_ex(a_mat).L
+    return torch.cholesky_solve(b_vec[..., None], chol)[..., 0]
+
+
+def solve_corrected(
+    yty: torch.Tensor, corr: torch.Tensor, b_vec: torch.Tensor,
+    n_b: torch.Tensor, reg: float,
+) -> torch.Tensor:
+    """K2: one k x k Cholesky solve per bucket row (CUDA kernel
+    ``solve_corrected``)."""
+    if on_cpu("solve_corrected", yty, corr, b_vec, n_b):
+        return solve_corrected_reference(yty, corr, b_vec, n_b, reg)
+    k = yty.shape[0]
+    b = b_vec.shape[0]
+    _check_rank("solve_corrected", k)
+    dev = yty.device
+    check_operand("solve_corrected", "yty", yty, torch.float32, (k, k), dev)
+    check_operand("solve_corrected", "corr", corr, torch.float32, (b, k, k), dev)
+    check_operand("solve_corrected", "b_vec", b_vec, torch.float32, (b, k), dev)
+    check_operand("solve_corrected", "n_b", n_b, torch.float32, (b,), dev)
+    x = torch.empty((b, k), dtype=torch.float32, device=dev)
+    call(
+        "solve_corrected", dev, yty.data_ptr(), corr.data_ptr(), b_vec.data_ptr(),
+        n_b.data_ptr(), float(reg), x.data_ptr(), b, k,
+    )
+    return x
+
+
+def bucket_solve_body(
+    source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
+    val: torch.Tensor, mask: torch.Tensor, reg: float, alpha: float,
+) -> torch.Tensor:
+    """The exact normal-equation solve of a padded bucket: K1 then K2."""
+    corr, b_vec = bucket_partial_terms(source, idx, val, mask, alpha)
+    n_b = mask.sum(dim=1, dtype=torch.float32)
+    return solve_corrected(yty, corr, b_vec, n_b, reg)
+
+
+# --------------------------------------------------------------------- K3
+
+
+def bucket_cg_reference(
+    source: torch.Tensor,  # (n_source, k)
+    yty: torch.Tensor,     # (k, k)
+    idx: torch.Tensor,     # (B, L) int32
+    val: torch.Tensor,     # (B, L) f32, 0 on padding
+    mask: torch.Tensor,    # (B, L) bool
+    x0: torch.Tensor,      # (B, k) warm start
+    reg: float,
+    alpha: float,
+    cg_steps: int,
+) -> torch.Tensor:
+    """Plain version of K3, line for line the JAX ``bucket_cg_body``."""
+    gathered = source[idx.long()]
+    c1 = alpha * val
+    w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
+    n_b = mask.sum(dim=1, dtype=torch.float32)
+    b_vec = torch.einsum("blk,bl->bk", gathered, w)
+    diag = (
+        torch.diagonal(yty)[None]
+        + torch.einsum("blk,bl->bk", gathered * gathered, c1)
+        + (reg * n_b)[:, None]
+    )
+    diag = torch.clamp(diag, min=1e-12)
+
+    def matvec(p):
+        t = c1 * torch.einsum("blk,bk->bl", gathered, p)
+        return p @ yty + torch.einsum("blk,bl->bk", gathered, t) + (reg * n_b)[:, None] * p
+
+    tiny = 1e-30
+    x = x0
+    r = b_vec - matvec(x)
+    z = r / diag
+    p = z
+    rz = torch.sum(r * z, dim=1)
+    for _ in range(cg_steps):
+        ap = matvec(p)
+        step = rz / (torch.sum(p * ap, dim=1) + tiny)
+        x = x + step[:, None] * p
+        r = r - step[:, None] * ap
+        z = r / diag
+        rz_new = torch.sum(r * z, dim=1)
+        beta = rz_new / (rz + tiny)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+def bucket_cg_body(
+    source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
+    val: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
+    reg: float, alpha: float, cg_steps: int,
+) -> torch.Tensor:
+    """K3: matrix-free warm-started Jacobi-PCG on the implicit normal
+    equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``)."""
+    if on_cpu("bucket_cg", source, yty, idx, val, mask, x0):
+        return bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps)
+    n, k = source.shape
+    b, length = idx.shape
+    _check_rank("bucket_cg", k)
+    dev = source.device
+    check_operand("bucket_cg", "source", source, torch.float32, (n, k), dev)
+    check_operand("bucket_cg", "yty", yty, torch.float32, (k, k), dev)
+    check_operand("bucket_cg", "idx", idx, torch.int32, (b, length), dev)
+    check_operand("bucket_cg", "val", val, torch.float32, (b, length), dev)
+    check_operand("bucket_cg", "mask", mask, torch.bool, (b, length), dev)
+    check_operand("bucket_cg", "x0", x0, torch.float32, (b, k), dev)
+    x = torch.empty((b, k), dtype=torch.float32, device=dev)
+    call(
+        "bucket_cg", dev, source.data_ptr(), yty.data_ptr(), idx.data_ptr(),
+        val.data_ptr(), mask.data_ptr(), x0.data_ptr(), x.data_ptr(), b,
+        length, k, float(reg), float(alpha), int(cg_steps),
+    )
+    return x
+
+
+# ------------------------------------------------------------ half-sweeps
+
+
+def half_sweep(
+    source: torch.Tensor,      # (n_source, k) fixed side's factors
+    target: torch.Tensor,      # (n_target, k) factors being updated
+    groups: list[Bucket],      # stacked (N, B, L) groups, torch tensors
+    landing: torch.Tensor,     # (n_target,) int64 landing permutation
+    reg: float,
+    alpha: float,
+    solver: str = "cholesky",
+    cg_steps: int = 3,
+) -> torch.Tensor:
+    """Update every row of ``target`` that appears in a bucket; returns a new
+    table (``target`` is not modified).
+
+    Every target row appears in at most one bucket, so all groups are solved
+    against the PRE-SWEEP ``target`` (CG warm starts read it), and the solved
+    blocks land once: ``cat(solved..., target)[landing]``, where
+    ``landing[r]`` is row r's flat slot, or ``n_slots + r`` to keep its old
+    factor. Each (N, B, L) group is solved as N*B rows in one launch.
+    """
+    if solver not in ("cholesky", "cg"):
+        raise ValueError(f"unknown solver {solver!r} (expected 'cholesky' or 'cg')")
+    yty = gramian(source)
+    solved = []
+    for g in groups:
+        n, b, length = g.idx.shape
+        idx = g.idx.reshape(n * b, length)
+        val = g.val.reshape(n * b, length)
+        mask = g.mask.reshape(n * b, length)
+        if solver == "cg":
+            rows = g.row_ids.reshape(-1).clamp(min=0).long()
+            x0 = target[rows]
+            solved.append(bucket_cg_body(source, yty, idx, val, mask, x0, reg, alpha, cg_steps))
+        else:
+            solved.append(bucket_solve_body(source, yty, idx, val, mask, reg, alpha))
+    return torch.cat(solved + [target])[landing]
+
+
+def fit_loop(
+    user_f: torch.Tensor,
+    item_f: torch.Tensor,
+    user_groups: list[Bucket],
+    item_groups: list[Bucket],
+    user_landing: torch.Tensor,
+    item_landing: torch.Tensor,
+    reg: float,
+    alpha: float,
+    n_iter: int,
+    solver: str = "cholesky",
+    cg_steps: int = 3,
+    callback=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n_iter`` alternating sweeps in MLlib order: item factors first (from
+    the user factors), then user factors. ``callback(it, user_f, item_f)``,
+    if given, runs after each sweep with the device tensors."""
+    for it in range(n_iter):
+        item_f = half_sweep(user_f, item_f, item_groups, item_landing, reg, alpha, solver, cg_steps)
+        user_f = half_sweep(item_f, user_f, user_groups, user_landing, reg, alpha, solver, cg_steps)
+        if callback is not None:
+            callback(it, user_f, item_f)
+    return user_f, item_f
+
+
+def implicit_loss(
+    user_factors: torch.Tensor,
+    item_factors: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    reg: float,
+    alpha: float,
+) -> torch.Tensor:
+    """The exact implicit-ALS objective (tests/monitoring; O(U*I) — small
+    data only).
+
+    ``sum_ui c_ui (p_ui - x_u . y_i)^2 + reg * (sum_u n_u |x_u|^2 + sum_i n_i |y_i|^2)``
+    """
+    rows = rows.long()
+    cols = cols.long()
+    scores = user_factors @ item_factors.T
+    conf = torch.ones_like(scores)
+    pref = torch.zeros_like(scores)
+    conf.index_put_((rows, cols), alpha * vals, accumulate=True)
+    pref[rows, cols] = torch.where(vals > 0, 1.0, 0.0).to(pref.dtype)
+    data_term = (conf * (pref - scores) ** 2).sum()
+    n_u = torch.zeros(user_factors.shape[0], dtype=scores.dtype, device=scores.device)
+    n_u.index_add_(0, rows, torch.ones_like(vals, dtype=scores.dtype))
+    n_i = torch.zeros(item_factors.shape[0], dtype=scores.dtype, device=scores.device)
+    n_i.index_add_(0, cols, torch.ones_like(vals, dtype=scores.dtype))
+    reg_term = (n_u * (user_factors**2).sum(dim=1)).sum() + (
+        n_i * (item_factors**2).sum(dim=1)
+    ).sum()
+    return data_term + reg * reg_term

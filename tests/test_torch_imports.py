@@ -1,0 +1,75 @@
+"""The port stands alone: no module of ``albedo_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, every module imports
+without ``nvcc`` or ``triton``, and asking for CUDA without a card fails
+instead of falling back to the CPU."""
+
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import pytest
+import torch
+
+import albedo_tpu_torch
+from albedo_tpu_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "albedo_tpu_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_jax_package(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "albedo_tpu", "flax", "optax", "triton"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_every_module_imports_without_nvcc():
+    names = [
+        m.name for m in pkgutil.walk_packages(albedo_tpu_torch.__path__, "albedo_tpu_torch.")
+    ]
+    assert "albedo_tpu_torch.kernels.build" in names and "albedo_tpu_torch.cli" in names
+    for name in names:
+        importlib.import_module(name)
+    from albedo_tpu_torch import kernels
+    from albedo_tpu_torch.kernels import build
+
+    assert set(kernels.LAUNCHES) == {"als_partials", "solve_corrected", "bucket_cg", "topk_scores"}
+    assert not build._libs  # nothing built or loaded at import
+    for name in kernels.LAUNCHES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_resolve_device_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    from albedo_tpu_torch import kernels
+    from albedo_tpu_torch.ops.topk import topk_scores
+
+    kernels.reset_launches()
+    vals, idx = topk_scores(torch.eye(3), torch.eye(3), 2)
+    assert idx[:, 0].tolist() == [0, 1, 2]
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
