@@ -1,36 +1,47 @@
-"""CLI jobs: one per reference entry point (``train_als`` in this port).
+"""CLI jobs: one per reference entry point (``train_als``, ``train_word2vec``
+and ``train_lr`` in this port).
 
-Reference parity: the ``ALSRecommenderBuilder`` main and its Makefile target
-(``make train_als``). Port of the ``train_als`` path of
-``albedo_tpu/builders/jobs.py``: deterministic synthetic tables, the star
-matrix (data policy ``off``: the validation firewall is not ported yet), the
-ALS fit under the divergence watchdog, top-30 retrieval, and NDCG@30.
+Reference parity: the ``ALSRecommenderBuilder``, ``Word2VecCorpusBuilder`` and
+``LogisticRegressionRanker`` mains and their Makefile targets. Port of those
+paths of ``albedo_tpu/builders/jobs.py``: deterministic synthetic tables, the
+star matrix (data policy ``off``: the validation firewall is not ported yet),
+the ALS fit under the divergence watchdog, top-30 retrieval and NDCG@30; the
+profiles, the Word2Vec corpus and fit, and the LR ranker with its AUC and
+re-ranked NDCG@30.
 
 Evaluation protocol matches the builders: train on the FULL star matrix,
 sample test users (+ the canary user), recommend top-30, and score NDCG@30
 against each user's most recent 30 stars (``ALSRecommenderBuilder.scala:60-105``).
-Not ported yet: the ``--tables`` sources, the date-keyed artifact cache,
-checkpointed and mesh fits, and the other jobs.
+The port has no artifact cache yet, so the ALS and Word2Vec models a job
+needs are trained in process, once per :class:`JobContext`. Not ported yet:
+the ``--tables`` sources, the artifact cache, checkpointed and mesh fits, and
+the other jobs.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import pandas as pd
 
+from albedo_tpu_torch.builders.profiles import VINTA_USER_ID, build_repo_profile, build_user_profile
+from albedo_tpu_torch.builders.ranker import RankerConfig, train_ranker
 from albedo_tpu_torch.datasets import sample_test_users, synthetic_tables
-from albedo_tpu_torch.datasets.tables import RawTables
+from albedo_tpu_torch.datasets.tables import RawTables, popular_repos
 from albedo_tpu_torch.evaluators import RankingEvaluator, user_actual_items, user_items_from_pairs
+from albedo_tpu_torch.features.text import StopWordsRemover, Tokenizer
 from albedo_tpu_torch.models.als import ALSModel, ImplicitALS
-from albedo_tpu_torch.recommenders import ALSRecommender
+from albedo_tpu_torch.models.word2vec import Word2Vec, Word2VecModel
+from albedo_tpu_torch.recommenders import ALSRecommender, CurationRecommender, PopularityRecommender
 from albedo_tpu_torch.utils.device import resolve_device
+from albedo_tpu_torch.utils.params import explain_params
+from albedo_tpu_torch.utils.profiling import Timer
 from albedo_tpu_torch.utils.watchdog import guarded_fit
 
 TOP_K = 30
-VINTA_USER_ID = 652070  # the smoke-canary user (ALSRecommenderBuilder.scala:68)
 ALS_REG = ImplicitALS.reg_param
 ALS_ALPHA = ImplicitALS.alpha
 
@@ -44,6 +55,8 @@ class JobContext:
         now = getattr(args, "now", None)
         self.now = float(now) if now is not None else time.time()
         self.device = resolve_device(getattr(args, "device", None) or "cuda")
+        # Wall-clock of the job's stages (model fits, ranker stages).
+        self.timer = Timer()
         self._cache: dict[str, object] = {}
         if tables is not None:
             self._cache["tables"] = tables
@@ -84,10 +97,84 @@ class JobContext:
         watchdog (check-final + one damped re-fit)."""
         if "als" not in self._cache:
             est = self.als_estimator(rank=rank, reg=reg, alpha=alpha, iters=iters)
-            model, trips = guarded_fit(est, self.matrix())
+            with self.timer.section("als_fit", sync=self.device):
+                model, trips = guarded_fit(est, self.matrix())
             self._cache["als"] = model
             self._cache["als_report"] = dict(est.last_fit_report, watchdog_trips=trips)
         return self._cache["als"]  # type: ignore[return-value]
+
+    def curators(self) -> tuple[int, ...]:
+        """The ranker's curation source: the five most active users (the
+        reference's hard-coded curator ids do not exist in synthetic data)."""
+        star = self.tables().starring
+        return tuple(star["user_id"].value_counts().index[:5].tolist())
+
+    def star_range(self) -> tuple[int, int]:
+        """Popular/profile star windows (the reference's GitHub-scale window
+        applies only to real tables, which the port does not load yet)."""
+        return (1, 10**9)
+
+    def profiles(self):
+        """``(user_profile, user_cols, repo_profile, repo_cols)``."""
+        if "profiles" not in self._cache:
+            lo, hi = self.star_range()
+            up, uc = build_user_profile(self.tables(), now=self.now)
+            rp, rc = build_repo_profile(
+                self.tables(), now=self.now, min_stars=max(1, lo // 30), max_stars=hi,
+                language_bin_threshold=3,
+            )
+            self._cache["profiles"] = (up, uc, rp, rc)
+        return self._cache["profiles"]
+
+    def word2vec_corpus(self) -> list[list[str]]:
+        """The reference's W2V corpus (``Word2VecCorpusBuilder.scala:47-69``):
+        ``concat_ws(", ", login/name/bio/company/location)`` per user union
+        ``concat_ws(", ", owner/name/language/description/topics)`` per repo,
+        through the same Tokenizer -> StopWordsRemover stages as the ranker's
+        feature pipeline."""
+        tables = self.tables()
+
+        def concat_ws(df, cols: list[str]):
+            parts = [df[c].fillna("").astype(str) for c in cols]
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + ", " + p
+            return out
+
+        user_text = concat_ws(
+            tables.user_info,
+            ["user_login", "user_name", "user_bio", "user_company", "user_location"],
+        )
+        repo_text = concat_ws(
+            tables.repo_info,
+            ["repo_owner_username", "repo_name", "repo_language", "repo_description", "repo_topics"],
+        )
+        corpus_df = pd.DataFrame({"text": list(user_text) + list(repo_text)})
+        staged = StopWordsRemover("text__words", "text__filtered").transform(
+            Tokenizer("text", "text__words", remove_stop_words=False).transform(corpus_df)
+        )
+        return list(staged["text__filtered"])
+
+    def word2vec_estimator(self) -> Word2Vec:
+        """The configured (untrained) Word2Vec: the reference config (dim
+        200, 30 epochs, ``Word2VecCorpusBuilder.scala:74-83``) when
+        ``args.w2v_full`` is set, else dim 16 x 3 epochs."""
+        full = bool(getattr(self.args, "w2v_full", False))
+        dim, iters = (200, 30) if full else (16, 3)
+        return Word2Vec(
+            dim=dim, min_count=3 if self.small else 10, max_iter=iters, subsample=0.0,
+            device=self.device,
+        )
+
+    def word2vec(self) -> Word2VecModel:
+        """The fitted Word2Vec, trained in process once per context."""
+        if "w2v" not in self._cache:
+            est = self.word2vec_estimator()
+            corpus = self.word2vec_corpus()
+            with self.timer.section("w2v_fit", sync=self.device):
+                self._cache["w2v"] = est.fit_corpus(corpus)
+            self._cache["w2v_report"] = getattr(est, "last_fit_report", None)
+        return self._cache["w2v"]  # type: ignore[return-value]
 
     def test_user_dense(self, n=250) -> np.ndarray:
         matrix = self.matrix()
@@ -126,4 +213,44 @@ def train_als_job(args) -> None:
     _report("train_als", "NDCG@30", ndcg, t0)
 
 
-JOBS = {"train_als": train_als_job}
+def train_word2vec_job(args) -> None:
+    """``Word2VecCorpusBuilder`` (explainParams dump parity, :85)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    print(f"[train_word2vec] {explain_params(ctx.word2vec_estimator())}")
+    model = ctx.word2vec()
+    report = ctx._cache.get("w2v_report")
+    if report:
+        print(f"[train_word2vec] pairs = {report['pairs']}, steps = {report['steps']}, "
+              f"final epoch loss = {report['epoch_loss'][-1]}")
+    _report("train_word2vec", "vocab", float(len(model.vocab)), t0)
+
+
+def train_lr_job(args) -> None:
+    """``LogisticRegressionRanker`` (AUC gate 0.9425, NDCG@30 gate 0.0211)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    up, uc, rp, rc = ctx.profiles()
+    als = ctx.als_model()
+    lo, hi = ctx.star_range()
+    config = RankerConfig(popular_min_stars=lo, popular_max_stars=hi, min_df=3 if ctx.small else 10)
+    if ctx.small:
+        config = config.small()
+    star = ctx.tables().starring
+    recs = [
+        ALSRecommender(als, ctx.matrix(), top_k=60),
+        CurationRecommender(star, curator_ids=ctx.curators(), top_k=TOP_K),
+        PopularityRecommender(popular_repos(ctx.tables().repo_info, lo, hi), top_k=TOP_K),
+    ]
+    result = train_ranker(
+        ctx.tables(), up, uc, rp, rc, als, ctx.matrix(), ctx.word2vec(),
+        now=ctx.now, config=config, recommenders=recs, timer=ctx.timer, device=ctx.device,
+    )
+    lr_model = result.model.lr_model
+    print(f"[train_lr] lbfgs iterations = {lr_model.n_iter_run}, final loss = {lr_model.train_loss}")
+    print(f"[train_lr] stages = {json.dumps({k: round(v, 4) for k, v in ctx.timer.totals.items()})}")
+    print(f"[train_lr] areaUnderROC = {result.auc}")
+    _report("train_lr", "NDCG@30", result.ndcg or 0.0, t0)
+
+
+JOBS = {"train_als": train_als_job, "train_word2vec": train_word2vec_job, "train_lr": train_lr_job}

@@ -1,6 +1,7 @@
 """CLI entry point: ``python -m albedo_tpu_torch.cli <job> [options]``.
 
-Port of ``albedo_tpu/cli.py`` for the jobs this package has (``train_als``).
+Port of ``albedo_tpu/cli.py`` for the jobs this package has (``train_als``,
+``train_word2vec``, ``train_lr``).
 ``--device`` picks where the job runs: ``cuda`` (the default) runs the CUDA
 kernels and fails when there is no card; ``cpu`` runs their plain PyTorch
 versions.
@@ -34,6 +35,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--cg-steps", type=int, default=3, help="CG steps per half-sweep (--solver cg)"
+    )
+    parser.add_argument(
+        "--w2v-full", action="store_true",
+        help="train Word2Vec at the reference config (dim 200, 30 epochs) "
+        "instead of dim 16 x 3 epochs",
     )
     parser.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",

@@ -3,8 +3,9 @@
 Reference parity: the typed case-class schemas (``schemas/package.scala:4-70``).
 This port carries the synthetic-table path of the ``train_als`` job: the
 schemas, :func:`conform`, and :class:`RawTables` with the ``policy="off"``
-star-matrix build (recency sort, then ``StarMatrix.from_interactions``). The
-file/sqlite loaders and the validation firewall are still to be ported.
+star-matrix build (recency sort, then ``StarMatrix.from_interactions``), and
+:func:`popular_repos` for the ranker. The file/sqlite loaders and the
+validation firewall are still to be ported.
 """
 
 from __future__ import annotations
@@ -149,3 +150,18 @@ class RawTables:
             raw_items=s["repo_id"].to_numpy(np.int64),
             vals=np.ones(len(s), dtype=np.float32),
         )
+
+
+def popular_repos(
+    repo_info: pd.DataFrame, min_stars: int = 1000, max_stars: int = 290000
+) -> pd.DataFrame:
+    """``loadPopularRepoDF`` parity: repos with stars in [1000, 290000], most
+    starred first (``utils/DatasetUtils.scala:148-160``)."""
+    sel = repo_info[
+        repo_info["repo_stargazers_count"].between(min_stars, max_stars)
+    ]
+    return (
+        sel[["repo_id", "repo_stargazers_count", "repo_created_at"]]
+        .sort_values("repo_stargazers_count", ascending=False, kind="stable")
+        .reset_index(drop=True)
+    )

@@ -33,7 +33,7 @@ NVCC_FLAGS = [
     "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # name -> argtypes of ``<name>_launch`` (pointers and the stream as c_void_p,
 # so ctypes never cuts a 64-bit address to an int).
 SIGNATURES: dict[str, list] = {
@@ -45,6 +45,12 @@ SIGNATURES: dict[str, list] = {
     "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
     "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, idx, val, indptr, out, S, stream
+    "segment_dot": [_P, _P, _P, _P, _P, _I, _P],
+    # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
+    "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
+    "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P],
 }
 
 # Launches of each kernel in this process (see ``kernels.reset_launches``).

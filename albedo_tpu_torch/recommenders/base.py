@@ -1,10 +1,10 @@
 """Abstract recommender: the candidate-generation contract.
 
-Reference parity: ``recommenders/Recommender.scala:9-68`` — every source
+Reference parity: ``recommenders/Recommender.scala:9-68`` — a Transformer
+whose ``transform`` delegates to ``recommendForUsers(userDF)``; every source
 returns ``(user, item, score, source)`` rows for the requested users and tags
 them, so a fused candidate set remembers provenance. Port of
-``albedo_tpu/recommenders/base.py`` without the feature-pipeline
-``Transformer`` base, which is not ported yet.
+``albedo_tpu/recommenders/base.py``.
 """
 
 from __future__ import annotations
@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 
+from albedo_tpu_torch.features.pipeline import Transformer
 
-class Recommender:
+
+class Recommender(Transformer):
     source: str = "unknown"
 
     def __init__(
@@ -34,6 +36,10 @@ class Recommender:
         """Return a frame [user_col, item_col, score_col, source_col] with up
         to ``top_k`` rows per requested (raw) user id."""
         raise NotImplementedError
+
+    def transform(self, df: pd.DataFrame) -> pd.DataFrame:
+        self.require_cols(df, [self.user_col])
+        return self.recommend_for_users(df[self.user_col].to_numpy(np.int64))
 
     def _topk_frame(
         self,
@@ -63,3 +69,11 @@ class Recommender:
                 self.source_col: self.source,
             }
         )
+
+
+def fuse_candidates(frames: list[pd.DataFrame], user_col: str = "user_id", item_col: str = "repo_id") -> pd.DataFrame:
+    """Union candidate sets and drop duplicate (user, item) pairs, keeping the
+    first source's row — the ranker's ``map(recommendForUsers).reduce(union)
+    .distinct`` fusion (``LogisticRegressionRanker.scala:397-404``)."""
+    out = pd.concat(frames, ignore_index=True)
+    return out.drop_duplicates([user_col, item_col], keep="first").reset_index(drop=True)

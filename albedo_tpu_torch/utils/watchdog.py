@@ -4,8 +4,9 @@ Port of ``albedo_tpu/utils/watchdog.py`` for the non-checkpointed ALS fit:
 :func:`factor_health` (K12, plain torch reductions on the factors' device),
 :func:`health_dict`, the host-side :class:`DivergenceWatchdog` check, and
 :func:`guarded_fit` (check the final factors; re-fit once with damped
-regularization; raise :class:`TrainingDiverged` if still sick). The JAX
-module's fault-injection site and trip counters are not ported yet.
+regularization; raise :class:`TrainingDiverged` if still sick), and
+:func:`check_lr_loss` for the ranker's LR fit. The JAX module's
+fault-injection site and trip counters are not ported yet.
 
 Tripwire kinds: ``nonfinite`` (any NaN/inf factor), ``norm`` (factor RMS
 above an absolute ceiling), ``trajectory`` (RMS grew by more than
@@ -138,3 +139,12 @@ def guarded_fit(als, matrix, watchdog: DivergenceWatchdog | None = None):
             raise TrainingDiverged(als.max_iter, wd.trips[-1]["kinds"])
         wd.mark_remediated()
     return model, wd.trips
+
+
+def check_lr_loss(loss: float) -> bool:
+    """True when an LR training loss is healthy; a non-finite loss is a
+    ``kind="lr"`` trip (the caller re-runs damped, then raises)."""
+    if np.isfinite(loss):
+        return True
+    log.warning("divergence watchdog tripped: non-finite LR loss %r", loss)
+    return False

@@ -12,6 +12,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bucket_cg, K5 topk_scores) against its plain PyTorch version on the card,
    on edge-case inputs made from a numpy seed: rel 1e-4 for K1-K3 (float32,
    another summation order), exact indices and scores for K5, ties included.
+   Then the ranker kernels (K8 segment_dot, K9 sgns_step, adam_dense) on
+   their edge cases: K8 with empty segments, one segment spanning every
+   entry, a zero-count vocab tail and a null ``val``; K9 with B = 1,
+   duplicate centers and negatives, d = 8 and 200; Adam at step 1 and 1000.
+   Each is held against its plain version relative to the scale of what it
+   compares (below), with no floor, so small gradients are held as tightly
+   as large ones.
 4. job     — runs ``albedo_tpu_torch.cli.main(["train_als"])`` at the job's
    full size (rank 50, 26 iterations, Cholesky) and again with
    ``--solver cg``, with the launch counts set to 0 just before each run and
@@ -20,7 +27,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (the job's own bucket groups, its seeded fit rebuilt from the same
    arguments, its 250 test users with no exclusion list), holds each kernel
    the run launched against its plain version, as in phase 3.
-5. bench   — the JAX package's bench protocol at its scale (30000 x 20000,
+5. ranker  — runs ``train_word2vec --w2v-full`` and then ``train_lr
+   --w2v-full`` (the default synthetic tables, Word2Vec dim 200 x 30 epochs,
+   LR 300 iterations at reg 0.7), counts set to 0 before each run and read
+   after: every kernel of the run must have launched. Holds the job's AUC
+   and NDCG@30 against the JAX package's CPU values over seeds (constants
+   below). Then runs ``train_lr --w2v-full`` once more with the weights
+   shared with the JAX reference (ALS from a numpy init, numpy Word2Vec
+   vectors: ``jax_reference_ndcg.py ranker --shared``) and holds AUC and
+   NDCG@30 to the JAX values of that mode at float32 round-off. Then, on the
+   inputs the seeded run gave its kernels (the LR fit's feature batch and
+   fitted coefficients, the Word2Vec pairs and final optimizer state), holds
+   K8 (every call of one forward and backward), K9 and Adam against their
+   plain versions, and times each with its plain version, a library call and
+   its bound; K9 and Adam also at a realistic vocabulary (100 000 words,
+   synthetic tables and pairs from a numpy seed).
+6. bench   — the JAX package's bench protocol at its scale (30000 x 20000,
    mean 60 stars, 10% held out per user): fits rank 50 x 26 iterations with
    both solvers from one pinned numpy init, and holds the held-out NDCG@30
    against the JAX package's CPU result for that same init (constants
@@ -40,17 +62,51 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 # Held-out NDCG@30 of the JAX package (CPU, resident fit) on the bench split
-# from the pinned numpy init of phase 5, and the bands the port must land in.
+# from the pinned numpy init of phase 6, and the bands the port must land in.
 # CG's band is wider: unconverged 3-step CG carries round-off from sweep to
 # sweep, so two correct implementations drift apart.
 JAX_NDCG = {"cholesky": 0.29399, "cg": 0.29473}
 NDCG_TOL = {"cholesky": 2e-3, "cg": 5e-3}
 REL_TOL = 1e-4  # K1-K3 against their plain versions
+
+# The seeded ranker job (train_lr --w2v-full --now 1600000000): the mean of the JAX
+# package's CPU values over ALS/Word2Vec seeds 42, 1, 2, 3
+# (``jax_reference_ndcg.py ranker --seeds 42,1,2,3``: AUC 0.96840, 0.96758,
+# 0.96799, 0.96716; NDCG@30 0.41712, 0.42915, 0.44232, 0.42329). The card
+# draws its own random stream, so a seeded port run is another seed: the
+# bands are about twice (NDCG@30) and five times (AUC) the widest seed
+# deviation seen over those runs and the port's CPU runs at the same seeds
+# (``--port``: NDCG@30 0.4209 to 0.4488, AUC 0.96691 to 0.96835).
+JAX_RANKER = {"auc": 0.96778, "ndcg": 0.42797}
+RANKER_TOL = {"auc": 4e-3, "ndcg": 4e-2}
+# The ranker job with shared weights (``jax_reference_ndcg.py ranker
+# --shared``): the JAX package's CPU values, and bands at float32 round-off.
+# The port on the CPU in that mode gives AUC 0.96731596 and NDCG@30
+# 0.43035197 (gaps 1.1e-7 and 2.4e-5); the bands are those of the CPU
+# parity test at --small (tests/test_torch_jobs.py), room for the card's
+# own summation orders, and twenty times tighter than the seeded bands.
+JAX_RANKER_SHARED = {"auc": 0.96731585, "ndcg": 0.43037593}
+RANKER_SHARED_TOL = {"auc": 1e-4, "ndcg": 1e-3}
+SHARED_SEED, SHARED_W2V_SCALE = 1, 0.3  # as in jax_reference_ndcg.py
+# The ranker kernels against their plain versions. K8 and K9 sum float32
+# terms in another order than their plain versions (a warp's order, K9's
+# atomics in an order that changes from run to run, index_add_'s), so each
+# element is held relative to the L1 mass of its terms, with no floor:
+# K8 1e-5 of sum |x[idx] val| over its segment (a 70 000-entry segment
+# differs by ~3e-7 of it); K9 5e-5 of ``ops.sgns.sgns_grad_mass`` and of
+# |loss| (measured noise up to 4e-6 of max |plain| on the card; a 4096-term
+# sum rounds to 1e-5 of its mass in float32 against float64 on the CPU;
+# a grad_out slot scaled by 1.001 errs by 2e-4 of it). Elements of mass 0
+# must be exactly 0. Adam, elementwise: 1e-6 of max |plain| of each table
+# (measured 9e-8).
+RANKER_REL = {"segment_dot": 1e-5, "sgns_step": 5e-5, "adam_dense": 1e-6}
+W2V_VOCAB = 100_000  # the realistic vocabulary K9 and Adam are also timed at
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s and
 # FP32 FLOP/s outside the tensor cores. The kernels here run on CUDA cores.
@@ -62,6 +118,9 @@ KERNELS = {
     "solve_corrected": ("albedo_tpu_torch/kernels/csrc/solve_corrected.cu", "albedo_tpu/ops/als.py:138"),
     "bucket_cg": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
     "topk_scores": ("albedo_tpu_torch/kernels/csrc/topk_scores.cu", "albedo_tpu/ops/topk.py:28"),
+    "segment_dot": ("albedo_tpu_torch/kernels/csrc/segment_dot.cu", "albedo_tpu/ops/sparse_linear.py:217"),
+    "sgns_step": ("albedo_tpu_torch/kernels/csrc/sgns_step.cu", "albedo_tpu/models/word2vec.py:241"),
+    "adam_dense": ("albedo_tpu_torch/kernels/csrc/adam_dense.cu", "albedo_tpu/models/word2vec.py:303"),
 }
 
 
@@ -86,6 +145,8 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, that over max |want|)."""
+    if want.numel() == 0:
+        return 0.0, 0.0
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     return diff, diff / max(scale, 1e-30)
@@ -194,10 +255,123 @@ def phase_kernels() -> dict:
     return worst
 
 
+def mass_err(got: torch.Tensor, want: torch.Tensor, mass: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, max over elements of that over the element's L1
+    mass, the sum of the absolute values of the terms summed into it), and
+    inf if an element of mass 0 (no terms) is not exactly ``want``."""
+    if want.numel() == 0:
+        return 0.0, 0.0
+    diff = (got - want).abs()
+    if bool((diff[mass == 0] != 0).any()):
+        return float("inf"), float("inf")
+    return float(diff.max()), float((diff / mass.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def _k8_err(x, idx, val, indptr, got, want) -> tuple[float, float]:
+    """K8's error against the L1 mass of each segment, sum |x[idx] val|."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    return mass_err(got, want, sl.segment_dot_reference(x.abs(), idx, None if val is None else val.abs(), indptr))
+
+
+def _k9_err(in_t, out_t, c, o, neg, got, want) -> tuple[float, float]:
+    """K9's error on (grad_in, grad_out, loss) against their plain values:
+    the gradients against each element's L1 mass, the loss against |loss|."""
+    from albedo_tpu_torch.ops import sgns
+
+    errs = [mass_err(a, e, m) for a, e, m in zip(got, want, sgns.sgns_grad_mass(in_t, out_t, c, o, neg))]
+    errs.append(rel_err(got[2], want[2]))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _k8_case(rng, counts, n_x: int, with_val: bool, dev) -> tuple[float, float]:
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    x = torch.as_tensor(rng.normal(size=n_x).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, n_x, size=nnz).astype(np.int32), device=dev)
+    val = torch.as_tensor(rng.normal(size=nnz).astype(np.float32), device=dev) if with_val else None
+    ip = torch.as_tensor(indptr, device=dev)
+    return _k8_err(x, idx, val, ip, sl.segment_dot(x, idx, val, ip), sl.segment_dot_reference(x, idx, val, ip))
+
+
+def _k9_case(rng, b: int, d: int, v: int, k: int, dev) -> tuple[float, float]:
+    from albedo_tpu_torch.ops import sgns
+
+    in_t = torch.as_tensor(rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32), device=dev)
+    out_t = torch.as_tensor(rng.normal(scale=0.1, size=(v, d)).astype(np.float32), device=dev)
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    c[: max(1, b // 3)] = 1  # duplicate centers
+    neg = rng.integers(0, v, size=(b, k)).astype(np.int32)
+    neg[:, 0] = 0            # duplicate negatives
+    o = rng.integers(0, v, size=b).astype(np.int32)
+    args = [torch.as_tensor(a, device=dev) for a in (c, o, neg)]
+    res = []
+    for fn in (sgns.sgns_step, sgns.sgns_step_reference):
+        gi, go, loss = torch.zeros_like(in_t), torch.zeros_like(out_t), torch.zeros(1, device=dev)
+        fn(in_t, out_t, *args, gi, go, loss)
+        res.append((gi, go, loss))
+    return _k9_err(in_t, out_t, *args, *res)
+
+
+def _adam_case(rng, shape, count: int, dev) -> tuple[float, float]:
+    from albedo_tpu_torch.ops import sgns
+
+    base = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    base.append((np.abs(rng.normal(size=shape)) * 1e-3).astype(np.float32))
+    res = []
+    for fn in (sgns.adam_dense, sgns.adam_dense_reference):
+        p, g, m, v = (torch.as_tensor(a.copy(), device=dev) for a in base)
+        fn(p, g, m, v, count, 0.025)
+        res.append((p, g, m, v))
+    errs = [rel_err(a, e) for a, e in zip(*res)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def phase_ranker_kernels() -> dict:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    worst = {name: 0.0 for name in RANKER_REL}
+    cases = []
+
+    def note(name, label, err):
+        worst[name] = max(worst[name], err[1])
+        cases.append({"kernel": name, "case": label, "abs": err[0], "rel": err[1]})
+
+    heavy = rng.integers(0, 30, size=2000)
+    heavy[::5] = 0
+    heavy[[0, -1]] = 0
+    heavy[3] = 50000  # a power-law head segment
+    tail = np.concatenate([rng.integers(1, 60, size=300), np.zeros(200, np.int64)])
+    for label, counts, n_x in (
+        ("empty segments", heavy, 700),
+        ("one segment spans all entries", np.array([70000]), 900),
+        ("zero-count vocab tail", tail, 5000),
+        ("no entries", np.zeros(64, np.int64), 10),
+    ):
+        for with_val in (True, False):
+            note("segment_dot", f"{label}, val {'f32' if with_val else 'null'}",
+                 _k8_case(rng, counts, n_x, with_val, dev))
+    for b, d in ((1, 8), (1, 200), (4096, 8), (4096, 200)):
+        note("sgns_step", f"B={b} d={d} duplicates", _k9_case(rng, b, d, 146, 5, dev))
+    for count in (1, 1000):
+        for d in (8, 200):
+            note("adam_dense", f"count={count} d={d}", _adam_case(rng, (2, 146, d), count, dev))
+    torch.cuda.synchronize()
+    ok = all(worst[n] <= RANKER_REL[n] for n in RANKER_REL)
+    emit({"phase": "ranker_kernels", "ok": ok, "rel_tol": RANKER_REL, "worst_rel": worst, "cases": cases})
+    if not ok:
+        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version")
+    return worst
+
+
 # ------------------------------------------------------------------ phase 4
 
 
-def _run_job(argv: list[str]) -> dict:
+def _run_cli(argv: list[str]) -> tuple[dict, str]:
+    """Run one job through the CLI with every launch count set to 0 just
+    before and read just after; returns (report, the job's output)."""
     from albedo_tpu_torch import cli, kernels
 
     out = io.StringIO()
@@ -211,11 +385,15 @@ def _run_job(argv: list[str]) -> dict:
     print(text, end="", flush=True)
     if rc != 0:
         raise SystemExit(f"chip_smoke: {argv} exited {rc}")
+    return {"argv": argv, "seconds": round(seconds, 3), "launches": launches}, text
+
+
+def _run_job(argv: list[str]) -> dict:
+    report, text = _run_cli(argv)
     ndcg = float(re.search(r"NDCG@30 = (\S+)", text).group(1))
     health = re.search(r"fit health = (\{.*\})", text).group(1)
     nonfinite = int(re.search(r"'nonfinite': (\d+)", health).group(1))
-    return {"argv": argv, "ndcg": ndcg, "nonfinite": nonfinite, "seconds": round(seconds, 3),
-            "launches": launches}
+    return dict(report, ndcg=ndcg, nonfinite=nonfinite)
 
 
 def _hold_at_job(argv: list[str], needed: tuple[str, ...]) -> None:
@@ -261,7 +439,352 @@ def phase_job() -> dict:
     return launches
 
 
-# ------------------------------------------------------ shared by 4 and 5
+# ------------------------------------------------------------------ phase 5
+
+RANKER_NEEDS = {
+    "train_word2vec": ("sgns_step", "adam_dense"),
+    "train_lr": ("als_partials", "solve_corrected", "topk_scores", "segment_dot", "sgns_step", "adam_dense"),
+}
+
+
+def phase_ranker_job() -> tuple[dict, dict]:
+    """The ranker jobs at full width, with the inputs their kernels saw
+    recorded on the way (the LR fit's arguments and model, the Word2Vec
+    plan and final optimizer state)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    inputs: dict = {}
+    fit, train = lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train
+
+    def recording_fit(self, fm, labels, sample_weight=None, _damped_retry=False):
+        model = fit(self, fm, labels, sample_weight, _damped_retry)
+        inputs["lr"] = (self, fm, labels, sample_weight, model)
+        return model
+
+    def recording_train(self, plan, dev):
+        state, report = train(self, plan, dev)
+        inputs["w2v"] = (self, plan, state)
+        return state, report
+
+    value_and_grad = lr_mod._value_and_grad
+    inputs["lr_evals"] = 0
+
+    def counting_value_and_grad(loss_fn, theta):
+        inputs["lr_evals"] += 1
+        return value_and_grad(loss_fn, theta)
+
+    launches = {}
+    lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train = recording_fit, recording_train
+    lr_mod._value_and_grad = counting_value_and_grad
+    try:
+        for job in ("train_word2vec", "train_lr"):
+            report, text = _run_cli([job, "--w2v-full", "--now", "1600000000"])
+            counts = report["launches"]
+            ok = all(counts[n] > 0 for n in RANKER_NEEDS[job])
+            if job == "train_lr":
+                auc = float(re.search(r"areaUnderROC = (\S+)", text).group(1))
+                ndcg = float(re.search(r"NDCG@30 = (\S+)", text).group(1))
+                it = re.search(r"lbfgs iterations = (\d+), final loss = (\S+)", text)
+                stages = json.loads(re.search(r"stages = (\{.*\})", text).group(1))
+                report.update(auc=auc, ndcg=ndcg, lbfgs_iterations=int(it.group(1)),
+                              final_loss=float(it.group(2)), stages=stages,
+                              jax=JAX_RANKER, tol=RANKER_TOL)
+                ok = (ok and bool(np.isfinite([auc, ndcg, float(it.group(2))]).all()) and auc > 0.5
+                      and abs(auc - JAX_RANKER["auc"]) <= RANKER_TOL["auc"]
+                      and abs(ndcg - JAX_RANKER["ndcg"]) <= RANKER_TOL["ndcg"])
+                launches = {n: counts[n] for n in ("segment_dot", "sgns_step", "adam_dense")}
+            else:
+                w2v = re.search(r"pairs = (\d+), steps = (\d+), final epoch loss = (\S+)", text)
+                report.update(pairs=int(w2v.group(1)), steps=int(w2v.group(2)),
+                              final_epoch_loss=float(w2v.group(3)))
+                ok = ok and bool(np.isfinite(report["final_epoch_loss"]))
+            emit(dict(report, phase="ranker_job", ok=ok))
+            if not ok:
+                raise SystemExit(f"chip_smoke: {job} did not launch {RANKER_NEEDS[job]}, "
+                                 "gave a non-finite result or left the JAX band")
+    finally:
+        lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train = fit, train
+        lr_mod._value_and_grad = value_and_grad
+    _ranker_job_shared()
+    return launches, inputs
+
+
+def _ranker_job_shared() -> None:
+    """``train_lr --w2v-full`` with the weights ``jax_reference_ndcg.py
+    ranker --shared`` gives both packages (every ALS fit from one numpy
+    init, numpy Word2Vec vectors over the job's vocabulary), held to the JAX
+    package's values in that mode at float32 round-off."""
+    from albedo_tpu_torch.models import als as als_mod
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    als_fit, fit_corpus = als_mod.ImplicitALS.fit, w2v_mod.Word2Vec.fit_corpus
+
+    def shared_als_fit(self, matrix, *a, **k):
+        rng = np.random.default_rng(SHARED_SEED)
+        s = np.float32(1 / np.sqrt(self.rank))
+        self.init_factors = ((rng.standard_normal((matrix.n_users, self.rank)) * s).astype(np.float32),
+                             (rng.standard_normal((matrix.n_items, self.rank)) * s).astype(np.float32))
+        return als_fit(self, matrix, *a, **k)
+
+    def shared_fit_corpus(self, sentences):
+        vocab = self.plan(sentences).vocab
+        rng = np.random.default_rng(SHARED_SEED)
+        vectors = rng.normal(scale=SHARED_W2V_SCALE, size=(len(vocab), self.dim)).astype(np.float32)
+        return w2v_mod.Word2VecModel(vocab, vectors, self.input_col, self.output_col or f"{self.input_col}__w2v")
+
+    als_mod.ImplicitALS.fit, w2v_mod.Word2Vec.fit_corpus = shared_als_fit, shared_fit_corpus
+    try:
+        report, text = _run_cli(["train_lr", "--w2v-full", "--now", "1600000000"])
+    finally:
+        als_mod.ImplicitALS.fit, w2v_mod.Word2Vec.fit_corpus = als_fit, fit_corpus
+    got = {"auc": float(re.search(r"areaUnderROC = (\S+)", text).group(1)),
+           "ndcg": float(re.search(r"NDCG@30 = (\S+)", text).group(1))}
+    gap = {n: got[n] - JAX_RANKER_SHARED[n] for n in got}
+    ok = all(abs(gap[n]) <= RANKER_SHARED_TOL[n] for n in got)
+    emit(dict(report, phase="ranker_job_shared", ok=ok, **got, jax=JAX_RANKER_SHARED, gap=gap,
+              tol=RANKER_SHARED_TOL))
+    if not ok:
+        raise SystemExit("chip_smoke: train_lr with shared weights left the JAX band")
+
+
+def _lr_fit_profile(lr_inputs, iters: int = 5) -> dict:
+    """A short re-fit at the job's LR inputs under ``torch.profiler``: wall
+    seconds, the device's busy share (kernel time over wall), and the ops
+    with the most host and device time."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    est, fm, labels, weights, _ = lr_inputs
+    short = dataclasses.replace(est, max_iter=iters)
+    short.fit(fm, labels, weights)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = short.fit(fm, labels, weights)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # Kernels and copies only: an operator's entry repeats its kernels' time.
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(device_us(e) for e in on_device) / 1e6
+    top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
+    top_dev = sorted(on_device, key=lambda e: -device_us(e))[:6]
+    return {
+        "iterations": model.n_iter_run, "wall_s": wall, "device_busy_s": busy,
+        "idle_share": max(0.0, 1.0 - busy / wall),
+        "top_host_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top],
+        "top_device_ms": [[e.key, e.count, device_us(e) / 1e3] for e in top_dev],
+    }
+
+
+def _k8_calls(lr_inputs) -> list[tuple]:
+    """The K8 calls of one forward and one backward of the LR objective at
+    the job's feature batch and fitted coefficients, recorded as they are
+    made: (x, idx, val, indptr)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    est, fm, labels, weights, model = lr_inputs
+    dev = torch.device("cuda")
+    batch = sl.feature_batch(fm, dev)
+    scales = lr_mod._to_device(model.scales, dev)
+    params = {k: v.requires_grad_(True) for k, v in lr_mod._to_device(model.params, dev).items()}
+    center = None if model.center is None else torch.as_tensor(model.center).to(dev)
+    y = torch.as_tensor(np.asarray(labels, np.float32)).to(dev)
+    w = torch.as_tensor(np.asarray(weights, np.float32)).to(dev)
+    calls = []
+    orig = sl.segment_dot
+
+    def recording(x, idx, val, indptr):
+        calls.append((x.detach().clone(), idx, val, indptr))
+        return orig(x, idx, val, indptr)
+
+    sl.segment_dot = recording
+    try:
+        loss = sl.weighted_logloss(params, scales, batch, y, w, est.reg_param, center=center)
+        loss.backward()
+    finally:
+        sl.segment_dot = orig
+    return calls
+
+
+def _w2v_at_vocab(v: int, d: int, b: int, k: int, seed: int = 11):
+    """One K9 + Adam step's inputs at a vocabulary of ``v`` words, made from
+    a numpy seed: Zipf word counts; centers and contexts drawn from the
+    subsampled (1e-3) unigram distribution; negatives by inverse CDF over
+    unigram^0.75, as the fit draws them; tables at the fit's initial scale
+    ("out" as after some training); moments of a warm state at step 1000.
+    Returns (tables (2, v, d), (m, v), centers, contexts, negatives, step)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    freq = 1.0 / np.arange(1, v + 1)
+    f = freq / freq.sum()
+    p = f * np.minimum(1.0, np.sqrt(1e-3 / f) + 1e-3 / f)
+    p /= p.sum()
+    c, o = (rng.choice(v, size=b, p=p).astype(np.int32) for _ in range(2))
+    cdf = np.cumsum(freq**0.75 / (freq**0.75).sum()).astype(np.float32)
+    neg = np.minimum(np.searchsorted(cdf, rng.random((b, k)).astype(np.float32)), v - 1).astype(np.int32)
+    tables = np.stack([rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)), rng.normal(scale=0.1, size=(v, d))])
+    m = rng.normal(scale=1e-4, size=tables.shape)
+    moments = (m, m * m + np.abs(rng.normal(scale=1e-8, size=tables.shape)))
+    def to(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    return (to(tables), tuple(to(x) for x in moments), to(c, torch.int32), to(o, torch.int32),
+            to(neg, torch.int32), 1000)
+
+
+def _k9_adam_at(tables, moments, c, o, neg, count: int, lr: float) -> dict:
+    """K9 and Adam at one batch and optimizer state: each held against its
+    plain version on the same inputs (Adam on K9's plain gradient), then
+    timed with its plain version and a library call, with the bytes and
+    operations of its bound."""
+    from albedo_tpu_torch.ops import sgns
+
+    dev = tables.device
+    v_size, d = tables.shape[1:]
+    bs, k = neg.shape
+    res = []
+    for fn in (sgns.sgns_step, sgns.sgns_step_reference):
+        g, loss = torch.zeros_like(tables), torch.zeros(1, device=dev)
+        fn(tables[0], tables[1], c, o, neg, g[0], g[1], loss)
+        res.append((g[0], g[1], loss))
+    k9_err = _k9_err(tables[0], tables[1], c, o, neg, *res)
+    g, loss = torch.zeros_like(tables), torch.zeros(1, device=dev)
+    k9_plain_ms = cuda_ms(lambda: sgns.sgns_step_reference(tables[0], tables[1], c, o, neg, g[0], g[1], loss))
+    # The rows the batch touches: each "in" and "out" row read once, each of
+    # their gradient rows read and written once (K9 adds into them).
+    rows = int(torch.unique(c).numel()) + int(torch.unique(torch.cat([o, neg.reshape(-1)])).numel())
+    out = {"sgns_step": dict(
+        err=k9_err,
+        ms=cuda_ms(lambda: sgns.sgns_step(tables[0], tables[1], c, o, neg, g[0], g[1], loss)),
+        # The library yardstick is the plain autograd step itself (gather,
+        # einsum, binary_cross_entropy_with_logits, autograd's scatter-add).
+        plain_ms=k9_plain_ms, library_ms=k9_plain_ms,
+        bytes=4 * d * 3 * rows + 4 * bs * (2 + k) + 8, flops=bs * (1 + k) * (6 * d + 20),
+        shape={"B": bs, "d": int(d), "V": int(v_size), "K": k, "rows_touched": rows},
+    )}
+
+    grad = torch.stack(res[1][:2])
+
+    def state():
+        return [tables.clone(), grad.clone(), moments[0].clone(), moments[1].clone()]
+
+    step = torch.tensor(float(count), device=dev)
+
+    def fused_adam(p, g, m, v):
+        # torch.optim.Adam(fused=True)'s kernel on the same state, then the
+        # gradient zeroing that adam_dense fuses. It differs from optax only
+        # in rounding sqrt(v) / sqrt(bc2) where optax takes sqrt(v / bc2).
+        torch._fused_adam_([p], [g], [m], [v], [], [step], lr=lr, beta1=0.9, beta2=0.999,
+                           weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)
+        g.zero_()
+
+    adam_res = []
+    for fn in (lambda *a: sgns.adam_dense(*a, count, lr), lambda *a: sgns.adam_dense_reference(*a, count, lr),
+               fused_adam):
+        st = state()
+        fn(*st)
+        adam_res.append(st)
+    adam_errs = [rel_err(a, e) for a, e in zip(adam_res[0], adam_res[1])]
+    bufs = state()
+    out["adam_dense"] = dict(
+        err=(max(e[0] for e in adam_errs), max(e[1] for e in adam_errs)),
+        ms=cuda_ms(lambda: sgns.adam_dense(*bufs, count, lr)),
+        plain_ms=cuda_ms(lambda: sgns.adam_dense_reference(*bufs, count, lr)),
+        library_ms=cuda_ms(lambda: fused_adam(*bufs)),
+        library_rel_err=max(rel_err(a, e)[1] for a, e in zip(adam_res[2], adam_res[1])),
+        bytes=32 * tables.numel(), flops=12 * tables.numel(),
+        shape={"tables": 2, "V": int(v_size), "d": int(d)},
+    )
+    return out
+
+
+def _timed(r: dict) -> dict:
+    """A kernel's record for the kernels line: its errors and times, and
+    its bound from the bytes and operations of the work."""
+    t_bytes, t_ops = r["bytes"] / PEAK_BYTES * 1e3, r["flops"] / PEAK_FP32 * 1e3
+    return {
+        "max_abs_err": r["err"][0], "rel_err": r["err"][1], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": r["bytes"], "flops": r["flops"], "shape": r.get("shape"),
+        "library_rel_err": r.get("library_rel_err"),
+    }
+
+
+def phase_ranker_timing(inputs: dict) -> dict:
+    """K8, K9 and Adam against their plain versions at the ranker job's own
+    inputs, then timed with a library call and their bound; K9 and Adam
+    also at a realistic vocabulary."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    out = {}
+    # K8: every call of one forward + backward of the LR objective.
+    calls = _k8_calls(inputs["lr"])
+    k8_errs = [_k8_err(*c, sl.segment_dot(*c), sl.segment_dot_reference(*c)) for c in calls]
+    # The library yardstick: each call as a CSR matrix times x (cuSPARSE
+    # SpMV). Rows may repeat a column (a bag row counting one token twice),
+    # which torch's invariant check refuses and SpMV sums, so the check is
+    # off and the SpMV is held against the plain version instead.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        csr = [
+            torch.sparse_csr_tensor(ip, idx, val if val is not None else torch.ones_like(idx, dtype=torch.float32),
+                                    size=(ip.shape[0] - 1, x.shape[0]), check_invariants=False)
+            for x, idx, val, ip in calls
+        ]
+        library_err = max(_k8_err(*c, m @ c[0], sl.segment_dot_reference(*c))[1] for m, c in zip(csr, calls))
+    k8_bytes = sum(4 * (idx.numel() * (2 if val is not None else 1) + ip.numel() + x.numel() + ip.numel() - 1)
+                   for x, idx, val, ip in calls)
+    k8_ops = sum(idx.numel() * (2 if val is not None else 1) for _, idx, val, _ in calls)
+    out["segment_dot"] = dict(
+        err=(max(e[0] for e in k8_errs), max(e[1] for e in k8_errs)),
+        ms=cuda_ms(lambda: [sl.segment_dot(*c) for c in calls]),
+        plain_ms=cuda_ms(lambda: [sl.segment_dot_reference(*c) for c in calls]),
+        library_ms=cuda_ms(lambda: [m @ c[0] for m, c in zip(csr, calls)]),
+        library_rel_err=library_err,
+        bytes=k8_bytes, flops=k8_ops,
+        shape={"calls": len(calls), "nnz": [int(c[1].numel()) for c in calls],
+               "segments": [int(c[3].numel() - 1) for c in calls],
+               "longest": [int((c[3][1:] - c[3][:-1]).max()) if c[3].numel() > 1 else 0 for c in calls]},
+    )
+
+    # K9 and Adam: a batch of the job's pairs at its final optimizer state.
+    est, plan, state = inputs["w2v"]
+    tables = state["tables"]
+    dev = tables.device
+    v_size = tables.shape[1]
+    bs, k = min(est.batch_size, len(plan.centers)), est.negatives
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    u = torch.rand((bs, k), generator=gen, device=dev)
+    neg = torch.searchsorted(state["noise_cdf"], u).clamp_max_(v_size - 1).to(torch.int32)
+    c = torch.as_tensor(plan.centers[:bs].astype(np.int32), device=dev)
+    o = torch.as_tensor(plan.contexts[:bs].astype(np.int32), device=dev)
+    out.update(_k9_adam_at(tables, state["moments"], c, o, neg, state["count"] + 1, est.learning_rate))
+    # And at a realistic vocabulary, where Adam's pass over (2, V, 200) and
+    # K9's contention on the frequent rows behave otherwise.
+    at_vocab = _k9_adam_at(*_w2v_at_vocab(W2V_VOCAB, est.dim, est.batch_size, k), est.learning_rate)
+    torch.cuda.synchronize()
+    timed = {name: _timed(r) for name, r in out.items()}
+    at_vocab = {name: _timed(r) for name, r in at_vocab.items()}
+    ok = all(max(timed[n]["rel_err"], at_vocab.get(n, timed[n])["rel_err"]) <= RANKER_REL[n] for n in RANKER_REL)
+    emit({"phase": "ranker_job_kernels", "ok": ok, "rel_tol": RANKER_REL, "timed": timed,
+          "at_vocab": at_vocab, "lr_evals_in_job": inputs["lr_evals"],
+          "lr_fit_profile": _lr_fit_profile(inputs["lr"])})
+    if not ok:
+        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version at the job's inputs")
+    return timed
+
+
+# ------------------------------------------------------ shared by 4 and 6
 
 ALPHA, REG, CG_STEPS = 40.0, 0.5, 3  # the fits' alpha, reg and CG steps
 
@@ -348,7 +871,7 @@ def _within_tol(errs: dict) -> bool:
     return all(rel <= (0.0 if name == "topk_scores" else REL_TOL) for name, (_, rel) in errs.items())
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
 
 
 def phase_bench() -> dict:
@@ -501,16 +1024,11 @@ def _time_kernels(est, model, train, users, excl) -> dict:
         "topk_scores": (4 * (q.numel() + vf.numel() + ex.numel()) + 8 * q.shape[0] * 30,
                         2 * q.shape[0] * vf.shape[0] * k),
     }
-    out = {}
-    for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items():
-        nbytes, flops = work[name]
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-        out[name] = {
-            "max_abs_err": abs_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-        }
+    out = {
+        name: _timed(dict(err=(abs_err, rel), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bytes=work[name][0], flops=work[name][1]))
+        for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items()
+    }
     ok = _within_tol({name: (v["max_abs_err"], v["rel_err"]) for name, v in out.items()})
     emit({"phase": "bench_kernels", "ok": ok, "groups": len(calls), "slots": slots,
           "per_group": groups_ms,
@@ -524,8 +1042,12 @@ def main() -> int:
     card = phase_device()
     phase_build()
     phase_kernels()
+    phase_ranker_kernels()
     launches = phase_job()
-    timed = phase_bench()
+    ranker_launches, inputs = phase_ranker_job()
+    ranker_timed = phase_ranker_timing(inputs)
+    launches.update(ranker_launches)
+    timed = dict(phase_bench(), **ranker_timed)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -1,7 +1,9 @@
-"""The JAX package's held-out NDCG@30 on the bench split from the pinned numpy
-init — the reference values ``chip_smoke.py`` holds the port against.
+"""The JAX package's reference values that ``chip_smoke.py`` holds the port
+against: the held-out NDCG@30 on the bench split from the pinned numpy init,
+and the ranker job's AUC and NDCG@30.
 
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py [cholesky|cg ...]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 ``synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)``, a 10%
@@ -9,12 +11,36 @@ per-user split (seed 42), rank 50 x 26 iterations from
 ``default_rng(42)`` Gaussian factors scaled by 1/sqrt(50), 500 test users,
 seen items excluded. Prints one JSON line per solver. Takes about a minute
 and a half per solver on a CPU.
+
+``ranker`` runs the ``train_lr`` job as ``chip_smoke.py`` runs it: the
+default synthetic tables (5000 x 3000, mean 20 stars, seed 42), Word2Vec at
+the reference config (dim 200, 30 epochs), LR 300 iterations at reg 0.7,
+``--now 1600000000``, data policy ``off``. ``--seeds`` re-runs it with the
+ALS and Word2Vec seeds set to each value (the JAX and torch generators
+differ, so the seed spread is what bounds a seeded port run against the
+JAX values); ``--port`` runs the port on the CPU instead of the JAX package.
+One JSON line per seed; about a minute per seed on a CPU.
+
+``ranker --shared`` takes the random streams out of the comparison: every
+ALS fit starts from one numpy init (``default_rng(1)`` Gaussian factors
+scaled by 1/sqrt(rank)) and Word2Vec is not trained but returns numpy
+vectors over the job's vocabulary (``default_rng(1)``, normal, scale 0.3).
+Both packages then compute the same function of the same inputs, so their
+AUC and NDCG@30 differ only by float32 round-off; ``chip_smoke.py`` holds
+the card to the JAX package's values from this mode.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
+import contextlib
+import io
 import json
+import os
+import re
 import sys
+import tempfile
 
 import numpy as np
 
@@ -48,5 +74,106 @@ def main(solvers: list[str]) -> None:
         print(json.dumps({"solver": solver, "ndcg": ndcg, "train_nnz": train.nnz}), flush=True)
 
 
+def _seeded(cls, method: str, seed: dict) -> None:
+    """Make ``cls.<method>`` run with ``self.seed = seed["value"]``."""
+    orig = getattr(cls, method)
+
+    def run(self, *a, **k):
+        self.seed = seed["value"]
+        return orig(self, *a, **k)
+
+    setattr(cls, method, run)
+
+
+SHARED_SEED = 1
+SHARED_W2V_SCALE = 0.3
+
+
+def shared_als_init(n_users: int, n_items: int, rank: int) -> tuple[np.ndarray, np.ndarray]:
+    """The ALS init of ``--shared``: Gaussian factors scaled by 1/sqrt(rank)."""
+    rng = np.random.default_rng(SHARED_SEED)
+    s = np.float32(1 / np.sqrt(rank))
+    return ((rng.standard_normal((n_users, rank)) * s).astype(np.float32),
+            (rng.standard_normal((n_items, rank)) * s).astype(np.float32))
+
+
+def shared_w2v_vectors(n_words: int, dim: int) -> np.ndarray:
+    """The Word2Vec vectors of ``--shared``, one row per vocabulary word."""
+    rng = np.random.default_rng(SHARED_SEED)
+    return rng.normal(scale=SHARED_W2V_SCALE, size=(n_words, dim)).astype(np.float32)
+
+
+def _vocab(sentences: list[list[str]], min_count: int) -> list[str]:
+    """Word2Vec's vocabulary: words seen ``min_count`` times or more, in
+    (-count, word) order, as both packages build it."""
+    counts = collections.Counter(w for s in sentences for w in s)
+    return sorted((w for w, c in counts.items() if c >= min_count), key=lambda w: (-counts[w], w))
+
+
+def _share_weights(als, word2vec) -> None:
+    """Make every ALS fit start from :func:`shared_als_init` and every
+    Word2Vec fit return :func:`shared_w2v_vectors` (``--shared``)."""
+    als_fit = als.ImplicitALS.fit
+
+    def fit(self, matrix, *a, **k):
+        self.init_factors = shared_als_init(matrix.n_users, matrix.n_items, self.rank)
+        return als_fit(self, matrix, *a, **k)
+
+    def fit_corpus(self, sentences):
+        vocab = _vocab(sentences, self.min_count)
+        return word2vec.Word2VecModel(vocab=vocab, vectors=shared_w2v_vectors(len(vocab), self.dim),
+                                      input_col=self.input_col,
+                                      output_col=self.output_col or f"{self.input_col}__w2v")
+
+    als.ImplicitALS.fit = fit
+    word2vec.Word2Vec.fit_corpus = fit_corpus
+
+
+def ranker(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py ranker")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--seeds", default="42", help="comma-separated ALS/Word2Vec seeds")
+    ap.add_argument("--shared", action="store_true",
+                    help="numpy ALS init and numpy Word2Vec vectors, the same in both packages")
+    args = ap.parse_args(argv)
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.models import als, word2vec
+    else:
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.models import als, word2vec
+    current = {"value": 42}
+    _seeded(als.ImplicitALS, "fit", current)
+    _seeded(word2vec.Word2Vec, "fit_corpus", current)
+    if args.shared:
+        _share_weights(als, word2vec)
+    for seed in ([SHARED_SEED] if args.shared else (int(x) for x in args.seeds.split(","))):
+        current["value"] = seed
+        ns = argparse.Namespace(small=False, now=1600000000.0, w2v_full=True, data_policy="off",
+                                no_compilation_cache=True, device="cpu")
+        with tempfile.TemporaryDirectory() as data_dir:
+            # A fresh artifact store per seed: cached models are keyed by
+            # their hyperparameters, not by the seed.
+            os.environ["ALBEDO_DATA_DIR"] = data_dir
+            os.environ["ALBEDO_CHECKPOINT_DIR"] = os.path.join(data_dir, "checkpoints")
+            if not args.port:
+                from albedo_tpu.settings import reset_settings
+
+                reset_settings()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                jobs.train_lr_job(ns)
+        text = out.getvalue()
+        print(json.dumps({
+            "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+            "weights": "shared" if args.shared else "seeded", "seed": seed,
+            "auc": float(re.search(r"areaUnderROC = (\S+)", text).group(1)),
+            "ndcg": float(re.search(r"NDCG@30 = (\S+)", text).group(1)),
+        }), flush=True)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["cholesky", "cg"])
+    if sys.argv[1:2] == ["ranker"]:
+        ranker(sys.argv[2:])
+    else:
+        main(sys.argv[1:] or ["cholesky", "cg"])

@@ -8,7 +8,13 @@ machine without JAX it runs as
 
 Tolerances: rel 1e-4 for K1-K3 (float32, another summation order); K5 is
 exact, ties included (the kernel and its plain version round the same
-products in the same order).
+products in the same order); K8 1e-5 of each segment's L1 mass
+sum |x[idx] val| (a warp sums in another order than ``index_add_``'s
+atomics, and both round-offs grow with the segment's length and mass);
+K9 5e-5 of each gradient element's L1 mass (``ops.sgns.sgns_grad_mass``;
+its atomics add duplicate rows in an order that changes between runs) and
+of |loss|; Adam 1e-6 of max |plain| of each table. No tolerance has a
+floor, so the small gradients are held as tightly as the tables.
 """
 
 import numpy as np
@@ -17,10 +23,13 @@ import torch
 
 from albedo_tpu_torch import kernels
 from albedo_tpu_torch.ops import als as ops_als
+from albedo_tpu_torch.ops import sgns as ops_sgns
+from albedo_tpu_torch.ops import sparse_linear as ops_sl
 from albedo_tpu_torch.ops import topk as ops_topk
 
 pytestmark = pytest.mark.cuda
 REL = 1e-4
+K9_MASS, ADAM_REL = 5e-5, 1e-6
 
 
 @pytest.fixture
@@ -116,3 +125,112 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
         ops_als.bucket_partial_terms(torch.zeros((5, 65), device=dev), idx, val, mask, 40.0)
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops_als.bucket_partial_terms(src.cpu(), idx, val, mask, 40.0)
+
+
+@pytest.mark.parametrize("with_val", [True, False])
+def test_k8_segment_dot_matches_plain(dev, with_val):
+    rng = np.random.default_rng(2)
+    counts = rng.integers(0, 40, size=3000)
+    counts[::7] = 0                # empty segments
+    counts[5] = 20000              # one long (power-law head) segment
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    x = torch.as_tensor(rng.normal(size=500).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 500, size=nnz).astype(np.int32), device=dev)
+    val = torch.as_tensor(rng.normal(size=nnz).astype(np.float32), device=dev) if with_val else None
+    ip = torch.as_tensor(indptr, device=dev)
+    kernels.reset_launches()
+    got = ops_sl.segment_dot(x, idx, val, ip)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segment_dot"] == 1
+    want = ops_sl.segment_dot_reference(x, idx, val, ip)
+    mass = ops_sl.segment_dot_reference(x.abs(), idx, None if val is None else val.abs(), ip)
+    assert bool(((got - want).abs() <= 1e-5 * mass).all())
+    assert float(got[0].abs()) == 0.0  # counts[0] == 0: an empty segment
+
+
+def test_k8_autograd_terms_match_plain(dev):
+    # _bag_term forward and backward on the card against the same terms on the CPU.
+    rng = np.random.default_rng(3)
+    n, v = 400, 50
+    rows = np.sort(rng.integers(0, n, size=2000))
+    vocab = rng.integers(0, v - 5, size=2000).astype(np.int32)   # a zero-count vocab tail
+    vals = rng.normal(size=2000).astype(np.float32)
+    order = np.argsort(vocab, kind="stable")
+    r_ip = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))]).astype(np.int32)
+    v_ip = np.concatenate([[0], np.cumsum(np.bincount(vocab, minlength=v))]).astype(np.int32)
+    arrays = [vocab, vals, r_ip, rows[order].astype(np.int32), vals[order], v_ip]
+    w = rng.normal(size=v).astype(np.float32)
+    g = rng.normal(size=n).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        wt = torch.tensor(w, device=d, requires_grad=True)
+        y = ops_sl._bag_term(wt, *(torch.as_tensor(a, device=d) for a in arrays))
+        y.backward(torch.as_tensor(g, device=d))
+        out[d.type] = (y.detach().cpu(), wt.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):  # segments of <= ~100 entries
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("b,d", [(1, 8), (4096, 200), (300, 8)])
+def test_k9_sgns_step_matches_plain(dev, b, d):
+    rng = np.random.default_rng(4)
+    v, k = 146, 5
+    in_t = torch.as_tensor(rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32), device=dev)
+    out_t = torch.as_tensor(rng.normal(scale=0.1, size=(v, d)).astype(np.float32), device=dev)
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    c[: b // 3] = 1                 # duplicate centers
+    neg = rng.integers(0, v, size=(b, k)).astype(np.int32)
+    neg[:, 0] = 0                   # duplicate negatives
+    args = [torch.as_tensor(a, device=dev) for a in (c, rng.integers(0, v, size=b).astype(np.int32), neg)]
+    res = {}
+    for name, fn in (("kernel", ops_sgns.sgns_step), ("plain", ops_sgns.sgns_step_reference)):
+        gi, go = torch.zeros_like(in_t), torch.zeros_like(out_t)
+        loss = torch.zeros(1, device=dev)
+        kernels.reset_launches()
+        fn(in_t, out_t, *args, gi, go, loss)
+        torch.cuda.synchronize()
+        res[name] = (gi, go, loss)
+        if name == "kernel":
+            assert kernels.LAUNCHES["sgns_step"] == 1
+    mass = ops_sgns.sgns_grad_mass(in_t, out_t, *args)
+    for a, e, m in zip(res["kernel"], res["plain"], mass):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
+    assert float((res["kernel"][2] - res["plain"][2]).abs()) <= K9_MASS * float(res["plain"][2].abs())
+
+
+@pytest.mark.parametrize("count", [1, 1000])
+def test_adam_dense_matches_plain(dev, count):
+    rng = np.random.default_rng(5)
+    shape = (2, 146, 200)  # the "in" and "out" tables, updated by one launch
+    base = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    base.append(np.abs(rng.normal(size=shape)).astype(np.float32) * 1e-3)  # v >= 0
+    res = {}
+    for name, fn in (("kernel", ops_sgns.adam_dense), ("plain", ops_sgns.adam_dense_reference)):
+        p, g, m, v = (torch.as_tensor(a.copy(), device=dev) for a in base)
+        kernels.reset_launches()
+        fn(p, g, m, v, count, 0.025)
+        torch.cuda.synchronize()
+        res[name] = (p, g, m, v)
+        if name == "kernel":
+            assert kernels.LAUNCHES["adam_dense"] == 1
+    for a, e in zip(res["kernel"], res["plain"]):
+        assert float((a - e).abs().max()) <= ADAM_REL * float(e.abs().max())
+    assert float(res["kernel"][1].abs().max()) == 0.0
+
+
+def test_ranker_kernels_raise_instead_of_falling_back(dev):
+    x = torch.zeros(10, device=dev)
+    ip = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ops_sl.segment_dot(x, torch.zeros(0, dtype=torch.int64, device=dev), None, ip)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        ops_sl.segment_dot(x.cpu(), torch.zeros(0, dtype=torch.int32, device=dev), None, ip)
+    t = torch.zeros((4, 600), device=dev)
+    i32 = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dims"):
+        ops_sgns.sgns_step(t, t, i32, i32, torch.zeros((2, 5), dtype=torch.int32, device=dev),
+                           t, t, torch.zeros(1, device=dev))
+    p = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        ops_sgns.adam_dense(p, torch.zeros(9, device=dev), p.clone(), p.clone(), 1, 0.025)
