@@ -1,13 +1,19 @@
-"""CLI jobs: one per reference entry point (``train_als``, ``train_word2vec``
-and ``train_lr`` in this port).
+"""CLI jobs: one per reference entry point (``train_als``, ``train_word2vec``,
+``train_lr`` and the candidate generators ``popularity``, ``curation``,
+``content``, ``item_cf``, ``user_cf``, ``ranking_mf`` and ``tfidf_content``
+in this port).
 
-Reference parity: the ``ALSRecommenderBuilder``, ``Word2VecCorpusBuilder`` and
-``LogisticRegressionRanker`` mains and their Makefile targets. Port of those
-paths of ``albedo_tpu/builders/jobs.py``: deterministic synthetic tables, the
-star matrix (data policy ``off``: the validation firewall is not ported yet),
-the ALS fit under the divergence watchdog, top-30 retrieval and NDCG@30; the
+Reference parity: the ``ALSRecommenderBuilder``, ``Word2VecCorpusBuilder``,
+``LogisticRegressionRanker``, ``PopularityRecommenderBuilder``,
+``CurationRecommenderBuilder`` and ``ContentRecommenderBuilder`` mains, and
+the legacy trainers ``train_item_cf``, ``train_user_cf``, ``train_graphlab``
+and ``train_content_based``. Port of those paths of
+``albedo_tpu/builders/jobs.py``: deterministic synthetic tables, the star
+matrix (data policy ``off``: the validation firewall is not ported yet), the
+ALS fit under the divergence watchdog, top-30 retrieval and NDCG@30; the
 profiles, the Word2Vec corpus and fit, and the LR ranker with its AUC and
-re-ranked NDCG@30.
+re-ranked NDCG@30; the candidate sources with their NDCG@30 (the CFs and the
+ranking factorization on a held-out split) and the tf-idf similar-repo list.
 
 Evaluation protocol matches the builders: train on the FULL star matrix,
 sample test users (+ the canary user), recommend top-30, and score NDCG@30
@@ -15,7 +21,8 @@ against each user's most recent 30 stars (``ALSRecommenderBuilder.scala:60-105``
 The port has no artifact cache yet, so the ALS and Word2Vec models a job
 needs are trained in process, once per :class:`JobContext`. Not ported yet:
 the ``--tables`` sources, the artifact cache, checkpointed and mesh fits, and
-the other jobs.
+the other jobs (``cv_als``, the profile, bank, serving, scoring and
+streaming jobs).
 """
 
 from __future__ import annotations
@@ -29,13 +36,24 @@ import pandas as pd
 
 from albedo_tpu_torch.builders.profiles import VINTA_USER_ID, build_repo_profile, build_user_profile
 from albedo_tpu_torch.builders.ranker import RankerConfig, train_ranker
-from albedo_tpu_torch.datasets import sample_test_users, synthetic_tables
+from albedo_tpu_torch.datasets import random_split_by_user, sample_test_users, synthetic_tables
+from albedo_tpu_torch.datasets.ragged import padded_rows
 from albedo_tpu_torch.datasets.tables import RawTables, popular_repos
-from albedo_tpu_torch.evaluators import RankingEvaluator, user_actual_items, user_items_from_pairs
+from albedo_tpu_torch.evaluators import RankingEvaluator, UserItems, user_actual_items, user_items_from_pairs
 from albedo_tpu_torch.features.text import StopWordsRemover, Tokenizer
 from albedo_tpu_torch.models.als import ALSModel, ImplicitALS
+from albedo_tpu_torch.models.ranking_factorization import RankingFactorization
 from albedo_tpu_torch.models.word2vec import Word2Vec, Word2VecModel
-from albedo_tpu_torch.recommenders import ALSRecommender, CurationRecommender, PopularityRecommender
+from albedo_tpu_torch.recommenders import (
+    ALSRecommender,
+    ContentRecommender,
+    CurationRecommender,
+    EmbeddingSearchBackend,
+    ItemCFRecommender,
+    PopularityRecommender,
+    TfidfSimilaritySearch,
+    UserCFRecommender,
+)
 from albedo_tpu_torch.utils.device import resolve_device
 from albedo_tpu_torch.utils.params import explain_params
 from albedo_tpu_torch.utils.profiling import Timer
@@ -253,4 +271,142 @@ def train_lr_job(args) -> None:
     _report("train_lr", "NDCG@30", result.ndcg or 0.0, t0)
 
 
-JOBS = {"train_als": train_als_job, "train_word2vec": train_word2vec_job, "train_lr": train_lr_job}
+def popularity_job(args) -> None:
+    """``PopularityRecommenderBuilder`` (NDCG@30 gate 0.00202)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    lo, hi = ctx.star_range()
+    rec = PopularityRecommender(popular_repos(ctx.tables().repo_info, lo, hi), top_k=TOP_K)
+    users = ctx.matrix().user_ids[ctx.test_user_dense()]
+    ndcg = ctx.evaluate_topk(rec.recommend_for_users(users))
+    _report("popularity", "NDCG@30", ndcg, t0)
+
+
+def curation_job(args) -> None:
+    """``CurationRecommenderBuilder`` (NDCG@30 gate 0.00319)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    rec = CurationRecommender(ctx.tables().starring, curator_ids=ctx.curators(), top_k=TOP_K)
+    users = ctx.matrix().user_ids[ctx.test_user_dense()]
+    ndcg = ctx.evaluate_topk(rec.recommend_for_users(users))
+    _report("curation", "NDCG@30", ndcg, t0)
+
+
+def content_job(args) -> None:
+    """``ContentRecommenderBuilder`` — the embedding MLT backend (K5 at the
+    Word2Vec width)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    backend = EmbeddingSearchBackend(ctx.tables().repo_info, ctx.word2vec(), device=ctx.device)
+    rec = ContentRecommender(
+        backend, ctx.tables().starring, top_k=TOP_K, enable_evaluation_mode=True
+    )
+    users = ctx.matrix().user_ids[ctx.test_user_dense(100)]
+    ndcg = ctx.evaluate_topk(rec.recommend_for_users(users))
+    _report("content", "NDCG@30", ndcg, t0)
+
+
+def _holdout_cf_ndcg(ctx: JobContext, rec_cls) -> float:
+    """NDCG@30 for the memory-based CFs under a held-out split.
+
+    The CF recommenders drop the user's own stars from the ranked list
+    (``train_item_cf.py:38`` behavior), so the full-matrix protocol the other
+    builders use would score an exact 0 by construction; they are evaluated
+    on held-out stars instead: fit on the train split, recommend with train
+    stars excluded, score against each user's held-out items."""
+    matrix = ctx.matrix()
+    train, test = random_split_by_user(matrix, test_ratio=0.1, seed=42)
+    rec = rec_cls(train, top_k=TOP_K, device=ctx.device)
+    users_dense = sample_test_users(test, n=250, seed=42)
+    frame = rec.recommend_for_users(matrix.user_ids[users_dense])
+    predicted = user_items_from_pairs(
+        matrix.users_of(frame["user_id"].to_numpy(np.int64)),
+        matrix.items_of(frame["repo_id"].to_numpy(np.int64)),
+        order_key=frame["score"].to_numpy(np.float64),
+        k=TOP_K,
+    )
+    actual = user_actual_items(test, k=TOP_K)
+    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(predicted, actual)
+
+
+def item_cf_job(args) -> None:
+    """``train_item_cf`` legacy-trainer parity: item-item cosine CF, NDCG@30
+    on a held-out split (K11)."""
+    t0 = time.time()
+    ndcg = _holdout_cf_ndcg(JobContext(args), ItemCFRecommender)
+    _report("item_cf", "NDCG@30", ndcg, t0)
+
+
+def user_cf_job(args) -> None:
+    """``train_user_cf`` legacy-trainer parity: user-user dice CF, NDCG@30 on
+    a held-out split (K11)."""
+    t0 = time.time()
+    ndcg = _holdout_cf_ndcg(JobContext(args), UserCFRecommender)
+    _report("user_cf", "NDCG@30", ndcg, t0)
+
+
+def item_side_features(ctx: JobContext, matrix) -> np.ndarray:
+    """Per-repo activity side features, standardized: log1p of the star and
+    fork counts, in ``matrix.item_ids`` order (I, 2) float32."""
+    repo = ctx.tables().repo_info.set_index("repo_id").reindex(matrix.item_ids)
+    side = np.stack(
+        [
+            np.log1p(repo["repo_stargazers_count"].fillna(0).to_numpy(np.float64)),
+            np.log1p(repo["repo_forks_count"].fillna(0).to_numpy(np.float64)),
+        ],
+        axis=1,
+    )
+    side = (side - side.mean(axis=0)) / np.maximum(side.std(axis=0), 1e-9)
+    return side.astype(np.float32)
+
+
+def ranking_mf_job(args) -> None:
+    """``train_graphlab`` legacy-trainer parity: ranking factorization on the
+    binary star matrix (binary_target=True, split by user, top-k with known
+    items excluded — ``train_graphlab.py:23-34``), with repo side features
+    (log-stars/forks) as the linear side-data term; NDCG@30 on the held-out
+    split (K10 to train, K5 at rank + 1 to retrieve)."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    matrix = ctx.matrix()
+    train, test = random_split_by_user(matrix, test_ratio=0.2, seed=42)
+    mf = RankingFactorization(
+        rank=16 if ctx.small else 32, epochs=5 if ctx.small else 10,
+        batch_size=1024 if ctx.small else 8192, device=ctx.device,
+    )
+    with ctx.timer.section("ranking_mf_fit", sync=ctx.device):
+        model = mf.fit(train, item_side=item_side_features(ctx, matrix))
+    report = mf.last_fit_report
+    print(f"[ranking_mf] steps = {report['steps']}, final epoch loss = {report['epoch_loss'][-1]}, "
+          f"fit = {ctx.timer.totals['ranking_mf_fit']:.4f}s")
+    users_dense = sample_test_users(test, n=250, seed=42)
+    indptr, cols_arr, _ = train.csr()
+    excl = padded_rows(indptr, cols_arr, users_dense)
+    _, idx = model.recommend(users_dense, k=TOP_K, exclude_idx=excl)
+    predicted = UserItems(users=users_dense, items=idx.astype(np.int32))
+    ndcg = RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(
+        predicted, user_actual_items(test, k=TOP_K)
+    )
+    _report("ranking_mf", "NDCG@30", ndcg, t0)
+
+
+def tfidf_content_job(args) -> None:
+    """``train_content_based`` legacy-trainer parity: tf-idf similar-repo
+    search (K5 at the vocabulary's width). Prints the most-similar repos for
+    the most-starred repo and reports the indexed-corpus size."""
+    t0 = time.time()
+    ctx = JobContext(args)
+    repo = ctx.tables().repo_info
+    search = TfidfSimilaritySearch(min_df=2, device=ctx.device).fit(repo)
+    top_repo = repo.sort_values("repo_stargazers_count", ascending=False).iloc[0]
+    for score, name in search.similar(str(top_repo["repo_full_name"]), k=10):
+        print(f"[tfidf_content] {score:.4f} {name}")
+    _report("tfidf_content", "indexed_repos", float(len(search.doc_ids)), t0)
+
+
+JOBS = {
+    "train_als": train_als_job, "train_word2vec": train_word2vec_job, "train_lr": train_lr_job,
+    "popularity": popularity_job, "curation": curation_job, "content": content_job,
+    "item_cf": item_cf_job, "user_cf": user_cf_job, "ranking_mf": ranking_mf_job,
+    "tfidf_content": tfidf_content_job,
+}

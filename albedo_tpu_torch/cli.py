@@ -1,7 +1,8 @@
 """CLI entry point: ``python -m albedo_tpu_torch.cli <job> [options]``.
 
 Port of ``albedo_tpu/cli.py`` for the jobs this package has (``train_als``,
-``train_word2vec``, ``train_lr``).
+``train_word2vec``, ``train_lr``, ``popularity``, ``curation``, ``content``,
+``item_cf``, ``user_cf``, ``ranking_mf``, ``tfidf_content``).
 ``--device`` picks where the job runs: ``cuda`` (the default) runs the CUDA
 kernels and fails when there is no card; ``cpu`` runs their plain PyTorch
 versions.

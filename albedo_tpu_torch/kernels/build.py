@@ -4,8 +4,9 @@ Each source under ``csrc/`` exports one C function, ``<name>_launch``, that
 takes raw device pointers, sizes and a CUDA stream, launches its kernel and
 returns ``cudaGetLastError()``. Each compiles on its own into a shared
 library under ``build/kernels/`` at the root of the checkout, named by the
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded. The ``nvcc`` processes of all sources run at once.
+hash of its source and of the shared headers (``csrc/*.cuh``), so an edited
+source is rebuilt and a stale library is never loaded. The ``nvcc``
+processes of all sources run at once.
 
 Nothing here runs at import: the first call to :func:`call` (or an explicit
 :func:`build`) compiles, on the machine with the card.
@@ -51,10 +52,22 @@ SIGNATURES: dict[str, list] = {
     "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
     "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # x, indptr, idx, val, out, S, B, stream
+    "spmm_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # scores, sb, si, starred, norm, out_s, out_i, B, n, k, L, Lpad, stream
+    "masked_topk": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg, stream
+    "bpr_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
-# Launches of each kernel in this process (see ``kernels.reset_launches``).
-LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+# Second code paths of a kernel's source, counted apart from the first:
+# count name -> library. K5's wide path (rank > 64: the content sources, K14)
+# is another __global__ function behind the same launch function.
+PATHS = {"topk_scores_wide": "topk_scores"}
+
+# Launches of each kernel (and path) in this process (see
+# ``kernels.reset_launches``).
+LAUNCHES: dict[str, int] = dict.fromkeys([*SIGNATURES, *PATHS], 0)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -77,6 +90,8 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared headers (topk_merge.cuh)
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -122,13 +137,13 @@ def build(verbose: bool = False) -> dict[str, float]:
         return seconds
 
 
-def call(name: str, device, *args) -> None:
+def call(name: str, device, *args, count: str | None = None) -> None:
     """Launch kernel ``name`` on CUDA ``device`` (building all kernels on
     first use), raise if the launch was refused, and count it in
-    ``kernels.LAUNCHES``. ``args`` are the launch function's arguments
-    before the stream; the launch runs with ``device`` current, on
-    PyTorch's current stream there, whichever device the caller had
-    current."""
+    ``kernels.LAUNCHES`` under ``count`` (a key of ``PATHS``) or ``name``.
+    ``args`` are the launch function's arguments before the stream; the
+    launch runs with ``device`` current, on PyTorch's current stream there,
+    whichever device the caller had current."""
     import torch
 
     if name not in _libs:
@@ -138,7 +153,7 @@ def call(name: str, device, *args) -> None:
         rc = getattr(_libs[name], f"{name}_launch")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def on_cpu(kernel: str, *tensors) -> bool:

@@ -1,42 +1,49 @@
 // K5 topk_scores: blocked user x item scoring with a streaming top-k, one
-// query row per CTA.
+// query row per CTA, at any rank.
 //
-// Replaces: albedo_tpu/ops/topk.py topk_scores (:28). For each query row u:
+// Replaces: albedo_tpu/ops/topk.py topk_scores (:28), and the cosine
+// scoring + top-k of albedo_tpu/recommenders/tfidf.py similar (:121-122),
+// similar_to_repos (:157) and recommenders/content.py more_like_this (:81)
+// (K14: the same function over L2-normalized rows). For each query row u:
 // score every item i as u . v_i, drop the row's excluded items (a -1-padded,
 // unsorted list that may hold duplicates), and return the k best as
 // (score, item) ordered by score descending, then item index ascending,
 // with the slots past the admissible items filled with (-inf, -1). That is
 // exactly the order the JAX scan produces: lax.top_k keeps the lower
 // position on ties and the running list precedes each block in the merge.
+// The running top-k and the exclusion list are topk_merge.cuh.
 //
 // What bounds it on an H100: 2 U I r FLOP over (U + I) r floats. The U x I
 // score matrix is never written; the work is FP32 dot products on CUDA
-// cores, and the item table (4 MB at the bench scale) is re-read from L2 by
-// every row's CTA, so at this first version L2 traffic (U I r 4 bytes)
-// bounds it rather than device memory. Scores are accumulated as separately
-// rounded multiplies and adds in index order, the same arithmetic as the
-// plain PyTorch version, so the two agree bit for bit, ties included.
-// The exclusion list is copied into shared memory and sorted (bitonic), so
-// membership is a binary search and no U x I mask exists. The running top-k
-// lives in shared memory: each tile of TILE items appends only the items
-// that beat the current k-th entry, and a merge places each survivor at its
-// rank in the total order (score desc, index asc).
+// cores, and the item table is re-read from L2 by every row's CTA, so at
+// this first version L2 traffic (U I r 4 bytes) bounds it rather than
+// device memory. Scores are accumulated as separately rounded multiplies
+// and adds in index order, the same arithmetic as the plain PyTorch
+// version, so the two agree bit for bit, ties included, at every rank.
+//
+// Two paths, chosen by the rank:
+//   - r <= RMAX (ALS, the ranker, ranking_mf): the query row sits in shared
+//     memory and each thread walks whole item rows from global memory.
+//   - r > RMAX (tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200):
+//     the query and a tile of WTILE item rows are streamed through shared
+//     memory CHUNK columns at a time, each warp loading 128 contiguous bytes
+//     of one item row (all of a thread's loads of a chunk in flight at
+//     once), and each thread keeps its item's running sum in a register
+//     across chunks. Any r fits: only CHUNK columns are staged.
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
+#include "topk_merge.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 1024;
-constexpr int KMAX = 128;
-constexpr int RMAX = 64;
-
-__device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
+using topk::THREADS;
+constexpr int TILE = 1024;   // items per tile, narrow path
+constexpr int RMAX = 64;     // widest rank of the narrow path
+constexpr int WTILE = 256;   // items per tile, wide path (one per thread)
+constexpr int CHUNK = 32;    // rank columns staged per step, wide path
+constexpr int VSTRIDE = CHUNK + 1;  // padded row: no bank conflicts
+constexpr int LOADS = WTILE * CHUNK / THREADS;  // chunk floats per thread
 
 __global__ void __launch_bounds__(THREADS) topk_scores_kernel(
     const float* __restrict__ users, const float* __restrict__ items,
@@ -44,129 +51,113 @@ __global__ void __launch_bounds__(THREADS) topk_scores_kernel(
     int* __restrict__ out_i, int n_items, int r, int k, int E, int Epad) {
   extern __shared__ int s_excl[];
   __shared__ float s_u[RMAX];
-  __shared__ float top_s[KMAX];
-  __shared__ int top_i[KMAX];
-  __shared__ float new_s[KMAX];
-  __shared__ int new_i[KMAX];
-  __shared__ float cand_s[TILE];
-  __shared__ int cand_i[TILE];
-  __shared__ int n_cand;
-  __shared__ int n_real;
+  __shared__ topk::Running<TILE> st;
 
   const int tid = threadIdx.x;
   const long long row = blockIdx.x;
 
   for (int c = tid; c < r; c += THREADS) s_u[c] = users[row * r + c];
-  for (int e = tid; e < Epad; e += THREADS) {
-    int v = INT_MAX;
-    if (e < E) {
-      const int x = excl[row * E + e];
-      if (x >= 0) v = x;
-    }
-    s_excl[e] = v;
-  }
-  if (tid == 0) n_real = 0;
-  __syncthreads();
-  // Bitonic sort of the exclusion list (Epad is a power of two).
-  for (int size = 2; size <= Epad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < Epad; t += THREADS) {
-        const int partner = t ^ stride;
-        if (partner > t) {
-          const bool up = (t & size) == 0;
-          const int a = s_excl[t];
-          const int b = s_excl[partner];
-          if ((a > b) == up) {
-            s_excl[t] = b;
-            s_excl[partner] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  st.init();
+  topk::load_sorted(excl == nullptr ? nullptr : excl + row * E, E, Epad, s_excl);
 
   for (int tile0 = 0; tile0 < n_items; tile0 += TILE) {
-    if (tid == 0) n_cand = 0;
-    __syncthreads();
-    const int nr = n_real;
-    const float th_s = nr == k ? top_s[k - 1] : -INFINITY;
-    const int th_i = nr == k ? top_i[k - 1] : -1;
+    const topk::Threshold th = st.begin_tile(k);
     for (int t = tid; t < TILE; t += THREADS) {
       const int item = tile0 + t;
       if (item >= n_items) break;
       const float* v = items + (long long)item * r;
       float s = 0.f;
       for (int c = 0; c < r; ++c) s = __fadd_rn(s, __fmul_rn(s_u[c], v[c]));
-      if (Epad > 0) {
-        int lo = 0, hi = Epad;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_excl[mid] < item) lo = mid + 1; else hi = mid;
-        }
-        if (lo < Epad && s_excl[lo] == item) continue;
-      }
-      if (!(s > -INFINITY)) continue;  // -inf and NaN are never admitted
-      if (nr == k && !beats(s, item, th_s, th_i)) continue;
-      const int slot = atomicAdd(&n_cand, 1);
-      cand_s[slot] = s;
-      cand_i[slot] = item;
+      if (Epad > 0 && topk::contains(s_excl, Epad, item)) continue;
+      st.offer(th, s, item, k);
     }
-    __syncthreads();
-    const int nc = n_cand;
-    if (nc > 0) {
-      const int M = nr + nc;
-      for (int e = tid; e < M; e += THREADS) {
-        const float se = e < nr ? top_s[e] : cand_s[e - nr];
-        const int ie = e < nr ? top_i[e] : cand_i[e - nr];
-        int rank = 0;
-        for (int f = 0; f < M; ++f) {
-          const float sf = f < nr ? top_s[f] : cand_s[f - nr];
-          const int jf = f < nr ? top_i[f] : cand_i[f - nr];
-          rank += beats(sf, jf, se, ie);
-        }
-        if (rank < k) {
-          new_s[rank] = se;
-          new_i[rank] = ie;
-        }
-      }
-      __syncthreads();
-      const int nn = min(k, M);
-      for (int e = tid; e < nn; e += THREADS) {
-        top_s[e] = new_s[e];
-        top_i[e] = new_i[e];
-      }
-      if (tid == 0) n_real = nn;
-      __syncthreads();
-    }
+    st.end_tile(k);
   }
+  st.write(out_s + row * k, out_i + row * k, k);
+}
 
-  for (int e = tid; e < k; e += THREADS) {
-    const bool real = e < n_real;
-    out_s[row * k + e] = real ? top_s[e] : -INFINITY;
-    out_i[row * k + e] = real ? top_i[e] : -1;
+__global__ void __launch_bounds__(THREADS) topk_scores_wide_kernel(
+    const float* __restrict__ users, const float* __restrict__ items,
+    const int* __restrict__ excl, float* __restrict__ out_s,
+    int* __restrict__ out_i, int n_items, int r, int k, int E, int Epad) {
+  extern __shared__ int smem[];
+  int* s_excl = smem;                                       // Epad
+  float* s_v = reinterpret_cast<float*>(smem + Epad);       // WTILE x VSTRIDE
+  float* s_u = s_v + WTILE * VSTRIDE;                       // CHUNK
+  __shared__ topk::Running<WTILE> st;
+
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const float* u = users + row * r;
+
+  st.init();
+  topk::load_sorted(excl == nullptr ? nullptr : excl + row * E, E, Epad, s_excl);
+
+  for (int tile0 = 0; tile0 < n_items; tile0 += WTILE) {
+    const int n_tile = min(WTILE, n_items - tile0);
+    float s = 0.f;
+    for (int c0 = 0; c0 < r; c0 += CHUNK) {
+      const int w = min(CHUNK, r - c0);
+      // All of this thread's loads of the chunk are issued before any is
+      // stored, so their latencies overlap (a CTA is often alone on its SM).
+      float staged[LOADS];
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j) {
+        const int e = tid + j * THREADS;
+        const int t = e / CHUNK;
+        const int c = e % CHUNK;
+        staged[j] = (t < n_tile && c < w) ? items[(long long)(tile0 + t) * r + c0 + c] : 0.f;
+      }
+      const float uc = tid < w ? u[c0 + tid] : 0.f;
+      __syncthreads();  // the previous chunk's reads are done
+      if (tid < w) s_u[tid] = uc;
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j) {
+        const int e = tid + j * THREADS;
+        s_v[(e / CHUNK) * VSTRIDE + e % CHUNK] = staged[j];
+      }
+      __syncthreads();
+      if (tid < n_tile) {
+        const float* v = s_v + tid * VSTRIDE;
+        for (int c = 0; c < w; ++c) s = __fadd_rn(s, __fmul_rn(s_u[c], v[c]));
+      }
+    }
+    const topk::Threshold th = st.begin_tile(k);
+    const int item = tile0 + tid;
+    if (tid < n_tile && !(Epad > 0 && topk::contains(s_excl, Epad, item))) st.offer(th, s, item, k);
+    st.end_tile(k);
   }
+  st.write(out_s + row * k, out_i + row * k, k);
 }
 
 }  // namespace
 
 // users (U, r); items (I, r) f32; excl (U, E) i32 or null when E == 0;
-// out_s (U, k) f32, out_i (U, k) i32. Epad is E rounded up to a power of two
-// (0 when E == 0); the wrapper bounds it by the shared memory the card has.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// out_s (U, k) f32, out_i (U, k) i32; 1 <= k <= 128, any r >= 1. Epad is E
+// rounded up to a power of two (0 when E == 0); the wrapper bounds it by the
+// shared memory the card has. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int topk_scores_launch(const float* users, const float* items,
                                   const int* excl, float* out_s, int* out_i,
                                   int U, int n_items, int r, int k, int E,
                                   int Epad, void* stream) {
-  const size_t smem = (size_t)Epad * sizeof(int);
+  if (k < 1 || k > topk::KMAX || r < 1) return (int)cudaErrorInvalidValue;
+  const bool wide = r > RMAX;
+  const size_t smem = (size_t)Epad * sizeof(int) +
+                      (wide ? (size_t)(WTILE * VSTRIDE + CHUNK) * sizeof(float) : 0);
+  const void* kernel = wide ? (const void*)topk_scores_wide_kernel : (const void*)topk_scores_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        topk_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if (U > 0)
-    topk_scores_kernel<<<U, THREADS, smem, (cudaStream_t)stream>>>(
-        users, items, excl, out_s, out_i, n_items, r, k, E, Epad);
+  if (U > 0) {
+    if (wide)
+      topk_scores_wide_kernel<<<U, THREADS, smem, (cudaStream_t)stream>>>(
+          users, items, excl, out_s, out_i, n_items, r, k, E, Epad);
+    else
+      topk_scores_kernel<<<U, THREADS, smem, (cudaStream_t)stream>>>(
+          users, items, excl, out_s, out_i, n_items, r, k, E, Epad);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,164 @@
+"""The sparse passes and the masked top-k of the memory-based CFs (K11)
+(PyTorch + CUDA).
+
+Port of the device half of ``albedo_tpu/recommenders/cf.py``:
+``gather_matmul_t`` (:74), ``scatter_matmul`` (:90), ``row_sums`` (:106),
+``col_weighted_sums`` (:120) and the tail of the two ``score`` functions
+(:212-218, :240-249).
+
+- :func:`spmm_rows` runs the CUDA kernel ``spmm_rows``: a CSR matrix (held
+  as :class:`CSR`, the arrays directly, not JAX's padded row groups) times a
+  dense (n, B) block. ``x @ W^T`` is ``spmm_rows(W, x^T)`` and ``m @ W`` is
+  the same kernel on ``W``'s transpose (:meth:`CSR.transpose`, built on the
+  host), so the scatter of the JAX program becomes a gather with no atomics;
+  ``W @ 1`` and ``W^T t`` are the B = 1 cases.
+- :func:`masked_topk` runs the CUDA kernel ``masked_topk``: divide each
+  column of a (B, n) block by an optional norm, mask each row's starred
+  columns, keep the top k in ``lax.top_k``'s order.
+
+The plain versions (:func:`spmm_rows_reference`, :func:`masked_topk_reference`)
+run for CPU tensors and are what ``chip_smoke.py`` holds the kernels against.
+Both ``spmm_rows`` versions sum in float64 and round once to float32, so
+they agree to about one float32 rounding whatever their order (held against
+the L1 mass of each sum, :func:`spmm_rows_mass`); ``masked_topk`` matches
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+from albedo_tpu_torch.ops.topk import EXCLUDE_MAX, KMAX, exclude_and_rank
+
+
+@dataclasses.dataclass
+class CSR:
+    """A sparse (n_rows, n_cols) matrix in CSR form on one device:
+    ``indptr`` (n_rows + 1,) int32, ``idx`` (nnz,) int32 column indices,
+    ``val`` (nnz,) float32 or None for a binary matrix."""
+
+    indptr: torch.Tensor
+    idx: torch.Tensor
+    val: torch.Tensor | None
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.indptr.shape[0]) - 1
+
+    @staticmethod
+    def from_host(indptr: np.ndarray, idx: np.ndarray, val: np.ndarray | None, n_cols: int,
+                  device) -> "CSR":
+        def to(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+        return CSR(to(indptr, np.int32), to(idx, np.int32),
+                   None if val is None else to(val, np.float32), int(n_cols))
+
+    def transpose(self) -> "CSR":
+        """The transpose, in CSR form (the CSC of this matrix), on the same
+        device: entries sorted stably by column, so each transposed row keeps
+        the row order of the entries."""
+        indptr = self.indptr.cpu().numpy()
+        cols = self.idx.cpu().numpy()
+        rows = np.repeat(np.arange(self.n_rows, dtype=np.int32), np.diff(indptr))
+        order = np.argsort(cols, kind="stable")
+        t_indptr = np.concatenate([[0], np.cumsum(np.bincount(cols, minlength=self.n_cols))])
+        val = None if self.val is None else self.val.cpu().numpy()[order]
+        return CSR.from_host(t_indptr, rows[order], val, self.n_rows, self.indptr.device)
+
+
+def spmm_rows_reference(w: CSR, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``spmm_rows``: gather the rows of ``x`` each entry
+    reads, scale them, and add them into their sparse row with
+    ``index_add_``, in float64 (the float32 products are exact there),
+    rounded once to ``x``'s type."""
+    rows = torch.repeat_interleave(
+        torch.arange(w.n_rows, device=x.device), (w.indptr[1:] - w.indptr[:-1]).long()
+    )
+    terms = x[w.idx.long()].double()
+    if w.val is not None:
+        terms = terms * w.val[:, None].double()
+    out = torch.zeros((w.n_rows, x.shape[1]), dtype=torch.float64, device=x.device)
+    return out.index_add_(0, rows, terms).to(x.dtype)
+
+
+def spmm_rows_mass(w: CSR, x: torch.Tensor) -> torch.Tensor:
+    """The L1 mass of each output element of ``spmm_rows``: the sum of the
+    absolute values of its terms. Round-off of any order of those sums is a
+    small multiple of it, so the kernel is held against its plain version
+    relative to it; an element with no terms has mass 0 and is exactly 0."""
+    val = None if w.val is None else w.val.abs()
+    return spmm_rows_reference(CSR(w.indptr, w.idx, val, w.n_cols), x.abs())
+
+
+def spmm_rows(w: CSR, x: torch.Tensor) -> torch.Tensor:
+    """K11's sparse pass: ``W @ x``, (n_rows, B) f32, for a CSR ``W``
+    (n_rows, n_cols) and a dense ``x`` (n_cols, B) (CUDA kernel
+    ``spmm_rows``)."""
+    operands = [w.indptr, w.idx, x] + ([] if w.val is None else [w.val])
+    if on_cpu("spmm_rows", *operands):
+        return spmm_rows_reference(w, x)
+    dev = x.device
+    nnz = int(w.idx.shape[0])
+    n_b = int(x.shape[1])
+    check_operand("spmm_rows", "x", x, torch.float32, (w.n_cols, n_b), dev)
+    check_operand("spmm_rows", "indptr", w.indptr, torch.int32, (w.n_rows + 1,), dev)
+    check_operand("spmm_rows", "idx", w.idx, torch.int32, (nnz,), dev)
+    if w.val is not None:
+        check_operand("spmm_rows", "val", w.val, torch.float32, (nnz,), dev)
+    out = torch.empty((w.n_rows, n_b), dtype=torch.float32, device=dev)
+    call("spmm_rows", dev, x.data_ptr(), w.indptr.data_ptr(), w.idx.data_ptr(),
+         None if w.val is None else w.val.data_ptr(), out.data_ptr(), w.n_rows, n_b)
+    return out
+
+
+def masked_topk_reference(
+    scores: torch.Tensor, starred: torch.Tensor | None, k: int, col_norm: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``masked_topk``: ``scores / max(col_norm, 1e-12)``,
+    starred columns to -inf, then the K5 ordering
+    (:func:`~albedo_tpu_torch.ops.topk.exclude_and_rank`)."""
+    if col_norm is not None:
+        scores = scores / torch.clamp_min(col_norm, 1e-12)[None, :]
+    return exclude_and_rank(scores, k, starred)
+
+
+def masked_topk(
+    scores: torch.Tensor, starred: torch.Tensor | None, k: int, col_norm: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K11's tail: ``(scores (B, k) f32, columns (B, k) int32)`` of the top-k
+    columns of each row of the (B, n) block ``scores`` (any strides), after
+    dividing column i by ``max(col_norm[i], 1e-12)`` (when given) and
+    dropping the row's ``starred`` columns ((B, L) int32, -1-padded); ordered
+    by score descending, then column ascending, ``(-inf, -1)`` past the
+    admissible columns (CUDA kernel ``masked_topk``)."""
+    operands = [scores] + [t for t in (starred, col_norm) if t is not None]
+    if on_cpu("masked_topk", *operands):
+        return masked_topk_reference(scores, starred, k, col_norm)
+    if scores.dim() != 2 or scores.dtype != torch.float32:
+        raise ValueError(f"masked_topk: scores must be a 2-D float32 block, got {scores.dtype} {tuple(scores.shape)}")
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"masked_topk: the CUDA kernel takes k in 1..{KMAX}, got {k}")
+    n_rows, n = scores.shape
+    dev = scores.device
+    n_star, pad, star_ptr = 0, 0, None
+    if starred is not None and starred.shape[1] > 0:
+        n_star = int(starred.shape[1])
+        if n_star > EXCLUDE_MAX:
+            raise ValueError(f"masked_topk: starred rows longer than {EXCLUDE_MAX} are not supported, got {n_star}")
+        check_operand("masked_topk", "starred", starred, torch.int32, (n_rows, n_star), dev)
+        pad = 1 << (n_star - 1).bit_length()
+        star_ptr = starred.data_ptr()
+    if col_norm is not None:
+        check_operand("masked_topk", "col_norm", col_norm, torch.float32, (n,), dev)
+    vals = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
+    call("masked_topk", dev, scores.data_ptr(), scores.stride(0), scores.stride(1), star_ptr,
+         None if col_norm is None else col_norm.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+         n_rows, n, k, n_star, pad)
+    return vals, idx

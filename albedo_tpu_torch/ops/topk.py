@@ -4,8 +4,11 @@ Port of ``albedo_tpu/ops/topk.py``, the retrieval hot loop of the
 reference's ``recommenders/ALSRecommender.scala:21-61``. K5
 :func:`topk_scores` runs the CUDA kernel ``topk_scores``: one CTA per query
 row streams the item table, masks the row's excluded items and keeps a
-running top-k, so no U x I score matrix is ever written. The plain PyTorch
-version (:func:`topk_scores_reference`) builds that matrix and sorts it.
+running top-k, so no U x I score matrix is ever written. It takes any rank:
+factor tables (r <= 64) and the wide rows of the content sources (K14:
+tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200), which it
+streams through shared memory in chunks. The plain PyTorch version
+(:func:`topk_scores_reference`) builds the score matrix and sorts it.
 
 Both return exactly the JAX program's answer: the k admissible items ordered
 by score descending, then item index ascending, with the remaining slots
@@ -18,7 +21,7 @@ import torch
 
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 
-RMAX = 64            # widest factor rank the kernel takes
+RMAX = 64            # widest rank of the narrow path; wider rows take the wide path
 KMAX = 128           # largest k the kernel keeps
 EXCLUDE_MAX = 32768  # longest exclusion row the kernel sorts in shared memory
 
@@ -42,13 +45,20 @@ def topk_scores_reference(
     k: int,
     exclude_idx: torch.Tensor | None = None,  # (U, E) int32, -1 = none
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K5: score everything, mask, then order by (score
-    desc, index asc) with two stable steps (the items are already in index
-    order; a stable descending sort keeps it among equal scores)."""
-    n_users = user_factors.shape[0]
-    n_items = item_factors.shape[0]
-    dev = user_factors.device
-    scores = _scores(user_factors, item_factors)
+    """Plain version of K5: score everything, then :func:`exclude_and_rank`."""
+    return exclude_and_rank(_scores(user_factors, item_factors), k, exclude_idx)
+
+
+def exclude_and_rank(
+    scores: torch.Tensor, k: int, exclude_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top-k of each row of a dense (U, I) score block: mask each row's
+    excluded items (-1-padded, any order, duplicates allowed) to -inf, then
+    order by (score desc, index asc) with two stable steps (the items are
+    already in index order; a stable descending sort keeps it among equal
+    scores); slots past the admissible items are ``(-inf, -1)``."""
+    n_users, n_items = scores.shape
+    dev = scores.device
     if exclude_idx is not None and exclude_idx.numel():
         ex = exclude_idx.long()
         ex = torch.where((ex < 0) | (ex >= n_items), n_items, ex)
@@ -83,8 +93,8 @@ def topk_scores(
         return topk_scores_reference(user_factors, item_factors, k, exclude_idx)
     n_users, r = user_factors.shape
     n_items = item_factors.shape[0]
-    if not 1 <= r <= RMAX:
-        raise ValueError(f"topk_scores: the CUDA kernel takes ranks 1..{RMAX}, got {r}")
+    if r < 1:
+        raise ValueError(f"topk_scores: the CUDA kernel takes ranks >= 1, got {r}")
     if not 1 <= k <= KMAX:
         raise ValueError(f"topk_scores: the CUDA kernel takes k in 1..{KMAX}, got {k}")
     dev = user_factors.device
@@ -103,6 +113,6 @@ def topk_scores(
     call(
         "topk_scores", dev, user_factors.data_ptr(), item_factors.data_ptr(), excl_ptr,
         vals.data_ptr(), idx.data_ptr(), n_users, n_items, r, k, n_excl,
-        excl_pad,
+        excl_pad, count="topk_scores_wide" if r > RMAX else None,
     )
     return vals, idx

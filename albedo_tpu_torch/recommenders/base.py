@@ -71,6 +71,29 @@ class Recommender(Transformer):
         )
 
 
+def recent_starred_provider(
+    starring_df: pd.DataFrame, top_k: int = 30, offset: int = 0
+):
+    """A user's most recent stars, newest first — the query shape every
+    More-Like-This source uses (the content recommender, the tf-idf
+    candidate source). ``offset`` is the evaluation-mode window shift (query
+    with the NEXT ``top_k`` stars so candidates aren't the held-out query
+    items, ``ContentRecommender.scala:44-46``)."""
+    s = starring_df.sort_values("starred_at", ascending=False, kind="stable")
+    per_user = {
+        int(uid): grp.to_numpy(np.int64)
+        for uid, grp in s.groupby("user_id", sort=False)["repo_id"]
+    }
+
+    def recent_items(user_id: int) -> np.ndarray:
+        repos = per_user.get(int(user_id))
+        if repos is None:
+            return np.zeros(0, dtype=np.int64)
+        return repos[offset : offset + top_k]
+
+    return recent_items
+
+
 def fuse_candidates(frames: list[pd.DataFrame], user_col: str = "user_id", item_col: str = "repo_id") -> pd.DataFrame:
     """Union candidate sets and drop duplicate (user, item) pairs, keeping the
     first source's row — the ranker's ``map(recommendForUsers).reduce(union)

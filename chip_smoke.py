@@ -18,7 +18,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    duplicate centers and negatives, d = 8 and 200; Adam at step 1 and 1000.
    Each is held against its plain version relative to the scale of what it
    compares (below), with no floor, so small gradients are held as tightly
-   as large ones.
+   as large ones. Then the candidate-generator kernels: K5 at ranks 1 and 64
+   (its narrow path) and 65, 200 and 3010 (its wide path, K14), with
+   exclusions, exact ties, a row of ties and fewer admissible items than k;
+   K11's spmm_rows with empty rows, a 1089-entry row, one row spanning every
+   column, B = 1, 256 and 300; K11's masked_topk with ties, a strided block,
+   a row whose every column is starred and k > n; K10's bpr_step at B = 1
+   and 8192 with duplicate users and items, negatives equal to the positive
+   and side features of width 2.
 4. job     — runs ``albedo_tpu_torch.cli.main(["train_als"])`` at the job's
    full size (rank 50, 26 iterations, Cholesky) and again with
    ``--solver cg``, with the launch counts set to 0 just before each run and
@@ -42,12 +49,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain versions, and times each with its plain version, a library call and
    its bound; K9 and Adam also at a realistic vocabulary (100 000 words,
    synthetic tables and pairs from a numpy seed).
-6. bench   — the JAX package's bench protocol at its scale (30000 x 20000,
+6. candidates — runs ``popularity``, ``curation``, ``item_cf``, ``user_cf``,
+   ``ranking_mf``, ``tfidf_content``, ``content --w2v-full`` and ``content``
+   with the Word2Vec vectors shared with JAX, counts set to 0 before each
+   run and read after: every kernel of the run must have launched. Holds
+   each NDCG@30 (``tfidf_content``: its similar-repo list) against the JAX
+   package's CPU values (constants below), then each new kernel against its
+   plain version on the inputs that run gave it (recorded on the way), then
+   times each with its plain version, a library call and its bound.
+7. bench   — the JAX package's bench protocol at its scale (30000 x 20000,
    mean 60 stars, 10% held out per user): fits rank 50 x 26 iterations with
    both solvers from one pinned numpy init, and holds the held-out NDCG@30
    against the JAX package's CPU result for that same init (constants
    below). Then times each kernel, its plain version and one PyTorch library
-   call at the shapes of that fit, and computes each kernel's bound.
+   call at the shapes of that fit, and computes each kernel's bound; and
+   K11 (one block of 256 users through both CFs) and K10 (B = 8192) on that
+   train split.
 
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
@@ -68,7 +85,7 @@ import numpy as np
 import torch
 
 # Held-out NDCG@30 of the JAX package (CPU, resident fit) on the bench split
-# from the pinned numpy init of phase 6, and the bands the port must land in.
+# from the pinned numpy init of phase 7, and the bands the port must land in.
 # CG's band is wider: unconverged 3-step CG carries round-off from sweep to
 # sweep, so two correct implementations drift apart.
 JAX_NDCG = {"cholesky": 0.29399, "cg": 0.29473}
@@ -108,6 +125,48 @@ SHARED_SEED, SHARED_W2V_SCALE = 1, 0.3  # as in jax_reference_ndcg.py
 RANKER_REL = {"segment_dot": 1e-5, "sgns_step": 5e-5, "adam_dense": 1e-6}
 W2V_VOCAB = 100_000  # the realistic vocabulary K9 and Adam are also timed at
 
+# The candidate-generator kernels against their plain versions. spmm_rows
+# and its plain version both sum in float64 and round once to float32, so
+# they differ by at most a rounding or two: 1e-6 of each element's L1 mass.
+# (Summed in float32, the two drifted apart by up to 4.4e-5 of the mass on
+# the bench scale's 6690-entry rows on an H100, each order drifting its own
+# way.)
+# bpr_step adds duplicate rows with atomics in an order that changes from
+# run to run: 5e-5 of ``ops.bpr.bpr_grad_mass`` and of |loss| (as K9).
+# masked_topk (IEEE division, no sum) and K5 on both paths (the plain
+# version's rounding, in index order, at every rank) are exact, ties
+# included.
+CAND_REL = {"topk_scores": 0.0, "topk_scores_wide": 0.0, "spmm_rows": 1e-6, "masked_topk": 0.0,
+            "bpr_step": 5e-5}
+# The candidate jobs' NDCG@30 from the JAX package on the CPU at full size
+# (``jax_reference_ndcg.py candidates --seeds 42,1,2,3``: data policy off,
+# --now 1600000000). popularity, curation, item_cf, user_cf and content on
+# the Word2Vec vectors of ``ranker --shared`` (dim 16) are deterministic:
+# the port on the CPU (``--port``) is within 4e-9 of each, so the bands are
+# room for the card's own summation orders only (a swap of two near-equal
+# CF scores at the cut moves NDCG@30 by up to ~1e-4). ranking_mf and content
+# --w2v-full draw their own random streams (factor init, permutations,
+# negatives; Word2Vec): the values are the mean of the JAX runs over seeds
+# 42, 1, 2, 3 (ranking_mf 0.36441, 0.35309, 0.36211, 0.33777; content
+# 0.012627, 0.013200, 0.016705, 0.011893), and the bands about twice the
+# widest deviation of those runs and the port's CPU runs at the same seeds
+# (ranking_mf 0.35276, 0.35401, 0.35243, 0.34987; content 0.013277,
+# 0.016176, 0.012526, 0.013665).
+JAX_CANDIDATES = {"popularity": 0.1294248402118683, "curation": 0.005175718106329441,
+                  "item_cf": 0.06175846606492996, "user_cf": 0.25327855348587036,
+                  "ranking_mf": 0.35434559, "content --w2v-full": 0.01360636,
+                  "content shared": 0.008757498115301132}
+CANDIDATE_TOL = {"popularity": 1e-6, "curation": 1e-6, "item_cf": 1e-3, "user_cf": 1e-3,
+                 "ranking_mf": 3.5e-2, "content --w2v-full": 6.5e-3, "content shared": 1e-4}
+# tfidf_content's printed list (the JAX run above; the port's CPU list is equal).
+JAX_TFIDF_TOP = [
+    ["0.3663", "user1004898/repo-5002504"], ["0.3102", "user1002853/repo-5002495"],
+    ["0.2536", "user1002899/repo-5001016"], ["0.2437", "user1003771/repo-5002034"],
+    ["0.2432", "user1001191/repo-5000906"], ["0.2355", "user1001432/repo-5001606"],
+    ["0.2313", "user1002711/repo-5002751"], ["0.2307", "user1001141/repo-5002262"],
+    ["0.2182", "user1002203/repo-5002205"], ["0.2174", "user1000851/repo-5000732"],
+]
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s and
 # FP32 FLOP/s outside the tensor cores. The kernels here run on CUDA cores.
 PEAK_BYTES = 3.35e12
@@ -121,6 +180,10 @@ KERNELS = {
     "segment_dot": ("albedo_tpu_torch/kernels/csrc/segment_dot.cu", "albedo_tpu/ops/sparse_linear.py:217"),
     "sgns_step": ("albedo_tpu_torch/kernels/csrc/sgns_step.cu", "albedo_tpu/models/word2vec.py:241"),
     "adam_dense": ("albedo_tpu_torch/kernels/csrc/adam_dense.cu", "albedo_tpu/models/word2vec.py:303"),
+    "topk_scores_wide": ("albedo_tpu_torch/kernels/csrc/topk_scores.cu", "albedo_tpu/recommenders/content.py:81"),
+    "spmm_rows": ("albedo_tpu_torch/kernels/csrc/spmm_rows.cu", "albedo_tpu/recommenders/cf.py:74"),
+    "masked_topk": ("albedo_tpu_torch/kernels/csrc/masked_topk.cu", "albedo_tpu/recommenders/cf.py:216"),
+    "bpr_step": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
 }
 
 
@@ -366,6 +429,158 @@ def phase_ranker_kernels() -> dict:
     return worst
 
 
+def _hold_spmm(w, x) -> tuple[float, float]:
+    """K11's spmm_rows against its plain version, relative to each output
+    element's L1 mass."""
+    from albedo_tpu_torch.ops import spmm
+
+    return mass_err(spmm.spmm_rows(w, x), spmm.spmm_rows_reference(w, x), spmm.spmm_rows_mass(w, x))
+
+
+def _hold_masked(scores, starred, k, norm) -> tuple[float, float]:
+    """K11's masked_topk against its plain version, exactly (:func:`_exact`)."""
+    from albedo_tpu_torch.ops import spmm
+
+    return _exact(spmm.masked_topk(scores, starred, k, norm), spmm.masked_topk_reference(scores, starred, k, norm))
+
+
+def _hold_bpr(params, g, users, pos, neg, reg) -> tuple[float, float]:
+    """K10 against its plain version on one minibatch: each gradient element
+    against its L1 mass (``ops.bpr.bpr_grad_mass``), the loss against
+    |loss|."""
+    from albedo_tpu_torch.ops import bpr
+
+    res = []
+    for fn in (bpr.bpr_step, bpr.bpr_step_reference):
+        grads = [torch.zeros_like(t) for t in params]
+        loss = torch.zeros(1, device=params[0].device)
+        fn(*params, g, users, pos, neg, *grads, loss, reg)
+        res.append((*grads, loss))
+    mass = bpr.bpr_grad_mass(*params, g, users, pos, neg, reg)
+    errs = [mass_err(a, e, m) for a, e, m in zip(res[0][:4], res[1][:4], mass)]
+    errs.append(rel_err(res[0][4], res[1][4]))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _csr(rng, counts, n_cols: int, with_val: bool, dev):
+    from albedo_tpu_torch.ops.spmm import CSR
+
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    idx = rng.integers(0, n_cols, size=nnz).astype(np.int32)
+    val = rng.uniform(0.1, 1.0, size=nnz).astype(np.float32) if with_val else None
+    return CSR.from_host(indptr, idx, val, n_cols, dev)
+
+
+def _bpr_params(rng, n_users: int, n_items: int, r: int, d: int, dev):
+    """(x, y, bias, w) and g, as after some training, from a numpy seed."""
+    arrays = [rng.normal(scale=0.1, size=(n_users, r)), rng.normal(scale=0.1, size=(n_items, r)),
+              rng.normal(scale=0.1, size=n_items), rng.normal(size=d), rng.normal(size=(n_items, d))]
+    t = [torch.as_tensor(a.astype(np.float32), device=dev) for a in arrays]
+    return t[:4], t[4]
+
+
+def phase_candidate_kernels() -> dict:
+    """K5 at any rank (both paths), K11's spmm_rows and masked_topk, and K10
+    on edge cases, each against its plain version."""
+    from albedo_tpu_torch.ops.spmm import CSR
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    worst = {name: 0.0 for name in CAND_REL}
+    cases = []
+
+    def note(name, label, err):
+        worst[name] = max(worst[name], err[1])
+        cases.append({"kernel": name, "case": label, "abs": err[0], "rel": err[1]})
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    # K5: ranks 1 and 64 (narrow), 65, 200 and 3010 (wide; 65 and 3010 are
+    # multiples of neither 4 nor 32); I = 1500, not a multiple of any tile;
+    # duplicated item rows (exact ties), a query row of zeros (every score
+    # ties), -1-padded exclusion rows with duplicates; then fewer admissible
+    # items than k.
+    for r in (1, 64, 65, 200, 3010):
+        name = "topk_scores" if r <= 64 else "topk_scores_wide"
+        uf = (rng.standard_normal((37, r)) / np.sqrt(r)).astype(np.float32)
+        vf = (rng.standard_normal((1500, r)) / np.sqrt(r)).astype(np.float32)
+        vf[700:760] = vf[:60]
+        uf[0] = 0.0
+        excl = np.full((37, 50), -1, dtype=np.int32)
+        excl[:, :40] = rng.integers(0, 1500, size=(37, 40))
+        excl[:, 40] = excl[:, 0]
+        note(name, f"r={r}, exclusions, ties, a row of ties", _hold_topk(t(uf), t(vf), 30, t(excl)))
+        note(name, f"r={r}, no exclusion list", _hold_topk(t(uf), t(vf), 30, None))
+        note(name, f"r={r}, k > admissible", _hold_topk(
+            t(uf[:5]), t(vf[:20]), 15, t(np.tile(np.arange(12, dtype=np.int32), (5, 1)))))
+
+    # spmm_rows: empty rows and a power-law head row, one row spanning every
+    # column, no rows with entries at all; B = 1, 256 and 300 (two passes of
+    # 256 columns); binary and weighted.
+    heavy = rng.integers(0, 40, size=3000)
+    heavy[::6] = 0
+    heavy[7] = 1089
+    n_cols = 2936
+    span = CSR.from_host(np.array([0, 5, 5 + n_cols, 5 + n_cols + 3], np.int32),
+                         np.concatenate([rng.integers(0, n_cols, 5), rng.permutation(n_cols),
+                                         rng.integers(0, n_cols, 3)]).astype(np.int32),
+                         rng.uniform(0.1, 1.0, 8 + n_cols).astype(np.float32), n_cols, dev)
+    for b in (1, 256, 300):
+        x = t(rng.uniform(0.0, 1.0, size=(n_cols, b)).astype(np.float32))
+        for with_val in (True, False):
+            kind = "weighted" if with_val else "binary"
+            note("spmm_rows", f"B={b}, {kind}, empty rows + a 1089-entry row",
+                 _hold_spmm(_csr(rng, heavy, n_cols, with_val, dev), x))
+            note("spmm_rows", f"B={b}, {kind}, no entries", _hold_spmm(_csr(rng, np.zeros(50, np.int64), n_cols, with_val, dev), x))
+        note("spmm_rows", f"B={b}, one row spans every column", _hold_spmm(span, x))
+
+    # masked_topk: duplicated columns (ties), a row of equal scores, a norm
+    # with zeros (clamped to 1e-12), a transposed (strided) block, a row whose
+    # every column is starred, and k > n.
+    scores = rng.normal(size=(64, 2500)).astype(np.float32)
+    scores[:, 1200:1300] = scores[:, :100]
+    scores[3] = 0.5
+    starred = np.full((64, 40), -1, dtype=np.int32)
+    starred[:, :30] = rng.integers(0, 2500, size=(64, 30))
+    starred[:, 30] = starred[:, 0]
+    norm = rng.uniform(0.0, 3.0, size=2500).astype(np.float32)
+    norm[::7] = 0.0
+    for label, norm_t in (("norm", t(norm)), ("no norm", None)):
+        note("masked_topk", f"ties, a row of ties, {label}", _hold_masked(t(scores), t(starred), 30, norm_t))
+        note("masked_topk", f"strided block, {label}", _hold_masked(t(scores.T.copy()).t(), t(starred), 30, norm_t))
+    small = rng.normal(size=(4, 20)).astype(np.float32)
+    all_starred = np.tile(np.arange(20, dtype=np.int32), (4, 1))
+    all_starred[1:, 10:] = -1
+    note("masked_topk", "a row all starred, k > n", _hold_masked(t(small), t(all_starred), 30, None))
+    note("masked_topk", "no starred list", _hold_masked(t(scores), None, 30, t(norm)))
+
+    # bpr_step: B = 1 with the positive among its negatives and a repeated
+    # negative; B = 8192 with hot users and items, negatives equal to the
+    # positive; side features of width 2; the job's reg and a large one.
+    params, g = _bpr_params(rng, 200, 150, 32, 2, dev)
+    one = (t(np.array([3], np.int32)), t(np.array([5], np.int32)), t(np.array([[5, 7, 7, 9]], np.int32)))
+    users = rng.integers(0, 200, size=8192).astype(np.int32)
+    users[:3000] = 4
+    pos = rng.integers(0, 150, size=8192).astype(np.int32)
+    pos[::5] = 11
+    neg = rng.integers(0, 150, size=(8192, 4)).astype(np.int32)
+    neg[::3, 0] = pos[::3]
+    batch = (t(users), t(pos), t(neg))
+    for reg in (1e-4, 0.1):
+        note("bpr_step", f"B=1, negatives = positive and repeated, reg {reg}", _hold_bpr(params, g, *one, reg))
+        note("bpr_step", f"B=8192, duplicates, reg {reg}", _hold_bpr(params, g, *batch, reg))
+    params16, g1 = _bpr_params(rng, 200, 150, 16, 1, dev)
+    note("bpr_step", "r=16, d=1 (no side features)", _hold_bpr(params16, g1, *batch, 1e-4))
+    torch.cuda.synchronize()
+    ok = all(worst[n] <= CAND_REL[n] for n in CAND_REL)
+    emit({"phase": "candidate_kernels", "ok": ok, "rel_tol": CAND_REL, "worst_rel": worst, "cases": cases})
+    if not ok:
+        raise SystemExit("chip_smoke: a candidate-generator kernel disagrees with its plain version")
+    return worst
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -565,6 +780,13 @@ def _lr_fit_profile(lr_inputs, iters: int = 5) -> dict:
         model = short.fit(fm, labels, weights)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return dict({"iterations": model.n_iter_run}, **_device_summary(prof, wall))
+
+
+def _device_summary(prof, wall: float) -> dict:
+    """From a ``torch.profiler`` run of ``wall`` seconds: the device's busy
+    seconds (kernel and copy time) and idle share, and the ops with the most
+    host and device time."""
     events = prof.key_averages()
 
     def device_us(e):
@@ -576,8 +798,7 @@ def _lr_fit_profile(lr_inputs, iters: int = 5) -> dict:
     top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
     top_dev = sorted(on_device, key=lambda e: -device_us(e))[:6]
     return {
-        "iterations": model.n_iter_run, "wall_s": wall, "device_busy_s": busy,
-        "idle_share": max(0.0, 1.0 - busy / wall),
+        "wall_s": wall, "device_busy_s": busy, "idle_share": max(0.0, 1.0 - busy / wall),
         "top_host_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top],
         "top_device_ms": [[e.key, e.count, device_us(e) / 1e3] for e in top_dev],
     }
@@ -784,7 +1005,340 @@ def phase_ranker_timing(inputs: dict) -> dict:
     return timed
 
 
-# ------------------------------------------------------ shared by 4 and 6
+# ------------------------------------------------------------------ phase 6
+
+NOW = ["--now", "1600000000"]
+# (label, argv, kernels the run must launch). ``content`` without
+# ``--w2v-full`` runs on the Word2Vec vectors shared with JAX (dim 16).
+CANDIDATE_RUNS = [
+    ("popularity", ["popularity"], ()),
+    ("curation", ["curation"], ()),
+    ("item_cf", ["item_cf"], ("spmm_rows", "masked_topk")),
+    ("user_cf", ["user_cf"], ("spmm_rows", "masked_topk")),
+    ("ranking_mf", ["ranking_mf"], ("bpr_step", "adam_dense", "topk_scores")),
+    ("tfidf_content", ["tfidf_content"], ("topk_scores_wide",)),
+    ("content --w2v-full", ["content", "--w2v-full"], ("sgns_step", "adam_dense", "topk_scores_wide")),
+    ("content shared", ["content"], ("topk_scores",)),
+]
+
+
+@contextlib.contextmanager
+def _recording(calls: list):
+    """Record the calls the candidate jobs make to the new kernels' wrappers
+    (and K5's) as (kernel, args), by the names the calling modules bound;
+    K10's parameter tables are cloned (Adam updates them in place after the
+    step), and only its last call is kept."""
+    from albedo_tpu_torch.models import ranking_factorization as rf
+    from albedo_tpu_torch.ops import bpr, spmm, topk
+    from albedo_tpu_torch.recommenders import cf, tfidf
+
+    def spmm_rows(w, x):
+        calls.append(("spmm_rows", (w, x)))
+        return spmm.spmm_rows(w, x)
+
+    def masked_topk(scores, starred, k, col_norm=None):
+        calls.append(("masked_topk", (scores, starred, k, col_norm)))
+        return spmm.masked_topk(scores, starred, k, col_norm)
+
+    def topk_scores(q, items, k, exclude_idx=None, item_block=4096):
+        calls.append(("topk_scores" if q.shape[1] <= topk.RMAX else "topk_scores_wide", (q, items, k, exclude_idx)))
+        return topk.topk_scores(q, items, k, exclude_idx, item_block)
+
+    def bpr_step(x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, reg):
+        saved = ((x.clone(), y.clone(), bias.clone(), w.clone()), g, users, pos, neg, reg)
+        if calls and calls[-1][0] == "bpr_step":
+            calls[-1] = ("bpr_step", saved)
+        else:
+            calls.append(("bpr_step", saved))
+        return bpr.bpr_step(x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, reg)
+
+    patches = [(cf, "spmm_rows", spmm_rows), (cf, "masked_topk", masked_topk), (tfidf, "topk_scores", topk_scores),
+               (rf, "topk_scores", topk_scores), (rf, "bpr_step", bpr_step)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    for m, name, fn in patches:
+        setattr(m, name, fn)
+    try:
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+@contextlib.contextmanager
+def _shared_w2v_vectors():
+    """Word2Vec fits return the numpy vectors of ``jax_reference_ndcg.py
+    ranker --shared`` over the job's vocabulary (``default_rng(1)``, normal,
+    scale 0.3), as ``jax_reference_ndcg.py candidates`` gives the JAX job."""
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    fit_corpus = w2v_mod.Word2Vec.fit_corpus
+
+    def shared(self, sentences):
+        vocab = self.plan(sentences).vocab
+        rng = np.random.default_rng(SHARED_SEED)
+        vectors = rng.normal(scale=SHARED_W2V_SCALE, size=(len(vocab), self.dim)).astype(np.float32)
+        return w2v_mod.Word2VecModel(vocab, vectors, self.input_col, self.output_col or f"{self.input_col}__w2v")
+
+    w2v_mod.Word2Vec.fit_corpus = shared
+    try:
+        yield
+    finally:
+        w2v_mod.Word2Vec.fit_corpus = fit_corpus
+
+
+def _hold_call(kernel: str, args) -> tuple[float, float]:
+    """One recorded call's kernel against its plain version."""
+    if kernel == "spmm_rows":
+        return _hold_spmm(*args)
+    if kernel == "masked_topk":
+        return _hold_masked(*args)
+    if kernel == "bpr_step":
+        return _hold_bpr(*args)
+    return _hold_topk(*args)
+
+
+def _tfidf_list_ok(got: list, want: list) -> bool:
+    """The printed similar-repo list ([score, repo] pairs) against JAX's:
+    the same printed scores position by position, within one unit of the
+    4th decimal; where the repos differ, the port's repo must hold a JAX
+    score within that unit of the JAX score at that position (two near-tied
+    repos swapped), or, if JAX did not list it, that position must tie the
+    10th score (a near-tie at the cut)."""
+    if len(got) != len(want) or len({n for _, n in got}) != len(got):
+        return False
+    want_score = {n: float(s) for s, n in want}
+    cut = float(want[-1][0])
+    for (s, n), (ws, wn) in zip(got, want):
+        if abs(float(s) - float(ws)) > 1.5e-4:
+            return False
+        if n != wn and abs(want_score.get(n, cut) - float(ws)) > 1.5e-4:
+            return False
+    return True
+
+
+def phase_candidates() -> tuple[dict, dict]:
+    """The candidate jobs at full width, each with the launch counts set to
+    0 before and read after, held to the JAX package's CPU values; then each
+    new kernel against its plain version on the inputs the job gave it."""
+    launches, calls_by_run = {}, {}
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, argv, needed in CANDIDATE_RUNS:
+        calls: list = []
+        with _recording(calls), (_shared_w2v_vectors() if label == "content shared" else contextlib.nullcontext()):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                report, text = _run_cli(argv + NOW)
+        report["profile"] = _device_summary(prof, report["seconds"])
+        counts = report["launches"]
+        ok = all(counts[n] > 0 for n in needed)
+        if label == "tfidf_content":
+            got = re.findall(r"\[tfidf_content\] (\d\.\d{4}) (\S+)", text)
+            ok = ok and _tfidf_list_ok(got, JAX_TFIDF_TOP)
+            report.update(similar=got, jax=JAX_TFIDF_TOP)
+        else:
+            ndcg = float(re.search(r"NDCG@30 = (\S+)", text).group(1))
+            ok = ok and bool(np.isfinite(ndcg)) and abs(ndcg - JAX_CANDIDATES[label]) <= CANDIDATE_TOL[label]
+            report.update(ndcg=ndcg, jax=JAX_CANDIDATES[label], tol=CANDIDATE_TOL[label])
+            fit = re.search(r"steps = (\d+), final epoch loss = (\S+), fit = (\S+)s", text)
+            if fit:
+                report.update(steps=int(fit.group(1)), final_epoch_loss=float(fit.group(2)),
+                              fit_s=float(fit.group(3)))
+        errs: dict = {}
+        for kernel, args in calls:
+            e = _hold_call(kernel, args)
+            errs[kernel] = max(errs.get(kernel, (0.0, 0.0)), e, key=lambda t: t[1])
+        torch.cuda.synchronize()
+        held = all(rel <= CAND_REL[k] for k, (_, rel) in errs.items())
+        emit(dict(report, phase="candidates", job=label, ok=ok and held, held_at_job=errs,
+                  calls={k: sum(c[0] == k for c in calls) for k in errs}))
+        if not (ok and held):
+            raise SystemExit(f"chip_smoke: {label} did not launch {needed}, left the JAX band, "
+                             "or a kernel disagreed with its plain version at its inputs")
+        for n in needed:
+            launches[n] = max(launches.get(n, 0), counts[n])
+        calls_by_run[label] = calls
+    return launches, calls_by_run
+
+
+def _csr_library(w):
+    """``w`` as a torch CSR tensor (for the cuSPARSE SpMM yardstick)."""
+    val = w.val if w.val is not None else torch.ones_like(w.idx, dtype=torch.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch's beta-state notice for sparse CSR
+        return torch.sparse_csr_tensor(w.indptr, w.idx, val, size=(w.n_rows, w.n_cols),
+                                       check_invariants=False)
+
+
+def _spmm_work(w, x) -> tuple[int, int]:
+    nnz, b = int(w.idx.numel()), int(x.shape[1])
+    return (4 * (w.n_rows + 1 + nnz * (1 if w.val is None else 2) + x.numel() + w.n_rows * b), 2 * nnz * b)
+
+
+def _time_spmm(calls) -> dict:
+    """spmm_rows over ``calls`` [(w, x)]: error, times, library (cuSPARSE
+    SpMM through ``torch.sparse.mm`` on a CSR tensor) and work."""
+    from albedo_tpu_torch.ops import spmm
+
+    csr = [_csr_library(w) for w, _ in calls]
+    lib_err = max(mass_err(torch.sparse.mm(m, x), spmm.spmm_rows_reference(w, x), spmm.spmm_rows_mass(w, x))[1]
+                  for m, (w, x) in zip(csr, calls))
+    work = [_spmm_work(w, x) for w, x in calls]
+    errs = [_hold_spmm(w, x) for w, x in calls]
+    return dict(
+        err=(max(e[0] for e in errs), max(e[1] for e in errs)),
+        ms=cuda_ms(lambda: [spmm.spmm_rows(w, x) for w, x in calls]),
+        plain_ms=cuda_ms(lambda: [spmm.spmm_rows_reference(w, x) for w, x in calls]),
+        library_ms=cuda_ms(lambda: [torch.sparse.mm(m, x) for m, (_, x) in zip(csr, calls)]),
+        library_rel_err=lib_err, bytes=sum(b for b, _ in work), flops=sum(f for _, f in work),
+        shape={"calls": [[w.n_rows, w.n_cols, int(w.idx.numel()), int(x.shape[1]),
+                          int((w.indptr[1:] - w.indptr[:-1]).max())] for w, x in calls]},
+    )
+
+
+def _time_masked(calls) -> dict:
+    """masked_topk over ``calls`` [(scores, starred, k, norm)]; the library
+    yardstick is ``torch.topk`` on the block already normalized and masked
+    (the masking has no single library call)."""
+    from albedo_tpu_torch.ops import spmm
+
+    masked = []
+    for scores, starred, k, norm in calls:
+        s = scores / torch.clamp_min(norm, 1e-12)[None, :] if norm is not None else scores.contiguous()
+        ex = torch.where(starred < 0, s.shape[1], starred.long())
+        hit = torch.zeros((s.shape[0], s.shape[1] + 1), dtype=torch.bool, device=s.device).scatter_(1, ex, True)
+        masked.append((s.masked_fill(hit[:, :-1], float("-inf")), k))
+    errs = [_hold_masked(*c) for c in calls]
+    return dict(
+        err=(max(e[0] for e in errs), max(e[1] for e in errs)),
+        ms=cuda_ms(lambda: [spmm.masked_topk(*c) for c in calls]),
+        plain_ms=cuda_ms(lambda: [spmm.masked_topk_reference(*c) for c in calls]),
+        library_ms=cuda_ms(lambda: [torch.topk(s, k, dim=1) for s, k in masked]),
+        bytes=sum(4 * (s.numel() + st.numel() + (0 if n is None else n.numel())) + 8 * s.shape[0] * k
+                  for s, st, k, n in calls),
+        flops=sum(s.numel() * (2 if n is not None else 1) for s, _, _, n in calls),
+        shape={"calls": [[int(s.shape[0]), int(s.shape[1]), int(st.shape[1]), k] for s, st, k, _ in calls]},
+    )
+
+
+def _time_bpr(params, g, users, pos, neg, reg) -> dict:
+    """bpr_step at one minibatch; no single library call computes it."""
+    from albedo_tpu_torch.ops import bpr
+
+    grads = [torch.zeros_like(p) for p in params]
+    loss = torch.zeros(1, device=g.device)
+    b, n = neg.shape
+    r, d = params[0].shape[1], g.shape[1]
+    rows_x = int(torch.unique(users).numel())
+    rows_y = int(torch.unique(torch.cat([pos, neg.reshape(-1)])).numel())
+    return dict(
+        err=_hold_bpr(params, g, users, pos, neg, reg),
+        ms=cuda_ms(lambda: bpr.bpr_step(*params, g, users, pos, neg, *grads, loss, reg)),
+        plain_ms=cuda_ms(lambda: bpr.bpr_step_reference(*params, g, users, pos, neg, *grads, loss, reg)),
+        library_ms=None,
+        # each touched row of x and y (and its bias and side row) read once,
+        # each of their gradient rows read and written once; the ids.
+        bytes=4 * (3 * r * (rows_x + rows_y) + (3 + d) * rows_y + b * (2 + n)),
+        flops=b * (1 + n) * (2 * r + 2 * d) + b * n * (6 * r + 2 * d + 20),
+        shape={"B": b, "N": n, "r": r, "d": d, "rows_x": rows_x, "rows_y": rows_y},
+    )
+
+
+def _time_topk(calls) -> dict:
+    """K5 over ``calls`` [(q, items, k, ex)]; the library yardstick is
+    ``torch.topk`` of the masked ``Q @ V^T``."""
+    from albedo_tpu_torch.ops import topk
+
+    def library(q, items, k, ex):
+        scores = q @ items.T
+        if ex is not None:
+            ex_l = torch.where(ex < 0, items.shape[0], ex.long())
+            hit = torch.zeros((q.shape[0], items.shape[0] + 1), dtype=torch.bool, device=q.device)
+            hit.scatter_(1, ex_l, True)
+            scores = scores.masked_fill(hit[:, :-1], float("-inf"))
+        return torch.topk(scores, k, dim=1)
+
+    errs = [_hold_topk(*c) for c in calls]
+    return dict(
+        err=(max(e[0] for e in errs), max(e[1] for e in errs)),
+        ms=cuda_ms(lambda: [topk.topk_scores(*c) for c in calls]),
+        plain_ms=cuda_ms(lambda: [topk.topk_scores_reference(*c) for c in calls]),
+        library_ms=cuda_ms(lambda: [library(*c) for c in calls]),
+        bytes=sum(4 * (q.numel() + v.numel() + (0 if ex is None else ex.numel())) + 8 * q.shape[0] * k
+                  for q, v, k, ex in calls),
+        flops=sum(2 * q.shape[0] * v.shape[0] * q.shape[1] for q, v, _, _ in calls),
+        shape={"calls": [[int(q.shape[0]), int(v.shape[0]), int(q.shape[1]), k] for q, v, k, _ in calls]},
+    )
+
+
+def phase_candidate_timing(calls_by_run: dict) -> dict:
+    """The new kernels timed at the candidate jobs' own inputs, with their
+    plain versions, a library call and their bound: K11 at the item-CF and
+    user-CF score blocks (both passes of each, then both masked top-ks), K10
+    at ranking_mf's last step, K5's wide path at the content job's query
+    (d = 200) and at tfidf_content's (one row of r = 3010)."""
+    def of(run, kernel, min_b=2):
+        return [a for k, a in calls_by_run[run] if k == kernel and (kernel != "spmm_rows" or a[1].shape[1] >= min_b)]
+
+    out = {
+        "spmm_rows": _time_spmm(of("item_cf", "spmm_rows") + of("user_cf", "spmm_rows")),
+        "masked_topk": _time_masked(of("item_cf", "masked_topk") + of("user_cf", "masked_topk")),
+        "bpr_step": _time_bpr(*of("ranking_mf", "bpr_step")[-1]),
+        "topk_scores_wide": _time_topk(of("content --w2v-full", "topk_scores_wide")),
+    }
+    extra = {
+        "spmm_rows item_cf": _time_spmm(of("item_cf", "spmm_rows")),
+        "spmm_rows user_cf": _time_spmm(of("user_cf", "spmm_rows")),
+        "topk_scores_wide tfidf": _time_topk(of("tfidf_content", "topk_scores_wide")),
+        "topk_scores ranking_mf": _time_topk(of("ranking_mf", "topk_scores")),
+    }
+    torch.cuda.synchronize()
+    timed = {name: _timed(r) for name, r in out.items()}
+    more = {name: _timed(r) for name, r in extra.items()}
+    ok = all(v["rel_err"] <= CAND_REL[name.split()[0]] for name, v in {**timed, **more}.items())
+    emit({"phase": "candidate_job_kernels", "ok": ok, "rel_tol": CAND_REL, "timed": timed, "more": more})
+    if not ok:
+        raise SystemExit("chip_smoke: a candidate kernel disagrees with its plain version at the job's inputs")
+    return timed
+
+
+def phase_candidate_bench(train) -> None:
+    """K11 and K10 at bench scale (phase 7's 30000 x 20000, mean-60 train
+    split): one block of 256 users through both CFs' passes and masked
+    top-k, and one bpr_step at B = 8192, rank 32, two side features, each
+    held against its plain version and timed."""
+    from albedo_tpu_torch.datasets import sample_test_users
+    from albedo_tpu_torch.datasets.ragged import padded_rows
+    from albedo_tpu_torch.recommenders import cf
+
+    dev = torch.device("cuda")
+    indptr, cols, _ = train.csr()
+    users = sample_test_users(train, n=256, seed=42)
+    star_idx = torch.as_tensor(padded_rows(indptr, cols, users), device=dev)
+    out = {}
+    for cls in (cf.ItemCFRecommender, cf.UserCFRecommender):
+        calls: list = []
+        rec = cls(train, top_k=30, device=dev)
+        with _recording(calls):
+            rec._score_block(star_idx, 30)
+        out[f"spmm_rows {rec.source}"] = _time_spmm([a for k, a in calls if k == "spmm_rows"])
+        out[f"masked_topk {rec.source}"] = _time_masked([a for k, a in calls if k == "masked_topk"])
+    rng = np.random.default_rng(5)
+    params, g = _bpr_params(rng, train.n_users, train.n_items, 32, 2, dev)
+    pick = rng.choice(train.nnz, size=8192, replace=False)
+    batch = [torch.as_tensor(a, device=dev) for a in (
+        train.rows[pick].astype(np.int32), train.cols[pick].astype(np.int32),
+        rng.integers(0, train.n_items, size=(8192, 4)).astype(np.int32))]
+    out["bpr_step"] = _time_bpr(params, g, *batch, 1e-4)
+    torch.cuda.synchronize()
+    timed = {name: _timed(r) for name, r in out.items()}
+    ok = all(v["rel_err"] <= CAND_REL[name.split()[0]] for name, v in timed.items())
+    emit({"phase": "candidate_bench_kernels", "ok": ok, "users": 256, "star_width": int(star_idx.shape[1]),
+          "timed": timed})
+    if not ok:
+        raise SystemExit("chip_smoke: a candidate kernel disagrees with its plain version at bench scale")
+
+
+# ------------------------------------------------------ shared by 4 and 7
 
 ALPHA, REG, CG_STEPS = 40.0, 0.5, 3  # the fits' alpha, reg and CG steps
 
@@ -854,16 +1408,21 @@ def _hold_sweeps(calls, names) -> dict:
     return out
 
 
-def _hold_topk(q, items, k, ex) -> tuple[float, float]:
-    """K5 against its plain version: (max abs score error, 0.0 when indices
-    and scores are all equal, ties and -inf slots included, else inf)."""
-    from albedo_tpu_torch.ops import topk as ops_topk
-
-    s, i = ops_topk.topk_scores(q, items, k, ex)
-    s_p, i_p = ops_topk.topk_scores_reference(q, items, k, ex)
+def _exact(got, want) -> tuple[float, float]:
+    """A top-k kernel's (scores, indices) against its plain version's: (max
+    abs score error, 0.0 when indices and scores are all equal, ties and
+    -inf slots included, else inf)."""
+    (s, i), (s_p, i_p) = got, want
     exact = bool(torch.equal(i, i_p)) and bool(torch.equal(s, s_p))
     diff = torch.where(s == s_p, torch.zeros_like(s), (s - s_p).abs())
     return float(diff.max()), 0.0 if exact else float("inf")
+
+
+def _hold_topk(q, items, k, ex) -> tuple[float, float]:
+    """K5 against its plain version, exactly (:func:`_exact`)."""
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    return _exact(ops_topk.topk_scores(q, items, k, ex), ops_topk.topk_scores_reference(q, items, k, ex))
 
 
 def _within_tol(errs: dict) -> bool:
@@ -871,7 +1430,7 @@ def _within_tol(errs: dict) -> bool:
     return all(rel <= (0.0 if name == "topk_scores" else REL_TOL) for name, (_, rel) in errs.items())
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 7
 
 
 def phase_bench() -> dict:
@@ -912,7 +1471,7 @@ def phase_bench() -> dict:
             raise SystemExit(f"chip_smoke: bench NDCG@30 ({solver}) {ndcg} is off {JAX_NDCG[solver]}")
         models[solver] = (est, model)
     est, model = models["cholesky"]
-    return _time_kernels(est, model, train, users, excl)
+    return _time_kernels(est, model, train, users, excl), train
 
 
 def _time_kernels(est, model, train, users, excl) -> dict:
@@ -1043,11 +1602,17 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_ranker_kernels()
+    phase_candidate_kernels()
     launches = phase_job()
     ranker_launches, inputs = phase_ranker_job()
     ranker_timed = phase_ranker_timing(inputs)
     launches.update(ranker_launches)
-    timed = dict(phase_bench(), **ranker_timed)
+    cand_launches, cand_calls = phase_candidates()
+    cand_timed = phase_candidate_timing(cand_calls)
+    launches.update({n: cand_launches[n] for n in cand_timed})
+    bench_timed, train = phase_bench()
+    phase_candidate_bench(train)
+    timed = dict(bench_timed, **ranker_timed, **cand_timed)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

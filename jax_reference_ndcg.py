@@ -4,6 +4,7 @@ and the ranker job's AUC and NDCG@30.
 
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py [cholesky|cg ...]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py candidates [--port] [--seeds 42,1,2,3]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 ``synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)``, a 10%
@@ -28,6 +29,16 @@ vectors over the job's vocabulary (``default_rng(1)``, normal, scale 0.3).
 Both packages then compute the same function of the same inputs, so their
 AUC and NDCG@30 differ only by float32 round-off; ``chip_smoke.py`` holds
 the card to the JAX package's values from this mode.
+
+``candidates`` runs the candidate-generator jobs at full size as
+``chip_smoke.py`` phase 6 runs them (the default synthetic tables, data
+policy ``off``, ``--now 1600000000``): ``popularity``, ``curation``,
+``item_cf``, ``user_cf`` and ``tfidf_content``, which are deterministic, once;
+``ranking_mf`` and ``content --w2v-full`` once per seed of ``--seeds`` (the
+factorization's and Word2Vec's seed); and ``content`` (Word2Vec dim 16) with
+the Word2Vec vectors of ``ranker --shared``. One JSON line per run, with the
+job's NDCG@30 (for ``tfidf_content``, its similar-repo list); a few minutes
+in all on a CPU.
 """
 
 from __future__ import annotations
@@ -119,14 +130,39 @@ def _share_weights(als, word2vec) -> None:
         self.init_factors = shared_als_init(matrix.n_users, matrix.n_items, self.rank)
         return als_fit(self, matrix, *a, **k)
 
+    als.ImplicitALS.fit = fit
+    _share_w2v_vectors(word2vec)
+
+
+def _share_w2v_vectors(word2vec) -> None:
+    """Make every Word2Vec fit return :func:`shared_w2v_vectors` over the
+    corpus's vocabulary instead of training."""
     def fit_corpus(self, sentences):
         vocab = _vocab(sentences, self.min_count)
         return word2vec.Word2VecModel(vocab=vocab, vectors=shared_w2v_vectors(len(vocab), self.dim),
                                       input_col=self.input_col,
                                       output_col=self.output_col or f"{self.input_col}__w2v")
 
-    als.ImplicitALS.fit = fit
     word2vec.Word2Vec.fit_corpus = fit_corpus
+
+
+def _run_job(jobs, name: str, port: bool, **flags) -> str:
+    """The printed output of job ``name`` at full size on the CPU (data
+    policy off, --now 1600000000), in a fresh artifact store: cached models
+    are keyed by their hyperparameters, not by the seed."""
+    ns = argparse.Namespace(**{"small": False, "now": 1600000000.0, "w2v_full": False, "data_policy": "off",
+                               "no_compilation_cache": True, "device": "cpu", **flags})
+    with tempfile.TemporaryDirectory() as data_dir:
+        os.environ["ALBEDO_DATA_DIR"] = data_dir
+        os.environ["ALBEDO_CHECKPOINT_DIR"] = os.path.join(data_dir, "checkpoints")
+        if not port:
+            from albedo_tpu.settings import reset_settings
+
+            reset_settings()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            getattr(jobs, f"{name}_job")(ns)
+    return out.getvalue()
 
 
 def ranker(argv: list[str]) -> None:
@@ -149,21 +185,7 @@ def ranker(argv: list[str]) -> None:
         _share_weights(als, word2vec)
     for seed in ([SHARED_SEED] if args.shared else (int(x) for x in args.seeds.split(","))):
         current["value"] = seed
-        ns = argparse.Namespace(small=False, now=1600000000.0, w2v_full=True, data_policy="off",
-                                no_compilation_cache=True, device="cpu")
-        with tempfile.TemporaryDirectory() as data_dir:
-            # A fresh artifact store per seed: cached models are keyed by
-            # their hyperparameters, not by the seed.
-            os.environ["ALBEDO_DATA_DIR"] = data_dir
-            os.environ["ALBEDO_CHECKPOINT_DIR"] = os.path.join(data_dir, "checkpoints")
-            if not args.port:
-                from albedo_tpu.settings import reset_settings
-
-                reset_settings()
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                jobs.train_lr_job(ns)
-        text = out.getvalue()
+        text = _run_job(jobs, "train_lr", args.port, w2v_full=True)
         print(json.dumps({
             "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
             "weights": "shared" if args.shared else "seeded", "seed": seed,
@@ -172,8 +194,49 @@ def ranker(argv: list[str]) -> None:
         }), flush=True)
 
 
+def candidates(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py candidates")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--seeds", default="42,1,2,3", help="comma-separated ranking_mf/Word2Vec seeds")
+    args = ap.parse_args(argv)
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.models import ranking_factorization as rf
+        from albedo_tpu_torch.models import word2vec
+    else:
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.models import ranking_factorization as rf
+        from albedo_tpu.models import word2vec
+    package = "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)"
+
+    def emit(job: str, text: str, **extra) -> None:
+        rec = {"package": package, "job": job, **extra}
+        m = re.search(r"NDCG@30 = (\S+)", text)
+        if m:
+            rec["ndcg"] = float(m.group(1))
+        else:
+            rec["similar"] = re.findall(r"\[tfidf_content\] (\d\.\d{4}) (\S+)", text)
+        print(json.dumps(rec), flush=True)
+
+    for job in ("popularity", "curation", "item_cf", "user_cf", "tfidf_content"):
+        emit(job, _run_job(jobs, job, args.port))
+    current = {"value": 42}
+    _seeded(rf.RankingFactorization, "fit", current)
+    _seeded(word2vec.Word2Vec, "fit_corpus", current)
+    for seed in (int(x) for x in args.seeds.split(",")):
+        current["value"] = seed
+        emit("ranking_mf", _run_job(jobs, "ranking_mf", args.port), seed=seed)
+        emit("content", _run_job(jobs, "content", args.port, w2v_full=True), seed=seed,
+             weights="seeded", w2v_full=True)
+
+    _share_w2v_vectors(word2vec)
+    emit("content", _run_job(jobs, "content", args.port), weights="shared", w2v_full=False)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ranker"]:
         ranker(sys.argv[2:])
+    elif sys.argv[1:2] == ["candidates"]:
+        candidates(sys.argv[2:])
     else:
         main(sys.argv[1:] or ["cholesky", "cg"])

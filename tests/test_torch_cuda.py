@@ -13,8 +13,12 @@ sum |x[idx] val| (a warp sums in another order than ``index_add_``'s
 atomics, and both round-offs grow with the segment's length and mass);
 K9 5e-5 of each gradient element's L1 mass (``ops.sgns.sgns_grad_mass``;
 its atomics add duplicate rows in an order that changes between runs) and
-of |loss|; Adam 1e-6 of max |plain| of each table. No tolerance has a
-floor, so the small gradients are held as tightly as the tables.
+of |loss|; Adam 1e-6 of max |plain| of each table. K5's wide path (ranks
+above 64) and K11's masked_topk are exact, ties included; K11's spmm_rows is
+held to 1e-6 of each element's L1 mass (kernel and plain version both sum in
+float64, in other orders, and round once) and K10's bpr_step to 5e-5 of
+``ops.bpr.bpr_grad_mass`` and of |loss| (atomics, as K9). No tolerance has a floor, so the small gradients
+are held as tightly as the tables.
 """
 
 import numpy as np
@@ -23,7 +27,9 @@ import torch
 
 from albedo_tpu_torch import kernels
 from albedo_tpu_torch.ops import als as ops_als
+from albedo_tpu_torch.ops import bpr as ops_bpr
 from albedo_tpu_torch.ops import sgns as ops_sgns
+from albedo_tpu_torch.ops import spmm as ops_spmm
 from albedo_tpu_torch.ops import sparse_linear as ops_sl
 from albedo_tpu_torch.ops import topk as ops_topk
 
@@ -234,3 +240,121 @@ def test_ranker_kernels_raise_instead_of_falling_back(dev):
     p = torch.zeros(8, device=dev)
     with pytest.raises(ValueError, match="shape"):
         ops_sgns.adam_dense(p, torch.zeros(9, device=dev), p.clone(), p.clone(), 1, 0.025)
+
+
+@pytest.mark.parametrize("r", [65, 200, 3010])
+def test_k5_wide_path_matches_plain_exactly(dev, r):
+    rng = np.random.default_rng(r)
+    uf_np = (rng.standard_normal((20, r)) / np.sqrt(r)).astype(np.float32)
+    uf_np[0] = 0.0                                   # a row of ties
+    vf_np = (rng.standard_normal((1300, r)) / np.sqrt(r)).astype(np.float32)
+    vf_np[900:950] = vf_np[:50]                      # exact ties
+    ex_np = np.full((20, 40), -1, dtype=np.int32)
+    ex_np[:, :30] = rng.integers(0, 1300, size=(20, 30))
+    uf, vf, ex = (torch.as_tensor(a, device=dev) for a in (uf_np, vf_np, ex_np))
+    kernels.reset_launches()
+    s, i = ops_topk.topk_scores(uf, vf, 30, ex)
+    s_p, i_p = ops_topk.topk_scores_reference(uf, vf, 30, ex)
+    assert torch.equal(i, i_p) and torch.equal(s, s_p)
+    assert kernels.LAUNCHES["topk_scores_wide"] == 1 and kernels.LAUNCHES["topk_scores"] == 0
+
+
+@pytest.mark.parametrize("b", [1, 256, 300])
+@pytest.mark.parametrize("with_val", [True, False])
+def test_k11_spmm_rows_matches_plain(dev, b, with_val):
+    rng = np.random.default_rng(b)
+    counts = rng.integers(0, 30, size=2000)
+    counts[::5] = 0                  # empty rows
+    counts[3] = 1089                 # a long (power-law head) row
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    idx = rng.integers(0, 2936, size=int(indptr[-1]))
+    val = rng.uniform(0.1, 1.0, size=idx.size).astype(np.float32) if with_val else None
+    w = ops_spmm.CSR.from_host(indptr, idx, val, 2936, dev)
+    x = torch.as_tensor(rng.uniform(size=(2936, b)).astype(np.float32), device=dev)
+    kernels.reset_launches()
+    got = ops_spmm.spmm_rows(w, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmm_rows"] == 1
+    want = ops_spmm.spmm_rows_reference(w, x)
+    mass = ops_spmm.spmm_rows_mass(w, x)
+    assert bool(((got - want).abs() <= 1e-6 * mass).all())
+    assert float(got[0].abs().max()) == 0.0      # counts[0] == 0: an empty row
+
+
+@pytest.mark.parametrize("with_norm", [True, False])
+def test_k11_masked_topk_matches_plain_exactly(dev, with_norm):
+    rng = np.random.default_rng(6)
+    scores = rng.normal(size=(2936, 40)).astype(np.float32)   # (n, B): taken as a strided (B, n) view
+    scores[1500:1600] = scores[:100]                          # ties
+    scores[:, 2] = 0.25                                       # a row of ties
+    starred = np.full((40, 64), -1, np.int32)
+    starred[:, :50] = rng.integers(0, 2936, size=(40, 50))
+    norm = torch.as_tensor(rng.uniform(0.0, 3.0, size=2936).astype(np.float32), device=dev) if with_norm else None
+    block = torch.as_tensor(scores, device=dev).t()
+    st = torch.as_tensor(starred, device=dev)
+    kernels.reset_launches()
+    s, i = ops_spmm.masked_topk(block, st, 30, norm)
+    s_p, i_p = ops_spmm.masked_topk_reference(block, st, 30, norm)
+    assert torch.equal(i, i_p) and torch.equal(s, s_p)
+    assert kernels.LAUNCHES["masked_topk"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 8192])
+def test_k10_bpr_step_matches_plain(dev, b):
+    rng = np.random.default_rng(b)
+    n_users, n_items, r, d = 300, 200, 32, 2
+    params = [torch.as_tensor(rng.normal(scale=0.1, size=s).astype(np.float32), device=dev)
+              for s in ((n_users, r), (n_items, r), (n_items,), (d,))]
+    g = torch.as_tensor(rng.normal(size=(n_items, d)).astype(np.float32), device=dev)
+    users = rng.integers(0, n_users, size=b).astype(np.int32)
+    users[: b // 3] = 7                       # a hot user
+    pos = rng.integers(0, n_items, size=b).astype(np.int32)
+    neg = rng.integers(0, n_items, size=(b, 4)).astype(np.int32)
+    neg[::2, 1] = pos[::2]                    # negatives equal to the positive
+    batch = [torch.as_tensor(a, device=dev) for a in (users, pos, neg)]
+    res = {}
+    for name, fn in (("kernel", ops_bpr.bpr_step), ("plain", ops_bpr.bpr_step_reference)):
+        grads = [torch.zeros_like(p) for p in params]
+        loss = torch.zeros(1, device=dev)
+        kernels.reset_launches()
+        fn(*params, g, *batch, *grads, loss, 1e-4)
+        torch.cuda.synchronize()
+        res[name] = (*grads, loss)
+        if name == "kernel":
+            assert kernels.LAUNCHES["bpr_step"] == 1
+    mass = ops_bpr.bpr_grad_mass(*params, g, *batch, 1e-4)
+    for a, e, m in zip(res["kernel"], res["plain"], mass):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
+    assert float((res["kernel"][4] - res["plain"][4]).abs()) <= K9_MASS * float(res["plain"][4].abs())
+
+
+def test_cf_on_the_card_matches_the_cpu(dev):
+    # Both CFs end to end (every spmm_rows pass and masked_topk) on the card
+    # and on the CPU: the same candidates, scores within rtol 2e-4, atol 2e-5.
+    from albedo_tpu_torch.datasets.synthetic import synthetic_stars
+    from albedo_tpu_torch.recommenders.cf import ItemCFRecommender, UserCFRecommender
+
+    m = synthetic_stars(n_users=400, n_items=300, mean_stars=20, seed=3)
+    for cls in (ItemCFRecommender, UserCFRecommender):
+        frames = {d: cls(m, top_k=30, device=d).recommend_for_users(m.user_ids) for d in (dev, "cpu")}
+        a, b = frames[dev], frames["cpu"]
+        assert len(a) == len(b)
+        merged = a.merge(b, on=["user_id", "repo_id"], suffixes=("_card", "_cpu"))
+        assert len(merged) >= 0.99 * len(b)      # near-ties at the cut may swap
+        np.testing.assert_allclose(merged["score_card"], merged["score_cpu"], rtol=2e-4, atol=2e-5)
+
+
+def test_candidate_kernels_raise_instead_of_falling_back(dev):
+    w = ops_spmm.CSR.from_host(np.array([0, 1]), np.array([0]), None, 3, dev)
+    with pytest.raises(ValueError, match="shape"):
+        ops_spmm.spmm_rows(w, torch.zeros((4, 2), device=dev))
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        ops_spmm.spmm_rows(w, torch.zeros((3, 2)))
+    with pytest.raises(ValueError, match="k in"):
+        ops_spmm.masked_topk(torch.zeros((2, 5), device=dev), None, 200)
+    p = [torch.zeros(s, device=dev) for s in ((4, 200), (5, 200), (5,), (1,))]
+    i32 = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ranks"):
+        ops_bpr.bpr_step(*p, torch.zeros((5, 1), device=dev), i32, i32,
+                         torch.zeros((2, 4), dtype=torch.int32, device=dev),
+                         *[torch.zeros_like(t) for t in p], torch.zeros(1, device=dev), 1e-4)

@@ -40,7 +40,9 @@ def test_every_module_imports_without_nvcc():
         m.name for m in pkgutil.walk_packages(albedo_tpu_torch.__path__, "albedo_tpu_torch.")
     ]
     for needed in ("kernels.build", "cli", "ops.sparse_linear", "ops.sgns", "models.word2vec",
-                   "models.logistic_regression", "builders.ranker", "features.assembler"):
+                   "models.logistic_regression", "builders.ranker", "features.assembler",
+                   "ops.spmm", "ops.bpr", "models.ranking_factorization", "recommenders.cf",
+                   "recommenders.tfidf", "recommenders.content"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
@@ -48,12 +50,12 @@ def test_every_module_imports_without_nvcc():
     from albedo_tpu_torch.kernels import build
 
     assert set(kernels.LAUNCHES) == {
-        "als_partials", "solve_corrected", "bucket_cg", "topk_scores",
-        "segment_dot", "sgns_step", "adam_dense",
+        "als_partials", "solve_corrected", "bucket_cg", "topk_scores", "topk_scores_wide",
+        "segment_dot", "sgns_step", "adam_dense", "spmm_rows", "masked_topk", "bpr_step",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:
-        assert (build.CSRC / f"{name}.cu").is_file()
+        assert (build.CSRC / f"{build.PATHS.get(name, name)}.cu").is_file()
 
 
 def test_tf32_is_off():
