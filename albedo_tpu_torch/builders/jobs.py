@@ -1,7 +1,7 @@
 """CLI jobs: one per reference entry point (``train_als``, ``train_word2vec``,
-``train_lr`` and the candidate generators ``popularity``, ``curation``,
-``content``, ``item_cf``, ``user_cf``, ``ranking_mf`` and ``tfidf_content``
-in this port).
+``train_lr``, the candidate generators ``popularity``, ``curation``,
+``content``, ``item_cf``, ``user_cf``, ``ranking_mf`` and ``tfidf_content``,
+and ``serve`` in this port).
 
 Reference parity: the ``ALSRecommenderBuilder``, ``Word2VecCorpusBuilder``,
 ``LogisticRegressionRanker``, ``PopularityRecommenderBuilder``,
@@ -20,9 +20,9 @@ sample test users (+ the canary user), recommend top-30, and score NDCG@30
 against each user's most recent 30 stars (``ALSRecommenderBuilder.scala:60-105``).
 The port has no artifact cache yet, so the ALS and Word2Vec models a job
 needs are trained in process, once per :class:`JobContext`. Not ported yet:
-the ``--tables`` sources, the artifact cache, checkpointed and mesh fits, and
-the other jobs (``cv_als``, the profile, bank, serving, scoring and
-streaming jobs).
+the ``--tables`` sources, the artifact cache, checkpointed and mesh fits,
+``serve --two-stage/--bank/--reload-watch``, and the other jobs (``cv_als``,
+the profile, ``build_bank``, scoring and streaming jobs).
 """
 
 from __future__ import annotations
@@ -404,9 +404,92 @@ def tfidf_content_job(args) -> None:
     _report("tfidf_content", "indexed_repos", float(len(search.doc_ids)), t0)
 
 
+def serve_job(args) -> int | None:
+    """The online inference engine over the in-process ALS fit: micro-batched
+    top-k (K6), the direct path (K5) under ``--no-batch``, the TTL result
+    cache, overload control and the ``/metrics`` plane
+    (``albedo_tpu_torch.serving``), until ``--duration`` seconds pass (0 =
+    forever) or SIGTERM/SIGINT, which drain it as the JAX job does.
+
+    Extra flags: --port N (default 8080), --host ADDR (default 127.0.0.1),
+    --duration SECONDS, --no-batch, --no-warm (skip launching the batch-shape
+    ladder at startup), --cache-ttl SECONDS (default 30; 0 disables),
+    --max-batch N (default 64), --window-ms MS (default 2). Not ported yet,
+    each an error: --two-stage, --bank, --reload-watch (and its
+    --reload-interval, --reload-require-stamp), and the SIGHUP reload, on
+    which the server drains and exits 2.
+    """
+    import signal
+    import sys
+    import threading
+
+    from albedo_tpu_torch.serving import RecommendationService, serve
+
+    extra = argparse.ArgumentParser(prog="albedo-tpu-torch serve")
+    extra.add_argument("--port", type=int, default=8080)
+    extra.add_argument("--host", default="127.0.0.1")
+    extra.add_argument("--duration", type=float, default=0.0)
+    extra.add_argument("--no-batch", action="store_true")
+    extra.add_argument("--no-warm", action="store_true")
+    extra.add_argument("--cache-ttl", type=float, default=30.0)
+    extra.add_argument("--max-batch", type=int, default=64)
+    extra.add_argument("--window-ms", type=float, default=2.0)
+    for flag in ("--two-stage", "--bank", "--reload-watch", "--reload-require-stamp"):
+        extra.add_argument(flag, action="store_true")
+    extra.add_argument("--reload-interval", type=float, default=None)
+    ns = extra.parse_args(getattr(args, "_rest", []))
+    missing = [f for f, on in (("--two-stage", ns.two_stage), ("--bank", ns.bank),
+                               ("--reload-watch", ns.reload_watch),
+                               ("--reload-interval", ns.reload_interval is not None),
+                               ("--reload-require-stamp", ns.reload_require_stamp)) if on]
+    if missing:
+        extra.error(f"{', '.join(missing)}: not ported yet (the port serves the ALS path only)")
+
+    ctx = JobContext(args)
+    service = RecommendationService(
+        ctx.als_model(), ctx.matrix(),
+        repo_info=ctx.tables().repo_info, user_info=ctx.tables().user_info,
+        batching=not ns.no_batch, warm=not ns.no_batch and not ns.no_warm,
+        cache_ttl=ns.cache_ttl, max_batch=ns.max_batch, batch_window_ms=ns.window_ms,
+    )
+    server = serve(service, host=ns.host, port=ns.port)
+    host, port = server.server_address[:2]
+    print(f"[serve] listening on http://{host}:{port}/ "
+          f"(/recommend/<user_id>, /admin/repos, /admin/users, /metrics, /healthz/ready) "
+          f"[als, batching={'off' if ns.no_batch else 'on'}, cache_ttl={ns.cache_ttl:g}s, "
+          f"device={ctx.device}]", flush=True)
+    # Signal-interruptible foreground wait: SIGTERM/SIGINT set the stop event
+    # and the finally block drains (batcher drained, server thread joined).
+    stop = threading.Event()
+    status = {"rc": None}
+
+    def _sigstop(_sig, _frame):
+        stop.set()
+        # A second signal can still kill a wedged shutdown.
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_DFL)
+
+    def _sighup(_sig, _frame):
+        print("[serve] SIGHUP reload is not ported yet; draining and exiting", file=sys.stderr, flush=True)
+        status["rc"] = 2
+        stop.set()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _sigstop)
+    if hasattr(signal, "SIGHUP"):
+        signal.signal(signal.SIGHUP, _sighup)
+    try:
+        stop.wait(ns.duration if ns.duration > 0 else None)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+    return status["rc"]
+
+
 JOBS = {
     "train_als": train_als_job, "train_word2vec": train_word2vec_job, "train_lr": train_lr_job,
     "popularity": popularity_job, "curation": curation_job, "content": content_job,
     "item_cf": item_cf_job, "user_cf": user_cf_job, "ranking_mf": ranking_mf_job,
-    "tfidf_content": tfidf_content_job,
+    "tfidf_content": tfidf_content_job, "serve": serve_job,
 }

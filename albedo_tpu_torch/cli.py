@@ -2,7 +2,8 @@
 
 Port of ``albedo_tpu/cli.py`` for the jobs this package has (``train_als``,
 ``train_word2vec``, ``train_lr``, ``popularity``, ``curation``, ``content``,
-``item_cf``, ``user_cf``, ``ranking_mf``, ``tfidf_content``).
+``item_cf``, ``user_cf``, ``ranking_mf``, ``tfidf_content``, ``serve``).
+``serve`` takes flags of its own after the job (``serve --port 8080``).
 ``--device`` picks where the job runs: ``cuda`` (the default) runs the CUDA
 kernels and fails when there is no card; ``cpu`` runs their plain PyTorch
 versions.
@@ -47,7 +48,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         help="where the job runs: cuda (hand-written kernels; fails without "
         "a card) or cpu (their plain PyTorch versions)",
     )
-    return parser.parse_args(argv)
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.job != "serve":
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args._rest = rest  # the job's own flags (serve --port ...)
+    return args
 
 
 def main(argv: list[str] | None = None) -> int:

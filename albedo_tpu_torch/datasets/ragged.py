@@ -413,6 +413,13 @@ def padded_rows(
     return out
 
 
+def csr_row(indptr: np.ndarray, indices: np.ndarray, row: int) -> np.ndarray:
+    """One CSR row's column indices as int32: the single-user form of
+    :func:`padded_rows`, the serving layer's seen-item row."""
+    lo, hi = indptr[row], indptr[row + 1]
+    return indices[lo:hi].astype(np.int32)
+
+
 def group_buckets(buckets: list[Bucket]) -> list[Bucket]:
     """Stack same-shape buckets along a new leading axis: ``(B, L)`` buckets
     become ``(N, B, L)`` "groups" (still ``Bucket``s, with ``row_ids`` of shape

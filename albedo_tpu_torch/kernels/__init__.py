@@ -11,12 +11,19 @@ run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-from albedo_tpu_torch.kernels.build import LAUNCHES
+from albedo_tpu_torch.kernels.build import LAUNCHES, LAUNCHES_LOCK
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "launch_counts", "reset_launches"]
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """A consistent copy of every kernel's launch count."""
+    with LAUNCHES_LOCK:
+        return dict(LAUNCHES)

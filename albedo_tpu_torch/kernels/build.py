@@ -46,6 +46,10 @@ SIGNATURES: dict[str, list] = {
     "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
     # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
     "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # uf_all, items, user_idx, excl, excl_by_user, out_s, out_i, B, I, r, k, E, Epad, stream
+    "gather_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # users, items, user_idx, excl, excl_map, mean_rows, out_s, out_i, B, I, d, k, E, Epad, dpad, stream
+    "bank_query": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, idx, val, indptr, out, S, stream
     "segment_dot": [_P, _P, _P, _P, _P, _I, _P],
     # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
@@ -66,8 +70,11 @@ SIGNATURES: dict[str, list] = {
 PATHS = {"topk_scores_wide": "topk_scores"}
 
 # Launches of each kernel (and path) in this process (see
-# ``kernels.reset_launches``).
+# ``kernels.reset_launches``). Launches come from several threads (the
+# serving batcher's worker, HTTP handler threads), so every update holds
+# ``LAUNCHES_LOCK``.
 LAUNCHES: dict[str, int] = dict.fromkeys([*SIGNATURES, *PATHS], 0)
+LAUNCHES_LOCK = threading.Lock()
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -90,7 +97,7 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):  # shared headers (topk_merge.cuh)
+    for header in sorted(CSRC.glob("*.cuh")):  # shared headers (topk_body.cuh, topk_merge.cuh)
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -147,13 +154,14 @@ def call(name: str, device, *args, count: str | None = None) -> None:
     import torch
 
     if name not in _libs:
-        build()
+        build()  # under the build lock: a second thread waits, then loads
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(_libs[name], f"{name}_launch")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[count or name] += 1
+    with LAUNCHES_LOCK:
+        LAUNCHES[count or name] += 1
 
 
 def on_cpu(kernel: str, *tensors) -> bool:

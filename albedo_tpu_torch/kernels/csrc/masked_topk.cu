@@ -34,7 +34,7 @@ __global__ void __launch_bounds__(THREADS) masked_topk_kernel(
     float* __restrict__ out_s, int* __restrict__ out_i, int n, int k, int L,
     int Lpad) {
   extern __shared__ int s_star[];
-  __shared__ topk::Running<TILE> st;
+  __shared__ topk::Running<TILE, topk::KMAX_SMALL> st;
 
   const long long row = blockIdx.x;
   const float* p = scores + row * sb;
@@ -68,7 +68,7 @@ extern "C" int masked_topk_launch(const float* scores, long long sb, long long s
                                   const int* starred, const float* norm, float* out_s,
                                   int* out_i, int B, int n, int k, int L, int Lpad,
                                   void* stream) {
-  if (k < 1 || k > topk::KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > topk::KMAX_SMALL) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Lpad * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -1,4 +1,4 @@
-// The streaming top-k that K5 (topk_scores.cu) and K11's masked_topk
+// The streaming top-k that K5-K7 (topk_body.cuh) and K11's masked_topk
 // (masked_topk.cu) keep for one query row per CTA.
 //
 // The order is that of the JAX programs: score descending, then item index
@@ -11,6 +11,11 @@
 // A row's excluded items arrive as a -1-padded, unsorted list that may hold
 // duplicates; it is copied into shared memory and sorted (bitonic), so a
 // membership test is a binary search and no U x I mask exists.
+//
+// The list holds at most KM entries, a template argument: KMAX_SMALL (128)
+// for the k <= 128 launches, so they keep their shared-memory footprint,
+// and KMAX (512) for the serving path's k, which rounds the service's
+// max_k = 500 up to a power of two.
 
 #pragma once
 
@@ -22,7 +27,8 @@
 namespace topk {
 
 constexpr int THREADS = 256;
-constexpr int KMAX = 128;
+constexpr int KMAX_SMALL = 128;
+constexpr int KMAX = 512;
 
 __device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
@@ -30,13 +36,17 @@ __device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
 
 // Copy ``list[0..E)`` into ``s_list[0..Epad)`` (negative entries and the
 // padding past E become INT_MAX) and sort it ascending. Epad is a power of
-// two, or 0 for no list; ``list`` may be null when E == 0. Ends synchronized.
-__device__ void load_sorted(const int* __restrict__ list, int E, int Epad, int* s_list) {
+// two, or 0 for no list; ``list`` may be null when E == 0. With ``map``,
+// each non-negative entry x is replaced by map[x] first (a negative map[x]
+// drops it). Ends synchronized.
+__device__ void load_sorted(const int* __restrict__ list, int E, int Epad, int* s_list,
+                            const int* __restrict__ map = nullptr) {
   const int tid = threadIdx.x;
   for (int e = tid; e < Epad; e += THREADS) {
     int v = INT_MAX;
     if (e < E) {
-      const int x = list[e];
+      int x = list[e];
+      if (x >= 0 && map != nullptr) x = map[x];
       if (x >= 0) v = x;
     }
     s_list[e] = v;
@@ -78,14 +88,14 @@ struct Threshold {
   int i;
 };
 
-// One row's running top-k, in shared memory; TILE bounds the candidates a
-// tile can add.
-template <int TILE>
+// One row's running top-k (k <= KM), in shared memory; TILE bounds the
+// candidates a tile can add.
+template <int TILE, int KM>
 struct Running {
-  float top_s[KMAX];
-  int top_i[KMAX];
-  float new_s[KMAX];
-  int new_i[KMAX];
+  float top_s[KM];
+  int top_i[KM];
+  float new_s[KM];
+  int new_i[KM];
   float cand_s[TILE];
   int cand_i[TILE];
   int n_cand;

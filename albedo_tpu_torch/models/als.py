@@ -62,6 +62,15 @@ class ALSModel:
             self._vf_np = self.item_table.cpu().numpy()
         return self._vf_np
 
+    def device_factors(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The resident ``(user_factors, item_factors)`` tables on the model's
+        device, contiguous float32: what the serving batcher scores every
+        request against (JAX ``models/als.py:78-105``; here the fit already
+        leaves both tables on the device, so nothing is uploaded)."""
+        self.user_table = self.user_table.contiguous()
+        self.item_table = self.item_table.contiguous()
+        return self.user_table, self.item_table
+
     def predict(self, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
         u = self.user_factors[np.asarray(rows)]
         v = self.item_factors[np.asarray(cols)]

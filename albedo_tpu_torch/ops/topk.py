@@ -7,12 +7,23 @@ row streams the item table, masks the row's excluded items and keeps a
 running top-k, so no U x I score matrix is ever written. It takes any rank:
 factor tables (r <= 64) and the wide rows of the content sources (K14:
 tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200), which it
-streams through shared memory in chunks. The plain PyTorch version
-(:func:`topk_scores_reference`) builds the score matrix and sorts it.
+streams through shared memory in chunks; and any k up to 512 (the serving
+path's ``max_k`` = 500, rounded up to a power of two).
 
-Both return exactly the JAX program's answer: the k admissible items ordered
-by score descending, then item index ascending, with the remaining slots
-``(-inf, -1)``.
+Two kernels run the same body with another prologue (``csrc/topk_body.cuh``):
+
+- K6 :func:`gather_topk`, the serving micro-batcher's batch program
+  (``albedo_tpu/serving/batcher.py`` ``_gather_topk``,
+  ``_gather_topk_device_excl``): the query rows and the exclusion rows are
+  gathered by the kernel from the resident tables;
+- K7 :func:`bank_query`, one source of the retrieval bank's query program
+  (``albedo_tpu/retrieval/bank.py`` ``_make_query_program``): a user-table
+  row, or the L2-normalized mean of example rows built in the kernel.
+
+The plain PyTorch versions (``*_reference``) build the score matrix and sort
+it. All return exactly the JAX program's answer: the k admissible items
+ordered by score descending, then item index ascending, with the remaining
+slots ``(-inf, -1)``.
 """
 
 from __future__ import annotations
@@ -20,10 +31,14 @@ from __future__ import annotations
 import torch
 
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+from albedo_tpu_torch.utils import pow2_at_least
 
 RMAX = 64            # widest rank of the narrow path; wider rows take the wide path
-KMAX = 128           # largest k the kernel keeps
-EXCLUDE_MAX = 32768  # longest exclusion row the kernel sorts in shared memory
+KMAX = 512           # largest k the kernels keep
+EXCLUDE_MAX = 32768  # longest exclusion row the kernels sort in shared memory
+# Dynamic shared memory the kernels may ask for: the card's 227 KB per block
+# less their static running list (at most 16.4 KB at k > 128).
+SMEM_MAX = 232448 - 17 * 1024
 
 
 def _scores(user_factors: torch.Tensor, item_factors: torch.Tensor) -> torch.Tensor:
@@ -88,31 +103,236 @@ def topk_scores(
     ``item_block`` is accepted for the JAX signature and not used: the
     kernel picks its own tile."""
     del item_block
+    _check_k("topk_scores", k)
     operands = [user_factors, item_factors] + ([] if exclude_idx is None else [exclude_idx])
     if on_cpu("topk_scores", *operands):
         return topk_scores_reference(user_factors, item_factors, k, exclude_idx)
     n_users, r = user_factors.shape
     n_items = item_factors.shape[0]
-    if r < 1:
-        raise ValueError(f"topk_scores: the CUDA kernel takes ranks >= 1, got {r}")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"topk_scores: the CUDA kernel takes k in 1..{KMAX}, got {k}")
     dev = user_factors.device
+    _check_rank("topk_scores", r)
     check_operand("topk_scores", "user_factors", user_factors, torch.float32, (n_users, r), dev)
     check_operand("topk_scores", "item_factors", item_factors, torch.float32, (n_items, r), dev)
-    n_excl, excl_pad, excl_ptr = 0, 0, None
-    if exclude_idx is not None and exclude_idx.shape[1] > 0:
-        n_excl = int(exclude_idx.shape[1])
-        if n_excl > EXCLUDE_MAX:
-            raise ValueError(f"topk_scores: exclusion rows longer than {EXCLUDE_MAX} are not supported, got {n_excl}")
-        check_operand("topk_scores", "exclude_idx", exclude_idx, torch.int32, (n_users, n_excl), dev)
-        excl_pad = 1 << (n_excl - 1).bit_length()
-        excl_ptr = exclude_idx.data_ptr()
-    vals = torch.empty((n_users, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n_users, k), dtype=torch.int32, device=dev)
+    excl_ptr, n_excl, excl_pad = _exclusion("topk_scores", "exclude_idx", exclude_idx, n_users, dev)
+    _check_smem("topk_scores", r, excl_pad)
+    vals, idx = _outputs(n_users, k, dev)
     call(
         "topk_scores", dev, user_factors.data_ptr(), item_factors.data_ptr(), excl_ptr,
         vals.data_ptr(), idx.data_ptr(), n_users, n_items, r, k, n_excl,
         excl_pad, count="topk_scores_wide" if r > RMAX else None,
+    )
+    return vals, idx
+
+
+def _check_k(kernel: str, k: int) -> None:
+    """The kernels keep at most KMAX entries; the plain versions are held to
+    the same range, so the CPU run takes what the card takes."""
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"{kernel}: takes k in 1..{KMAX}, got {k}")
+
+
+def _check_rank(kernel: str, r: int) -> None:
+    if r < 1:
+        raise ValueError(f"{kernel}: the CUDA kernel takes ranks >= 1, got {r}")
+
+
+def _exclusion(kernel: str, name: str, table, n_rows: int, dev) -> tuple[int | None, int, int]:
+    """(pointer, width, width rounded up to a power of two) of a -1-padded
+    int32 exclusion table of ``n_rows`` rows, or (None, 0, 0). A row wider
+    than EXCLUDE_MAX raises: clipping it would serve excluded items."""
+    if table is None or table.shape[1] == 0:
+        return None, 0, 0
+    width = int(table.shape[1])
+    if width > EXCLUDE_MAX:
+        raise ValueError(f"{kernel}: exclusion rows longer than {EXCLUDE_MAX} are not supported, got {width}")
+    check_operand(kernel, name, table, torch.int32, (n_rows, width), dev)
+    return table.data_ptr(), width, pow2_at_least(width)
+
+
+def _check_smem(kernel: str, r: int, excl_pad: int, dpad: int = 0) -> None:
+    """Raise unless the launch's dynamic shared memory (the sorted exclusion
+    row, the wide path's tile, the mean query) fits the card."""
+    need = 4 * excl_pad + (4 * (256 * 33 + 32) if r > RMAX else 0) + 8 * dpad
+    if need > SMEM_MAX:
+        raise ValueError(f"{kernel}: needs {need} bytes of shared memory (exclusion width "
+                         f"{excl_pad}, rank {r}); the card gives {SMEM_MAX}")
+
+
+def _outputs(n_rows: int, k: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((n_rows, k), dtype=torch.float32, device=dev),
+            torch.empty((n_rows, k), dtype=torch.int32, device=dev))
+
+
+def gather_topk_reference(
+    uf_all: torch.Tensor,                      # (N, r) f32 user table
+    item_factors: torch.Tensor,                # (I, r) f32
+    user_idx: torch.Tensor,                    # (B,) int32 rows of uf_all
+    k: int,
+    exclude: torch.Tensor | None = None,       # (B, E) int32, row b for query b
+    exclude_table: torch.Tensor | None = None,  # (N, E) int32, gathered by user_idx
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: gather, then :func:`topk_scores_reference`."""
+    rows = user_idx.long()
+    excl = exclude if exclude_table is None else exclude_table[rows]
+    return topk_scores_reference(uf_all[rows], item_factors, k, excl)
+
+
+def gather_topk(
+    uf_all: torch.Tensor,
+    item_factors: torch.Tensor,
+    user_idx: torch.Tensor,
+    k: int,
+    exclude: torch.Tensor | None = None,
+    exclude_table: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: ``(scores (B, k) f32, item_indices (B, k) int32)``, the top-k
+    items of users ``user_idx`` (CUDA kernel ``gather_topk``). Exclusion is
+    none, the batch's own -1-padded rows ``exclude`` (B, E), or the device
+    table of every user's history ``exclude_table`` (N, E), whose row
+    ``user_idx[b]`` query b excludes; at most one of the two. Each row is
+    bit-identical to :func:`topk_scores` of that user's factor row with
+    that user's exclusion row, whatever else the batch holds. The caller
+    keeps ``user_idx`` in range (the plain version raises, the kernel cannot).
+    ``out``, a (2, B, k) float32 buffer, receives the scores and the index
+    bits (the returned tensors are its two halves), so one copy fetches both."""
+    if exclude is not None and exclude_table is not None:
+        raise ValueError("gather_topk: pass exclude or exclude_table, not both")
+    _check_k("gather_topk", k)
+    operands = [uf_all, item_factors, user_idx] + [t for t in (exclude, exclude_table, out) if t is not None]
+    if on_cpu("gather_topk", *operands):
+        vals, idx = gather_topk_reference(uf_all, item_factors, user_idx, k, exclude, exclude_table)
+        if out is None:
+            return vals, idx
+        out[0].copy_(vals)
+        out[1].view(torch.int32).copy_(idx)
+        return out[0], out[1].view(torch.int32)
+    n_users, r = uf_all.shape
+    n_items, b = item_factors.shape[0], user_idx.shape[0]
+    dev = uf_all.device
+    _check_rank("gather_topk", r)
+    check_operand("gather_topk", "uf_all", uf_all, torch.float32, (n_users, r), dev)
+    check_operand("gather_topk", "item_factors", item_factors, torch.float32, (n_items, r), dev)
+    check_operand("gather_topk", "user_idx", user_idx, torch.int32, (b,), dev)
+    by_user = exclude_table is not None
+    excl_ptr, n_excl, excl_pad = _exclusion(
+        "gather_topk", "exclude_table" if by_user else "exclude",
+        exclude_table if by_user else exclude, n_users if by_user else b, dev,
+    )
+    _check_smem("gather_topk", r, excl_pad)
+    if out is None:
+        vals, idx = _outputs(b, k, dev)
+    else:
+        check_operand("gather_topk", "out", out, torch.float32, (2, b, k), dev)
+        vals, idx = out[0], out[1].view(torch.int32)
+    call(
+        "gather_topk", dev, uf_all.data_ptr(), item_factors.data_ptr(), user_idx.data_ptr(),
+        excl_ptr, int(by_user), vals.data_ptr(), idx.data_ptr(), b, n_items, r, k, n_excl, excl_pad,
+    )
+    return vals, idx
+
+
+def mean_query_reference(vectors: torch.Tensor, q_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(queries (B, d) f32, has_query (B,) bool)``: per row of ``q_idx``
+    (-1-padded rows of ``vectors``), the masked mean of the listed rows,
+    divided by max(count, 1) and then by max(||q||_2, 1e-9). The steps and
+    their order are K7's: the rows summed in list order, the squares by a
+    pairwise tree over d rounded up to a power of two, zero-padded."""
+    valid = q_idx >= 0
+    rows = vectors[q_idx.clamp(min=0).long()]          # (B, Q, d)
+    acc = torch.zeros((q_idx.shape[0], vectors.shape[1]), dtype=torch.float32, device=vectors.device)
+    for j in range(q_idx.shape[1]):
+        acc = acc + torch.where(valid[:, j, None], rows[:, j], 0.0)
+    acc = acc / valid.sum(dim=1, dtype=torch.float32).clamp_min(1.0)[:, None]
+    sq = acc * acc
+    sq = torch.nn.functional.pad(sq, (0, pow2_at_least(sq.shape[1]) - sq.shape[1]))
+    while sq.shape[1] > 1:
+        half = sq.shape[1] // 2
+        sq = sq[:, :half] + sq[:, half:]
+    return acc / torch.sqrt(sq[:, 0]).clamp_min(1e-9)[:, None], valid.any(dim=1)
+
+
+def bank_query_reference(
+    vectors: torch.Tensor,
+    k: int,
+    users: torch.Tensor | None = None,
+    user_idx: torch.Tensor | None = None,
+    exclude_table: torch.Tensor | None = None,
+    excl_map: torch.Tensor | None = None,
+    q_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7 (see :func:`bank_query`)."""
+    if q_idx is None:
+        rows = user_idx.long()
+        excl = None
+        if exclude_table is not None:
+            excl = exclude_table[rows]
+            if excl_map is not None:
+                excl = torch.where(excl < 0, -1, excl_map[excl.clamp(min=0).long()])
+        return topk_scores_reference(users[rows], vectors, k, excl)
+    qv, has_q = mean_query_reference(vectors, q_idx)
+    vals, idx = topk_scores_reference(qv, vectors, k, q_idx)
+    return (torch.where(has_q[:, None], vals, float("-inf")),
+            torch.where(has_q[:, None], idx, -1).to(torch.int32))
+
+
+def bank_query(
+    vectors: torch.Tensor,
+    k: int,
+    users: torch.Tensor | None = None,
+    user_idx: torch.Tensor | None = None,
+    exclude_table: torch.Tensor | None = None,
+    excl_map: torch.Tensor | None = None,
+    q_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: one source of the retrieval bank, ``(scores (B, k) f32, rows
+    (B, k) int32)`` against the source table ``vectors`` (I, d) (CUDA kernel
+    ``bank_query``). Two kinds:
+
+    - ``user_rows``: ``users`` (N, d) and ``user_idx`` (B,) int32; query b is
+      row ``user_idx[b]`` of ``users``. With ``exclude_table`` (M, E) it
+      excludes that table's row ``user_idx[b]``, each entry first mapped
+      through ``excl_map`` (M_items,) where given (a negative entry, or a
+      negative map value, drops it).
+    - ``item_mean``: ``q_idx`` (B, Q) int32, -1-padded rows of ``vectors``;
+      query b is their L2-normalized masked mean (:func:`mean_query_reference`)
+      and they are its exclusion list. A row with no valid entry gets
+      ``(-inf, -1)`` in every slot.
+    """
+    _check_k("bank_query", k)
+    mean_rows = q_idx is not None
+    if mean_rows == (users is not None):
+        raise ValueError("bank_query: pass users and user_idx (user_rows) or q_idx (item_mean)")
+    operands = [t for t in (vectors, users, user_idx, exclude_table, excl_map, q_idx) if t is not None]
+    if on_cpu("bank_query", *operands):
+        return bank_query_reference(vectors, k, users, user_idx, exclude_table, excl_map, q_idx)
+    n_items, d = vectors.shape
+    dev = vectors.device
+    _check_rank("bank_query", d)
+    check_operand("bank_query", "vectors", vectors, torch.float32, (n_items, d), dev)
+    if mean_rows:
+        b = q_idx.shape[0]
+        excl_ptr, n_excl, excl_pad = _exclusion("bank_query", "q_idx", q_idx, b, dev)
+        if n_excl == 0:
+            raise ValueError("bank_query: q_idx needs at least one column")
+        dpad = pow2_at_least(d)
+        users_ptr = idx_ptr = map_ptr = None
+    else:
+        b = user_idx.shape[0]
+        check_operand("bank_query", "users", users, torch.float32, (users.shape[0], d), dev)
+        check_operand("bank_query", "user_idx", user_idx, torch.int32, (b,), dev)
+        excl_ptr, n_excl, excl_pad = _exclusion(
+            "bank_query", "exclude_table", exclude_table,
+            0 if exclude_table is None else exclude_table.shape[0], dev)
+        map_ptr = None
+        if excl_map is not None:
+            check_operand("bank_query", "excl_map", excl_map, torch.int32, (excl_map.shape[0],), dev)
+            map_ptr = excl_map.data_ptr()
+        dpad, users_ptr, idx_ptr = 0, users.data_ptr(), user_idx.data_ptr()
+    _check_smem("bank_query", d, excl_pad, dpad)
+    vals, idx = _outputs(b, k, dev)
+    call(
+        "bank_query", dev, users_ptr, vectors.data_ptr(), idx_ptr, excl_ptr, map_ptr, int(mean_rows),
+        vals.data_ptr(), idx.data_ptr(), b, n_items, d, k, n_excl, excl_pad, dpad,
     )
     return vals, idx

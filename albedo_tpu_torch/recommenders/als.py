@@ -37,6 +37,23 @@ class ALSRecommender(Recommender):
         self.exclude_seen = exclude_seen
         self.item_block = item_block
 
+    def bank_registration(self):
+        """The trained factors as a retrieval-bank ``user_rows`` source: item
+        factors are the scored table, user factors the query table
+        (row-aligned with the matrix's dense users), opting into the shared
+        seen-item exclusion exactly when this recommender excludes seen
+        items."""
+        from albedo_tpu_torch.retrieval.bank import BankSourceSpec
+
+        return BankSourceSpec(
+            name=self.source,
+            kind="user_rows",
+            vectors=self.model.item_factors,
+            item_ids=self.matrix.item_ids,
+            user_vectors=self.model.user_factors,
+            exclude_seen=self.exclude_seen,
+        )
+
     def recommend_for_users(self, user_ids: np.ndarray) -> pd.DataFrame:
         dense = self.matrix.users_of(user_ids)
         known = dense >= 0

@@ -90,6 +90,23 @@ class ContentRecommender(Recommender):
             offset=self.top_k if enable_evaluation_mode else 0,
         )
 
+    def bank_registration(self):
+        """This source as a retrieval-bank ``item_mean`` registration. Needs
+        an embedding-backed backend (the table IS the source); an external
+        search service has no rows to register."""
+        from albedo_tpu_torch.retrieval.bank import BankSourceSpec
+
+        backend = self.backend
+        if not hasattr(backend, "vectors") or not hasattr(backend, "item_ids"):
+            raise TypeError(
+                "external search backends are not bank-registrable; keep "
+                "this source on the host fan-out path"
+            )
+        return BankSourceSpec(
+            name=self.source, kind="item_mean", vectors=backend.vectors,
+            item_ids=backend.item_ids, query_items=self._user_recent_repos,
+        )
+
     def recommend_for_users(self, user_ids: np.ndarray) -> pd.DataFrame:
         users = np.asarray(user_ids, dtype=np.int64)
         queries = [self._user_recent_repos(int(u)) for u in users]

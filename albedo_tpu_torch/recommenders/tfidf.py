@@ -183,6 +183,19 @@ class TfidfSimilaritySearch:
                           min(k, len(self.doc_ids)))
 
 
+    def bank_registration(self, query_items=None, name: str = "tfidf"):
+        """This projection as a retrieval-bank ``item_mean`` source over the
+        same host matrix the query paths score."""
+        from albedo_tpu_torch.retrieval.bank import BankSourceSpec
+
+        if self.matrix is None:
+            raise RuntimeError("fit() the tf-idf index before registering it")
+        return BankSourceSpec(
+            name=name, kind="item_mean", vectors=self.matrix,
+            item_ids=self.doc_ids, query_items=query_items,
+        )
+
+
 class TfidfRecommender(Recommender):
     """The TF-IDF projection as a stage-1 candidate source: per user, More-
     Like-This over their most recent stars."""
@@ -193,6 +206,9 @@ class TfidfRecommender(Recommender):
         super().__init__(**kwargs)
         self.search = search
         self._user_recent_repos = recent_starred_provider(starring_df, top_k=self.top_k)
+
+    def bank_registration(self):
+        return self.search.bank_registration(query_items=self._user_recent_repos)
 
     def recommend_for_users(self, user_ids: np.ndarray) -> pd.DataFrame:
         users = np.asarray(user_ids, dtype=np.int64)

@@ -25,7 +25,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    column, B = 1, 256 and 300; K11's masked_topk with ties, a strided block,
    a row whose every column is starred and k > n; K10's bpr_step at B = 1
    and 8192 with duplicate users and items, negatives equal to the positive
-   and side features of width 2.
+   and side features of width 2. Then the serving kernels, exactly: K5 at
+   k = 129, 256, 512 (and fewer admissible items than k); K6 gather_topk at
+   buckets 1/8/64 x k 32/512 in each exclusion mode, each row also equal to
+   K5 on that user alone; K7 bank_query for user rows (plain, excluded,
+   remapped) and item means at d 16, 50, 200, 3010 with an empty query row.
 4. job     — runs ``albedo_tpu_torch.cli.main(["train_als"])`` at the job's
    full size (rank 50, 26 iterations, Cholesky) and again with
    ``--solver cg``, with the launch counts set to 0 just before each run and
@@ -65,6 +69,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    call at the shapes of that fit, and computes each kernel's bound; and
    K11 (one block of 256 users through both CFs) and K10 (B = 8192) on that
    train split.
+
+8. serve   — the port's ``RecommendationService`` + ``serve()`` on
+   127.0.0.1 over the ``train_als`` job's tables and an ALS fit from a
+   pinned numpy init (rank 50): with the counts set to 0 just before and
+   read just after, 256 concurrent requests (mixed users, k in 3/7/30/500,
+   exclusion on and off) and the 250 test users' top-30 lists; every
+   batched answer must equal the direct path byte for byte, the served
+   NDCG@30 the offline evaluation exactly and the JAX value within
+   SERVE_TOL, and K6 must have launched and match its plain version at
+   every recorded batch. Then ``python -m albedo_tpu_torch.cli serve`` as a
+   subprocess: ready, three answers, a clean exit on SIGTERM. Then the bank
+   (``build_default_bank`` over the ALS, content --w2v-full, tf-idf and
+   user-similarity sources): the test users' candidates against the host
+   paths, K7 held at every recorded launch. Then timings: K6 at buckets
+   1/8/64 x k 32/512 at the job and bench scales, K7 per source at batch
+   64, K5 at k = 512, K4 and K12 (plain torch), each with its bound; and the
+   service's requests/s and p50/p99 at closed-loop concurrency 1, 8 and 64
+   from a client process (and 64 again with ``http.server``'s default
+   listen backlog of 5), with the card's busy share.
 
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
@@ -184,6 +207,8 @@ KERNELS = {
     "spmm_rows": ("albedo_tpu_torch/kernels/csrc/spmm_rows.cu", "albedo_tpu/recommenders/cf.py:74"),
     "masked_topk": ("albedo_tpu_torch/kernels/csrc/masked_topk.cu", "albedo_tpu/recommenders/cf.py:216"),
     "bpr_step": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
+    "gather_topk": ("albedo_tpu_torch/kernels/csrc/gather_topk.cu", "albedo_tpu/serving/batcher.py:118"),
+    "bank_query": ("albedo_tpu_torch/kernels/csrc/bank_query.cu", "albedo_tpu/retrieval/bank.py:187"),
 }
 
 
@@ -578,6 +603,104 @@ def phase_candidate_kernels() -> dict:
     emit({"phase": "candidate_kernels", "ok": ok, "rel_tol": CAND_REL, "worst_rel": worst, "cases": cases})
     if not ok:
         raise SystemExit("chip_smoke: a candidate-generator kernel disagrees with its plain version")
+    return worst
+
+
+def phase_serving_kernels() -> dict:
+    """K5 at k > 128, K6 gather_topk and K7 bank_query on edge cases, each
+    against its plain version, exactly (ties and -inf slots included)."""
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    worst = {name: 0.0 for name in ("topk_scores", "topk_scores_wide", "gather_topk", "bank_query")}
+    cases = []
+
+    def note(name, label, err):
+        worst[name] = max(worst[name], err[1])
+        cases.append({"kernel": name, "case": label, "abs": err[0], "rel": err[1]})
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def factors(n, r):
+        return (rng.standard_normal((n, r)) / np.sqrt(r)).astype(np.float32)
+
+    # K5 at k = 129, 256, 512 over the job's catalogue width (2936 items),
+    # ties from duplicated rows, -1-padded exclusions with duplicates; and
+    # a catalogue of 600 with 200 excluded, fewer admissible items than k.
+    vf = factors(2936, 50)
+    vf[1500:1600] = vf[:100]
+    uf = factors(37, 50)
+    excl = np.full((37, 300), -1, dtype=np.int32)
+    excl[:, :250] = rng.integers(0, 2936, size=(37, 250))
+    excl[:, 250] = excl[:, 0]
+    for k in (129, 256, 512):
+        note("topk_scores", f"k={k}, exclusions, ties", _hold_topk(t(uf), t(vf), k, t(excl)))
+    small_excl = np.tile(np.arange(200, dtype=np.int32), (37, 1))
+    note("topk_scores", "k=512, 400 admissible of 600", _hold_topk(t(uf), t(vf[:600]), 512, t(small_excl)))
+    wide_v, wide_u = factors(1500, 200), factors(9, 200)
+    note("topk_scores_wide", "r=200, k=512", _hold_topk(t(wide_u), t(wide_v), 512, t(excl[:9])))
+
+    # K6 at buckets 1, 8 and 64, k = 32 and 512, in each exclusion mode: the
+    # device table of every user's history (width = the longest), the
+    # batch's own rows, none. Each row must also equal K5 on that user alone.
+    n_users = 500
+    uf_all = t(factors(n_users, 50))
+    items = t(vf)
+    table = np.full((n_users, 700), -1, dtype=np.int32)
+    for u in range(n_users):
+        n = int(rng.integers(0, 700))
+        table[u, :n] = rng.choice(2936, size=n, replace=False)
+    table_t = t(table)
+    for bucket in (1, 8, 64):
+        ui = rng.integers(0, n_users, size=bucket).astype(np.int32)
+        ui[-1] = ui[0]  # a user twice in one batch
+        ui_t = t(ui)
+        for k in (32, 512):
+            for mode in ("device", "host", "none"):
+                kw = ({"exclude_table": table_t} if mode == "device"
+                      else {"exclude": t(table[ui])} if mode == "host" else {})
+                got = ops_topk.gather_topk(uf_all, items, ui_t, k, **kw)
+                err = _exact(got, ops_topk.gather_topk_reference(uf_all, items, ui_t, k, **kw))
+                ex_one = t(table[ui[:1]]) if mode != "none" else None
+                alone = ops_topk.topk_scores(uf_all[ui_t[:1].long()].contiguous(), items, k, ex_one)
+                same = _exact(tuple(x[:1] for x in got), alone)
+                note("gather_topk", f"bucket {bucket}, k={k}, {mode} exclusion",
+                     (max(err[0], same[0]), max(err[1], same[1])))
+
+    # K7: user_rows without and with exclusion, and with a remapped exclusion
+    # (a source whose rows are a shuffled subset of the matrix items); then
+    # item_mean at d = 16, 50, 200 and 3010, with a row with no query, rows
+    # with one and with 30 examples, and duplicated example rows.
+    perm = rng.permutation(2936)[:2500]
+    excl_map = np.full(2936, -1, dtype=np.int32)
+    excl_map[perm] = np.arange(2500, dtype=np.int32)
+    sub = t(vf[perm])
+    ui = t(rng.integers(0, n_users, size=64).astype(np.int32))
+    for k in (32, 512):
+        for label, kw in (("user_rows", {}), ("user_rows, exclusion", {"exclude_table": table_t}),
+                          ("user_rows, remapped exclusion", {"exclude_table": table_t, "excl_map": t(excl_map)})):
+            items_k = sub if "remapped" in label else items
+            got = ops_topk.bank_query(items_k, k, users=uf_all, user_idx=ui, **kw)
+            note("bank_query", f"{label}, k={k}", _exact(got, ops_topk.bank_query_reference(
+                items_k, k, users=uf_all, user_idx=ui, **kw)))
+    for d in (16, 50, 200, 3010):
+        table_d = np.abs(factors(2936, d)) if d == 3010 else factors(2936, d)
+        q = np.full((64, 32), -1, dtype=np.int32)
+        for b in range(1, 64):
+            n = 1 if b % 5 == 0 else int(rng.integers(1, 31))
+            q[b, :n] = rng.integers(0, 2936, size=n)
+        q[3, 1] = q[3, 0]
+        for k in (32, 512):
+            got = ops_topk.bank_query(t(table_d), k, q_idx=t(q))
+            note("bank_query", f"item_mean d={d}, k={k}, an empty row",
+                 _exact(got, ops_topk.bank_query_reference(t(table_d), k, q_idx=t(q))))
+    torch.cuda.synchronize()
+    ok = all(v == 0.0 for v in worst.values())
+    emit({"phase": "serving_kernels", "ok": ok, "worst_rel": worst, "cases": cases})
+    if not ok:
+        raise SystemExit("chip_smoke: a serving kernel disagrees with its plain version")
     return worst
 
 
@@ -1471,7 +1594,7 @@ def phase_bench() -> dict:
             raise SystemExit(f"chip_smoke: bench NDCG@30 ({solver}) {ndcg} is off {JAX_NDCG[solver]}")
         models[solver] = (est, model)
     est, model = models["cholesky"]
-    return _time_kernels(est, model, train, users, excl), train
+    return _time_kernels(est, model, train, users, excl), train, model
 
 
 def _time_kernels(est, model, train, users, excl) -> dict:
@@ -1597,12 +1720,498 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+
+# The served NDCG@30 of the ``serve`` phase's model (the ``train_als`` job's
+# tables, rank 50 x 26 iterations, Cholesky, from the numpy init of
+# ``jax_reference_ndcg.py ranker --shared``) for the job's 250 test users at
+# k = 30, seen items kept: the JAX package's value on the CPU
+# (``jax_reference_ndcg.py serve``; its offline evaluation is the same
+# number, and so is the port's on the CPU, ``serve --port``). SERVE_TOL is
+# room for the card's own summation orders: a swap of two near-tied items at
+# an early rank of one user's list moves NDCG@30 over 250 users by ~1e-4.
+JAX_SERVE_NDCG = 0.6975445747375488
+SERVE_TOL = 2e-4
+SERVE_KS = (3, 7, 30, 500)
+HTTP_TIMEOUT = 120.0
+
+
+def _http(url: str) -> tuple[int, dict]:
+    """(status, JSON body) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def _recording_calls(module, name: str, calls: list):
+    """Record every call ``module`` makes to its ``name`` (a kernel
+    wrapper) as (args, kwargs), and pass it on."""
+    real = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, {k: v for k, v in kwargs.items() if k != "out"}))
+        return real(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _shared_als_init():
+    """ALS fits start from the numpy init of ``jax_reference_ndcg.py ranker
+    --shared`` (``default_rng(1)`` Gaussian factors scaled by 1/sqrt(rank))."""
+    from albedo_tpu_torch.models import als as als_mod
+
+    als_fit = als_mod.ImplicitALS.fit
+
+    def shared_als_fit(self, matrix, *a, **k):
+        rng = np.random.default_rng(SHARED_SEED)
+        s = np.float32(1 / np.sqrt(self.rank))
+        self.init_factors = ((rng.standard_normal((matrix.n_users, self.rank)) * s).astype(np.float32),
+                             (rng.standard_normal((matrix.n_items, self.rank)) * s).astype(np.float32))
+        return als_fit(self, matrix, *a, **k)
+
+    als_mod.ImplicitALS.fit = shared_als_fit
+    try:
+        yield
+    finally:
+        als_mod.ImplicitALS.fit = als_fit
+
+
+def _pool_get(urls: list[str], workers: int) -> list[tuple[int, dict]]:
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(_http, urls))
+
+
+def phase_serve() -> dict:
+    """The serving path: ``RecommendationService`` + ``serve()`` on
+    127.0.0.1 over the ``train_als`` job's tables and an ALS fit from a
+    pinned numpy init (rank 50). With the launch counts set to 0, 256
+    concurrent requests (mixed users, k in SERVE_KS, exclusion on and off)
+    and the 250 test users' top-30 lists; then every batched answer against
+    the direct path (byte-identical), the served NDCG@30 against the offline
+    evaluation (equal) and the JAX value (SERVE_TOL), K6 held exactly at
+    every recorded batch, and ``python -m albedo_tpu_torch.cli serve`` run
+    once as a subprocess."""
+    import pandas as pd
+
+    from albedo_tpu_torch import cli, kernels
+    from albedo_tpu_torch.builders.jobs import TOP_K, JobContext
+    from albedo_tpu_torch.ops import topk as ops_topk
+    from albedo_tpu_torch.recommenders import ALSRecommender
+    from albedo_tpu_torch.serving import RecommendationService, serve
+    from albedo_tpu_torch.serving import batcher as batcher_mod
+
+    ctx = JobContext(cli.parse_args(["serve", "--w2v-full"] + NOW))
+    with _shared_als_init():
+        model = ctx.als_model()
+    matrix, tables = ctx.matrix(), ctx.tables()
+    t0 = time.perf_counter()
+    service = RecommendationService(model, matrix, repo_info=tables.repo_info, user_info=tables.user_info,
+                                    warm=True)
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    mixed = [(int(u), int(rng.choice(SERVE_KS)), int(rng.integers(0, 2)))
+             for u in rng.choice(matrix.user_ids, size=256)]
+    test_users = matrix.user_ids[ctx.test_user_dense()]
+    calls: list = []
+    with serve(service, port=0) as handle:
+        url = f"http://127.0.0.1:{handle.server_address[1]}"
+        with _recording_calls(batcher_mod, "gather_topk", calls):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            answers = _pool_get([f"{url}/recommend/{u}?k={k}&exclude_seen={e}" for u, k, e in mixed], 64)
+            served = _pool_get([f"{url}/recommend/{u}?k={TOP_K}&exclude_seen=0" for u in test_users], 64)
+            drive_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        ready = _http(f"{url}/healthz/ready")
+    statuses = sorted({st for st, _ in answers + served})
+    mismatch = sum(body["items"] != service.recommend(u, k=k, exclude_seen=bool(e))["items"]
+                   for (u, k, e), (_, body) in zip(mixed, answers))
+    mismatch += sum(body["items"] != service.recommend(int(u), k=TOP_K, exclude_seen=False)["items"]
+                    for u, (_, body) in zip(test_users, served))
+    frame = pd.DataFrame([(int(u), it["repo_id"], it["score"]) for u, (_, body) in zip(test_users, served)
+                          for it in body["items"]], columns=["user_id", "repo_id", "score"])
+    served_ndcg = ctx.evaluate_topk(frame)
+    offline_ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=TOP_K).recommend_for_users(test_users))
+    held = max((_exact(ops_topk.gather_topk(*a, **kw), ops_topk.gather_topk_reference(*a, **kw))
+                for a, kw in calls), key=lambda e: e[1])
+    batches = [(int(a[2].shape[0]), int(a[3]), "device" if kw.get("exclude_table") is not None
+                else "host" if kw.get("exclude") is not None else "none") for a, kw in calls]
+    torch.cuda.synchronize()
+    cli_report = _serve_cli(int(matrix.user_ids[5]))
+    ok = (statuses == [200] and mismatch == 0 and served_ndcg == offline_ndcg
+          and abs(served_ndcg - JAX_SERVE_NDCG) <= SERVE_TOL and held[1] == 0.0
+          and launches["gather_topk"] > 0 and ready[0] == 200 and cli_report["ok"])
+    emit({"phase": "serve", "ok": ok, "requests": len(mixed) + len(served), "statuses": statuses,
+          "drive_s": drive_s, "warm_s": warm_s, "mismatch_vs_direct": mismatch,
+          "served_ndcg": served_ndcg, "offline_ndcg": offline_ndcg, "jax_ndcg": JAX_SERVE_NDCG,
+          "tol": SERVE_TOL, "launches": launches, "k6_held": held, "batches": len(calls),
+          "mean_batch": float(np.mean([b for b, _, _ in batches])),
+          "batch_shapes": sorted({f"{b}x{k}:{m}" for b, k, m in batches}),
+          "excl_width": service.batcher.excl_width, "ready": ready[1], "cli": cli_report})
+    if not ok:
+        raise SystemExit("chip_smoke: the serve phase failed (statuses, parity with the direct path, "
+                         "NDCG@30, K6 against its plain version, launches or the serve CLI)")
+    return {"ctx": ctx, "model": model, "service": service, "launches": launches["gather_topk"],
+            "calls": calls}
+
+
+def _serve_cli(uid: int) -> dict:
+    """``python -m albedo_tpu_torch.cli serve --port 0`` as a subprocess: wait
+    for its listening line, GET /healthz/ready and three /recommend, then
+    SIGTERM, which must drain it to exit 0."""
+    import queue as queue_mod
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "albedo_tpu_torch.cli", "serve", "--port", "0",
+                             "--duration", "600"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: "queue_mod.Queue[str]" = queue_mod.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True)
+    reader.start()
+    out, url, codes, rc = [], None, [], None
+    try:
+        deadline = time.monotonic() + 300
+        while url is None and time.monotonic() < deadline and proc.poll() is None:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue_mod.Empty:
+                continue
+            out.append(line.rstrip())
+            m = re.search(r"listening on (http://\S+?)/ ", line)
+            if m:
+                url = m.group(1)
+        start_s = time.perf_counter() - t0
+        if url is not None:
+            codes.append(_http(f"{url}/healthz/ready")[0])
+            for k in (3, 30, 500):
+                st, body = _http(f"{url}/recommend/{uid}?k={k}")
+                codes.append(st if len(body.get("items", [])) == k else -st)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    while not lines.empty():
+        out.append(lines.get().rstrip())
+    return {"ok": url is not None and codes == [200] * 4 and rc == 0, "codes": codes, "rc": rc,
+            "start_s": start_s, "output": out[-5:]}
+
+
+def phase_bank(serve_state: dict) -> dict:
+    """``build_default_bank`` over the job's ALS (the serve phase's model),
+    content (Word2Vec --w2v-full) and tf-idf sources, with the launch counts
+    set to 0: the 250 test users' candidates per source against the host
+    paths (scores within 1e-5 of the largest, lists equal up to near-ties,
+    as the JAX package's ``test_bank_matches_host_paths_per_source``), and
+    K7 held exactly at every recorded launch."""
+    from albedo_tpu_torch import kernels
+    from albedo_tpu_torch.builders.jobs import TOP_K
+    from albedo_tpu_torch.ops import topk as ops_topk
+    from albedo_tpu_torch.recommenders import (
+        ALSRecommender,
+        ContentRecommender,
+        EmbeddingSearchBackend,
+        TfidfRecommender,
+        TfidfSimilaritySearch,
+    )
+    from albedo_tpu_torch.retrieval import bank as bank_mod
+    from albedo_tpu_torch.retrieval import build_default_bank, candidate_parity
+
+    ctx, model, service = serve_state["ctx"], serve_state["model"], serve_state["service"]
+    matrix, tables = ctx.matrix(), ctx.tables()
+    backend = EmbeddingSearchBackend(tables.repo_info, ctx.word2vec(), device=ctx.device)
+    search = TfidfSimilaritySearch(min_df=2, device=ctx.device).fit(tables.repo_info)
+    dense = ctx.test_user_dense()
+    raw = matrix.user_ids[dense]
+    calls: list = []
+    with _recording_calls(bank_mod, "bank_query", calls):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        bank = build_default_bank(model, matrix, starring_df=tables.starring, content_backend=backend,
+                                  tfidf_search=search, with_user_sim=True, exclude_table=service.exclude_table,
+                                  device=ctx.device)
+        got = bank.query(dense, TOP_K, raw_user_ids=raw, exclude_seen=True)
+        torch.cuda.synchronize()
+        query_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    hosts = {
+        "als": ALSRecommender(model, matrix, exclude_seen=True, top_k=TOP_K),
+        "content": ContentRecommender(backend, tables.starring, top_k=TOP_K),
+        "tfidf": TfidfRecommender(search, tables.starring, top_k=TOP_K),
+    }
+    parity = {}
+    for name, rec in hosts.items():
+        frame = rec.recommend_for_users(raw)
+        vals, idx = got[name]
+        worst, bad = 0.0, 0
+        for b, u in enumerate(raw):
+            rows = frame[frame["user_id"] == int(u)]
+            host = rows["repo_id"].to_numpy(np.int64), rows["score"].to_numpy(np.float64)
+            ok_b = (idx[b] >= 0) & np.isfinite(vals[b])
+            mine = bank.specs[name].item_ids[idx[b][ok_b]], vals[b][ok_b].astype(np.float64)
+            scale = max(1.0, float(np.abs(host[1]).max()) if host[1].size else 1.0)
+            rep = candidate_parity(host, mine, atol=1e-5 * scale)
+            bad += not rep["ok"]
+            worst = max(worst, rep.get("max_score_err", 0.0))
+        parity[name] = {"users_off": bad, "max_score_err": worst}
+    held = max((_exact(ops_topk.bank_query(*a, **kw), ops_topk.bank_query_reference(*a, **kw))
+                for a, kw in calls), key=lambda e: e[1])
+    torch.cuda.synchronize()
+    ok = (all(v["users_off"] == 0 for v in parity.values()) and held[1] == 0.0
+          and launches["bank_query"] > 0)
+    emit({"phase": "bank", "ok": ok, "users": int(dense.size), "build_and_query_s": query_s,
+          "launches": launches, "parity_vs_host": parity, "k7_held": held, "k7_calls": len(calls),
+          "manifest": {n: {k: v for k, v in s.items() if k != "calibration"} | {"scale": s["calibration"]["scale"]}
+                       for n, s in bank.manifest()["sources"].items()}})
+    if not ok:
+        raise SystemExit("chip_smoke: the bank phase failed (host-path parity, K7 against its plain "
+                         "version, or launches)")
+    return {"launches": launches["bank_query"], "calls": calls, "bank": bank}
+
+
+def _k6_work(uf, vf, b: int, k: int, width: int) -> tuple[int, int]:
+    """Bytes (each user row, the item table, each exclusion row and the
+    indices read once, the (B, k) answer written once) and FP32 operations
+    of one K6 launch."""
+    r = uf.shape[1]
+    return 4 * (b * r + vf.numel() + b * width + b) + 8 * b * k, 2 * b * vf.shape[0] * r
+
+
+def _time_k6(uf, vf, table, rng, b: int, k: int) -> dict:
+    """K6 at one bucket and k with device exclusion: kernel, plain version,
+    and ``torch.topk`` of the masked ``uf[idx] @ vf.T``."""
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    ui = torch.as_tensor(rng.integers(0, uf.shape[0], size=b).astype(np.int32), device=uf.device)
+
+    def library():
+        rows = ui.long()
+        scores = uf[rows] @ vf.T
+        ex = table[rows].long()
+        hit = torch.zeros((b, vf.shape[0] + 1), dtype=torch.bool, device=uf.device)
+        hit.scatter_(1, torch.where(ex < 0, vf.shape[0], ex), True)
+        return torch.topk(scores.masked_fill(hit[:, :-1], float("-inf")), min(k, vf.shape[0]), dim=1)
+
+    got = ops_topk.gather_topk(uf, vf, ui, k, exclude_table=table)
+    want = ops_topk.gather_topk_reference(uf, vf, ui, k, exclude_table=table)
+    nbytes, flops = _k6_work(uf, vf, b, k, table.shape[1])
+    return dict(err=_exact(got, want),
+                ms=cuda_ms(lambda: ops_topk.gather_topk(uf, vf, ui, k, exclude_table=table), reps=10),
+                plain_ms=cuda_ms(lambda: ops_topk.gather_topk_reference(uf, vf, ui, k, exclude_table=table)),
+                library_ms=cuda_ms(library, reps=10), bytes=nbytes, flops=flops,
+                shape={"B": b, "k": k, "users": uf.shape[0], "items": vf.shape[0], "r": uf.shape[1],
+                       "excl_width": int(table.shape[1])})
+
+
+def _time_k7(args, kw) -> dict:
+    """K7 at one recorded (source, batch) launch: kernel, plain version and
+    ``torch.topk`` of the masked product of the same queries (an item-mean
+    query assembled by torch ops first)."""
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    vf, k = args[0], args[1]
+    q_idx = kw.get("q_idx")
+    if q_idx is not None:
+        b, width = q_idx.shape
+        qv_rows, excl = None, q_idx
+    else:
+        b, width = kw["user_idx"].shape[0], 0 if kw.get("exclude_table") is None else kw["exclude_table"].shape[1]
+        qv_rows, excl = kw["users"], None
+
+    def library():
+        if q_idx is not None:
+            valid = q_idx >= 0
+            rows = vf[q_idx.clamp(min=0).long()] * valid[..., None]
+            qv = rows.sum(1) / valid.sum(1, keepdim=True).clamp_min(1)
+            qv = qv / qv.norm(dim=1, keepdim=True).clamp_min(1e-9)
+            ex = q_idx
+        else:
+            qv = qv_rows[kw["user_idx"].long()]
+            ex = None if kw.get("exclude_table") is None else kw["exclude_table"][kw["user_idx"].long()]
+            if ex is not None and kw.get("excl_map") is not None:
+                ex = torch.where(ex < 0, -1, kw["excl_map"][ex.clamp(min=0).long()])
+        scores = qv @ vf.T
+        if ex is not None:
+            hit = torch.zeros((b, vf.shape[0] + 1), dtype=torch.bool, device=vf.device)
+            hit.scatter_(1, torch.where(ex < 0, vf.shape[0], ex.long()), True)
+            scores = scores.masked_fill(hit[:, :-1], float("-inf"))
+        return torch.topk(scores, min(k, vf.shape[0]), dim=1)
+
+    d = vf.shape[1]
+    extra = b * width * d if q_idx is not None else 0  # the mean's adds
+    nbytes = 4 * (vf.numel() + b * width + b * (d if q_idx is None else 0) + b) + 8 * b * k
+    return dict(err=_exact(ops_topk.bank_query(*args, **kw), ops_topk.bank_query_reference(*args, **kw)),
+                ms=cuda_ms(lambda: ops_topk.bank_query(*args, **kw), reps=10),
+                plain_ms=cuda_ms(lambda: ops_topk.bank_query_reference(*args, **kw)),
+                library_ms=cuda_ms(library, reps=10), bytes=nbytes, flops=2 * b * vf.shape[0] * d + extra,
+                shape={"B": b, "k": k, "rows": vf.shape[0], "d": d, "q_or_excl_width": width})
+
+
+# The load generator of ``_load``: a process of its own, so its clients do
+# not share the server's interpreter lock. argv: url, concurrency, seconds;
+# stdin: the JSON list of user ids; prints the latencies and status counts.
+LOAD_CLIENT = r"""
+import json, random, sys, threading, time, urllib.error, urllib.request
+url, concurrency, seconds = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+users = json.loads(sys.stdin.read())
+lat, codes, lock = [], {}, threading.Lock()
+def client(seed):
+    rng = random.Random(seed)
+    while time.monotonic() < stop:
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"{url}/recommend/{rng.choice(users)}?k=30", timeout=120) as r:
+                r.read()
+                status = r.status
+        except urllib.error.HTTPError as e:
+            status = e.code
+        dt = time.perf_counter() - t0
+        with lock:
+            lat.append(dt)
+            codes[status] = codes.get(status, 0) + 1
+stop = time.monotonic() + seconds
+t0 = time.perf_counter()
+threads = [threading.Thread(target=client, args=(i,)) for i in range(concurrency)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"lat": lat, "codes": codes, "elapsed": time.perf_counter() - t0}))
+"""
+
+
+def _load(url: str, users, concurrency: int, seconds: float) -> dict:
+    """Closed-loop load from another process: ``concurrency`` clients, each
+    sending its next request (random user, k = 30, seen items excluded)
+    when the last one answers, for ``seconds``; requests/s, p50/p99
+    latency, and the device's busy share over the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        proc = subprocess.run([sys.executable, "-c", LOAD_CLIENT, url, str(concurrency), str(seconds)],
+                              input=json.dumps([int(u) for u in users]), capture_output=True, text=True,
+                              timeout=seconds + 2 * HTTP_TIMEOUT, check=True)
+    out = json.loads(proc.stdout)
+    lat, wall = np.asarray(out["lat"]), out["elapsed"]
+    summary = _device_summary(prof, wall)
+    return {"concurrency": concurrency, "requests": int(lat.size), "codes": out["codes"],
+            "rps": lat.size / wall, "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3, "max_ms": float(lat.max()) * 1e3,
+            "device_busy_share": summary["device_busy_s"] / wall, "top_device_ms": summary.get("top_device_ms")}
+
+
+def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench_train) -> dict:
+    """K6 per batch at buckets 1/8/64 and k 32/512 at the job scale and the
+    bench scale (30000 x 20000, the train split's exclusion table), K7 per
+    source at batch 64, K5 at k = 512, K4 and K12 (plain torch) at bench
+    scale, each against its bound; then the serve path's requests/s and
+    p50/p99 latency at closed-loop concurrency 1, 8 and 64 (10 s each, the
+    result cache off so every request reaches the card) with the device's
+    busy share."""
+    from albedo_tpu_torch.datasets.ragged import padded_rows
+    from albedo_tpu_torch.ops import als as ops_als
+    from albedo_tpu_torch.ops import topk as ops_topk
+    from albedo_tpu_torch.serving import RecommendationService, serve
+    from albedo_tpu_torch.serving import http as http_mod
+    from albedo_tpu_torch.utils.watchdog import factor_health
+
+    rng = np.random.default_rng(31)
+    service = serve_state["service"]
+    uf, vf = service.model.device_factors()
+    job_table = torch.as_tensor(service.exclude_table, device=uf.device)
+    buf, bvf = bench_model.device_factors()
+    indptr, cols, _ = bench_train.csr()
+    bench_table = torch.as_tensor(padded_rows(indptr, cols, np.arange(bench_train.n_users)), device=buf.device)
+    k6 = {}
+    for scale, (u, v, table) in (("job", (uf, vf, job_table)), ("bench", (buf, bvf, bench_table))):
+        for b in (1, 8, 64):
+            for k in (32, 512):
+                k6[f"{scale} B={b} k={k}"] = _timed(_time_k6(u, v, table, rng, b, k))
+    k7 = {}
+    for args, kw in bank_state["calls"]:
+        name = next(n for n, t in bank_state["bank"]._vf.items() if t is args[0])
+        b = (kw["q_idx"] if "q_idx" in kw else kw["user_idx"]).shape[0]
+        if b == 64 and name not in k7:
+            k7[name] = _timed(_time_k7(args, kw))
+    users = torch.as_tensor(rng.integers(0, buf.shape[0], size=500), device=buf.device)
+    q = buf[users].contiguous()
+    ex = bench_table[users].contiguous()
+    k5 = _timed(dict(err=_hold_topk(q, bvf, 512, ex),
+                     ms=cuda_ms(lambda: ops_topk.topk_scores(q, bvf, 512, ex)),
+                     plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q, bvf, 512, ex)),
+                     library_ms=None,
+                     bytes=4 * (q.numel() + bvf.numel() + ex.numel()) + 8 * 500 * 512,
+                     flops=2 * 500 * bvf.shape[0] * bvf.shape[1]))
+    # K4 (plain torch): the Gramian of each table and one half-sweep's landing
+    # gather; K12 (plain torch): the health vector of both tables.
+    land = torch.randperm(buf.shape[0], device=buf.device)
+    slots = torch.zeros((buf.shape[0], buf.shape[1]), device=buf.device)
+    r = buf.shape[1]
+    n_rows = buf.shape[0] + bvf.shape[0]
+    plain = {
+        "gramian": dict(err=(0.0, 0.0), ms=cuda_ms(lambda: (ops_als.gramian(buf), ops_als.gramian(bvf)), reps=10),
+                        plain_ms=None, library_ms=None, bytes=4 * (n_rows * r + 2 * r * r), flops=2 * n_rows * r * r),
+        "landing": dict(err=(0.0, 0.0), ms=cuda_ms(lambda: torch.cat([slots, buf])[land], reps=10), plain_ms=None,
+                        library_ms=None, bytes=8 * buf.numel() + 8 * buf.shape[0], flops=0),
+        "factor_health": dict(err=(0.0, 0.0), ms=cuda_ms(lambda: factor_health(buf, bvf), reps=10), plain_ms=None,
+                              library_ms=None, bytes=4 * n_rows * r, flops=4 * n_rows * r),
+    }
+    timed_plain = {n: _timed(v) for n, v in plain.items()}
+    load, mean_batch = [], {}
+    matrix = serve_state["ctx"].matrix()
+    # The port's server, then (the last run) the listen backlog of 5 that
+    # http.server gives by default and the JAX server keeps.
+    backlog = http_mod._Server.request_queue_size
+    for label, levels in ((backlog, (1, 8, 64)), (5, (64,))):
+        http_mod._Server.request_queue_size = label
+        try:
+            svc = RecommendationService(service.model, matrix, warm=True)
+            with serve(svc, port=0) as handle:
+                url = f"http://127.0.0.1:{handle.server_address[1]}"
+                for c in levels:
+                    load.append(dict(_load(url, matrix.user_ids, c, 10.0), backlog=label))
+                mean_batch[f"backlog {label}"] = svc.batcher.mean_batch_size
+        finally:
+            http_mod._Server.request_queue_size = backlog
+    torch.cuda.synchronize()
+    ok = (all(v["rel_err"] == 0.0 for v in [*k6.values(), *k7.values(), k5])
+          and all(set(r_["codes"]) == {"200"} for r_ in load))
+    emit({"phase": "serving_timing", "ok": ok, "k6": k6, "k7": k7, "k5_k512": k5, "plain_torch": timed_plain,
+          "load": load, "mean_batch": mean_batch})
+    if not ok:
+        raise SystemExit("chip_smoke: a serving kernel disagrees at its timed inputs, or a load run saw non-200")
+    k7_sum = {key: sum(v[key] for v in k7.values()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "gather_topk": k6["job B=64 k=32"],
+        "bank_query": dict(next(iter(k7.values())), **k7_sum,
+                           max_abs_err=max(v["max_abs_err"] for v in k7.values()),
+                           bound_by=max(k7.values(), key=lambda v: v["bound_ms"])["bound_by"]),
+    }
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     phase_kernels()
     phase_ranker_kernels()
     phase_candidate_kernels()
+    phase_serving_kernels()
     launches = phase_job()
     ranker_launches, inputs = phase_ranker_job()
     ranker_timed = phase_ranker_timing(inputs)
@@ -1610,9 +2219,13 @@ def main() -> int:
     cand_launches, cand_calls = phase_candidates()
     cand_timed = phase_candidate_timing(cand_calls)
     launches.update({n: cand_launches[n] for n in cand_timed})
-    bench_timed, train = phase_bench()
+    bench_timed, train, bench_model = phase_bench()
     phase_candidate_bench(train)
-    timed = dict(bench_timed, **ranker_timed, **cand_timed)
+    serve_state = phase_serve()
+    bank_state = phase_bank(serve_state)
+    serving_timed = phase_serving_timing(serve_state, bank_state, bench_model, train)
+    launches.update(gather_topk=serve_state["launches"], bank_query=bank_state["launches"])
+    timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -5,6 +5,7 @@ and the ranker job's AUC and NDCG@30.
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py [cholesky|cg ...]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py candidates [--port] [--seeds 42,1,2,3]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py serve [--port]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 ``synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)``, a 10%
@@ -39,6 +40,14 @@ factorization's and Word2Vec's seed); and ``content`` (Word2Vec dim 16) with
 the Word2Vec vectors of ``ranker --shared``. One JSON line per run, with the
 job's NDCG@30 (for ``tfidf_content``, its similar-repo list); a few minutes
 in all on a CPU.
+
+``serve`` pins the ``serve`` phase of ``chip_smoke.py``: the ALS model of the
+``train_als`` job's tables (rank 50, 26 iterations, Cholesky, data policy
+``off``) fitted from the numpy init of ``--shared``, served for the job's
+250 test users at k = 30 with seen items kept (the job's protocol) through
+the service's direct path, and the NDCG@30 of those served lists beside the
+job's offline evaluation of the same model. One JSON line; about a minute on
+a CPU.
 """
 
 from __future__ import annotations
@@ -124,6 +133,12 @@ def _vocab(sentences: list[list[str]], min_count: int) -> list[str]:
 def _share_weights(als, word2vec) -> None:
     """Make every ALS fit start from :func:`shared_als_init` and every
     Word2Vec fit return :func:`shared_w2v_vectors` (``--shared``)."""
+    _share_als_init(als)
+    _share_w2v_vectors(word2vec)
+
+
+def _share_als_init(als) -> None:
+    """Make every ALS fit start from :func:`shared_als_init`."""
     als_fit = als.ImplicitALS.fit
 
     def fit(self, matrix, *a, **k):
@@ -131,7 +146,6 @@ def _share_weights(als, word2vec) -> None:
         return als_fit(self, matrix, *a, **k)
 
     als.ImplicitALS.fit = fit
-    _share_w2v_vectors(word2vec)
 
 
 def _share_w2v_vectors(word2vec) -> None:
@@ -233,9 +247,51 @@ def candidates(argv: list[str]) -> None:
     emit("content", _run_job(jobs, "content", args.port), weights="shared", w2v_full=False)
 
 
+def serve(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py serve")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    args = ap.parse_args(argv)
+    import pandas as pd
+
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.models import als
+        from albedo_tpu_torch.recommenders import ALSRecommender
+        from albedo_tpu_torch.serving import RecommendationService
+    else:
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.models import als
+        from albedo_tpu.recommenders import ALSRecommender
+        from albedo_tpu.serving import RecommendationService
+    _share_als_init(als)
+    ns = argparse.Namespace(small=False, now=1600000000.0, w2v_full=False, data_policy="off",
+                            no_compilation_cache=True, device="cpu")
+    with tempfile.TemporaryDirectory() as data_dir:
+        os.environ["ALBEDO_DATA_DIR"] = data_dir
+        os.environ["ALBEDO_CHECKPOINT_DIR"] = os.path.join(data_dir, "checkpoints")
+        if not args.port:
+            from albedo_tpu.settings import reset_settings
+
+            reset_settings()
+        ctx = jobs.JobContext(ns)
+        model, matrix = ctx.als_model(), ctx.matrix()
+        users = matrix.user_ids[ctx.test_user_dense()]
+        offline = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=30).recommend_for_users(users))
+        with RecommendationService(model, matrix, batching=False) as service:
+            rows = [(int(u), item["repo_id"], item["score"]) for u in users
+                    for item in service.recommend(int(u), k=30, exclude_seen=False)["items"]]
+        served = ctx.evaluate_topk(pd.DataFrame(rows, columns=["user_id", "repo_id", "score"]))
+    print(json.dumps({
+        "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+        "served_ndcg": served, "offline_ndcg": offline, "users": int(users.size),
+    }), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ranker"]:
         ranker(sys.argv[2:])
+    elif sys.argv[1:2] == ["serve"]:
+        serve(sys.argv[2:])
     elif sys.argv[1:2] == ["candidates"]:
         candidates(sys.argv[2:])
     else:

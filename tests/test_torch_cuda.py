@@ -18,7 +18,9 @@ above 64) and K11's masked_topk are exact, ties included; K11's spmm_rows is
 held to 1e-6 of each element's L1 mass (kernel and plain version both sum in
 float64, in other orders, and round once) and K10's bpr_step to 5e-5 of
 ``ops.bpr.bpr_grad_mass`` and of |loss| (atomics, as K9). No tolerance has a floor, so the small gradients
-are held as tightly as the tables.
+are held as tightly as the tables. K5 at k > 128, K6 gather_topk and K7
+bank_query are exact, ties and (-inf, -1) slots included (K5's body and
+arithmetic), and a K6 row equals K5 on that user alone.
 """
 
 import numpy as np
@@ -358,3 +360,69 @@ def test_candidate_kernels_raise_instead_of_falling_back(dev):
         ops_bpr.bpr_step(*p, torch.zeros((5, 1), device=dev), i32, i32,
                          torch.zeros((2, 4), dtype=torch.int32, device=dev),
                          *[torch.zeros_like(t) for t in p], torch.zeros(1, device=dev), 1e-4)
+
+
+@pytest.mark.parametrize("k", [129, 256, 512])
+def test_k5_wide_k_matches_plain_exactly(dev, k):
+    rng = np.random.default_rng(k)
+    uf = torch.as_tensor((rng.standard_normal((17, 50)) / 7).astype(np.float32), device=dev)
+    vf_np = (rng.standard_normal((2936, 50)) / 7).astype(np.float32)
+    vf_np[2000:2100] = vf_np[:100]                   # exact ties
+    vf = torch.as_tensor(vf_np, device=dev)
+    ex = torch.as_tensor(rng.integers(-1, 2936, size=(17, 300)).astype(np.int32), device=dev)
+    for items, excl in ((vf, ex), (vf[:600], ex.clamp(max=599))):   # fewer admissible than k
+        s, i = ops_topk.topk_scores(uf, items, k, excl)
+        s_p, i_p = ops_topk.topk_scores_reference(uf, items, k, excl)
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+
+
+@pytest.mark.parametrize("mode", ["device", "host", "none"])
+@pytest.mark.parametrize("bucket", [1, 8, 64])
+def test_k6_gather_topk_matches_plain_and_k5(dev, mode, bucket):
+    rng = np.random.default_rng(bucket)
+    uf_all = torch.as_tensor((rng.standard_normal((300, 50)) / 7).astype(np.float32), device=dev)
+    vf = torch.as_tensor((rng.standard_normal((2936, 50)) / 7).astype(np.float32), device=dev)
+    table_np = np.full((300, 400), -1, dtype=np.int32)
+    for u in range(300):
+        n = int(rng.integers(0, 400))
+        table_np[u, :n] = rng.choice(2936, size=n, replace=False)
+    ui_np = rng.integers(0, 300, size=bucket).astype(np.int32)
+    ui = torch.as_tensor(ui_np, device=dev)
+    kw = ({"exclude_table": torch.as_tensor(table_np, device=dev)} if mode == "device"
+          else {"exclude": torch.as_tensor(table_np[ui_np], device=dev)} if mode == "host" else {})
+    for k in (32, 512):
+        kernels.reset_launches()
+        s, i = ops_topk.gather_topk(uf_all, vf, ui, k, **kw)
+        assert kernels.LAUNCHES["gather_topk"] == 1
+        s_p, i_p = ops_topk.gather_topk_reference(uf_all, vf, ui, k, **kw)
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+        one = None if mode == "none" else torch.as_tensor(table_np[ui_np[-1:]], device=dev)
+        s1, i1 = ops_topk.topk_scores(uf_all[ui[-1:].long()].contiguous(), vf, k, one)
+        assert torch.equal(i[-1:], i1) and torch.equal(s[-1:], s1)
+
+
+@pytest.mark.parametrize("d", [16, 50, 200, 3010])
+def test_k7_bank_query_matches_plain_exactly(dev, d):
+    rng = np.random.default_rng(d)
+    vf = torch.as_tensor(np.abs(rng.standard_normal((2936, d))).astype(np.float32), device=dev)
+    q = np.full((64, 32), -1, dtype=np.int32)
+    for b in range(1, 64):
+        n = int(rng.integers(1, 31))
+        q[b, :n] = rng.integers(0, 2936, size=n)
+    q_t = torch.as_tensor(q, device=dev)
+    kernels.reset_launches()
+    got = ops_topk.bank_query(vf, 30, q_idx=q_t)
+    assert kernels.LAUNCHES["bank_query"] == 1
+    want = ops_topk.bank_query_reference(vf, 30, q_idx=q_t)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert bool((got[1][0] == -1).all())             # the row with no query
+    users = torch.as_tensor(rng.standard_normal((100, d)).astype(np.float32), device=dev)
+    ui = torch.as_tensor(rng.integers(0, 100, size=64).astype(np.int32), device=dev)
+    table = torch.as_tensor(rng.integers(-1, 2936, size=(100, 50)).astype(np.int32), device=dev)
+    emap_np = rng.permutation(2936).astype(np.int32)
+    emap_np[::5] = -1
+    emap = torch.as_tensor(emap_np, device=dev)
+    for kw in ({}, {"exclude_table": table}, {"exclude_table": table, "excl_map": emap}):
+        got = ops_topk.bank_query(vf, 30, users=users, user_idx=ui, **kw)
+        want = ops_topk.bank_query_reference(vf, 30, users=users, user_idx=ui, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

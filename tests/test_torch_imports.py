@@ -42,7 +42,10 @@ def test_every_module_imports_without_nvcc():
     for needed in ("kernels.build", "cli", "ops.sparse_linear", "ops.sgns", "models.word2vec",
                    "models.logistic_regression", "builders.ranker", "features.assembler",
                    "ops.spmm", "ops.bpr", "models.ranking_factorization", "recommenders.cf",
-                   "recommenders.tfidf", "recommenders.content"):
+                   "recommenders.tfidf", "recommenders.content", "utils.events", "utils.faults",
+                   "serving.batcher", "serving.service", "serving.cache", "serving.metrics",
+                   "serving.overload", "serving.http", "retrieval.bank", "retrieval.build",
+                   "retrieval.parity"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
@@ -52,6 +55,7 @@ def test_every_module_imports_without_nvcc():
     assert set(kernels.LAUNCHES) == {
         "als_partials", "solve_corrected", "bucket_cg", "topk_scores", "topk_scores_wide",
         "segment_dot", "sgns_step", "adam_dense", "spmm_rows", "masked_topk", "bpr_step",
+        "gather_topk", "bank_query",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:
@@ -80,3 +84,36 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     vals, idx = topk_scores(torch.eye(3), torch.eye(3), 2)
     assert idx[:, 0].tolist() == [0, 1, 2]
     assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def test_launch_counts_keep_every_concurrent_launch(monkeypatch):
+    """The serving batcher and HTTP threads launch kernels at once: the
+    launch counter is a locked read-modify-write, so no launch is lost
+    (16 threads x 2000 launches of a stand-in library, with a tiny switch
+    interval to force interleaving)."""
+    import contextlib
+    import sys
+    import threading
+    import types
+
+    from albedo_tpu_torch import kernels
+    from albedo_tpu_torch.kernels import build
+
+    monkeypatch.setitem(build._libs, "topk_scores", types.SimpleNamespace(topk_scores_launch=lambda *a: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: types.SimpleNamespace(cuda_stream=0))
+    kernels.reset_launches()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [build.call("topk_scores", "cuda") for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert kernels.launch_counts()["topk_scores"] == 16 * 2000
+    kernels.reset_launches()
