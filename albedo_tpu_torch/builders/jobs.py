@@ -13,7 +13,10 @@ matrix (data policy ``off``: the validation firewall is not ported yet), the
 ALS fit under the divergence watchdog, top-30 retrieval and NDCG@30; the
 profiles, the Word2Vec corpus and fit, and the LR ranker with its AUC and
 re-ranked NDCG@30; the candidate sources with their NDCG@30 (the CFs and the
-ranking factorization on a held-out split) and the tf-idf similar-repo list.
+ranking factorization on a held-out split) and the tf-idf similar-repo list;
+``serve``, in ALS mode or two-stage (``--two-stage``: popularity and
+curation beside the batched ALS source, re-ranked by the LR ranker trained
+in process).
 
 Evaluation protocol matches the builders: train on the FULL star matrix,
 sample test users (+ the canary user), recommend top-30, and score NDCG@30
@@ -21,8 +24,8 @@ against each user's most recent 30 stars (``ALSRecommenderBuilder.scala:60-105``
 The port has no artifact cache yet, so the ALS and Word2Vec models a job
 needs are trained in process, once per :class:`JobContext`. Not ported yet:
 the ``--tables`` sources, the artifact cache, checkpointed and mesh fits,
-``serve --two-stage/--bank/--reload-watch``, and the other jobs (``cv_als``,
-the profile, ``build_bank``, scoring and streaming jobs).
+``serve --bank/--reload-watch``, and the other jobs (``cv_als``, the
+profile, ``build_bank``, scoring and streaming jobs).
 """
 
 from __future__ import annotations
@@ -193,6 +196,30 @@ class JobContext:
                 self._cache["w2v"] = est.fit_corpus(corpus)
             self._cache["w2v_report"] = getattr(est, "last_fit_report", None)
         return self._cache["w2v"]  # type: ignore[return-value]
+
+    def ranker_model(self):
+        """The trained LR :class:`~albedo_tpu_torch.builders.ranker.RankerModel`
+        for online re-ranking (``serve --two-stage``), trained in process on
+        the context's device once per context (the JAX context memoizes it
+        the same way: the model holds live pipeline stages)."""
+        if "ranker" not in self._cache:
+            up, uc, rp, rc = self.profiles()
+            lo, hi = self.star_range()
+            config = RankerConfig(
+                popular_min_stars=lo, popular_max_stars=hi,
+                min_df=3 if self.small else 10,
+            )
+            if self.small:
+                config = config.small()
+            result = train_ranker(
+                self.tables(), up, uc, rp, rc, self.als_model(), self.matrix(),
+                self.word2vec(), now=self.now, config=config, timer=self.timer,
+                device=self.device,
+            )
+            print(f"[serve] ranker trained: AUC = {result.auc:.4f}", flush=True)
+            self._cache["ranker"] = result.model
+            self._cache["ranker_auc"] = float(result.auc)
+        return self._cache["ranker"]
 
     def test_user_dense(self, n=250) -> np.ndarray:
         matrix = self.matrix()
@@ -406,18 +433,21 @@ def tfidf_content_job(args) -> None:
 
 def serve_job(args) -> int | None:
     """The online inference engine over the in-process ALS fit: micro-batched
-    top-k (K6), the direct path (K5) under ``--no-batch``, the TTL result
-    cache, overload control and the ``/metrics`` plane
-    (``albedo_tpu_torch.serving``), until ``--duration`` seconds pass (0 =
-    forever) or SIGTERM/SIGINT, which drain it as the JAX job does.
+    top-k (K6), the direct path (K5) under ``--no-batch``, the optional
+    two-stage candidate fan-out + LR re-rank, the TTL result cache, overload
+    control and the ``/metrics`` plane (``albedo_tpu_torch.serving``), until
+    ``--duration`` seconds pass (0 = forever) or SIGTERM/SIGINT, which drain
+    it as the JAX job does.
 
     Extra flags: --port N (default 8080), --host ADDR (default 127.0.0.1),
     --duration SECONDS, --no-batch, --no-warm (skip launching the batch-shape
-    ladder at startup), --cache-ttl SECONDS (default 30; 0 disables),
-    --max-batch N (default 64), --window-ms MS (default 2). Not ported yet,
-    each an error: --two-stage, --bank, --reload-watch (and its
-    --reload-interval, --reload-require-stamp), and the SIGHUP reload, on
-    which the server drains and exits 2.
+    ladder at startup), --two-stage (register the popularity + curation
+    candidate sources and train the LR ranker in process for online
+    re-ranking; the ALS source rides the batcher), --cache-ttl SECONDS
+    (default 30; 0 disables), --max-batch N (default 64), --window-ms MS
+    (default 2). Not ported yet, each an error (exit 2): --bank,
+    --reload-watch (and its --reload-interval, --reload-require-stamp), and
+    the SIGHUP reload, on which the server drains and exits 2.
     """
     import signal
     import sys
@@ -434,21 +464,38 @@ def serve_job(args) -> int | None:
     extra.add_argument("--cache-ttl", type=float, default=30.0)
     extra.add_argument("--max-batch", type=int, default=64)
     extra.add_argument("--window-ms", type=float, default=2.0)
-    for flag in ("--two-stage", "--bank", "--reload-watch", "--reload-require-stamp"):
+    extra.add_argument("--two-stage", action="store_true")
+    for flag in ("--bank", "--reload-watch", "--reload-require-stamp"):
         extra.add_argument(flag, action="store_true")
     extra.add_argument("--reload-interval", type=float, default=None)
     ns = extra.parse_args(getattr(args, "_rest", []))
-    missing = [f for f, on in (("--two-stage", ns.two_stage), ("--bank", ns.bank),
+    missing = [f for f, on in (("--bank", ns.bank),
                                ("--reload-watch", ns.reload_watch),
                                ("--reload-interval", ns.reload_interval is not None),
                                ("--reload-require-stamp", ns.reload_require_stamp)) if on]
     if missing:
-        extra.error(f"{', '.join(missing)}: not ported yet (the port serves the ALS path only)")
+        extra.error(f"{', '.join(missing)}: not ported yet (the port serves the ALS and "
+                    "two-stage paths)")
 
     ctx = JobContext(args)
+    recommenders = ranker = None
+    if ns.two_stage:
+        lo, hi = ctx.star_range()
+        curators = ctx.curators()
+        recommenders = {
+            "popularity": PopularityRecommender(
+                popular_repos(ctx.tables().repo_info, lo, hi), top_k=TOP_K
+            ),
+            "curation": CurationRecommender(
+                ctx.tables().starring, **({"curator_ids": curators} if curators else {}),
+                top_k=TOP_K,
+            ),
+        }
+        ranker = ctx.ranker_model()
     service = RecommendationService(
         ctx.als_model(), ctx.matrix(),
         repo_info=ctx.tables().repo_info, user_info=ctx.tables().user_info,
+        recommenders=recommenders, ranker=ranker,
         batching=not ns.no_batch, warm=not ns.no_batch and not ns.no_warm,
         cache_ttl=ns.cache_ttl, max_batch=ns.max_batch, batch_window_ms=ns.window_ms,
     )
@@ -456,7 +503,8 @@ def serve_job(args) -> int | None:
     host, port = server.server_address[:2]
     print(f"[serve] listening on http://{host}:{port}/ "
           f"(/recommend/<user_id>, /admin/repos, /admin/users, /metrics, /healthz/ready) "
-          f"[als, batching={'off' if ns.no_batch else 'on'}, cache_ttl={ns.cache_ttl:g}s, "
+          f"[{'two-stage' if ns.two_stage else 'als'}, batching={'off' if ns.no_batch else 'on'}, "
+          f"cache_ttl={ns.cache_ttl:g}s, "
           f"device={ctx.device}]", flush=True)
     # Signal-interruptible foreground wait: SIGTERM/SIGINT set the stop event
     # and the finally block drains (batcher drained, server thread joined).

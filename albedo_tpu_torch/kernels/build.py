@@ -40,10 +40,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES: dict[str, list] = {
     # source, idx, val, mask, corr, bvec, B, L, k, alpha, stream
     "als_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # yty, corr, bvec, n_b, reg, x, B, k, stream
-    "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P],
-    # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, stream
-    "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P],
+    # yty, corr, bvec, n_b, reg, x, B, k, ws, stream
+    "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _P],
+    # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws, stream
+    "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
     # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
     "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # uf_all, items, user_idx, excl, excl_by_user, out_s, out_i, B, I, r, k, E, Epad, stream
@@ -60,14 +60,31 @@ SIGNATURES: dict[str, list] = {
     "spmm_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
     # scores, sb, si, starred, norm, out_s, out_i, B, n, k, L, Lpad, stream
     "masked_topk": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # users, items, user_idx, excl, excl_by_user, excl_map, mean_rows, out_s, out_i, row0, B, I,
+    # r, k, E, dpad, qbuf, has, scratch, sortbuf, sort_pad, stream
+    "topk_select": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # base, tables (host array of J pointers), idxs (likewise), J, N, out, stream
+    "gather_sum": [_P, _P, _P, _I, _I, _P, _P],
+    # u, nu, v, nv, parts, G, out, stream
+    "factor_health": [_P, _L, _P, _L, _P, _I, _P, _P],
     # x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg, stream
     "bpr_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
-# Second code paths of a kernel's source, counted apart from the first:
-# count name -> library. K5's wide path (rank > 64: the content sources, K14)
-# is another __global__ function behind the same launch function.
-PATHS = {"topk_scores_wide": "topk_scores"}
+# Second code paths of a kernel, counted apart from the first: count name ->
+# library. K5's wide path (rank > 64: the content sources, K14) and K1-K3's
+# wide paths (rank > 64) are other __global__ functions behind the same
+# launch function; the select path of K5-K7 (k > 512, or exclusion rows the
+# streaming body cannot sort) is its own library, counted per caller.
+PATHS = {
+    "topk_scores_wide": "topk_scores",
+    "als_partials_wide": "als_partials",
+    "solve_corrected_wide": "solve_corrected",
+    "bucket_cg_wide": "bucket_cg",
+    "topk_scores_select": "topk_select",
+    "gather_topk_select": "topk_select",
+    "bank_query_select": "topk_select",
+}
 
 # Launches of each kernel (and path) in this process (see
 # ``kernels.reset_launches``). Launches come from several threads (the

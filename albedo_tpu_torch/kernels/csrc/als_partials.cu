@@ -24,7 +24,19 @@
 // from the commuted pair, so the result is exactly symmetric. Masked entries
 // contribute nothing; entries past the row's last masked-in entry are not
 // visited at all, so padding slots (all-false masks) cost one mask scan.
-// k is a runtime argument up to 64 (rank 50 pads to 64 inside the kernel).
+// k is a runtime argument; up to KMAX = 64 (rank 50 pads to 64 inside the
+// kernel) one CTA holds the whole k x k correction in registers.
+//
+// Ranks above 64 take the wide path (als_partials_wide_kernel): a per-thread
+// (k, k) accumulator no longer fits in registers, so the correction is cut
+// into 64 x 64 output tiles and CTA (b, t) computes tile t of row b,
+// streaming the row's entries through shared memory twice as wide (the
+// tile's 64 row columns and 64 column columns of each gathered row). Every
+// tile re-reads the row's entries (T^2 times for T = ceil(k / 64) tiles a
+// side), from L2; the bytes bound is unchanged (the correction it writes is
+// still most of them). Tile (i, j) and tile (j, i) form each product from
+// the commuted pair in the same entry order, so the result stays exactly
+// symmetric. The b-vector is written by the CTAs of tile column 0.
 
 #include <cuda_runtime.h>
 
@@ -111,16 +123,114 @@ __global__ void __launch_bounds__(THREADS) als_partials_kernel(
   if (tid < k) bvec[(long long)blockIdx.x * k + tid] = bacc;
 }
 
+constexpr int WT = 64;  // output tile side, wide path
+constexpr int W_PER_THREAD = WT * WT / THREADS;
+
+__global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
+    const float* __restrict__ source, const int* __restrict__ idx,
+    const float* __restrict__ val, const unsigned char* __restrict__ mask,
+    float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
+    float alpha) {
+  __shared__ float yi[TILE][WT];
+  __shared__ float yj[TILE][WT];
+  __shared__ float c1s[TILE];
+  __shared__ float ws[TILE];
+  __shared__ int s_end;
+
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const long long base = row * L;
+  const int tiles = (k + WT - 1) / WT;
+
+  if (tid == 0) s_end = 0;
+  __syncthreads();
+  int my_end = 0;
+  for (int l = tid; l < L; l += THREADS)
+    if (mask[base + l]) my_end = l + 1;
+  if (my_end) atomicMax(&s_end, my_end);
+  __syncthreads();
+  const int end = s_end;
+
+  // The grid's y extent is capped at 65535: a CTA walks tiles t, t + gridDim.y, ...
+  for (int t = blockIdx.y; t < tiles * tiles; t += gridDim.y) {
+    const int i0 = (t / tiles) * WT;
+    const int j0 = (t % tiles) * WT;
+    const int ni = min(WT, k - i0);
+    const int nj = min(WT, k - j0);
+
+    float acc[W_PER_THREAD];
+#pragma unroll
+    for (int q = 0; q < W_PER_THREAD; ++q) acc[q] = 0.f;
+    float bacc = 0.f;
+
+    for (int l0 = 0; l0 < end; l0 += TILE) {
+      for (int e = tid; e < TILE * WT; e += THREADS) {
+        const int l = e / WT;
+        const int c = e - l * WT;
+        const int gl = l0 + l;
+        float a = 0.f, b = 0.f;
+        if (gl < end && mask[base + gl]) {
+          const float* y = source + (long long)idx[base + gl] * k;
+          if (c < ni) a = y[i0 + c];
+          if (c < nj) b = y[j0 + c];
+        }
+        yi[l][c] = a;
+        yj[l][c] = b;
+      }
+      if (tid < TILE) {
+        const int gl = l0 + tid;
+        float c1 = 0.f, w = 0.f;
+        if (gl < end && mask[base + gl]) {
+          c1 = alpha * val[base + gl];
+          w = 1.f + c1;
+        }
+        c1s[tid] = c1;
+        ws[tid] = w;
+      }
+      __syncthreads();
+      const int nl = min(TILE, end - l0);
+      if (j0 == 0 && tid < ni)
+        for (int l = 0; l < nl; ++l) bacc += ws[l] * yi[l][tid];
+#pragma unroll
+      for (int q = 0; q < W_PER_THREAD; ++q) {
+        const int p = tid + q * THREADS;
+        const int i = p / WT;
+        const int j = p - i * WT;
+        float a = acc[q];
+        for (int l = 0; l < nl; ++l) a += c1s[l] * (yi[l][i] * yj[l][j]);
+        acc[q] = a;
+      }
+      __syncthreads();
+    }
+
+    float* out = corr + row * k * k;
+#pragma unroll
+    for (int q = 0; q < W_PER_THREAD; ++q) {
+      const int p = tid + q * THREADS;
+      const int i = p / WT;
+      const int j = p - i * WT;
+      if (i < ni && j < nj) out[(long long)(i0 + i) * k + j0 + j] = acc[q];
+    }
+    if (j0 == 0 && tid < ni) bvec[row * k + i0 + tid] = bacc;
+  }
+}
+
 }  // namespace
 
-// source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32.
+// source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32;
+// any k >= 1 (k > 64 takes the wide path).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int als_partials_launch(const float* source, const int* idx,
                                    const float* val, const unsigned char* mask,
                                    float* corr, float* bvec, int B, int L,
                                    int k, float alpha, void* stream) {
-  if (B > 0)
+  if (B > 0 && k <= KMAX) {
     als_partials_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         source, idx, val, mask, corr, bvec, L, k, alpha);
+  } else if (B > 0) {
+    const int tiles = (k + WT - 1) / WT;
+    als_partials_wide_kernel<<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0, (cudaStream_t)stream>>>(
+        source, idx, val, mask, corr, bvec, L, k, alpha);
+  }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,15 @@
 // dependent chain of cg_steps + 1 matvecs per row, not by device memory.
 // YtY (k x k) and the CG vectors live in shared memory for the whole solve;
 // nothing of the (B, L, k) block or the (B, k, k) systems is ever written.
+//
+// Ranks above KMAX = 64 take the wide path (bucket_cg_wide_kernel): the same
+// steps in the same order, with YtY read from global memory (one k x k table
+// for the whole launch, resident in L2) and the entry tile and the seven CG
+// vectors in dynamic shared memory while they fit the 227 KB a block may opt
+// into ((TILE + 7) k + 3 TILE floats: k up to 1487), else in a global-memory
+// workspace of the same layout, one slice per CTA, which the wrapper
+// allocates. Each thread owns the columns c = tid, tid + THREADS, ... of
+// every vector, so any k fits.
 
 #include <cuda_runtime.h>
 
@@ -193,17 +202,211 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
   if (tid < k) xout[row * k + tid] = s.x[tid];
 }
 
+// The wide path's per-CTA region (shared or global): the entry tile (TILE x
+// k), the CG vectors (k each) and the entry weights (TILE each).
+struct Wide {
+  float* ys;
+  float *x, *r, *z, *p, *ap, *diag, *b;
+  float *c1s, *ws, *ts;
+};
+
+__device__ Wide wide_region(float* base, int k) {
+  Wide w;
+  w.ys = base;
+  float* v = base + TILE * k;
+  w.x = v; w.r = v + k; w.z = v + 2 * k; w.p = v + 3 * k;
+  w.ap = v + 4 * k; w.diag = v + 5 * k; w.b = v + 6 * k;
+  w.c1s = v + 7 * k; w.ws = w.c1s + TILE; w.ts = w.ws + TILE;
+  return w;
+}
+
+__device__ void wide_load_tile(const Wide& w, int end, const float* __restrict__ source,
+                               const int* __restrict__ idx, const float* __restrict__ val,
+                               const unsigned char* __restrict__ mask, long long base,
+                               int l0, int k, float alpha) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < TILE * k; e += THREADS) {
+    const int l = e / k;
+    const int c = e - l * k;
+    const int gl = l0 + l;
+    float y = 0.f;
+    if (gl < end && mask[base + gl]) y = source[(long long)idx[base + gl] * k + c];
+    w.ys[e] = y;
+  }
+  if (tid < TILE) {
+    const int gl = l0 + tid;
+    float c1 = 0.f, wt = 0.f;
+    if (gl < end && mask[base + gl]) {
+      c1 = alpha * val[base + gl];
+      wt = 1.f + c1;
+    }
+    w.c1s[tid] = c1;
+    w.ws[tid] = wt;
+  }
+}
+
+__device__ float wide_dot(float* red, const float* a, const float* b, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int i = 0; i < k; ++i) acc += a[i] * b[i];
+    *red = acc;
+  }
+  __syncthreads();
+  return *red;
+}
+
+__device__ void wide_matvec(const Wide& w, int end, const float* v, float* out,
+                            const float* __restrict__ yty, const float* __restrict__ source,
+                            const int* __restrict__ idx, const float* __restrict__ val,
+                            const unsigned char* __restrict__ mask, long long base, int k,
+                            float alpha, float rn) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  __syncthreads();
+  for (int c = tid; c < k; c += THREADS) out[c] = 0.f;
+  for (int l0 = 0; l0 < end; l0 += TILE) {
+    __syncthreads();
+    wide_load_tile(w, end, source, idx, val, mask, base, l0, k, alpha);
+    __syncthreads();
+    const int nl = min(TILE, end - l0);
+    for (int l = warp; l < nl; l += WARPS) {
+      float d = 0.f;
+      for (int c = lane; c < k; c += 32) d += w.ys[l * k + c] * v[c];
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (lane == 0) w.ts[l] = w.c1s[l] * d;
+    }
+    __syncthreads();
+    for (int c = tid; c < k; c += THREADS) {
+      float a = out[c];
+      for (int l = 0; l < nl; ++l) a += w.ys[l * k + c] * w.ts[l];
+      out[c] = a;
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < k; c += THREADS) {
+    float yp = 0.f;
+    for (int i = 0; i < k; ++i) yp += v[i] * yty[(long long)i * k + c];
+    out[c] = yp + out[c] + rn * v[c];
+  }
+  __syncthreads();
+}
+
+// ws: null to keep the region in dynamic shared memory, else a workspace of
+// B x ((TILE + 7) k + 3 TILE) floats, one slice per CTA.
+__global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
+    const float* __restrict__ source, const float* __restrict__ yty,
+    const int* __restrict__ idx, const float* __restrict__ val,
+    const unsigned char* __restrict__ mask, const float* __restrict__ x0,
+    float* __restrict__ xout, int L, int k, float reg, float alpha,
+    int cg_steps, float* ws) {
+  extern __shared__ float smem[];
+  __shared__ float red;
+  __shared__ int s_end, s_count;
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const long long base = row * L;
+  const long long per_cta = (long long)(TILE + 7) * k + 3 * TILE;
+  const Wide w = wide_region(ws == nullptr ? smem : ws + row * per_cta, k);
+
+  if (tid == 0) {
+    s_end = 0;
+    s_count = 0;
+  }
+  __syncthreads();
+  int my_end = 0, my_count = 0;
+  for (int l = tid; l < L; l += THREADS)
+    if (mask[base + l]) {
+      my_end = l + 1;
+      ++my_count;
+    }
+  if (my_end) {
+    atomicMax(&s_end, my_end);
+    atomicAdd(&s_count, my_count);
+  }
+  __syncthreads();
+  const int end = s_end;
+  const float rn = reg * (float)s_count;
+
+  // b-vector and the Jacobi diagonal, accumulated in place over the tiles.
+  for (int c = tid; c < k; c += THREADS) {
+    w.b[c] = 0.f;
+    w.diag[c] = 0.f;
+  }
+  for (int l0 = 0; l0 < end; l0 += TILE) {
+    __syncthreads();
+    wide_load_tile(w, end, source, idx, val, mask, base, l0, k, alpha);
+    __syncthreads();
+    const int nl = min(TILE, end - l0);
+    for (int c = tid; c < k; c += THREADS) {
+      float bacc = w.b[c], dacc = w.diag[c];
+      for (int l = 0; l < nl; ++l) {
+        const float y = w.ys[l * k + c];
+        bacc += w.ws[l] * y;
+        dacc += (y * y) * w.c1s[l];
+      }
+      w.b[c] = bacc;
+      w.diag[c] = dacc;
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < k; c += THREADS) {
+    w.diag[c] = fmaxf(yty[(long long)c * k + c] + w.diag[c] + rn, 1e-12f);
+    w.x[c] = x0[row * k + c];
+  }
+  __syncthreads();
+
+  const float tiny = 1e-30f;
+  wide_matvec(w, end, w.x, w.ap, yty, source, idx, val, mask, base, k, alpha, rn);
+  for (int c = tid; c < k; c += THREADS) {
+    w.r[c] = w.b[c] - w.ap[c];
+    w.z[c] = w.r[c] / w.diag[c];
+    w.p[c] = w.z[c];
+  }
+  float rz = wide_dot(&red, w.r, w.z, k);
+  for (int it = 0; it < cg_steps; ++it) {
+    wide_matvec(w, end, w.p, w.ap, yty, source, idx, val, mask, base, k, alpha, rn);
+    const float pap = wide_dot(&red, w.p, w.ap, k);
+    const float step = rz / (pap + tiny);
+    for (int c = tid; c < k; c += THREADS) {
+      w.x[c] += step * w.p[c];
+      w.r[c] -= step * w.ap[c];
+      w.z[c] = w.r[c] / w.diag[c];
+    }
+    const float rz_new = wide_dot(&red, w.r, w.z, k);
+    const float beta = rz_new / (rz + tiny);
+    for (int c = tid; c < k; c += THREADS) w.p[c] = w.z[c] + beta * w.p[c];
+    rz = rz_new;
+    __syncthreads();
+  }
+  for (int c = tid; c < k; c += THREADS) xout[row * k + c] = w.x[c];
+}
+
 }  // namespace
 
-// source (n, k); yty (k, k); idx, val, mask (B, L); x0, x (B, k).
-// Returns cudaGetLastError() after the launch (0 = launched).
+// source (n, k); yty (k, k); idx, val, mask (B, L); x0, x (B, k); any k >= 1.
+// ws is null (k <= 64, or the wide region fits shared memory) or a workspace
+// of B x ((TILE + 7) k + 3 TILE) floats. Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int bucket_cg_launch(const float* source, const float* yty,
                                 const int* idx, const float* val,
                                 const unsigned char* mask, const float* x0,
                                 float* x, int B, int L, int k, float reg,
-                                float alpha, int cg_steps, void* stream) {
-  if (B > 0)
+                                float alpha, int cg_steps, float* ws, void* stream) {
+  if (B > 0 && k <= KMAX) {
     bucket_cg_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
         source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps);
+  } else if (B > 0) {
+    const size_t smem =
+        ws == nullptr ? ((size_t)(TILE + 7) * k + 3 * TILE) * sizeof(float) : 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          bucket_cg_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    bucket_cg_wide_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps, ws);
+  }
   return (int)cudaGetLastError();
 }

@@ -145,7 +145,7 @@ class LogisticRegression:
         n = fm.n_rows
         if sample_weight is None:
             sample_weight = np.ones(n, dtype=np.float32)
-        batch = feature_batch(fm, dev)
+        batch = feature_batch(fm, dev, grad_layout=True)
         y = torch.as_tensor(np.asarray(labels, np.float32)).to(dev)
         w = torch.as_tensor(np.asarray(sample_weight, np.float32)).to(dev)
         scales_np, center_np = self._prepare_scales(fm)

@@ -17,7 +17,11 @@ kernel launch:
 
 Each has a plain PyTorch version beside it (``*_reference``). A wrapper runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
-its kernel or raises. :func:`half_sweep` lands the solved rows with one
+its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
+each kernel's narrow path (a row's system in registers or static shared
+memory), wider ranks its wide path (K1 tiles the correction over CTAs; K2
+and K3 keep their system in dynamic shared memory while it fits, else in a
+global-memory workspace the wrapper allocates). :func:`half_sweep` lands the solved rows with one
 gather through the precomputed landing permutation, as the JAX sweep does.
 """
 
@@ -28,7 +32,12 @@ import torch
 from albedo_tpu_torch.datasets.ragged import Bucket
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 
-KMAX = 64  # the widest factor rank the K1-K3 kernels take
+KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wide paths
+# Dynamic shared memory a block may opt into (227 KB), less a margin for the
+# wide kernels' static variables.
+SMEM_MAX = 232448 - 1024
+TILE = 32  # entries per shared-memory tile of K3 (bucket_cg.cu)
+WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
 
 
 def gramian(factors: torch.Tensor) -> torch.Tensor:
@@ -37,8 +46,24 @@ def gramian(factors: torch.Tensor) -> torch.Tensor:
 
 
 def _check_rank(kernel: str, k: int) -> None:
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{kernel}: the CUDA kernel takes ranks 1..{KMAX}, got {k}")
+    if k < 1:
+        raise ValueError(f"{kernel}: the CUDA kernel takes ranks >= 1, got {k}")
+
+
+def _path(kernel: str, k: int) -> str:
+    """The launch-count key of the path rank ``k`` takes."""
+    return kernel if k <= KMAX else f"{kernel}_wide"
+
+
+def _workspace_chunks(per_row: int, b: int, dev):
+    """``[(row0, rows, workspace or None)]``: one launch over all ``b`` rows
+    when a row's ``per_row`` floats fit in shared memory (no workspace),
+    else row chunks with a global workspace of at most WORKSPACE_MAX bytes."""
+    if 4 * per_row <= SMEM_MAX:
+        return [(0, b, None)]
+    rows = max(1, min(b, WORKSPACE_MAX // (4 * per_row)))
+    ws = torch.empty(rows * per_row, dtype=torch.float32, device=dev)
+    return [(r0, min(rows, b - r0), ws) for r0 in range(0, b, rows)]
 
 
 # --------------------------------------------------------------------- K1
@@ -83,7 +108,7 @@ def bucket_partial_terms(
     call(
         "als_partials", dev, source.data_ptr(), idx.data_ptr(), val.data_ptr(),
         mask.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), b, length, k,
-        float(alpha),
+        float(alpha), count=_path("als_partials", k),
     )
     return corr, b_vec
 
@@ -125,10 +150,14 @@ def solve_corrected(
     check_operand("solve_corrected", "b_vec", b_vec, torch.float32, (b, k), dev)
     check_operand("solve_corrected", "n_b", n_b, torch.float32, (b,), dev)
     x = torch.empty((b, k), dtype=torch.float32, device=dev)
-    call(
-        "solve_corrected", dev, yty.data_ptr(), corr.data_ptr(), b_vec.data_ptr(),
-        n_b.data_ptr(), float(reg), x.data_ptr(), b, k,
-    )
+    chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks(k * (k + 1) + k, b, dev)
+    for r0, rows, ws in chunks:
+        call(
+            "solve_corrected", dev, yty.data_ptr(), corr.data_ptr() + 4 * r0 * k * k,
+            b_vec.data_ptr() + 4 * r0 * k, n_b.data_ptr() + 4 * r0, float(reg),
+            x.data_ptr() + 4 * r0 * k, rows, k, None if ws is None else ws.data_ptr(),
+            count=_path("solve_corrected", k),
+        )
     return x
 
 
@@ -212,11 +241,16 @@ def bucket_cg_body(
     check_operand("bucket_cg", "mask", mask, torch.bool, (b, length), dev)
     check_operand("bucket_cg", "x0", x0, torch.float32, (b, k), dev)
     x = torch.empty((b, k), dtype=torch.float32, device=dev)
-    call(
-        "bucket_cg", dev, source.data_ptr(), yty.data_ptr(), idx.data_ptr(),
-        val.data_ptr(), mask.data_ptr(), x0.data_ptr(), x.data_ptr(), b,
-        length, k, float(reg), float(alpha), int(cg_steps),
-    )
+    chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
+    for r0, rows, ws in chunks:
+        call(
+            "bucket_cg", dev, source.data_ptr(), yty.data_ptr(),
+            idx.data_ptr() + 4 * r0 * length, val.data_ptr() + 4 * r0 * length,
+            mask.data_ptr() + r0 * length, x0.data_ptr() + 4 * r0 * k,
+            x.data_ptr() + 4 * r0 * k, rows, length, k, float(reg), float(alpha),
+            int(cg_steps), None if ws is None else ws.data_ptr(),
+            count=_path("bucket_cg", k),
+        )
     return x
 
 

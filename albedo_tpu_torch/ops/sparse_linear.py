@@ -9,8 +9,15 @@ which is the one-hot dot product computed as weight-row gathers and segment
 sums. K8 :func:`segment_dot` runs the CUDA kernel ``segment_dot``: the CSR
 segmented gather-multiply-sum behind the bag-field logits (forward over the
 row-sorted flats, backward over the vocab-sorted copy) and the backward of
-the factored rep expansion. :class:`_BagTerm` and :class:`_RepTerm` are the
-JAX module's two custom VJPs as ``torch.autograd.Function``s. The JAX module
+every gather. K8c :func:`gather_sum` runs the CUDA kernel ``gather_sum``: all
+the gather terms of the logits (each ``cat:`` field's ``w[arr]`` and each rep
+expansion's ``lu[rep]``) added to the rest in one pass; its autograd
+Function takes each table's gradient as K8 over a row order sorted by that
+table's index (``feature_batch(..., grad_layout=True)`` builds the ``cat:``
+fields' orders; the rep fields always carry theirs). :class:`_BagTerm` is
+the JAX module's ``_bag_term`` custom VJP as a ``torch.autograd.Function``;
+its ``_rep_term`` (the rep expansion and its segment-sum VJP) is a term of
+:class:`_GatherSum`. The JAX module
 reduces by cumsum differences (a TPU workaround); the port sums each segment
 directly, which computes the same function with less round-off, so the two
 agree to a tolerance, not bit for bit.
@@ -33,7 +40,9 @@ from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 Params = dict[str, torch.Tensor]
 
 
-def feature_batch(fm: FeatureMatrix, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+def feature_batch(
+    fm: FeatureMatrix, device: str | torch.device = "cuda", grad_layout: bool = False,
+) -> dict[str, torch.Tensor]:
     """A FeatureMatrix's arrays on ``device`` as a flat dict of tensors.
 
     Bag fields are laid out DUAL-SORTED: a row-sorted copy (+ row indptr) for
@@ -41,8 +50,11 @@ def feature_batch(fm: FeatureMatrix, device: str | torch.device = "cuda") -> dic
     the whole weight table) for the weight gradient, so both directions are
     K8 over the real entries only. Vector fields upload factored: the (U, D)
     distinct vectors, the (N,) rep gather, and a rep-sorted order + indptr
-    whose segment sums are the gather's backward (``_rep_term``). Factored
-    bag fields carry the same rep layout (``bagrep:``)."""
+    whose segment sums are the gather's backward (K8c's). Factored
+    bag fields carry the same rep layout (``bagrep:``). ``grad_layout`` adds
+    each ``cat:`` field's row order sorted by category and its indptr over
+    the field's vocabulary (``catgrad:<f>:order``/``:indptr``), which K8c's
+    backward reads: a fit builds it once here, a prediction never needs it."""
     dev = torch.device(device)
 
     def t(a: np.ndarray) -> torch.Tensor:
@@ -57,6 +69,10 @@ def feature_batch(fm: FeatureMatrix, device: str | torch.device = "cuda") -> dic
         batch[f"vecflat:{f}:indptr"] = t(indptr)
     for f, v in fm.cat.items():
         batch[f"cat:{f}"] = t(np.asarray(v).astype(np.int32))
+        if grad_layout:
+            _, order, indptr = _rep_layout(v, fm.cat_sizes[f])
+            batch[f"catgrad:{f}:order"] = t(order)
+            batch[f"catgrad:{f}:indptr"] = t(indptr)
     flat = fm.flat_bags()
     for f in fm.bag_idx:
         rows, vocab, vals = flat[f]
@@ -83,7 +99,7 @@ def feature_batch(fm: FeatureMatrix, device: str | torch.device = "cuda") -> dic
 
 
 def _rep_layout(rep: np.ndarray, n_distinct: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The ``_rep_term`` input layout for a (N,) rep vector: ``(rep int32,
+    """The rep-expansion layout for a (N,) rep vector: ``(rep int32,
     rep-sorted row order, (n_distinct+1,) segment indptr)``."""
     rep = np.asarray(rep).astype(np.int32)
     order = np.argsort(rep, kind="stable").astype(np.int32)
@@ -236,27 +252,94 @@ class _BagTerm(torch.autograd.Function):
         return segment_dot(g.contiguous(), v_rows, v_val, v_indptr), None, None, None, None, None, None
 
 
-class _RepTerm(torch.autograd.Function):
-    """Per-distinct values expanded to rows: forward the gather ``lu[rep]``,
-    backward (wrt ``lu``) K8 with ``val`` null over the rep-sorted order."""
+# ---------------------------------------------------------------------- K8c
+
+
+def gather_sum_reference(
+    base: torch.Tensor, tables: list[torch.Tensor], idxs: list[torch.Tensor]
+) -> torch.Tensor:
+    """Plain version of K8c: ``base + tables[0][idxs[0]] + ...``, added left
+    to right (the kernel's order, so the two agree bit for bit)."""
+    out = base
+    for table, idx in zip(tables, idxs):
+        out = out + table[idx.long()]
+    return out
+
+
+GATHER_MAXJ = 32  # terms per gather_sum launch (gather_sum.cu MAXJ)
+
+
+def gather_sum(
+    base: torch.Tensor, tables: list[torch.Tensor], idxs: list[torch.Tensor]
+) -> torch.Tensor:
+    """K8c: (N,) ``base[n] + sum_j tables[j][idxs[j][n]]`` (CUDA kernel
+    ``gather_sum``). ``base`` (N,) f32; ``tables[j]`` (size_j,) f32;
+    ``idxs[j]`` (N,) int32 in [0, size_j) (the plain version raises on an
+    index out of range, the kernel cannot)."""
+    if on_cpu("gather_sum", base, *tables, *idxs):
+        return gather_sum_reference(base, tables, idxs)
+    import ctypes
+
+    dev = base.device
+    n = base.shape[0]
+    check_operand("gather_sum", "base", base, torch.float32, (n,), dev)
+    for j, (table, idx) in enumerate(zip(tables, idxs)):
+        check_operand("gather_sum", f"tables[{j}]", table, torch.float32, (table.shape[0],), dev)
+        check_operand("gather_sum", f"idxs[{j}]", idx, torch.int32, (n,), dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    src = base
+    for j0 in range(0, max(len(tables), 1), GATHER_MAXJ):
+        chunk = range(j0, min(j0 + GATHER_MAXJ, len(tables)))
+        t_ptrs = (ctypes.c_void_p * max(len(chunk), 1))(*(tables[j].data_ptr() for j in chunk))
+        i_ptrs = (ctypes.c_void_p * max(len(chunk), 1))(*(idxs[j].data_ptr() for j in chunk))
+        call("gather_sum", dev, src.data_ptr(), ctypes.addressof(t_ptrs), ctypes.addressof(i_ptrs),
+             len(chunk), n, out.data_ptr())
+        src = out
+    return out
+
+
+class _GatherSum(torch.autograd.Function):
+    """K8c with its backward: the gradient wrt ``base`` is ``g``, and wrt
+    table j it is K8 (``val`` null) over ``orders[j]``, the rows sorted by
+    ``idxs[j]``, with ``indptrs[j]`` spanning table j: a segment sum per
+    table entry, no atomics. A table whose layout the batch does not carry
+    (a ``cat:`` field of a batch built without ``grad_layout``) gets it
+    sorted on its device when its gradient is first needed."""
 
     @staticmethod
-    def forward(ctx, lu, rep, order, indptr):
-        ctx.save_for_backward(order, indptr)
-        return lu[rep.long()]
+    def forward(ctx, base, layout, *tables):
+        idxs, orders, indptrs = layout
+        ctx.layout = (idxs, orders, indptrs, [t.shape[0] for t in tables])
+        return gather_sum(base.contiguous(), [t.contiguous() for t in tables], idxs)
 
     @staticmethod
     def backward(ctx, g):
-        order, indptr = ctx.saved_tensors
-        return segment_dot(g.contiguous(), order, None, indptr), None, None, None
+        idxs, orders, indptrs, sizes = ctx.layout
+        g = g.contiguous()
+        grads = []
+        for j, need in enumerate(ctx.needs_input_grad[2:]):
+            if not need:
+                grads.append(None)
+                continue
+            order, indptr = orders[j], indptrs[j]
+            if order is None:
+                order, indptr = _sorted_layout(idxs[j], sizes[j])
+            grads.append(segment_dot(g, order, None, indptr))
+        return (g if ctx.needs_input_grad[0] else None), None, *grads
+
+
+def _sorted_layout(idx: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_rep_layout`` on the device: the rows sorted (stably) by ``idx`` and
+    the (size + 1,) indptr of each value's run."""
+    key = idx.long()
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    indptr = torch.zeros(size + 1, dtype=torch.int32, device=idx.device)
+    indptr[1:] = torch.cumsum(torch.bincount(key, minlength=size), 0)
+    return order, indptr
 
 
 def _bag_term(w, r_vocab, r_val, r_indptr, v_rows, v_val, v_indptr) -> torch.Tensor:
     return _BagTerm.apply(w, r_vocab, r_val, r_indptr, v_rows, v_val, v_indptr)
-
-
-def _rep_term(lu, rep, order, indptr) -> torch.Tensor:
-    return _RepTerm.apply(lu, rep, order, indptr)
 
 
 def block_logits(
@@ -268,15 +351,43 @@ def block_logits(
     """(N,) logits; ``params`` are standardized-space coefficients and
     ``scales`` the per-feature 1/std factors (all-ones for raw space).
     ``center`` (optional) is subtracted from the dense block before scaling.
+    The terms (:func:`logit_terms`) are summed by K8c in one pass
+    (:class:`_GatherSum`)."""
+    base, tables, idxs, orders, indptrs = logit_terms(params, scales, batch, center)
+    return _GatherSum.apply(base, (idxs, orders, indptrs), *tables)
+
+
+def logit_terms(
+    params: Params,
+    scales: Params,
+    batch: dict[str, torch.Tensor],
+    center: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, list, list, list, list]:
+    """``(base, tables, idxs, orders, indptrs)``: the logits before their
+    gathers, and each gather term's table, row indices and backward layout
+    (None where the batch carries none).
 
     The logical dense block is [scalars | vec fields in sorted order]; each
-    vec field's term is computed per DISTINCT vector, then expanded by
-    ``_rep_term``; bag fields go through ``_bag_term`` (and ``_rep_term``
-    when factored)."""
+    vec field's term is computed per DISTINCT vector and each bag field's
+    through ``_bag_term``. The bias, the dense product and the bag terms of
+    unfactored bag fields form the base; the gather terms are the vec
+    fields' rep expansions, then, in batch order, each ``cat:`` field's
+    weights and each factored bag field's rep expansion."""
     w_dense = params["dense"] * scales["dense"]
     d_scalar = batch["dense"].shape[1]
     dense = batch["dense"] if center is None else batch["dense"] - center[:d_scalar]
-    logits = params["bias"] + dense @ w_dense[:d_scalar]
+    base = params["bias"] + dense @ w_dense[:d_scalar]
+    tables: list[torch.Tensor] = []
+    idxs: list[torch.Tensor] = []
+    orders: list[torch.Tensor | None] = []
+    indptrs: list[torch.Tensor | None] = []
+
+    def gather(table, idx, order, indptr) -> None:
+        tables.append(table)
+        idxs.append(idx)
+        orders.append(order)
+        indptrs.append(indptr)
+
     off = d_scalar
     vec_fields = sorted(
         key[len("vecflat:"):-len(":vec")]
@@ -290,15 +401,15 @@ def block_logits(
         # Center BEFORE the contraction (no cancellation of two large
         # near-equal dots per distinct vector).
         vals = arr if center is None else arr - center[off:off + d]
-        lu = vals @ w_f
         p = f"vecflat:{f}:"
-        logits = logits + _rep_term(lu, batch[p + "rep"], batch[p + "order"], batch[p + "indptr"])
+        gather(vals @ w_f, batch[p + "rep"], batch[p + "order"], batch[p + "indptr"])
         off += d
     for key, arr in batch.items():
         if key.startswith("cat:"):
             f = key[len("cat:"):]
-            w = params[f"cat:{f}"] * scales[f"cat:{f}"]
-            logits = logits + w[arr.long()]
+            g = f"catgrad:{f}:"
+            gather(params[f"cat:{f}"] * scales[f"cat:{f}"], arr, batch.get(g + "order"),
+                   batch.get(g + "indptr"))
         elif key.startswith("bagflat:") and key.endswith(":r_vocab"):
             f = key[len("bagflat:"):-len(":r_vocab")]
             w = params[f"bag:{f}"] * scales[f"bag:{f}"]
@@ -310,9 +421,10 @@ def block_logits(
             )
             rp = f"bagrep:{f}:"
             if rp + "rep" in batch:
-                term = _rep_term(term, batch[rp + "rep"], batch[rp + "order"], batch[rp + "indptr"])
-            logits = logits + term
-    return logits
+                gather(term, batch[rp + "rep"], batch[rp + "order"], batch[rp + "indptr"])
+            else:
+                base = base + term
+    return base, tables, idxs, orders, indptrs
 
 
 def weighted_logloss(

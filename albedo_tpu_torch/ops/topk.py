@@ -7,8 +7,13 @@ row streams the item table, masks the row's excluded items and keeps a
 running top-k, so no U x I score matrix is ever written. It takes any rank:
 factor tables (r <= 64) and the wide rows of the content sources (K14:
 tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200), which it
-streams through shared memory in chunks; and any k up to 512 (the serving
-path's ``max_k`` = 500, rounded up to a power of two).
+streams through shared memory in chunks; and any k and exclusion width. Up
+to k = 512 (the serving path's ``max_k`` = 500, rounded up to a power of
+two), with an exclusion row the kernel can sort in shared memory, it runs
+the streaming body; beyond either limit the same wrapper runs the select
+path (``csrc/topk_select.cu``): the masked scores of a chunk of rows are
+written to a scratch buffer and each row's top k is found by a radix select,
+in the same order and with the same scores.
 
 Two kernels run the same body with another prologue (``csrc/topk_body.cuh``):
 
@@ -34,11 +39,14 @@ from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 from albedo_tpu_torch.utils import pow2_at_least
 
 RMAX = 64            # widest rank of the narrow path; wider rows take the wide path
-KMAX = 512           # largest k the kernels keep
-EXCLUDE_MAX = 32768  # longest exclusion row the kernels sort in shared memory
-# Dynamic shared memory the kernels may ask for: the card's 227 KB per block
-# less their static running list (at most 16.4 KB at k > 128).
+KMAX = 512           # largest k the streaming body keeps; larger k takes the select path
+EXCLUDE_MAX = 32768  # longest exclusion row the streaming body sorts in shared memory
+# Dynamic shared memory the streaming kernels may ask for: the card's 227 KB
+# per block less their static running list (at most 16.4 KB at k > 128).
 SMEM_MAX = 232448 - 17 * 1024
+SELECT_SCRATCH = 256 << 20  # bytes of select-path scratch per launch (rows are chunked to fit)
+SORT_SMEM_MAX = 64 * 1024   # the select path sorts in shared memory up to this many bytes
+MAX_GRID_Y = 65535          # the select path's score grid spans a chunk's rows in y
 
 
 def _scores(user_factors: torch.Tensor, item_factors: torch.Tensor) -> torch.Tensor:
@@ -103,10 +111,10 @@ def topk_scores(
     ``item_block`` is accepted for the JAX signature and not used: the
     kernel picks its own tile."""
     del item_block
-    _check_k("topk_scores", k)
     operands = [user_factors, item_factors] + ([] if exclude_idx is None else [exclude_idx])
     if on_cpu("topk_scores", *operands):
         return topk_scores_reference(user_factors, item_factors, k, exclude_idx)
+    _check_k("topk_scores", k)
     n_users, r = user_factors.shape
     n_items = item_factors.shape[0]
     dev = user_factors.device
@@ -114,8 +122,11 @@ def topk_scores(
     check_operand("topk_scores", "user_factors", user_factors, torch.float32, (n_users, r), dev)
     check_operand("topk_scores", "item_factors", item_factors, torch.float32, (n_items, r), dev)
     excl_ptr, n_excl, excl_pad = _exclusion("topk_scores", "exclude_idx", exclude_idx, n_users, dev)
-    _check_smem("topk_scores", r, excl_pad)
     vals, idx = _outputs(n_users, k, dev)
+    if _select_path(k, r, n_excl, excl_pad):
+        _select("topk_scores", dev, vals, idx, users=user_factors, items=item_factors,
+                excl=exclude_idx, n_rows=n_users, k=k, n_excl=n_excl)
+        return vals, idx
     call(
         "topk_scores", dev, user_factors.data_ptr(), item_factors.data_ptr(), excl_ptr,
         vals.data_ptr(), idx.data_ptr(), n_users, n_items, r, k, n_excl,
@@ -125,10 +136,8 @@ def topk_scores(
 
 
 def _check_k(kernel: str, k: int) -> None:
-    """The kernels keep at most KMAX entries; the plain versions are held to
-    the same range, so the CPU run takes what the card takes."""
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{kernel}: takes k in 1..{KMAX}, got {k}")
+    if k < 1:
+        raise ValueError(f"{kernel}: takes k >= 1, got {k}")
 
 
 def _check_rank(kernel: str, r: int) -> None:
@@ -138,24 +147,56 @@ def _check_rank(kernel: str, r: int) -> None:
 
 def _exclusion(kernel: str, name: str, table, n_rows: int, dev) -> tuple[int | None, int, int]:
     """(pointer, width, width rounded up to a power of two) of a -1-padded
-    int32 exclusion table of ``n_rows`` rows, or (None, 0, 0). A row wider
-    than EXCLUDE_MAX raises: clipping it would serve excluded items."""
+    int32 exclusion table of ``n_rows`` rows, or (None, 0, 0)."""
     if table is None or table.shape[1] == 0:
         return None, 0, 0
     width = int(table.shape[1])
-    if width > EXCLUDE_MAX:
-        raise ValueError(f"{kernel}: exclusion rows longer than {EXCLUDE_MAX} are not supported, got {width}")
     check_operand(kernel, name, table, torch.int32, (n_rows, width), dev)
     return table.data_ptr(), width, pow2_at_least(width)
 
 
-def _check_smem(kernel: str, r: int, excl_pad: int, dpad: int = 0) -> None:
-    """Raise unless the launch's dynamic shared memory (the sorted exclusion
-    row, the wide path's tile, the mean query) fits the card."""
-    need = 4 * excl_pad + (4 * (256 * 33 + 32) if r > RMAX else 0) + 8 * dpad
-    if need > SMEM_MAX:
-        raise ValueError(f"{kernel}: needs {need} bytes of shared memory (exclusion width "
-                         f"{excl_pad}, rank {r}); the card gives {SMEM_MAX}")
+def _select_path(k: int, r: int, n_excl: int, excl_pad: int, dpad: int = 0) -> bool:
+    """True when a launch exceeds the streaming body (topk_body.cuh): k above
+    KMAX, an exclusion row longer than EXCLUDE_MAX, or more dynamic shared
+    memory (the sorted exclusion row, the wide path's tile, the mean query)
+    than the card gives a block."""
+    smem = 4 * excl_pad + (4 * (256 * 33 + 32) if r > RMAX else 0) + 8 * dpad
+    return k > KMAX or n_excl > EXCLUDE_MAX or smem > SMEM_MAX
+
+
+def _select(
+    kernel: str, dev, vals: torch.Tensor, idx: torch.Tensor, *, items: torch.Tensor,
+    n_rows: int, k: int, n_excl: int, users: torch.Tensor | None = None,
+    user_idx: torch.Tensor | None = None, excl: torch.Tensor | None = None,
+    excl_by_user: bool = False, excl_map: torch.Tensor | None = None,
+    mean_rows: bool = False, dpad: int = 0,
+) -> None:
+    """Run the select path (``csrc/topk_select.cu``) into ``vals``/``idx``
+    over row chunks whose scratch (the masked score rows, the query rows and,
+    for a large k, the sort buffers) stays under SELECT_SCRATCH bytes;
+    counted as ``<kernel>_select``. The operands are checked by the caller."""
+    n_items, r = items.shape
+    sort_pad = pow2_at_least(max(1, min(k, n_items)))
+    sort_global = 8 * sort_pad > SORT_SMEM_MAX
+    qstride = 2 * dpad if mean_rows else r
+    per_row = 4 * n_items + 4 * qstride + 4 + (8 * sort_pad if sort_global else 0)
+    rows = max(1, min(n_rows, MAX_GRID_Y, SELECT_SCRATCH // per_row))
+    qbuf = torch.empty(rows * qstride, dtype=torch.float32, device=dev)
+    has = torch.empty(rows, dtype=torch.int32, device=dev)
+    scratch = torch.empty(rows * n_items, dtype=torch.float32, device=dev)
+    sortbuf = torch.empty(rows * sort_pad, dtype=torch.int64, device=dev) if sort_global else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for row0 in range(0, n_rows, rows):
+        call(
+            "topk_select", dev, ptr(users), items.data_ptr(), ptr(user_idx),
+            ptr(excl) if n_excl else None, int(excl_by_user), ptr(excl_map), int(mean_rows),
+            vals.data_ptr(), idx.data_ptr(), row0, min(rows, n_rows - row0), n_items, r, k,
+            n_excl, dpad, qbuf.data_ptr(), has.data_ptr(), scratch.data_ptr(), ptr(sortbuf),
+            sort_pad, count=f"{kernel}_select",
+        )
 
 
 def _outputs(n_rows: int, k: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -198,7 +239,6 @@ def gather_topk(
     bits (the returned tensors are its two halves), so one copy fetches both."""
     if exclude is not None and exclude_table is not None:
         raise ValueError("gather_topk: pass exclude or exclude_table, not both")
-    _check_k("gather_topk", k)
     operands = [uf_all, item_factors, user_idx] + [t for t in (exclude, exclude_table, out) if t is not None]
     if on_cpu("gather_topk", *operands):
         vals, idx = gather_topk_reference(uf_all, item_factors, user_idx, k, exclude, exclude_table)
@@ -207,6 +247,7 @@ def gather_topk(
         out[0].copy_(vals)
         out[1].view(torch.int32).copy_(idx)
         return out[0], out[1].view(torch.int32)
+    _check_k("gather_topk", k)
     n_users, r = uf_all.shape
     n_items, b = item_factors.shape[0], user_idx.shape[0]
     dev = uf_all.device
@@ -219,12 +260,16 @@ def gather_topk(
         "gather_topk", "exclude_table" if by_user else "exclude",
         exclude_table if by_user else exclude, n_users if by_user else b, dev,
     )
-    _check_smem("gather_topk", r, excl_pad)
     if out is None:
         vals, idx = _outputs(b, k, dev)
     else:
         check_operand("gather_topk", "out", out, torch.float32, (2, b, k), dev)
         vals, idx = out[0], out[1].view(torch.int32)
+    if _select_path(k, r, n_excl, excl_pad):
+        _select("gather_topk", dev, vals, idx, users=uf_all, items=item_factors, user_idx=user_idx,
+                excl=exclude_table if by_user else exclude, excl_by_user=by_user, n_rows=b, k=k,
+                n_excl=n_excl)
+        return vals, idx
     call(
         "gather_topk", dev, uf_all.data_ptr(), item_factors.data_ptr(), user_idx.data_ptr(),
         excl_ptr, int(by_user), vals.data_ptr(), idx.data_ptr(), b, n_items, r, k, n_excl, excl_pad,
@@ -299,13 +344,13 @@ def bank_query(
       and they are its exclusion list. A row with no valid entry gets
       ``(-inf, -1)`` in every slot.
     """
-    _check_k("bank_query", k)
     mean_rows = q_idx is not None
     if mean_rows == (users is not None):
         raise ValueError("bank_query: pass users and user_idx (user_rows) or q_idx (item_mean)")
     operands = [t for t in (vectors, users, user_idx, exclude_table, excl_map, q_idx) if t is not None]
     if on_cpu("bank_query", *operands):
         return bank_query_reference(vectors, k, users, user_idx, exclude_table, excl_map, q_idx)
+    _check_k("bank_query", k)
     n_items, d = vectors.shape
     dev = vectors.device
     _check_rank("bank_query", d)
@@ -329,8 +374,12 @@ def bank_query(
             check_operand("bank_query", "excl_map", excl_map, torch.int32, (excl_map.shape[0],), dev)
             map_ptr = excl_map.data_ptr()
         dpad, users_ptr, idx_ptr = 0, users.data_ptr(), user_idx.data_ptr()
-    _check_smem("bank_query", d, excl_pad, dpad)
     vals, idx = _outputs(b, k, dev)
+    if _select_path(k, d, n_excl, excl_pad, dpad):
+        _select("bank_query", dev, vals, idx, users=users, items=vectors, user_idx=user_idx,
+                excl=q_idx if mean_rows else exclude_table, excl_by_user=not mean_rows,
+                excl_map=excl_map, mean_rows=mean_rows, dpad=dpad, n_rows=b, k=k, n_excl=n_excl)
+        return vals, idx
     call(
         "bank_query", dev, users_ptr, vectors.data_ptr(), idx_ptr, excl_ptr, map_ptr, int(mean_rows),
         vals.data_ptr(), idx.data_ptr(), b, n_items, d, k, n_excl, excl_pad, dpad,

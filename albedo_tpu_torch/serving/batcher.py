@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from albedo_tpu_torch.models.als import ALSModel
-from albedo_tpu_torch.ops.topk import EXCLUDE_MAX, gather_topk
+from albedo_tpu_torch.ops.topk import gather_topk
 from albedo_tpu_torch.serving.overload import tier_name
 from albedo_tpu_torch.utils import pow2_at_least as _pow2_bucket
 
@@ -137,9 +137,9 @@ class MicroBatcher:
     ``exclude_table`` (every user's -1-padded history, host numpy) is
     uploaded once; requests then pass ``exclude=True`` and K6 reads their
     rows on the card. Without it, requests carry their own rows, padded per
-    batch to ``excl_width`` rounded up to a power of two. A width the kernel
-    cannot sort (over ``ops.topk.EXCLUDE_MAX``) raises here: a clipped row
-    would serve items the user already starred.
+    batch to ``excl_width`` rounded up to a power of two. Any width is served:
+    rows longer than the streaming body sorts (``ops.topk.EXCLUDE_MAX``)
+    take K6's select path, never a clipped row.
     """
 
     def __init__(
@@ -162,11 +162,6 @@ class MicroBatcher:
             self.excl_width = int(table.shape[1])  # exact table width
         else:
             self.excl_width = _pow2_bucket(excl_width) if excl_width else 0
-        if self.excl_width > EXCLUDE_MAX:
-            raise ValueError(
-                f"exclusion width {self.excl_width} exceeds the kernels' "
-                f"{EXCLUDE_MAX}; clipping it would serve already-seen items"
-            )
         if exclude_table is not None:
             self._excl_dev = torch.as_tensor(table).to(self._device)
         self.max_batch = max(1, _pow2_bucket(max_batch))

@@ -231,6 +231,9 @@ def _make_handler(service: RecommendationService):
                 self._json({"error": "not found"}, code=404)
                 return 404
             if parts[0] == "metrics":
+                # Per-stage timings refresh at scrape time (shared Timer).
+                if service.pipeline is not None:
+                    metrics.observe_timer(service.pipeline.timer)
                 self._send(
                     200, metrics.render().encode(),
                     "text/plain; version=0.0.4; charset=utf-8",

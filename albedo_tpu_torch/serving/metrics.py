@@ -4,10 +4,12 @@ Host-only copy of ``albedo_tpu/serving/metrics.py`` for the PyTorch port.
 The Prometheus-compatible primitives (:class:`Counter`/:class:`Gauge`/
 :class:`Histogram`, text format 0.0.4) live in ``utils.events`` and are
 re-exported here; this module owns the serving registry, with the same
-metric names as the JAX package's (the hot-swap and breaker series render
-0 until those layers are ported). ``render()`` also appends the
-process-global counters (``utils.events.global_metrics()``): injected-fault
-firings and retrieval-bank queries surface on the same `/metrics` page.
+metric names as the JAX package's (the hot-swap series render 0 until that
+layer is ported). ``render()`` also appends the process-global counters
+(``utils.events.global_metrics()``): injected-fault firings, retrieval-bank
+queries, retries and watchdog trips surface on the same `/metrics` page. The
+families of JAX modules not ported yet are missing until they are
+(``tests/test_torch_metrics_families.py`` names them).
 """
 
 from __future__ import annotations
@@ -111,6 +113,19 @@ class MetricsRegistry:
             "Requests shed by the overload layer, by active brownout tier.",
             ("tier",),
         )
+        # No `_total` suffix: these render as TYPE gauge (set to absolute
+        # Timer.snapshot values at scrape time) and Prometheus reserves
+        # `_total` for counters.
+        self.stage_seconds = self.gauge(
+            events.STAGE_SECONDS,
+            "Cumulative per-stage wall-clock (Timer.snapshot totals).",
+            ("stage",),
+        )
+        self.stage_calls = self.gauge(
+            events.STAGE_CALLS,
+            "Cumulative per-stage call counts (Timer.snapshot counts).",
+            ("stage",),
+        )
 
     def counter(self, name, help_, label_names=()) -> Counter:
         m = Counter(name, help_, label_names)
@@ -129,6 +144,20 @@ class MetricsRegistry:
         with self._lock:
             self._metrics.append(m)
         return m
+
+    def observe_timer(self, timer) -> None:
+        """Mirror a ``utils.profiling.Timer`` snapshot into the per-stage
+        gauges (the HTTP plane calls it at scrape time)."""
+        snap = timer.snapshot()
+        for stage, total in snap["totals"].items():
+            self.stage_seconds.set(total, stage=stage)
+        for stage, count in snap["counts"].items():
+            self.stage_calls.set(count, stage=stage)
+
+    def cache_hit_rate(self) -> float:
+        hits = self.cache_hits.value()
+        total = hits + self.cache_misses.value()
+        return hits / total if total else 0.0
 
     def render(self) -> str:
         lines: list[str] = []

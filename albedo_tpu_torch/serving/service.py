@@ -1,30 +1,36 @@
 """Artifact-backed serving engine: micro-batcher + result cache + metrics.
 
-Port of ``albedo_tpu/serving/service.py``, the ALS serving path.
-:class:`RecommendationService` answers id-mapped top-k and admin search from
-a trained model:
+Port of ``albedo_tpu/serving/service.py``. :class:`RecommendationService`
+answers id-mapped top-k and admin search from a trained model:
 
 1. **TTL result cache** (``serving.cache``) — hot users skip the card.
-2. **Micro-batcher** (``serving.batcher``) — all ALS scoring coalesces into
-   K6 launches over power-of-two user buckets. ``batching=False`` keeps the
+2. **Two-stage pipeline** (``serving.pipeline``) when candidate sources are
+   registered (``recommenders=``): fan-out -> fusion -> LR re-rank
+   (``ranker=``), with per-stage deadlines (``deadlines=``) and per-source
+   circuit breakers (``breaker_config=``).
+3. **Micro-batcher** (``serving.batcher``) — all ALS scoring, the plain
+   ``/recommend`` path's and the pipeline's ALS source's, coalesces into K6
+   launches over power-of-two user buckets. ``batching=False`` keeps the
    direct single-request path (one K5 launch per request, the parity
    baseline).
-3. **Overload control** (``serving.overload``) — AIMD admission, CoDel shed
+4. **Overload control** (``serving.overload``) — AIMD admission, CoDel shed
    and the brownout ladder, on by default; the controller starts at its
    ``max_limit`` (the queue bound), so an unstressed service behaves exactly
    as the static bounded queue.
-4. **Metrics** (``serving.metrics``) — every outcome is counted; the HTTP
+5. **Metrics** (``serving.metrics``) — every outcome is counted; the HTTP
    layer renders the registry at ``/metrics``.
 
-The model state a request reads is an immutable :class:`ModelGeneration`
-snapshot (model + batcher), captured once at request entry; ``promote``
-swaps it atomically. Every response carries ``"generation"``.
+Degradation contract: ranker deadline exceeded -> raw ALS scores;
+missing/cold ALS artifacts (``model=None``) -> the popularity fallback; a
+failing source -> dropped from the fusion, its breaker opens after repeated
+failures. The model state a request reads is an immutable
+:class:`ModelGeneration` snapshot (model + batcher + the pipeline's ALS
+source), captured once at request entry; ``promote`` swaps it atomically.
+Every response carries ``"generation"``.
 
-Not ported yet (each raises ``NotImplementedError``): the two-stage
-pipeline (``recommenders=``, ``ranker=``, ``deadlines=``, the breakers), the
-retrieval-bank stage (``bank_stage=``), and the cold-artifact popularity
-fallback (``model=None``), which needs the pipeline; the hot-swap manager
-(``serving/reload.py``) is not ported either.
+Not ported yet: the retrieval-bank stage (``bank_stage=`` raises
+``NotImplementedError``; it comes with ``retrieval/stage.py`` and
+``serve --bank``) and the hot-swap manager (``serving/reload.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,11 @@ from albedo_tpu_torch.serving.overload import (
     OverloadController,
     tier_name,
 )
+from albedo_tpu_torch.serving.pipeline import (
+    BatchedALSSource,
+    StageDeadlines,
+    TwoStagePipeline,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,21 +78,23 @@ class ModelGeneration:
     """
 
     number: int
-    model: ALSModel
+    model: ALSModel | None
     batcher: MicroBatcher | None
+    als_source: object | None  # BatchedALSSource/ALSRecommender for the pipeline
     origin: str                # "boot" or where the model came from
     validated: bool
     promoted_at: float = 0.0
 
 
 class RecommendationService:
-    """Read-only online engine over a trained ALS model.
+    """Read-only online engine over trained artifacts.
 
     ``RecommendationService(model, matrix, repo_info, user_info)`` serves the
-    ALS path. The two-stage options of the JAX service (``recommenders``,
-    ``ranker``, ``deadlines``, ``breaker_config``, ``bank_stage``) and
-    ``model=None`` (its popularity fallback) need the two-stage pipeline,
-    which is not ported yet: each raises ``NotImplementedError``.
+    ALS path; the engine features are opt-in keywords. ``model=None``
+    declares the ALS artifacts missing: the service stays up and answers
+    from the registered ``popularity`` source (the cold-artifact
+    degradation path). ``bank_stage`` (the retrieval-bank candidate stage)
+    is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -100,28 +113,21 @@ class RecommendationService:
         max_queue: int = 256,
         cache_ttl: float = 0.0,
         cache_size: int = 4096,
-        deadlines=None,
+        deadlines: StageDeadlines | None = None,
         default_k: int = 30,
         max_k: int = 500,
         item_block: int = 4096,
         warm: bool = False,
         breaker_config=None,
+        breakers_enabled: bool = True,
         bank_stage=None,
         overload_enabled: bool = True,
         overload_config: OverloadConfig | None = None,
     ):
-        for name, value in (("recommenders", recommenders), ("ranker", ranker),
-                            ("deadlines", deadlines), ("breaker_config", breaker_config),
-                            ("bank_stage", bank_stage)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"RecommendationService({name}=...) needs the two-stage pipeline, "
-                    "which is not ported yet"
-                )
-        if model is None:
+        if bank_stage is not None:
             raise NotImplementedError(
-                "RecommendationService(model=None) serves the popularity fallback of the "
-                "two-stage pipeline, which is not ported yet"
+                "RecommendationService(bank_stage=...): the retrieval-bank candidate stage "
+                "(retrieval/stage.py, serve --bank) is not ported yet; it is the next slice"
             )
         self.matrix = matrix
         self.repo_info = repo_info if repo_info is not None else pd.DataFrame()
@@ -179,11 +185,28 @@ class RecommendationService:
             TTLCache(maxsize=cache_size, ttl=cache_ttl) if cache_ttl > 0 else None
         )
 
+        self.pipeline: TwoStagePipeline | None = None
+        self._pipeline_owns_als = False
+        if recommenders:
+            sources = dict(recommenders)
+            # The live ALS source rides each ModelGeneration and joins the
+            # fan-out per request (pipeline extra_sources) — unless the
+            # caller registered an "als" source explicitly, which then wins.
+            self._pipeline_owns_als = "als" in sources
+            self.pipeline = TwoStagePipeline(
+                sources, ranker=ranker, deadlines=deadlines, metrics=self.metrics,
+                breaker_config=breaker_config, breakers_enabled=breakers_enabled,
+            )
+
         # Displaced generations' batchers not stopped yet: close() sweeps them.
         self._zombie_batchers: list[MicroBatcher] = []
         self._gen_lock = threading.Lock()
         self._generation = self.build_generation(
-            model, number=1, origin="boot", validated=True, warm=warm,
+            model,
+            number=1 if model is not None else 0,
+            origin="boot",
+            validated=model is not None,
+            warm=warm,
         )
         self.metrics.model_generation.set(self._generation.number)
 
@@ -200,7 +223,7 @@ class RecommendationService:
         return self._generation
 
     @property
-    def model(self) -> ALSModel:
+    def model(self) -> ALSModel | None:
         return self._generation.model
 
     @property
@@ -209,7 +232,7 @@ class RecommendationService:
 
     def build_generation(
         self,
-        model: ALSModel,
+        model: ALSModel | None,
         number: int,
         origin: str,
         validated: bool,
@@ -217,9 +240,11 @@ class RecommendationService:
     ) -> ModelGeneration:
         """Assemble a serving state for ``model`` WITHOUT promoting it: the
         batcher, configured as the incumbent's and warmed (kernels built,
-        every shape launched once) off the request path when ``warm``."""
+        every shape launched once) off the request path when ``warm``, and
+        the pipeline's ALS source (through that batcher, or the direct
+        ``ALSRecommender`` without batching)."""
         batcher = None
-        if self._batching:
+        if self._batching and model is not None:
             batcher = MicroBatcher(
                 model,
                 exclude_table=self._exclude_table,
@@ -232,10 +257,28 @@ class RecommendationService:
             )
             if warm:
                 batcher.warm(ks=(self.default_k,))
+        als_source = None
+        if (
+            self.pipeline is not None
+            and not self._pipeline_owns_als
+            and model is not None
+            and self.matrix is not None
+        ):
+            if batcher is not None:
+                als_source = BatchedALSSource(
+                    batcher, self.matrix, exclude_seen=True, top_k=self.default_k
+                )
+            else:
+                from albedo_tpu_torch.recommenders import ALSRecommender
+
+                als_source = ALSRecommender(
+                    model, self.matrix, exclude_seen=True, top_k=self.default_k
+                )
         return ModelGeneration(
             number=int(number),
             model=model,
             batcher=batcher,
+            als_source=als_source,
             origin=origin,
             validated=validated,
             promoted_at=time.time(),
@@ -281,7 +324,9 @@ class RecommendationService:
                 if batcher is not None
                 else {"active": False}
             ),
-            "breakers": {},
+            "breakers": (
+                self.pipeline.breaker_states() if self.pipeline is not None else {}
+            ),
         }
         if self.cache is not None:
             report["cache"] = self.cache.stats()
@@ -292,8 +337,9 @@ class RecommendationService:
     # ----------------------------------------------------------- lifecycle
 
     def close(self) -> None:
-        """Stop the batchers (draining in-flight work). Idempotent; the HTTP
-        layer calls it from ``ServerHandle.shutdown``."""
+        """Stop the batchers (draining in-flight work) and the pipeline's
+        pools. Idempotent; the HTTP layer calls it from
+        ``ServerHandle.shutdown``."""
         with self._close_lock:
             if self._closed:
                 return
@@ -305,6 +351,8 @@ class RecommendationService:
             zombies, self._zombie_batchers = self._zombie_batchers, []
         for batcher in zombies:
             batcher.stop(drain=True)
+        if self.pipeline is not None:
+            self.pipeline.close()
 
     def __enter__(self) -> "RecommendationService":
         return self
@@ -419,7 +467,8 @@ class RecommendationService:
         exclude_seen: bool = True,
         deadline: float | None = None,
     ) -> tuple[int, dict]:
-        """Full engine path: cache -> batched ALS (or the direct path).
+        """Full engine path: cache -> (two-stage | batched ALS | the direct
+        path | the popularity fallback).
 
         Returns ``(http_status, body)``; raises
         :class:`~albedo_tpu_torch.serving.batcher.QueueOverflow` for the HTTP
@@ -428,13 +477,17 @@ class RecommendationService:
         """
         user_id = int(user_id)
         k = self.clamp_k(k if k is not None else self.default_k)
+        if self.pipeline is not None:
+            # Two-stage k is bounded by the stage-1 candidate budget (each
+            # source generates default_k candidates): clamp and say so.
+            k = min(k, self.default_k)
         gen = self._generation
 
         def cache_key(g):
             # The generation tag is part of the key: a promoted swap never
-            # answers from the displaced model's cached bodies. The fifth
-            # field is the JAX key's "two-stage" flag, always off here.
-            return ("rec", user_id, k, bool(exclude_seen), False, g.number)
+            # answers from the displaced model's cached bodies.
+            return ("rec", user_id, k, bool(exclude_seen),
+                    self.pipeline is not None, g.number)
 
         key = cache_key(gen)
         if self.cache is not None:
@@ -454,9 +507,12 @@ class RecommendationService:
             key = cache_key(gen)
             status, body = self._compute(gen, user_id, k, exclude_seen, deadline)
         self.metrics.generation_requests.inc(generation=str(gen.number))
-        if self.cache is not None and status == 200 and not body.get("brownout"):
-            # Brownout-tagged bodies never enter the cache: a reduced answer
-            # must not outlive the incident.
+        if (
+            self.cache is not None and status == 200
+            and not body.get("degraded") and not body.get("brownout")
+        ):
+            # Degraded or brownout-tagged bodies never enter the cache: a
+            # reduced answer must not outlive the incident.
             self.cache.put(key, (status, body), user_id=user_id)
         return status, body
 
@@ -497,6 +553,33 @@ class RecommendationService:
                     tier=tier_name(blevel),
                     level=blevel,
                 )
+        # Cold/missing ALS artifacts: the registered sources (popularity and
+        # friends) live in the pipeline, which is the fallback plane. The
+        # degraded counter counts answered requests only; the no-source 503
+        # is an error, not a degradation.
+        if gen.model is None:
+            if self.pipeline is None:
+                return 503, {
+                    "user_id": user_id,
+                    "error": "no model loaded and no fallback source",
+                    "items": [],
+                }
+            self.metrics.degraded.inc(reason="cold_artifacts")
+            out = self.pipeline.recommend(
+                user_id, k, exclude_seen=exclude_seen, deadline=deadline,
+                brownout_level=blevel,
+            )
+            out.setdefault("degraded", []).insert(0, "cold_artifacts")
+            return 200, self._pipeline_body(gen, user_id, k, out)
+
+        if self.pipeline is not None:
+            extra = {"als": gen.als_source} if gen.als_source is not None else None
+            out = self.pipeline.recommend(
+                user_id, k, exclude_seen=exclude_seen, extra_sources=extra,
+                deadline=deadline, brownout_level=blevel,
+            )
+            return 200, self._pipeline_body(gen, user_id, k, out)
+
         if gen.batcher is not None:
             body = self._recommend_batched(gen, user_id, k, exclude_seen, deadline)
         else:
@@ -506,6 +589,27 @@ class RecommendationService:
             # the response still carries the tier tag.
             body["brownout"] = {"level": blevel, "tier": tier_name(blevel)}
         return (404 if body.get("error") else 200), body
+
+    def _pipeline_body(self, gen: ModelGeneration, user_id: int, k: int, out: dict) -> dict:
+        """The two-stage response: ``stage``, ``degraded`` and ``items`` of
+        ``{repo_id, score, source, repo_full_name}``, as the JAX server's."""
+        body = {
+            "user_id": user_id,
+            "k": k,
+            "generation": gen.number,
+            "stage": out.get("stage"),
+            "degraded": out.get("degraded", []),
+            "items": [
+                {**item, "repo_full_name": self._repo_names.get(item["repo_id"])}
+                for item in out.get("items", [])
+            ],
+        }
+        if out.get("brownout_level"):
+            body["brownout"] = {
+                "level": out["brownout_level"],
+                "tier": out.get("brownout_tier"),
+            }
+        return body
 
     # -------------------------------------------------------- admin search
 

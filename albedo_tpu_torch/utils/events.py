@@ -4,7 +4,7 @@ Host-only copy of ``albedo_tpu/utils/events.py`` for the PyTorch port: the
 Prometheus-compatible :class:`Counter`/:class:`Gauge`/:class:`Histogram`
 primitives the serving metrics plane is built from, the ``albedo_*`` metric
 names, and the process-global counters of the layers the port has (injected
-fault firings, retrieval-bank queries). ``MetricsRegistry.render`` appends
+fault firings, retrieval-bank queries, retries, divergence-watchdog trips). ``MetricsRegistry.render`` appends
 ``global_metrics()`` to every exposition.
 
 Exposition follows the Prometheus text format 0.0.4 (`# HELP` / `# TYPE`
@@ -164,9 +164,13 @@ RELOAD_REJECTED_TOTAL = "albedo_reload_rejected_total"
 GENERATION_REQUESTS_TOTAL = "albedo_generation_requests_total"
 BREAKER_STATE = "albedo_breaker_state"
 BREAKER_TRANSITIONS_TOTAL = "albedo_breaker_transitions_total"
+STAGE_SECONDS = "albedo_stage_seconds"
+STAGE_CALLS = "albedo_stage_calls"
 
 # The process-global counters below.
+RETRY_ATTEMPTS_TOTAL = "albedo_retry_attempts_total"
 FAULTS_FIRED_TOTAL = "albedo_faults_fired_total"
+WATCHDOG_TRIPS_TOTAL = "albedo_watchdog_trips_total"
 RETRIEVAL_QUERIES_TOTAL = "albedo_retrieval_queries_total"
 
 # Overload-resilience plane (serving/overload.py).
@@ -230,4 +234,15 @@ retrieval_queries = global_counter(
     RETRIEVAL_QUERIES_TOTAL,
     "User rows answered by the device-resident retrieval bank, by source.",
     ("source",),
+)
+retry_attempts = global_counter(
+    RETRY_ATTEMPTS_TOTAL,
+    "Retries performed by utils.retry after a failed attempt, by call site.",
+    ("site",),
+)
+watchdog_trips = global_counter(
+    WATCHDOG_TRIPS_TOTAL,
+    "Training divergence watchdog tripwires fired, by kind "
+    "(nonfinite/norm/trajectory/lr).",
+    ("kind",),
 )

@@ -1,7 +1,7 @@
 """Accumulating named wall-clock sections.
 
-Port of ``albedo_tpu/utils/profiling.py Timer`` (the part the ranker's stage
-breakdown uses). A section that times device work passes ``sync`` (a torch
+Port of ``albedo_tpu/utils/profiling.py Timer`` (the parts the ranker's stage
+breakdown and the serving stage gauges use). A section that times device work passes ``sync`` (a torch
 device): the section then waits for that device before it stops the clock,
 so its time includes the queued kernels.
 """
@@ -40,6 +40,12 @@ class Timer:
             with self._lock:
                 self.totals[name] = self.totals.get(name, 0.0) + dt
                 self.counts[name] = self.counts.get(name, 0) + 1
+
+    def snapshot(self) -> dict[str, dict]:
+        """A consistent copy of ``{"totals": ..., "counts": ...}`` (the
+        metrics plane reads it from another thread)."""
+        with self._lock:
+            return {"totals": dict(self.totals), "counts": dict(self.counts)}
 
     def report(self, printer: Callable[[str], None] = print) -> dict[str, float]:
         for name in sorted(self.totals, key=self.totals.get, reverse=True):  # type: ignore[arg-type]

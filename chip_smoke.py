@@ -30,6 +30,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    buckets 1/8/64 x k 32/512 in each exclusion mode, each row also equal to
    K5 on that user alone; K7 bank_query for user rows (plain, excluded,
    remapped) and item means at d 16, 50, 200, 3010 with an empty query row.
+   Then the any-size paths: K1-K3 at ranks 65, 100, 128 and 256 on
+   bench-shaped buckets with a power-law row (7624 entries) and K3 at rank
+   1500 (their wide paths, the global workspaces included), rel 1e-4; K5 at
+   k = 513, 600, 2048 and the whole catalogue, fewer admissible items than k,
+   the wide rank, and an exclusion row of 40 000 (the select path), K6 at
+   buckets 1/8/64 x those k in each exclusion mode and with 40 000-wide
+   device rows (each row equal to K5 on that user alone), K7 for user rows
+   and item means at k 600 and 2048, all exactly. Then K8c gather_sum
+   (forward exactly, its K8 backward to 1e-5 of each entry's mass, 3 and 40
+   terms) and K12 factor_health on the bench tables' shapes, finite and with
+   NaN and +-inf planted (count and max exact, rms 1e-6, the same bits twice).
 4. job     — runs ``albedo_tpu_torch.cli.main(["train_als"])`` at the job's
    full size (rank 50, 26 iterations, Cholesky) and again with
    ``--solver cg``, with the launch counts set to 0 just before each run and
@@ -88,6 +99,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    service's requests/s and p50/p99 at closed-loop concurrency 1, 8 and 64
    from a client process (and 64 again with ``http.server``'s default
    listen backlog of 5), with the card's busy share.
+9. wide_rank — with the counts set to 0, ``ImplicitALS(rank=100)`` on the
+   ``train_als`` tables from the shared numpy init (26 iterations, Cholesky;
+   then 2 with CG) and the test users' top 600 with seen items excluded: the
+   NDCG@30 in the JAX band, every wide and select path launched, each held
+   at this run's inputs and timed.
+10. two_stage — ``serve --two-stage`` at full width on the shared inputs of
+   ``ranker --shared``: with the counts set to 0 before the fits (ALS, the
+   in-process ranker) and read after the drive, 256 concurrent requests
+   through the batched service, each equal to the direct path's answer, the
+   re-ranked NDCG@30 in the JAX band (``jax_reference_ndcg.py two_stage
+   --shared``), ``serving.source.curation`` forced to fail (degraded answers,
+   the breaker open), and ``serve --two-stage`` as a subprocess. Then K8c at
+   the ranker fit's real batch and K12 on the bench tables, each against its
+   plain version and timed (K12 also against the reductions it replaced),
+   and the two-stage service under closed-loop load at 1, 8 and 64 with the
+   per-stage split from the /metrics stage gauges.
 
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
@@ -209,6 +236,12 @@ KERNELS = {
     "bpr_step": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
     "gather_topk": ("albedo_tpu_torch/kernels/csrc/gather_topk.cu", "albedo_tpu/serving/batcher.py:118"),
     "bank_query": ("albedo_tpu_torch/kernels/csrc/bank_query.cu", "albedo_tpu/retrieval/bank.py:187"),
+    "als_partials_wide": ("albedo_tpu_torch/kernels/csrc/als_partials.cu", "albedo_tpu/ops/als.py:108"),
+    "solve_corrected_wide": ("albedo_tpu_torch/kernels/csrc/solve_corrected.cu", "albedo_tpu/ops/als.py:138"),
+    "bucket_cg_wide": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
+    "topk_select": ("albedo_tpu_torch/kernels/csrc/topk_select.cu", "albedo_tpu/ops/topk.py:27"),
+    "gather_sum": ("albedo_tpu_torch/kernels/csrc/gather_sum.cu", "albedo_tpu/ops/sparse_linear.py:338"),
+    "factor_health": ("albedo_tpu_torch/kernels/csrc/factor_health.cu", "albedo_tpu/utils/watchdog.py:55"),
 }
 
 
@@ -704,6 +737,266 @@ def phase_serving_kernels() -> dict:
     return worst
 
 
+# The select path of K5-K7 (k > 512, or an exclusion row the streaming body
+# cannot sort) is exact against the plain version, as the streaming body is.
+# K12: the count and the max are exact; the rms is the float32 rounding of a
+# float64 sum taken in another order than the plain version's, so it may
+# differ by one rounding: 1e-6 relative.
+HEALTH_RMS_REL = 1e-6
+
+
+def _als_case(rng, k: int, n_source: int, b: int, length: int, n_pad: int, dev,
+              names=("als_partials", "solve_corrected", "bucket_cg")) -> dict:
+    """K1-K3 at rank k on one padded bucket, each against its plain version
+    (rel error); K2 takes K1's plain output."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    src = torch.as_tensor((rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32), device=dev)
+    yty = ops_als.gramian(src)
+    idx, val, mask = _bucket(rng, n_source, b, length, n_pad, dev)
+    out = {}
+    corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0)
+    if "als_partials" in names:
+        corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0)
+        out["als_partials"] = max(rel_err(corr, corr_p)[1], rel_err(b_vec, b_p)[1])
+    if "solve_corrected" in names:
+        n_b = mask.sum(dim=1, dtype=torch.float32)
+        live = n_b > 0  # padding slots solve YtY alone; the landing drops them
+        x = ops_als.solve_corrected(yty, corr_p, b_p, n_b, 0.5)
+        out["solve_corrected"] = rel_err(x[live], ops_als.solve_corrected_reference(yty, corr_p, b_p, n_b, 0.5)[live])[1]
+    if "bucket_cg" in names:
+        x0 = torch.as_tensor((rng.standard_normal((b, k)) * 0.1).astype(np.float32), device=dev)
+        y = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)
+        out["bucket_cg"] = rel_err(y, ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3))[1]
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_any_size_kernels() -> dict:
+    """K1-K3 above rank 64 (their wide paths, the global-workspace branches
+    included) and K5-K7 above k = 512 and with exclusion rows longer than
+    the streaming body sorts (the select path), each against its plain
+    version: K1-K3 at rel 1e-4, K5-K7 exactly."""
+    from albedo_tpu_torch.kernels import launch_counts, reset_launches
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    worst: dict[str, float] = {}
+    cases = []
+
+    def note(name, label, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+        cases.append({"kernel": name, "case": label, "err": err})
+
+    reset_launches()
+    # Bench-shaped buckets (the bench catalogue of 19991 items as the source):
+    # a full bucket of short rows, one of mid-length rows with padding slots,
+    # and the power-law tail (the bench's longest row holds 7624 entries).
+    for k in (65, 100, 128, 256):
+        for b, length, n_pad in ((64, 37, 8), (48, 400, 4), (3, 7624, 0)):
+            for name, e in _als_case(rng, k, 19991, b, length, n_pad, dev).items():
+                note(name, f"rank {k}, B {b}, L {length}", e)
+    # K3 above the shared-memory limit (rank 1500: its global workspace).
+    for name, e in _als_case(rng, 1500, 3000, 8, 64, 1, dev, names=("bucket_cg",)).items():
+        note(name, "rank 1500, B 8, L 64", e)
+    als_counts = launch_counts()
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def factors(n, r):
+        return (rng.standard_normal((n, r)) / np.sqrt(r)).astype(np.float32)
+
+    def exact(name, label, got, want):
+        note(name, label, _exact(got, want)[1])
+
+    # K5: k = 513, 600, 2048 and k = the catalogue, with ties from duplicated
+    # rows and -1-padded exclusions with duplicates; fewer admissible items
+    # than k; the wide rank; an exclusion row of 40 000 over 60 000 items.
+    vf = factors(2936, 50)
+    vf[1500:1600] = vf[:100]
+    uf = factors(37, 50)
+    excl = np.full((37, 300), -1, dtype=np.int32)
+    excl[:, :250] = rng.integers(0, 2936, size=(37, 250))
+    excl[:, 250] = excl[:, 0]
+    for k in (513, 600, 2048, 2936):
+        exact("topk_scores", f"k={k}, exclusions, ties", ops_topk.topk_scores(t(uf), t(vf), k, t(excl)),
+              ops_topk.topk_scores_reference(t(uf), t(vf), k, t(excl)))
+    exact("topk_scores", "k=600, no exclusion", ops_topk.topk_scores(t(uf), t(vf), 600),
+          ops_topk.topk_scores_reference(t(uf), t(vf), 600))
+    small_excl = np.tile(np.arange(200, dtype=np.int32), (37, 1))
+    exact("topk_scores", "k=2048, 400 admissible of 600",
+          ops_topk.topk_scores(t(uf), t(vf[:600]), 2048, t(small_excl)),
+          ops_topk.topk_scores_reference(t(uf), t(vf[:600]), 2048, t(small_excl)))
+    wide_v, wide_u = factors(1500, 200), factors(9, 200)
+    exact("topk_scores", "r=200, k=600", ops_topk.topk_scores(t(wide_u), t(wide_v), 600, t(excl[:9])),
+          ops_topk.topk_scores_reference(t(wide_u), t(wide_v), 600, t(excl[:9])))
+    big_v, big_u = factors(60000, 50), factors(4, 50)
+    long_excl = np.full((4, 40000), -1, dtype=np.int32)
+    for u in range(4):
+        n = 40000 - 7 * u
+        long_excl[u, :n] = rng.choice(60000, size=n, replace=False)
+    for k in (30, 600):
+        exact("topk_scores", f"exclusion row of 40000, k={k}",
+              ops_topk.topk_scores(t(big_u), t(big_v), k, t(long_excl)),
+              ops_topk.topk_scores_reference(t(big_u), t(big_v), k, t(long_excl)))
+
+    # K6 at buckets 1/8/64 x k 513/600/2048 in each exclusion mode, each row
+    # also equal to K5 on that user alone; and a device table of 40 000-wide
+    # rows (the streaming body would have to sort each in shared memory).
+    n_users = 500
+    uf_all = t(factors(n_users, 50))
+    items = t(vf)
+    table = np.full((n_users, 700), -1, dtype=np.int32)
+    for u in range(n_users):
+        n = int(rng.integers(0, 700))
+        table[u, :n] = rng.choice(2936, size=n, replace=False)
+    table_t = t(table)
+    for bucket in (1, 8, 64):
+        ui = rng.integers(0, n_users, size=bucket).astype(np.int32)
+        ui[-1] = ui[0]
+        ui_t = t(ui)
+        for k in (513, 600, 2048):
+            for mode in ("device", "host", "none"):
+                kw = ({"exclude_table": table_t} if mode == "device"
+                      else {"exclude": t(table[ui])} if mode == "host" else {})
+                got = ops_topk.gather_topk(uf_all, items, ui_t, k, **kw)
+                exact("gather_topk", f"bucket {bucket}, k={k}, {mode}", got,
+                      ops_topk.gather_topk_reference(uf_all, items, ui_t, k, **kw))
+                ex_one = t(table[ui[:1]]) if mode != "none" else None
+                alone = ops_topk.topk_scores(uf_all[ui_t[:1].long()].contiguous(), items, k, ex_one)
+                exact("gather_topk", f"bucket {bucket}, k={k}, {mode}: row = K5 alone",
+                      tuple(x[:1] for x in got), alone)
+    big_uf = t(factors(6, 50))
+    big_table = t(long_excl[[0, 1, 2, 3, 0, 1]])
+    ui_t = t(np.array([3, 0, 5, 1], dtype=np.int32))
+    got = ops_topk.gather_topk(big_uf, t(big_v), ui_t, 30, exclude_table=big_table)
+    exact("gather_topk", "device rows of 40000, k=30", got,
+          ops_topk.gather_topk_reference(big_uf, t(big_v), ui_t, 30, exclude_table=big_table))
+    for b in range(4):
+        alone = ops_topk.topk_scores(big_uf[ui_t[b:b + 1].long()].contiguous(), t(big_v), 30,
+                                     big_table[ui_t[b:b + 1].long()].contiguous())
+        exact("gather_topk", f"device rows of 40000: row {b} = K5 alone", tuple(x[b:b + 1] for x in got), alone)
+
+    # K7: user rows (plain, excluded, remapped) and item means (d 50, 3010,
+    # an empty row) at k = 600 and 2048.
+    perm = rng.permutation(2936)[:2500]
+    excl_map = np.full(2936, -1, dtype=np.int32)
+    excl_map[perm] = np.arange(2500, dtype=np.int32)
+    sub = t(vf[perm])
+    ui = t(rng.integers(0, n_users, size=64).astype(np.int32))
+    for k in (600, 2048):
+        for label, kw in (("user_rows", {}), ("user_rows, exclusion", {"exclude_table": table_t}),
+                          ("user_rows, remapped exclusion", {"exclude_table": table_t, "excl_map": t(excl_map)})):
+            items_k = sub if "remapped" in label else items
+            exact("bank_query", f"{label}, k={k}", ops_topk.bank_query(items_k, k, users=uf_all, user_idx=ui, **kw),
+                  ops_topk.bank_query_reference(items_k, k, users=uf_all, user_idx=ui, **kw))
+        for d in (50, 3010):
+            table_d = t(np.abs(factors(2936, d)) if d == 3010 else factors(2936, d))
+            q = np.full((64, 32), -1, dtype=np.int32)
+            for b in range(1, 64):
+                n = 1 if b % 5 == 0 else int(rng.integers(1, 31))
+                q[b, :n] = rng.integers(0, 2936, size=n)
+            exact("bank_query", f"item_mean d={d}, k={k}, an empty row",
+                  ops_topk.bank_query(table_d, k, q_idx=t(q)), ops_topk.bank_query_reference(table_d, k, q_idx=t(q)))
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    paths = ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide", "topk_scores_select",
+             "gather_topk_select", "bank_query_select")
+    ok = (all(worst[n] <= REL_TOL for n in ("als_partials", "solve_corrected", "bucket_cg"))
+          and all(worst[n] == 0.0 for n in ("topk_scores", "gather_topk", "bank_query"))
+          and all(counts.get(p, 0) > 0 for p in paths))
+    emit({"phase": "any_size_kernels", "ok": ok, "rel_tol": REL_TOL, "worst": worst,
+          "als_launches": {n: c for n, c in als_counts.items() if c}, "launches": counts, "cases": cases})
+    if not ok:
+        raise SystemExit("chip_smoke: a wide or select path disagrees with its plain version (or never ran)")
+    return worst
+
+
+def _gather_sum_err(base, tables, idxs, got, want) -> tuple[float, float]:
+    """K8c's forward error against the L1 mass of each row's terms."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    mass = sl.gather_sum_reference(base.abs(), [x.abs() for x in tables], idxs)
+    return mass_err(got, want, mass)
+
+
+def _hold_gather_sum(base, tables, idxs, layouts, g) -> dict:
+    """K8c forward (against the plain sum, per row relative to its terms'
+    mass) and its backward (each table's gradient against the plain version's
+    autograd gradient, per entry relative to the mass of the terms summed
+    into it, sum |g| over the rows that read it)."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    got = sl.gather_sum(base, tables, idxs)
+    want = sl.gather_sum_reference(base, tables, idxs)
+    fwd = _gather_sum_err(base, tables, idxs, got, want)
+    ts = [x.detach().clone().requires_grad_(True) for x in tables]
+    orders = [lay[0] for lay in layouts]
+    indptrs = [lay[1] for lay in layouts]
+    sl._GatherSum.apply(base, (idxs, orders, indptrs), *ts).backward(g)
+    ps = [x.detach().clone().requires_grad_(True) for x in tables]
+    sl.gather_sum_reference(base, ps, idxs).backward(g)
+    bwd = [0.0, 0.0]
+    for tk, tp, idx in zip(ts, ps, idxs):
+        mass = torch.zeros_like(tp).index_add_(0, idx.long(), g.abs())
+        e = mass_err(tk.grad, tp.grad, mass)
+        bwd = [max(bwd[0], e[0]), max(bwd[1], e[1])]
+    torch.cuda.synchronize()
+    return {"forward": fwd, "backward": tuple(bwd)}
+
+
+def phase_two_stage_kernels() -> dict:
+    """K8c gather_sum (forward and its K8 backward) on a synthetic batch
+    with a field of one category, empty categories and 40 terms (two chained
+    launches), and K12 factor_health on the bench tables' shapes, finite and
+    with NaN and +-inf planted."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+    from albedo_tpu_torch.utils import watchdog
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    n = 100_000
+    res = {}
+    for n_terms in (3, 40):
+        sizes = [1, 7, 300, 5000] * 10
+        sizes = sizes[:n_terms]
+        tables = [torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev) for s in sizes]
+        idxs = [torch.as_tensor(rng.integers(0, max(1, s // 2 + 1), size=n).astype(np.int32), device=dev)
+                for s in sizes]
+        layouts = [sl._sorted_layout(i, s) for i, s in zip(idxs, sizes)]
+        base = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+        res[f"{n_terms} terms"] = _hold_gather_sum(base, tables, idxs, layouts, g)
+    gather_ok = all(v["forward"][1] <= RANKER_REL["segment_dot"] and v["backward"][1] <= RANKER_REL["segment_dot"]
+                    for v in res.values())
+
+    health = {}
+    for label, plant in (("finite", None), ("nan", float("nan")), ("+inf", float("inf")), ("-inf", float("-inf"))):
+        uf = torch.as_tensor(rng.standard_normal((30000, 50)).astype(np.float32), device=dev)
+        vf = torch.as_tensor((rng.standard_normal((19991, 50)) * 3).astype(np.float32), device=dev)
+        if plant is not None:
+            uf.view(-1)[rng.integers(0, uf.numel(), size=17)] = plant
+            vf.view(-1)[rng.integers(0, vf.numel(), size=5)] = plant
+            vf[0, 0] = 1e30  # a finite outlier that must stay the max
+        got = watchdog.factor_health(uf, vf).cpu()
+        want = watchdog.factor_health_reference(uf, vf).cpu()
+        again = watchdog.factor_health(uf, vf).cpu()
+        health[label] = {"got": got.tolist(), "want": want.tolist(),
+                         "count_max_exact": bool(torch.equal(got[:2], want[:2])),
+                         "rms_rel": abs(float(got[2]) - float(want[2])) / max(abs(float(want[2])), 1e-30),
+                         "repeat_bitwise": bool(torch.equal(got, again))}
+    health_ok = all(h["count_max_exact"] and h["rms_rel"] <= HEALTH_RMS_REL and h["repeat_bitwise"]
+                    for h in health.values())
+    ok = gather_ok and health_ok
+    emit({"phase": "two_stage_kernels", "ok": ok, "gather_sum": res, "factor_health": health,
+          "tol": {"gather_sum": RANKER_REL["segment_dot"], "factor_health_rms": HEALTH_RMS_REL}})
+    if not ok:
+        raise SystemExit("chip_smoke: K8c or K12 disagrees with its plain version")
+    return res
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -781,7 +1074,8 @@ def phase_job() -> dict:
 
 RANKER_NEEDS = {
     "train_word2vec": ("sgns_step", "adam_dense"),
-    "train_lr": ("als_partials", "solve_corrected", "topk_scores", "segment_dot", "sgns_step", "adam_dense"),
+    "train_lr": ("als_partials", "solve_corrected", "topk_scores", "segment_dot", "gather_sum", "sgns_step",
+                 "adam_dense", "factor_health"),
 }
 
 
@@ -936,7 +1230,7 @@ def _k8_calls(lr_inputs) -> list[tuple]:
 
     est, fm, labels, weights, model = lr_inputs
     dev = torch.device("cuda")
-    batch = sl.feature_batch(fm, dev)
+    batch = sl.feature_batch(fm, dev, grad_layout=True)
     scales = lr_mod._to_device(model.scales, dev)
     params = {k: v.requires_grad_(True) for k, v in lr_mod._to_device(model.params, dev).items()}
     center = None if model.center is None else torch.as_tensor(model.center).to(dev)
@@ -1842,7 +2136,7 @@ def phase_serve() -> dict:
     mismatch += sum(body["items"] != service.recommend(int(u), k=TOP_K, exclude_seen=False)["items"]
                     for u, (_, body) in zip(test_users, served))
     frame = pd.DataFrame([(int(u), it["repo_id"], it["score"]) for u, (_, body) in zip(test_users, served)
-                          for it in body["items"]], columns=["user_id", "repo_id", "score"])
+                          for it in body.get("items", [])], columns=["user_id", "repo_id", "score"])
     served_ndcg = ctx.evaluate_topk(frame)
     offline_ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=TOP_K).recommend_for_users(test_users))
     held = max((_exact(ops_topk.gather_topk(*a, **kw), ops_topk.gather_topk_reference(*a, **kw))
@@ -1868,17 +2162,18 @@ def phase_serve() -> dict:
             "calls": calls}
 
 
-def _serve_cli(uid: int) -> dict:
-    """``python -m albedo_tpu_torch.cli serve --port 0`` as a subprocess: wait
-    for its listening line, GET /healthz/ready and three /recommend, then
-    SIGTERM, which must drain it to exit 0."""
+def _serve_cli(uid: int, flags: tuple = (), ks: tuple = (3, 30, 500)) -> dict:
+    """``python -m albedo_tpu_torch.cli serve --port 0`` (with ``flags``) as a
+    subprocess: wait for its listening line, GET /healthz/ready and one
+    /recommend per k of ``ks``, then SIGTERM, which must drain it to exit 0."""
     import queue as queue_mod
     import signal
     import threading
 
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "albedo_tpu_torch.cli", "serve", "--port", "0",
-                             "--duration", "600"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                             "--duration", "600", *flags], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     lines: "queue_mod.Queue[str]" = queue_mod.Queue()
     reader = threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True)
     reader.start()
@@ -1897,7 +2192,7 @@ def _serve_cli(uid: int) -> dict:
         start_s = time.perf_counter() - t0
         if url is not None:
             codes.append(_http(f"{url}/healthz/ready")[0])
-            for k in (3, 30, 500):
+            for k in ks:
                 st, body = _http(f"{url}/recommend/{uid}?k={k}")
                 codes.append(st if len(body.get("items", [])) == k else -st)
         proc.send_signal(signal.SIGTERM)
@@ -1909,7 +2204,7 @@ def _serve_cli(uid: int) -> dict:
         reader.join(timeout=10)
     while not lines.empty():
         out.append(lines.get().rstrip())
-    return {"ok": url is not None and codes == [200] * 4 and rc == 0, "codes": codes, "rc": rc,
+    return {"ok": url is not None and codes == [200] * (1 + len(ks)) and rc == 0, "codes": codes, "rc": rc,
             "start_s": start_s, "output": out[-5:]}
 
 
@@ -2129,7 +2424,6 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
     from albedo_tpu_torch.ops import topk as ops_topk
     from albedo_tpu_torch.serving import RecommendationService, serve
     from albedo_tpu_torch.serving import http as http_mod
-    from albedo_tpu_torch.utils.watchdog import factor_health
 
     rng = np.random.default_rng(31)
     service = serve_state["service"]
@@ -2159,7 +2453,7 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
                      bytes=4 * (q.numel() + bvf.numel() + ex.numel()) + 8 * 500 * 512,
                      flops=2 * 500 * bvf.shape[0] * bvf.shape[1]))
     # K4 (plain torch): the Gramian of each table and one half-sweep's landing
-    # gather; K12 (plain torch): the health vector of both tables.
+    # gather. (K12 is a kernel now, timed in phase 10.)
     land = torch.randperm(buf.shape[0], device=buf.device)
     slots = torch.zeros((buf.shape[0], buf.shape[1]), device=buf.device)
     r = buf.shape[1]
@@ -2169,8 +2463,6 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
                         plain_ms=None, library_ms=None, bytes=4 * (n_rows * r + 2 * r * r), flops=2 * n_rows * r * r),
         "landing": dict(err=(0.0, 0.0), ms=cuda_ms(lambda: torch.cat([slots, buf])[land], reps=10), plain_ms=None,
                         library_ms=None, bytes=8 * buf.numel() + 8 * buf.shape[0], flops=0),
-        "factor_health": dict(err=(0.0, 0.0), ms=cuda_ms(lambda: factor_health(buf, bvf), reps=10), plain_ms=None,
-                              library_ms=None, bytes=4 * n_rows * r, flops=4 * n_rows * r),
     }
     timed_plain = {n: _timed(v) for n, v in plain.items()}
     load, mean_batch = [], {}
@@ -2205,6 +2497,439 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
     }
 
 
+# ------------------------------------------------------------------ phase 9
+
+# ImplicitALS(rank=100) on the ``train_als`` job's tables from the numpy init
+# of ``--shared`` (26 iterations, Cholesky), the job's evaluation: the JAX
+# package's value on the CPU (``jax_reference_ndcg.py wide_rank``; the port
+# on the CPU gives 0.7735340595, 1.2e-7 away). The band is room for the
+# card's own summation orders in K1-K3's wide paths (as the bench fit's
+# Cholesky band, 2e-3 at NDCG 0.29).
+JAX_WIDE_RANK_NDCG = 0.7735341787338257
+WIDE_RANK_TOL = 1e-3
+WIDE_RANK, SELECT_K = 100, 600
+
+
+def _shared_init(n_users: int, n_items: int, rank: int):
+    rng = np.random.default_rng(SHARED_SEED)
+    s = np.float32(1 / np.sqrt(rank))
+    return ((rng.standard_normal((n_users, rank)) * s).astype(np.float32),
+            (rng.standard_normal((n_items, rank)) * s).astype(np.float32))
+
+
+def _k1_library(src, idx, val, mask, a):
+    """K1's yardstick: the gather, then two batched matrix products."""
+    gathered = src[idx.long()]
+    c1 = a * val
+    corr = torch.bmm((gathered * c1[..., None]).transpose(1, 2), gathered)
+    w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
+    return corr, torch.bmm(w[:, None, :], gathered)[:, 0]
+
+
+def _topk_library(q, items, k, ex):
+    """K5's yardstick: the masked score matrix, then ``torch.topk``."""
+    scores = q @ items.T
+    ex_l = torch.where(ex < 0, items.shape[0], ex.long())
+    hit = torch.zeros((q.shape[0], items.shape[0] + 1), dtype=torch.bool, device=q.device)
+    hit.scatter_(1, ex_l, True)
+    return torch.topk(scores.masked_fill(hit[:, :-1], float("-inf")), k, dim=1)
+
+
+def phase_wide_rank() -> dict:
+    """K1-K3's wide paths and K5's select path on a main path: with the
+    launch counts set to 0, ``ImplicitALS(rank=100)`` fitted on the
+    ``train_als`` job's tables (26 iterations, Cholesky; then 2 with CG), its
+    NDCG@30 held to the JAX value, and the 250 test users' top 600 with their
+    seen items excluded; every wide and select path must have launched. Then
+    each is held against its plain version at this run's inputs and timed
+    with its plain version, a library yardstick and its bound."""
+    from albedo_tpu_torch import cli, kernels
+    from albedo_tpu_torch.builders.jobs import ALS_ALPHA, ALS_REG, TOP_K, JobContext
+    from albedo_tpu_torch.datasets.ragged import padded_rows
+    from albedo_tpu_torch.models.als import ImplicitALS
+    from albedo_tpu_torch.ops import als as ops_als
+    from albedo_tpu_torch.ops import topk as ops_topk
+    from albedo_tpu_torch.recommenders import ALSRecommender
+
+    ctx = JobContext(cli.parse_args(["train_als"] + NOW))
+    matrix = ctx.matrix()
+    init = _shared_init(matrix.n_users, matrix.n_items, WIDE_RANK)
+    dense = ctx.test_user_dense()
+    indptr, cols, _ = matrix.csr()
+    excl = padded_rows(indptr, cols, dense)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    est = ImplicitALS(rank=WIDE_RANK, reg_param=ALS_REG, alpha=ALS_ALPHA, max_iter=26, init_factors=init,
+                      device=ctx.device)
+    model = est.fit(matrix)
+    fit_s = time.perf_counter() - t0
+    ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=TOP_K).recommend_for_users(matrix.user_ids[dense]))
+    vals, idx = model.recommend(dense, k=SELECT_K, exclude_idx=excl)
+    ImplicitALS(rank=WIDE_RANK, reg_param=ALS_REG, alpha=ALS_ALPHA, max_iter=2, solver="cg",
+                init_factors=init, device=ctx.device).fit(matrix)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.launch_counts().items() if c}
+
+    calls = _sweep_calls(est, matrix, model)
+    errs = _hold_sweeps(calls, ("als_partials", "solve_corrected", "bucket_cg"))
+    uf, vf = model.user_table, model.item_table
+    q = uf[torch.as_tensor(dense, dtype=torch.int64, device=uf.device)].contiguous()
+    ex = torch.as_tensor(excl, device=uf.device)
+    select_err = _hold_topk(q, vf, SELECT_K, ex)
+    partials = _k1(ops_als.bucket_partial_terms_reference, calls)
+    k2_plain_ms = cuda_ms(lambda: _k2(ops_als.solve_corrected_reference, calls, partials))
+    k = WIDE_RANK
+    slots = sum(c[2].numel() for c in calls)
+    entries = sum(int(c[4].sum()) for c in calls)
+    rows = sum(c[2].shape[0] for c in calls)
+    table_bytes, slot_bytes = 4 * (uf.numel() + vf.numel()), 9 * slots
+    timed = {
+        "als_partials_wide": _timed(dict(
+            err=errs["als_partials"], ms=cuda_ms(lambda: _k1(ops_als.bucket_partial_terms, calls)),
+            plain_ms=cuda_ms(lambda: _k1(ops_als.bucket_partial_terms_reference, calls)),
+            library_ms=cuda_ms(lambda: _k1(_k1_library, calls)),
+            bytes=slot_bytes + table_bytes + 4 * rows * (k * k + k), flops=entries * (k * (k + 1) + 2 * k))),
+        "solve_corrected_wide": _timed(dict(
+            err=errs["solve_corrected"], ms=cuda_ms(lambda: _k2(ops_als.solve_corrected, calls, partials)),
+            plain_ms=k2_plain_ms, library_ms=k2_plain_ms,
+            bytes=4 * rows * (k * k + 2 * k + 1) + 4 * k * k * 2, flops=rows * (k ** 3 / 3 + 2 * k * k))),
+        "bucket_cg_wide": _timed(dict(
+            err=errs["bucket_cg"], ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_body, calls)),
+            plain_ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_reference, calls)), library_ms=None,
+            bytes=slot_bytes + table_bytes + 4 * rows * 2 * k + 4 * k * k * 2,
+            flops=entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k))),
+        "topk_select": _timed(dict(
+            err=select_err, ms=cuda_ms(lambda: ops_topk.topk_scores(q, vf, SELECT_K, ex)),
+            plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q, vf, SELECT_K, ex)),
+            library_ms=cuda_ms(lambda: _topk_library(q, vf, SELECT_K, ex)),
+            bytes=4 * (q.numel() + vf.numel() + ex.numel()) + 8 * q.shape[0] * SELECT_K,
+            flops=2 * q.shape[0] * vf.shape[0] * k)),
+    }
+    launches["topk_select"] = sum(launches.get(f"{n}_select", 0) for n in ("topk_scores", "gather_topk", "bank_query"))
+    needed = ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide", "topk_select")
+    ok = (abs(ndcg - JAX_WIDE_RANK_NDCG) <= WIDE_RANK_TOL and all(launches.get(n, 0) > 0 for n in needed)
+          and _within_tol({n: errs[n] for n in errs}) and select_err[1] == 0.0
+          and bool(torch.isfinite(uf).all()) and tuple(idx.shape) == (len(dense), SELECT_K))
+    emit({"phase": "wide_rank", "ok": ok, "rank": WIDE_RANK, "fit_s": fit_s, "ndcg": ndcg,
+          "jax_ndcg": JAX_WIDE_RANK_NDCG, "tol": WIDE_RANK_TOL, "select_k": SELECT_K,
+          "launches": launches, "groups": len(calls), "timed": timed})
+    if not ok:
+        raise SystemExit("chip_smoke: the rank-100 fit or the k = 600 top-k failed (band, launches or "
+                         "a kernel against its plain version)")
+    return {"timed": timed, "launches": {n: launches[n] for n in needed}}
+
+
+# ------------------------------------------------------------------ phase 10
+
+# ``serve --two-stage`` with the shared inputs of ``ranker --shared``: the
+# re-ranked NDCG@30 of the 250 test users (k 30, seen items excluded) from
+# the JAX package on the CPU (``jax_reference_ndcg.py two_stage --shared``,
+# the service's direct path; the port on the CPU gives 0.0060611484, 1e-9
+# away). It is small because the job's relevant items are each user's most
+# recent stars, which the excluded seen items hold. The band is room for the
+# card's summation orders in the LR fit (K8, K8c), which can swap near-tied
+# probabilities: one swap at an early rank moves the mean over 250 users by
+# under 5e-5.
+JAX_TWO_STAGE_NDCG = 0.006061149295419455
+TWO_STAGE_TOL = 2e-4
+TWO_STAGE_NEEDS = ("als_partials", "solve_corrected", "factor_health", "segment_dot", "gather_sum", "gather_topk")
+
+
+@contextlib.contextmanager
+def _shared_weights():
+    """ALS fits from the numpy init and Word2Vec returning the numpy vectors
+    of ``jax_reference_ndcg.py ranker --shared``; the LR fit's inputs and
+    model are recorded on the way (``recorded["lr"]``)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    recorded: dict = {}
+    fit_corpus, lr_fit = w2v_mod.Word2Vec.fit_corpus, lr_mod.LogisticRegression.fit
+
+    def shared_fit_corpus(self, sentences):
+        vocab = self.plan(sentences).vocab
+        rng = np.random.default_rng(SHARED_SEED)
+        vectors = rng.normal(scale=SHARED_W2V_SCALE, size=(len(vocab), self.dim)).astype(np.float32)
+        return w2v_mod.Word2VecModel(vocab, vectors, self.input_col, self.output_col or f"{self.input_col}__w2v")
+
+    def recording_fit(self, fm, labels, sample_weight=None, _damped_retry=False):
+        model = lr_fit(self, fm, labels, sample_weight, _damped_retry)
+        recorded["lr"] = (self, fm, labels, sample_weight, model)
+        return model
+
+    w2v_mod.Word2Vec.fit_corpus, lr_mod.LogisticRegression.fit = shared_fit_corpus, recording_fit
+    try:
+        with _shared_als_init():
+            yield recorded
+    finally:
+        w2v_mod.Word2Vec.fit_corpus, lr_mod.LogisticRegression.fit = fit_corpus, lr_fit
+
+
+def _two_stage_service(ctx, model, ranker, **kw):
+    from albedo_tpu_torch.builders.jobs import TOP_K
+    from albedo_tpu_torch.datasets.tables import popular_repos
+    from albedo_tpu_torch.recommenders import CurationRecommender, PopularityRecommender
+    from albedo_tpu_torch.serving import RecommendationService
+
+    lo, hi = ctx.star_range()
+    recommenders = {
+        "popularity": PopularityRecommender(popular_repos(ctx.tables().repo_info, lo, hi), top_k=TOP_K),
+        "curation": CurationRecommender(ctx.tables().starring, curator_ids=ctx.curators(), top_k=TOP_K),
+    }
+    return RecommendationService(model, ctx.matrix(), repo_info=ctx.tables().repo_info,
+                                 user_info=ctx.tables().user_info, recommenders=recommenders,
+                                 ranker=ranker, **kw)
+
+
+def phase_two_stage() -> dict:
+    """``serve --two-stage`` at full width: the ``serve`` job's context with
+    the weights shared with JAX, the ALS fit (K1, K2, K12) and the ranker
+    trained in process (K8, K8c in its fit), served by the batched service
+    (ALS candidates through K6, the re-rank through K8 and K8c). With the
+    launch counts set to 0 before the fits and read after the drive, 256
+    concurrent requests (the 250 test users and 6 more, k 30, seen items
+    excluded) must all be 200 and each equal the direct path's sequential
+    answer; the re-ranked NDCG@30 must lie in the JAX band; a source forced
+    to fail (``serving.source.curation``) must degrade each answer and open
+    its breaker; then ``python -m albedo_tpu_torch.cli serve --two-stage`` as
+    a subprocess: ready, three answers, exit 0 on SIGTERM."""
+    import pandas as pd
+
+    from albedo_tpu_torch import cli, kernels
+    from albedo_tpu_torch.builders.jobs import TOP_K, JobContext
+    from albedo_tpu_torch.serving import BreakerConfig, StageDeadlines, serve
+    from albedo_tpu_torch.utils import faults
+    from albedo_tpu_torch.utils.retry import RetryPolicy
+
+    ctx = JobContext(cli.parse_args(["serve", "--w2v-full"] + NOW))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _shared_weights() as recorded:
+        model = ctx.als_model()
+        ranker = ctx.ranker_model()
+    train_s = time.perf_counter() - t0
+    matrix = ctx.matrix()
+    # The breakers reopen after 60 s here, so the drill reads "open" however
+    # slow the requests around it are.
+    # Every answer at full quality, so each can be held to the direct path:
+    # stage deadlines long enough that none degrades while 64 requests queue
+    # for the ranker's pool (the default 0.5 s is a production budget), and
+    # no overload control (its brownout tiers skip the re-rank under this
+    # load). Both are the degrade matrix's, held on the CPU against JAX.
+    breakers = BreakerConfig(failure_threshold=3, reopen=RetryPolicy(base_s=60.0, max_delay_s=60.0, jitter=False))
+    deadlines = StageDeadlines(candidates_s=30.0, ranker_s=30.0)
+    service = _two_stage_service(ctx, model, ranker, warm=True, breaker_config=breakers, deadlines=deadlines,
+                                 overload_enabled=False)
+    direct = _two_stage_service(ctx, model, ranker, batching=False, deadlines=deadlines)
+    test_users = matrix.user_ids[ctx.test_user_dense()]
+    rng = np.random.default_rng(41)
+    uids = [int(u) for u in test_users] + [int(u) for u in rng.choice(matrix.user_ids, size=6)]
+    with serve(service, port=0) as handle:
+        url = f"http://127.0.0.1:{handle.server_address[1]}"
+        t0 = time.perf_counter()
+        answers = _pool_get([f"{url}/recommend/{u}?k={TOP_K}" for u in uids], 64)
+        drive_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        drill_user = uids[0]
+        faults.arm("serving.source.curation", kind="error", at=1, times=0)
+        try:
+            drill = [_http(f"{url}/recommend/{drill_user}?k={TOP_K}") for _ in range(4)]
+        finally:
+            faults.reset()
+        ready = _http(f"{url}/healthz/ready")
+        metrics_text = _http_text(f"{url}/metrics")
+    service.pipeline.breakers["curation"].reset()
+    statuses = sorted({st for st, _ in answers})
+    keys = ("stage", "degraded", "items")
+    mismatch = []
+    for u, (_, body) in zip(uids, answers):
+        want = direct.handle_recommend(u, k=TOP_K)[1]
+        if {k: body.get(k) for k in keys} != {k: want.get(k) for k in keys}:
+            mismatch.append({"user": u, "got": {k: body.get(k) for k in ("stage", "degraded", "error")},
+                             "want": {k: want.get(k) for k in ("stage", "degraded", "error")}})
+    direct.close()
+    frame = pd.DataFrame([(u, it["repo_id"], it["score"]) for u, (_, body) in zip(uids[:len(test_users)], answers)
+                          for it in body.get("items", [])], columns=["user_id", "repo_id", "score"])
+    ndcg = ctx.evaluate_topk(frame)
+    stages = sorted({str(body.get("stage")) for _, body in answers})
+    tags = [body.get("degraded", []) for _, body in drill]
+    drill_ok = (all(st == 200 for st, _ in drill) and all("candidate_error_curation" in t for t in tags[:3])
+                and "breaker_open_curation" in tags[3] and ready[1]["breakers"]["curation"]["state"] == "open"
+                and 'albedo_breaker_state{source="curation"} 2' in metrics_text)
+    cli_report = _serve_cli(int(matrix.user_ids[5]), ("--two-stage",), ks=(3, 10, 30))
+    ok = (statuses == [200] and not mismatch and abs(ndcg - JAX_TWO_STAGE_NDCG) <= TWO_STAGE_TOL
+          and all(launches.get(n, 0) > 0 for n in TWO_STAGE_NEEDS) and drill_ok and cli_report["ok"]
+          and "two_stage" in stages)
+    emit({"phase": "two_stage", "ok": ok, "requests": len(uids), "statuses": statuses, "train_s": train_s,
+          "drive_s": drive_s, "mismatch_vs_direct": len(mismatch), "mismatch_examples": mismatch[:5],
+          "stages": stages, "degraded_answers": sum(bool(body.get("degraded")) for _, body in answers),
+          "ndcg": ndcg, "jax_ndcg": JAX_TWO_STAGE_NDCG, "tol": TWO_STAGE_TOL,
+          "ranker_auc": ctx._cache.get("ranker_auc"), "launches": {n: c for n, c in launches.items() if c},
+          "drill": {"tags": tags, "breaker": ready[1]["breakers"].get("curation")},
+          "mean_batch": service.batcher.mean_batch_size, "cli": cli_report})
+    if not ok:
+        raise SystemExit("chip_smoke: the two-stage phase failed (statuses, parity with the direct path, "
+                         "NDCG@30, launches, the degrade drill or the serve --two-stage CLI)")
+    return {"ctx": ctx, "model": model, "ranker": ranker, "service_kw": {
+        "breaker_config": breakers, "deadlines": deadlines, "overload_enabled": False},
+        "lr": recorded["lr"], "launches": {n: launches[n] for n in ("gather_sum", "factor_health")}}
+
+
+def _http_text(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+        return r.read().decode()
+
+
+def _gauges(text: str) -> dict:
+    """The stage gauges and the request-latency totals of a /metrics page."""
+    out = {"seconds": {}, "calls": {}}
+    for kind, name, value in re.findall(r'^albedo_stage_(seconds|calls)\{stage="([^"]+)"\} (\S+)$', text, re.M):
+        out[kind][name] = float(value)
+    out["latency_sum"] = float(re.search(r"^albedo_request_latency_seconds_sum (\S+)$", text, re.M).group(1))
+    out["latency_count"] = float(re.search(r"^albedo_request_latency_seconds_count (\S+)$", text, re.M).group(1))
+    return out
+
+
+def _degraded_total(text: str) -> float:
+    return sum(float(v) for v in re.findall(r"^albedo_degraded_total\{[^}]*\} (\S+)$", text, re.M))
+
+
+def _stage_split(before: dict, after: dict) -> dict:
+    """Mean milliseconds per request of each stage between two /metrics
+    pages, and the rest of the request's server time (HTTP, JSON, the
+    service's own Python): the request latency less the candidates, fusion
+    and re-rank stages."""
+    n = after["calls"].get("stage1_candidates", 0) - before["calls"].get("stage1_candidates", 0)
+    if n <= 0:
+        return {}
+    per = {name: (after["seconds"][name] - before["seconds"].get(name, 0.0)) / n * 1e3 for name in after["seconds"]}
+    requests = after["latency_count"] - before["latency_count"]
+    latency = (after["latency_sum"] - before["latency_sum"]) / max(requests, 1) * 1e3
+    per["request"] = latency
+    per["http_and_rest"] = latency - sum(per.get(s, 0.0) for s in ("stage1_candidates", "fuse", "stage2_rank"))
+    return per
+
+
+def _old_factor_health(user_f, item_f):
+    """K12 as the port computed it before its kernel: a dozen small torch
+    reductions, the baseline of ``PERF.md``'s kernel table."""
+    def stats(x):
+        finite = torch.isfinite(x)
+        safe = torch.where(finite, x, torch.zeros_like(x))
+        return (x.numel() - finite.sum()).to(torch.float32), safe.abs().max(), torch.sqrt(torch.mean(safe * safe))
+
+    un, ua, ur = stats(user_f)
+    vn, va, vr = stats(item_f)
+    return torch.stack([un + vn, torch.maximum(ua, va), torch.maximum(ur, vr)])
+
+
+def _k8c_at_fit(lr_inputs) -> dict:
+    """K8c at the ranker fit's real batch and fitted coefficients: its
+    forward held per row against the L1 mass of the row's terms, each
+    table's gradient (K8 over the category-sorted rows) per entry against
+    the mass summed into it, and both timed with their plain versions (the
+    backward's yardstick: ``index_add_`` per table, the plain version)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    est, fm, labels, weights, model = lr_inputs
+    dev = torch.device("cuda")
+    batch = sl.feature_batch(fm, dev, grad_layout=True)
+    scales = lr_mod._to_device(model.scales, dev)
+    params = {k: v.requires_grad_(True) for k, v in lr_mod._to_device(model.params, dev).items()}
+    center = None if model.center is None else torch.as_tensor(model.center).to(dev)
+    y = torch.as_tensor(np.asarray(labels, np.float32)).to(dev)
+    w = torch.as_tensor(np.asarray(weights, np.float32)).to(dev)
+    captured: dict = {}
+    apply = sl._GatherSum.apply
+
+    def recording(base, layout, *tables):
+        out = apply(base, layout, *tables)
+        captured.update(base=base.detach(), layout=layout, tables=[t.detach() for t in tables])
+        out.register_hook(lambda g: captured.__setitem__("g", g.detach().clone()))
+        return out
+
+    sl._GatherSum.apply = recording
+    try:
+        sl.weighted_logloss(params, scales, batch, y, w, est.reg_param, center=center).backward()
+    finally:
+        sl._GatherSum.apply = apply
+    base, tables, g = captured["base"], captured["tables"], captured["g"]
+    idxs, orders, indptrs = captured["layout"]
+    fwd = sl.gather_sum(base, tables, idxs)
+    fwd_err = _gather_sum_err(base, tables, idxs, fwd, sl.gather_sum_reference(base, tables, idxs))
+
+    def backward_kernel():
+        return [sl.segment_dot(g, o, None, ip) for o, ip in zip(orders, indptrs)]
+
+    def backward_plain():
+        return [torch.zeros(t.shape[0], device=dev).index_add_(0, i.long(), g) for t, i in zip(tables, idxs)]
+
+    bwd_err = (0.0, 0.0)
+    for got, want, idx in zip(backward_kernel(), backward_plain(), idxs):
+        e = mass_err(got, want, torch.zeros_like(want).index_add_(0, idx.long(), g.abs()))
+        bwd_err = (max(bwd_err[0], e[0]), max(bwd_err[1], e[1]))
+    n = base.shape[0]
+    table_entries = sum(t.shape[0] for t in tables)
+    return {
+        "rows": n, "terms": len(tables), "table_entries": table_entries, "forward_err": fwd_err,
+        "backward_err": bwd_err,
+        "forward": _timed(dict(err=fwd_err, ms=cuda_ms(lambda: sl.gather_sum(base, tables, idxs), reps=20),
+                               plain_ms=cuda_ms(lambda: sl.gather_sum_reference(base, tables, idxs), reps=20),
+                               library_ms=None, bytes=4 * (n * (len(tables) + 2) + table_entries),
+                               flops=n * len(tables))),
+        "backward": _timed(dict(err=bwd_err, ms=cuda_ms(backward_kernel, reps=20),
+                                plain_ms=cuda_ms(backward_plain, reps=20), library_ms=cuda_ms(backward_plain, reps=20),
+                                bytes=4 * (n + len(tables) * 2 * n + table_entries + len(tables)),
+                                flops=n * len(tables))),
+    }
+
+
+def phase_two_stage_timing(state: dict, bench_model) -> dict:
+    """K8c at the ranker fit's batch, K12 on the bench model's tables (30000
+    + 19991 rows x 50) against its plain version and the reductions it
+    replaced, and the two-stage service's requests/s, p50/p99 and the
+    device's busy share at closed-loop concurrency 1, 8 and 64 (10 s each,
+    from another process; the parity phase's full-quality service, every
+    answer re-ranked), with the per-stage split of each level from the
+    /metrics stage gauges and the answers that degraded."""
+    from albedo_tpu_torch.serving import serve
+    from albedo_tpu_torch.utils import watchdog
+
+    k8c = _k8c_at_fit(state["lr"])
+    buf, bvf = bench_model.device_factors()
+    n_floats = buf.numel() + bvf.numel()
+    health_err = rel_err(watchdog.factor_health(buf, bvf), watchdog.factor_health_reference(buf, bvf))
+    k12 = _timed(dict(err=health_err, ms=cuda_ms(lambda: watchdog.factor_health(buf, bvf), reps=20),
+                      plain_ms=cuda_ms(lambda: watchdog.factor_health_reference(buf, bvf), reps=20),
+                      library_ms=None, bytes=4 * n_floats + 12, flops=4 * n_floats))
+    k12["replaced_reductions_ms"] = cuda_ms(lambda: _old_factor_health(buf, bvf), reps=20)
+    # The parity phase's configuration (its service closed with its server).
+    service = _two_stage_service(state["ctx"], state["model"], state["ranker"], warm=True, **state["service_kw"])
+    matrix = state["ctx"].matrix()
+    load = []
+    with serve(service, port=0) as handle:
+        url = f"http://127.0.0.1:{handle.server_address[1]}"
+        for c in (1, 8, 64):
+            before = _http_text(f"{url}/metrics")
+            run = _load(url, matrix.user_ids, c, 10.0)
+            after = _http_text(f"{url}/metrics")
+            run["stage_ms"] = _stage_split(_gauges(before), _gauges(after))
+            run["degraded"] = _degraded_total(after) - _degraded_total(before)
+            load.append(run)
+    ok = (all(set(r_["codes"]) == {"200"} for r_ in load)
+          and k8c["forward_err"][1] <= RANKER_REL["segment_dot"] and k8c["backward_err"][1] <= RANKER_REL["segment_dot"]
+          and health_err[1] <= HEALTH_RMS_REL)
+    emit({"phase": "two_stage_timing", "ok": ok, "k8c": k8c, "k12": k12, "load": load,
+          "mean_batch": service.batcher.mean_batch_size})
+    if not ok:
+        raise SystemExit("chip_smoke: K8c or K12 disagrees at its timed inputs, or a two-stage load run saw non-200")
+    return {"gather_sum": k8c["forward"], "factor_health": k12}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2212,6 +2937,8 @@ def main() -> int:
     phase_ranker_kernels()
     phase_candidate_kernels()
     phase_serving_kernels()
+    phase_any_size_kernels()
+    phase_two_stage_kernels()
     launches = phase_job()
     ranker_launches, inputs = phase_ranker_job()
     ranker_timed = phase_ranker_timing(inputs)
@@ -2225,7 +2952,11 @@ def main() -> int:
     bank_state = phase_bank(serve_state)
     serving_timed = phase_serving_timing(serve_state, bank_state, bench_model, train)
     launches.update(gather_topk=serve_state["launches"], bank_query=bank_state["launches"])
-    timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed)
+    wide = phase_wide_rank()
+    two_stage = phase_two_stage()
+    two_stage_timed = phase_two_stage_timing(two_stage, bench_model)
+    launches.update(**wide["launches"], **two_stage["launches"])
+    timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed, **wide["timed"], **two_stage_timed)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -6,6 +6,8 @@ and the ranker job's AUC and NDCG@30.
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py candidates [--port] [--seeds 42,1,2,3]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py serve [--port]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py two_stage [--port] [--shared]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py wide_rank [--port] [--rank 100]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 ``synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)``, a 10%
@@ -48,6 +50,23 @@ in all on a CPU.
 the service's direct path, and the NDCG@30 of those served lists beside the
 job's offline evaluation of the same model. One JSON line; about a minute on
 a CPU.
+
+``two_stage`` pins the ``two_stage`` phase of ``chip_smoke.py``: ``serve
+--two-stage`` as the job builds it (popularity and curation sources beside
+the ALS source, re-ranked by the LR ranker the job trains in process), with
+``--shared`` on the inputs of ``ranker --shared`` (the numpy ALS init and
+numpy Word2Vec vectors, dim 200, so that L-BFGS from zeros is
+deterministic). Through the service's direct path (no batching; stage
+deadlines long enough that nothing degrades) it serves the job's 250 test
+users at k = 30 with seen items excluded and prints the NDCG@30 of the
+re-ranked lists, then the first users' lists with their probabilities. A few
+minutes on a CPU.
+
+``wide_rank`` pins the rank-100 fit of ``chip_smoke.py`` (the K1-K3 wide
+paths): ``ImplicitALS(rank=100)``, 26 iterations, Cholesky, on the
+``train_als`` job's tables from the numpy init of ``--shared``, evaluated as
+the job evaluates (the 250 test users' top 30 against their most recent 30
+stars). One JSON line; about a minute on a CPU.
 """
 
 from __future__ import annotations
@@ -287,6 +306,99 @@ def serve(argv: list[str]) -> None:
     }), flush=True)
 
 
+def _job_context(jobs, port: bool, data_dir: str, **flags):
+    """A full-size JobContext on the CPU (data policy off, --now 1600000000)
+    over a fresh artifact store."""
+    ns = argparse.Namespace(**{"small": False, "now": 1600000000.0, "w2v_full": False, "data_policy": "off",
+                               "no_compilation_cache": True, "device": "cpu", **flags})
+    os.environ["ALBEDO_DATA_DIR"] = data_dir
+    os.environ["ALBEDO_CHECKPOINT_DIR"] = os.path.join(data_dir, "checkpoints")
+    if not port:
+        from albedo_tpu.settings import reset_settings
+
+        reset_settings()
+    return jobs.JobContext(ns)
+
+
+def two_stage(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py two_stage")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--shared", action="store_true",
+                    help="numpy ALS init and numpy Word2Vec vectors, the same in both packages")
+    ap.add_argument("--show", type=int, default=3, help="users whose lists are printed")
+    args = ap.parse_args(argv)
+    import pandas as pd
+
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.datasets.tables import popular_repos
+        from albedo_tpu_torch.models import als, word2vec
+        from albedo_tpu_torch.recommenders import CurationRecommender, PopularityRecommender
+        from albedo_tpu_torch.serving import RecommendationService, StageDeadlines
+    else:
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.datasets.tables import popular_repos
+        from albedo_tpu.models import als, word2vec
+        from albedo_tpu.recommenders import CurationRecommender, PopularityRecommender
+        from albedo_tpu.serving import RecommendationService, StageDeadlines
+    if args.shared:
+        _share_weights(als, word2vec)
+    with tempfile.TemporaryDirectory() as data_dir:
+        ctx = _job_context(jobs, args.port, data_dir, w2v_full=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, matrix, ranker_model = ctx.als_model(), ctx.matrix(), ctx.ranker_model()
+        lo, hi = ctx.star_range()
+        curators = ctx.curators()
+        recommenders = {
+            "popularity": PopularityRecommender(popular_repos(ctx.tables().repo_info, lo, hi), top_k=30),
+            "curation": CurationRecommender(ctx.tables().starring,
+                                            **({"curator_ids": curators} if curators else {}), top_k=30),
+        }
+        users = matrix.user_ids[ctx.test_user_dense()]
+        with RecommendationService(model, matrix, recommenders=recommenders, ranker=ranker_model,
+                                   batching=False, deadlines=StageDeadlines(600.0, 600.0)) as service:
+            bodies = [service.handle_recommend(int(u), k=30, exclude_seen=True)[1] for u in users]
+        rows = [(int(u), item["repo_id"], item["score"]) for u, body in zip(users, bodies)
+                for item in body["items"]]
+        ndcg = ctx.evaluate_topk(pd.DataFrame(rows, columns=["user_id", "repo_id", "score"]))
+    print(json.dumps({
+        "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+        "weights": "shared" if args.shared else "seeded", "two_stage_ndcg": ndcg, "users": int(users.size),
+        "stages": sorted({b["stage"] for b in bodies}),
+        "degraded": sum(bool(b["degraded"]) for b in bodies),
+        "lists": [{"user_id": int(u), "items": [[i["repo_id"], i["score"], i["source"]] for i in b["items"][:10]]}
+                  for u, b in zip(users[:args.show], bodies)],
+    }), flush=True)
+
+
+def wide_rank(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py wide_rank")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--rank", type=int, default=100)
+    args = ap.parse_args(argv)
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.models import als
+        from albedo_tpu_torch.recommenders import ALSRecommender
+    else:
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.models import als
+        from albedo_tpu.recommenders import ALSRecommender
+    with tempfile.TemporaryDirectory() as data_dir:
+        ctx = _job_context(jobs, args.port, data_dir)
+        matrix = ctx.matrix()
+        est = als.ImplicitALS(rank=args.rank, reg_param=jobs.ALS_REG, alpha=jobs.ALS_ALPHA, max_iter=26,
+                              init_factors=shared_als_init(matrix.n_users, matrix.n_items, args.rank),
+                              **({"device": "cpu"} if args.port else {}))
+        model = est.fit(matrix)
+        users = matrix.user_ids[ctx.test_user_dense()]
+        ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=30).recommend_for_users(users))
+    print(json.dumps({
+        "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+        "rank": args.rank, "ndcg": ndcg, "users": int(users.size),
+    }), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ranker"]:
         ranker(sys.argv[2:])
@@ -294,5 +406,9 @@ if __name__ == "__main__":
         serve(sys.argv[2:])
     elif sys.argv[1:2] == ["candidates"]:
         candidates(sys.argv[2:])
+    elif sys.argv[1:2] == ["two_stage"]:
+        two_stage(sys.argv[2:])
+    elif sys.argv[1:2] == ["wide_rank"]:
+        wide_rank(sys.argv[2:])
     else:
         main(sys.argv[1:] or ["cholesky", "cg"])

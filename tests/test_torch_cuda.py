@@ -20,7 +20,13 @@ float64, in other orders, and round once) and K10's bpr_step to 5e-5 of
 ``ops.bpr.bpr_grad_mass`` and of |loss| (atomics, as K9). No tolerance has a floor, so the small gradients
 are held as tightly as the tables. K5 at k > 128, K6 gather_topk and K7
 bank_query are exact, ties and (-inf, -1) slots included (K5's body and
-arithmetic), and a K6 row equals K5 on that user alone.
+arithmetic), and a K6 row equals K5 on that user alone. K1-K3's wide paths
+(ranks above 64) are held as the narrow ones (rel 1e-4); K5-K7's select path
+(k above 512, exclusion rows longer than the streaming body sorts) exactly.
+K8c's forward exactly (the plain version's order) and its gradients to 1e-5
+of each entry's mass (K8 sums in another order than the plain autograd);
+K12's count and max exactly and its rms to 1e-6 relative (float64 sums in
+another order, rounded once to float32), repeating bit for bit.
 """
 
 import numpy as np
@@ -129,8 +135,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(dev):
     src, idx, val, mask, _ = _bucket(dev, 8)
     with pytest.raises(ValueError, match="dtype"):
         ops_als.bucket_partial_terms(src, idx.long(), val, mask, 40.0)
-    with pytest.raises(ValueError, match="ranks"):
-        ops_als.bucket_partial_terms(torch.zeros((5, 65), device=dev), idx, val, mask, 40.0)
+    with pytest.raises(ValueError, match="ranks"):  # every rank >= 1 runs (wide path above 64)
+        ops_als.bucket_partial_terms(torch.zeros((5, 0), device=dev), idx, val, mask, 40.0)
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops_als.bucket_partial_terms(src.cpu(), idx, val, mask, 40.0)
 
@@ -426,3 +432,109 @@ def test_k7_bank_query_matches_plain_exactly(dev, d):
         got = ops_topk.bank_query(vf, 30, users=users, user_idx=ui, **kw)
         want = ops_topk.bank_query_reference(vf, 30, users=users, user_idx=ui, **kw)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+# ---- K1-K3 wide paths, the K5-K7 select path, K8c, K12 ------------------
+
+
+@pytest.mark.parametrize("k", [65, 100, 256])
+def test_k1_k2_k3_wide_paths_match_plain(dev, k):
+    """Ranks above 64: K1 tiles the correction over CTAs, K2/K3 keep the
+    system in dynamic shared memory (k 65, 100) or a global workspace (K2 at
+    256); rel 1e-4 as the narrow paths."""
+    src, idx, val, mask, x0 = _bucket(dev, k, length=300)
+    yty = ops_als.gramian(src)
+    kernels.reset_launches()
+    corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0)
+    corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0)
+    _close(corr, corr_p)
+    _close(b_vec, b_p)
+    n_b = mask.sum(dim=1, dtype=torch.float32)
+    live = n_b > 0
+    _close(ops_als.solve_corrected(yty, corr_p, b_p, n_b, 0.5)[live],
+           ops_als.solve_corrected_reference(yty, corr_p, b_p, n_b, 0.5)[live])
+    _close(ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3),
+           ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3))
+    for name in ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide"):
+        assert kernels.LAUNCHES[name] >= 1
+
+
+@pytest.mark.parametrize("k", [513, 600, 2048])
+def test_k5_k6_k7_select_path_matches_plain_exactly(dev, k):
+    """k above 512 takes the select path behind each wrapper, exact
+    against the plain version; a K6 row equals K5 on that user alone."""
+    rng = np.random.default_rng(k)
+    uf_all = torch.as_tensor((rng.standard_normal((300, 50)) / 7).astype(np.float32), device=dev)
+    vf_np = (rng.standard_normal((2936, 50)) / 7).astype(np.float32)
+    vf_np[2000:2100] = vf_np[:100]
+    vf = torch.as_tensor(vf_np, device=dev)
+    table = torch.as_tensor(rng.integers(-1, 2936, size=(300, 400)).astype(np.int32), device=dev)
+    ui = torch.as_tensor(rng.integers(0, 300, size=8).astype(np.int32), device=dev)
+    kernels.reset_launches()
+    got = ops_topk.topk_scores(uf_all[:17].contiguous(), vf, k, table[:17].contiguous())
+    want = ops_topk.topk_scores_reference(uf_all[:17].contiguous(), vf, k, table[:17].contiguous())
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    s, i = ops_topk.gather_topk(uf_all, vf, ui, k, exclude_table=table)
+    s_p, i_p = ops_topk.gather_topk_reference(uf_all, vf, ui, k, exclude_table=table)
+    assert torch.equal(i, i_p) and torch.equal(s, s_p)
+    s1, i1 = ops_topk.topk_scores(uf_all[ui[:1].long()].contiguous(), vf, k, table[ui[:1].long()].contiguous())
+    assert torch.equal(i[:1], i1) and torch.equal(s[:1], s1)
+    got = ops_topk.bank_query(vf, k, users=uf_all, user_idx=ui, exclude_table=table)
+    want = ops_topk.bank_query_reference(vf, k, users=uf_all, user_idx=ui, exclude_table=table)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    for name in ("topk_scores_select", "gather_topk_select", "bank_query_select"):
+        assert kernels.LAUNCHES[name] >= 1
+
+
+def test_k5_exclusion_rows_longer_than_the_streaming_body(dev):
+    """A 40 000-entry exclusion row (over EXCLUDE_MAX) is answered."""
+    rng = np.random.default_rng(4)
+    uf = torch.as_tensor((rng.standard_normal((3, 50)) / 7).astype(np.float32), device=dev)
+    vf = torch.as_tensor((rng.standard_normal((60000, 50)) / 7).astype(np.float32), device=dev)
+    ex = torch.as_tensor(np.stack([rng.choice(60000, size=40000, replace=False) for _ in range(3)])
+                         .astype(np.int32), device=dev)
+    got = ops_topk.topk_scores(uf, vf, 30, ex)
+    want = ops_topk.topk_scores_reference(uf, vf, 30, ex)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_k8c_gather_sum_forward_and_backward_match_plain(dev):
+    """K8c: the forward exactly (the plain version's order), each table's
+    gradient (K8 over the category-sorted rows) to 1e-5 of its mass."""
+    rng = np.random.default_rng(8)
+    n, sizes = 50_000, (1, 9, 3000, 40)
+    base = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    idxs = [torch.as_tensor(rng.integers(0, s, size=n).astype(np.int32), device=dev) for s in sizes]
+    tabs = [torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev) for s in sizes]
+    kernels.reset_launches()
+    got = ops_sl.gather_sum(base, tabs, idxs)
+    assert kernels.LAUNCHES["gather_sum"] == 1
+    assert torch.equal(got, ops_sl.gather_sum_reference(base, tabs, idxs))
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    ts = [t.clone().requires_grad_(True) for t in tabs]
+    ps = [t.clone().requires_grad_(True) for t in tabs]
+    ops_sl._GatherSum.apply(base, (idxs, [None] * 4, [None] * 4), *ts).backward(g)
+    ops_sl.gather_sum_reference(base, ps, idxs).backward(g)
+    for t, p, idx in zip(ts, ps, idxs):
+        mass = torch.zeros_like(p).index_add_(0, idx.long(), g.abs())
+        assert float(((t.grad - p.grad).abs() / mass.clamp_min(1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("plant", [None, float("nan"), float("inf"), float("-inf")])
+def test_k12_factor_health_matches_plain(dev, plant):
+    """K12: the count and max exactly, the rms to 1e-6 relative, the same
+    bits on a second run (no atomics)."""
+    from albedo_tpu_torch.utils import watchdog
+
+    rng = np.random.default_rng(12)
+    uf = torch.as_tensor(rng.standard_normal((30000, 50)).astype(np.float32), device=dev)
+    vf = torch.as_tensor(rng.standard_normal((19991, 50)).astype(np.float32), device=dev)
+    if plant is not None:
+        uf.view(-1)[torch.as_tensor(rng.integers(0, uf.numel(), size=9), device=dev)] = plant
+    kernels.reset_launches()
+    got = watchdog.factor_health(uf, vf)
+    assert kernels.LAUNCHES["factor_health"] == 1
+    want = watchdog.factor_health_reference(uf, vf)
+    assert torch.equal(got[:2], want[:2])
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6 * float(want[2])
+    assert torch.equal(got, watchdog.factor_health(uf, vf))

@@ -45,7 +45,8 @@ def test_every_module_imports_without_nvcc():
                    "recommenders.tfidf", "recommenders.content", "utils.events", "utils.faults",
                    "serving.batcher", "serving.service", "serving.cache", "serving.metrics",
                    "serving.overload", "serving.http", "retrieval.bank", "retrieval.build",
-                   "retrieval.parity"):
+                   "retrieval.parity", "serving.pipeline", "serving.breaker", "utils.retry",
+                   "utils.watchdog"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
@@ -55,7 +56,9 @@ def test_every_module_imports_without_nvcc():
     assert set(kernels.LAUNCHES) == {
         "als_partials", "solve_corrected", "bucket_cg", "topk_scores", "topk_scores_wide",
         "segment_dot", "sgns_step", "adam_dense", "spmm_rows", "masked_topk", "bpr_step",
-        "gather_topk", "bank_query",
+        "gather_topk", "bank_query", "topk_select", "gather_sum", "factor_health",
+        "als_partials_wide", "solve_corrected_wide", "bucket_cg_wide",
+        "topk_scores_select", "gather_topk_select", "bank_query_select",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:

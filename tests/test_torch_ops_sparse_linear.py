@@ -158,7 +158,9 @@ def test_bag_and_rep_terms_forward_and_vjp_match_jax():
     out_j, vjp_j = jax.vjp(lambda x: J._rep_term(x, jb[r + "rep"], jb[r + "order"], jb[r + "indptr"]),
                            jnp.asarray(lu))
     lt = torch.as_tensor(lu).requires_grad_(True)
-    out_t = T._rep_term(lt, tb[r + "rep"], tb[r + "order"], tb[r + "indptr"])
+    # The port's rep expansion is a term of K8c's autograd Function.
+    layout = ([tb[r + "rep"]], [tb[r + "order"]], [tb[r + "indptr"]])
+    out_t = T._GatherSum.apply(torch.zeros(tfm.n_rows), layout, lt)
     out_t.backward(torch.as_tensor(g))
     np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(vjp_j(jnp.asarray(g))[0]),
@@ -218,3 +220,74 @@ def test_fold_scales_matches_jax():
     got = T.fold_scales(_t(params), _t(scales))
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# ---------------------------------------------------------------- K8c
+
+
+def test_gather_sum_plain_matches_jax_gathers():
+    """K8c's plain version: ``base + sum_j T_j[idx_j]`` left to right, as
+    ``block_logits`` adds its gathers (``logits + w[arr]``)."""
+    rng = np.random.default_rng(8)
+    n, sizes = 500, (1, 5, 300)
+    base = rng.normal(size=n).astype(np.float32)
+    tables = [rng.normal(size=s).astype(np.float32) for s in sizes]
+    idxs = [rng.integers(0, s, size=n).astype(np.int32) for s in sizes]
+    want = jnp.asarray(base)
+    for tab, idx in zip(tables, idxs):
+        want = want + jnp.asarray(tab)[jnp.asarray(idx)]
+    got = T.gather_sum(torch.as_tensor(base), [torch.as_tensor(x) for x in tables],
+                       [torch.as_tensor(i) for i in idxs])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_grad_layout_sorts_each_categorical_field():
+    _, tfm = _fm(np.random.default_rng(9))
+    plain = T.feature_batch(tfm, "cpu")
+    fit = T.feature_batch(tfm, "cpu", grad_layout=True)
+    assert set(fit) - set(plain) == {"catgrad:c:order", "catgrad:c:indptr"}
+    cat = fit["cat:c"].numpy()
+    order = fit["catgrad:c:order"].numpy()
+    np.testing.assert_array_equal(order, np.argsort(cat, kind="stable"))
+    np.testing.assert_array_equal(fit["catgrad:c:indptr"].numpy(),
+                                  np.concatenate([[0], np.cumsum(np.bincount(cat, minlength=5))]))
+    dev_order, dev_indptr = T._sorted_layout(fit["cat:c"], 5)
+    np.testing.assert_array_equal(dev_order.numpy(), order)
+    np.testing.assert_array_equal(dev_indptr.numpy(), fit["catgrad:c:indptr"].numpy())
+
+
+@pytest.mark.parametrize("grad_layout", [False, True])
+def test_fit_batch_logloss_gradients_match_jax(grad_layout):
+    """The fit's path (K8c forward, its K8 backward over the batch's
+    category-sorted rows, or rows sorted on demand) against ``jax.grad``."""
+    rng = np.random.default_rng(10)
+    jfm, tfm = _fm(rng)
+    n = jfm.n_rows
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, size=n).astype(np.float32)
+    scales, center = J.inverse_std_scales(jfm), J.dense_center(jfm)
+    params = _params(jfm, rng)
+    v_j, g_j = _jax_value_and_grad(params, scales, J.feature_batch(jfm), jnp.asarray(y), jnp.asarray(w), center)
+    pt = {k: v.requires_grad_(True) for k, v in _t(params).items()}
+    v_t = T.weighted_logloss(pt, _t(scales), T.feature_batch(tfm, "cpu", grad_layout=grad_layout),
+                             torch.as_tensor(y), torch.as_tensor(w), 0.7, center=torch.as_tensor(center))
+    v_t.backward()
+    np.testing.assert_allclose(float(v_t.detach()), float(v_j), rtol=1e-6)
+    for k in params:
+        np.testing.assert_allclose(pt[k].grad.numpy(), np.asarray(g_j[k]), atol=1e-6, err_msg=k)
+
+
+def test_gather_sum_backward_is_each_tables_segment_sums():
+    rng = np.random.default_rng(11)
+    n, sizes = 400, (3, 50, 1)
+    base = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    idxs = [torch.as_tensor(rng.integers(0, max(1, s // 2), size=n).astype(np.int32)) for s in sizes]
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    tabs = [torch.as_tensor(rng.normal(size=s).astype(np.float32)).requires_grad_(True) for s in sizes]
+    layouts = [T._sorted_layout(i, s) for i, s in zip(idxs, sizes)]
+    T._GatherSum.apply(base, (idxs, [lay[0] for lay in layouts], [lay[1] for lay in layouts]), *tabs).backward(g)
+    for tab, idx, s in zip(tabs, idxs, sizes):
+        want = np.zeros(s)
+        np.add.at(want, idx.numpy(), g.numpy().astype(np.float64))
+        np.testing.assert_allclose(tab.grad.numpy(), want, atol=1e-5)
+        assert (tab.grad.numpy()[s // 2 + 1:] == 0).all()  # categories no row reads

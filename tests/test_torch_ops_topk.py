@@ -67,3 +67,32 @@ def test_reference_orders_by_score_then_index():
     vals, idx = topk_scores_reference(uf, vf, 4, torch.tensor([[2, -1]], dtype=torch.int32))
     assert idx.tolist() == [[0, 1, 3, -1]]
     assert vals[0, :3].tolist() == [1.0, 1.0, 1.0] and vals[0, 3] == float("-inf")
+
+
+@pytest.mark.parametrize("k", [513, 600, 1000, 1200])
+def test_k_above_512_matches_jax(k):
+    """JAX's ``topk_scores`` takes any k; the port took k <= 512 only and
+    raised at k = 600 even on the CPU. Now every k is answered as JAX
+    answers it (k = 1200 > the 1000 items pads with (-inf, -1))."""
+    rng, uf, vf = _factors(2, 1000, 8, seed=4)
+    vf[700:710] = vf[:10]
+    excl = np.full((2, 40), -1, dtype=np.int32)
+    excl[:, :30] = rng.integers(0, 1000, size=(2, 30))
+    tv, ti = _compare(uf, vf, k, excl, 4096)
+    assert tv.shape == (2, k)
+    n_adm = [1000 - len(set(row[row >= 0])) for row in excl]
+    for b in range(2):
+        assert (ti[b, :min(k, n_adm[b])] >= 0).all() and (ti[b, n_adm[b]:] == -1).all()
+
+
+def test_exclusion_rows_wider_than_the_streaming_body_match_jax():
+    """An exclusion row longer than ``EXCLUDE_MAX`` (the rows the
+    streaming body sorts in shared memory) is answered as JAX answers it."""
+    from albedo_tpu_torch.ops.topk import EXCLUDE_MAX
+
+    rng, uf, vf = _factors(2, EXCLUDE_MAX + 500, 4, seed=5)
+    excl = np.full((2, EXCLUDE_MAX + 100), -1, dtype=np.int32)
+    excl[0] = rng.permutation(EXCLUDE_MAX + 500)[:EXCLUDE_MAX + 100]
+    excl[1, :10] = np.arange(10)
+    _, ti = _compare(uf, vf, 30, excl, 4096)
+    assert not np.isin(ti[0], excl[0]).any()

@@ -26,6 +26,8 @@ from albedo_tpu.serving import RecommendationService as JaxService
 from albedo_tpu.serving.batcher import _gather_topk, _gather_topk_device_excl
 from albedo_tpu_torch.datasets import synthetic_tables
 from albedo_tpu_torch.datasets.ragged import padded_rows
+from albedo_tpu_torch.datasets.tables import popular_repos
+from albedo_tpu_torch.recommenders import PopularityRecommender
 from albedo_tpu_torch.models.als import ALSModel
 from albedo_tpu_torch.ops import topk as ops_topk
 from albedo_tpu_torch.retrieval.parity import candidate_parity
@@ -98,15 +100,14 @@ def test_gather_topk_reference_matches_jax(world, mode):
 
 
 def test_recommend_at_the_service_max_k(world):
-    """K5 keeps k up to 512, the service's max_k = 500 rounded up to a power
-    of two (it stopped at 128 before, so ``recommend(k=500)`` raised on the
-    card): the port answers k = 500 and 512 as JAX does, and k > 512 raises
-    on the CPU as on the card."""
+    """K5 takes any k (k > 512 runs its select path on the card): the port
+    answers k = 500, 512 and 600 as JAX does; before, k > 512 raised on the
+    CPU as on the card."""
     _, matrix, model, _, j_model = world
     users = np.array([0, 7, 42], dtype=np.int64)
     indptr, cols, _ = matrix.csr()
     excl = padded_rows(indptr, cols, users)
-    for k in (500, 512):
+    for k in (500, 512, 600):
         tv, ti = model.recommend(users, k=k, exclude_idx=excl)
         jv, ji = j_model.recommend(users, k=k, exclude_idx=excl)
         assert tv.shape == (3, k)
@@ -114,9 +115,7 @@ def test_recommend_at_the_service_max_k(world):
             real = ti[b] >= 0
             np.testing.assert_array_equal(real, np.asarray(ji[b]) >= 0)
             _assert_near(ti[b][real], tv[b][real], np.asarray(ji[b])[real], np.asarray(jv[b])[real])
-    assert ops_topk.KMAX == 512
-    with pytest.raises(ValueError, match="k in 1..512"):
-        model.recommend(users, k=513)
+    assert ops_topk.KMAX == 512  # the streaming body's capacity, no longer a limit
 
 
 def _mixes(matrix, n=40, seed=0):
@@ -290,17 +289,38 @@ def test_out_of_range_and_unknown_users(world):
 
 
 def test_exclusion_wider_than_the_kernels_take_raises(world):
+    """A device exclusion table wider than the streaming body sorts
+    (``EXCLUDE_MAX``) is served, not refused (it takes K6's select path on
+    the card): each batched row equals the direct path's with that row."""
     _, matrix, model, _, _ = world
+    rng = np.random.default_rng(9)
     wide = np.full((matrix.n_users, ops_topk.EXCLUDE_MAX + 1), -1, dtype=np.int32)
-    with pytest.raises(ValueError, match="already-seen"):
-        MicroBatcher(model, exclude_table=wide)
+    wide[:, :200] = rng.integers(0, matrix.n_items, size=(matrix.n_users, 200))
+    batcher = MicroBatcher(model, exclude_table=wide, window_ms=5.0)
+    try:
+        users = np.array([0, 3, 77], dtype=np.int64)
+        futs = [batcher.submit(int(u), 25, exclude=True) for u in users]
+        got = [f.result(timeout=60) for f in futs]
+    finally:
+        batcher.stop()
+    want_vals, want_idx = model.recommend(users, k=25, exclude_idx=wide[users])
+    np.testing.assert_array_equal(np.stack([i for _, i in got]), want_idx)
+    np.testing.assert_array_equal(np.stack([v for v, _ in got]), want_vals)
+    for b, u in enumerate(users):
+        assert not np.isin(want_idx[b], wide[u, :200]).any()
 
 
 def test_two_stage_options_are_not_ported(world):
-    _, matrix, model, _, _ = world
-    for kw in ({"recommenders": {"popularity": object()}}, {"ranker": object()},
-               {"bank_stage": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            RecommendationService(model, matrix, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        RecommendationService(None, matrix)
+    """The two-stage options are ported (``tests/test_torch_serving_pipeline.py``
+    holds them against JAX); only the retrieval-bank stage still raises, and
+    says which slice brings it."""
+    tables, matrix, model, _, _ = world
+    with pytest.raises(NotImplementedError, match="next slice"):
+        RecommendationService(model, matrix, bank_stage=object())
+    pop = PopularityRecommender(popular_repos(tables.repo_info, 1, 10**9), top_k=10)
+    with RecommendationService(model, matrix, recommenders={"popularity": pop}, batching=False) as svc:
+        assert svc.pipeline is not None and svc.generation.als_source is not None
+    with RecommendationService(None, matrix, recommenders={"popularity": pop}) as svc:
+        status, body = svc.handle_recommend(int(matrix.user_ids[0]), k=5)
+        assert status == 200 and body["degraded"][0] == "cold_artifacts"
+        assert body["items"] and all(i["source"] == "popularity" for i in body["items"])
