@@ -1,10 +1,12 @@
 """CLI jobs: one per reference entry point (``train_als``, ``train_word2vec``,
 ``train_lr``, the candidate generators ``popularity``, ``curation``,
 ``content``, ``item_cf``, ``user_cf``, ``ranking_mf`` and ``tfidf_content``,
-and ``serve`` in this port).
+``serve``, and the model-selection jobs ``cv_als`` and ``cv_lr`` in this
+port).
 
 Reference parity: the ``ALSRecommenderBuilder``, ``Word2VecCorpusBuilder``,
-``LogisticRegressionRanker``, ``PopularityRecommenderBuilder``,
+``LogisticRegressionRanker``, ``ALSRecommenderCV``,
+``LogisticRegressionRankerCV``, ``PopularityRecommenderBuilder``,
 ``CurationRecommenderBuilder`` and ``ContentRecommenderBuilder`` mains, and
 the legacy trainers ``train_item_cf``, ``train_user_cf``, ``train_graphlab``
 and ``train_content_based``. Port of those paths of
@@ -16,16 +18,19 @@ re-ranked NDCG@30; the candidate sources with their NDCG@30 (the CFs and the
 ranking factorization on a held-out split) and the tf-idf similar-repo list;
 ``serve``, in ALS mode or two-stage (``--two-stage``: popularity and
 curation beside the batched ALS source, re-ranked by the LR ranker trained
-in process).
+in process); ``cv_als``, the 2-fold grid over rank x regParam x alpha, and
+``cv_lr``, the instance-weight columns fit as one batched L-BFGS solve.
 
 Evaluation protocol matches the builders: train on the FULL star matrix,
 sample test users (+ the canary user), recommend top-30, and score NDCG@30
 against each user's most recent 30 stars (``ALSRecommenderBuilder.scala:60-105``).
 The port has no artifact cache yet, so the ALS and Word2Vec models a job
 needs are trained in process, once per :class:`JobContext`. Not ported yet:
-the ``--tables`` sources, the artifact cache, checkpointed and mesh fits,
-``serve --bank/--reload-watch``, and the other jobs (``cv_als``, the
-profile, ``build_bank``, scoring and streaming jobs).
+the ``--tables`` sources (so ``cv_als`` always takes the grid the JAX job
+takes without them), the artifact cache, checkpointed fits (the CLI has no
+``--checkpoint-every``, so no ``cv_als`` fit is checkpointed) and mesh fits,
+``serve --bank/--reload-watch``, and the other jobs (the profile,
+``build_bank``, scoring and streaming jobs).
 """
 
 from __future__ import annotations
@@ -298,6 +303,81 @@ def train_lr_job(args) -> None:
     _report("train_lr", "NDCG@30", result.ndcg or 0.0, t0)
 
 
+def cv_als_job(args) -> None:
+    """``ALSRecommenderCV`` — 2-fold grid over rank x regParam x alpha.
+
+    The grid the JAX job takes without ``--tables`` (the port has no table
+    sources yet): rank [8, 16] x regParam [0.1, 0.5] x alpha [1, 40], 6
+    iterations under ``--small`` and 13 otherwise; each fold scored by the
+    NDCG@30 of 150 sampled test users' top 30 against the fold's test stars,
+    as the JAX job scores it. No fit is checkpointed (no ``--checkpoint-every``
+    in this CLI)."""
+    from albedo_tpu_torch.cv import cross_validate, param_grid
+
+    t0 = time.time()
+    ctx = JobContext(args)
+    grid = param_grid(rank=[8, 16], reg_param=[0.1, 0.5], alpha=[1.0, 40.0])
+    iters = 6 if ctx.small else 13
+    solver, cg_steps = ctx.als_solver()
+
+    def fit(params, train):
+        est = ImplicitALS(max_iter=iters, solver=solver, cg_steps=cg_steps, device=ctx.device, **params)
+        return est.fit(train)
+
+    results = cross_validate(fit, cv_als_evaluate, ctx.matrix(), grid, n_folds=2, verbose=True)
+    best = results[0]
+    print(f"[cv_als] best params = {best.params}")
+    _report("cv_als", "NDCG@30", best.mean_metric, t0)
+
+
+def cv_als_evaluate(model: ALSModel, train, test) -> float:
+    """``cv_als``'s fold metric: NDCG@30 of 150 test users sampled from the
+    fold's test stars, their top 30 from ``model`` (seen items kept, as the
+    JAX job's ``ALSRecommender``) against their 30 most recent test stars."""
+    users = sample_test_users(test, n=150)
+    rec_frame = ALSRecommender(model, train, top_k=TOP_K).recommend_for_users(train.user_ids[users])
+    predicted = user_items_from_pairs(
+        train.users_of(rec_frame["user_id"].to_numpy(np.int64)),
+        train.items_of(rec_frame["repo_id"].to_numpy(np.int64)),
+        order_key=rec_frame["score"].to_numpy(np.float64),
+        k=TOP_K,
+    )
+    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(
+        predicted, user_actual_items(test, k=TOP_K)
+    )
+
+
+def cv_lr_job(args) -> None:
+    """``LogisticRegressionRankerCV`` — grid over instance-weight columns.
+
+    The featurized set is built once and the five weight-column LR fits run
+    as one batched L-BFGS solve (``LogisticRegression.fit_many``), the
+    reference CV's materialize-once-then-grid structure
+    (``LogisticRegressionRankerCV.scala:275-288,326-332``)."""
+    from albedo_tpu_torch.features.weights import WEIGHT_COLUMNS
+
+    t0 = time.time()
+    ctx = JobContext(args)
+    up, uc, rp, rc = ctx.profiles()
+    als = ctx.als_model()
+    lo, hi = ctx.star_range()
+    config = RankerConfig(
+        popular_min_stars=lo, popular_max_stars=hi,
+        min_df=3 if ctx.small else 10, lr_max_iter=60 if ctx.small else 300,
+    )
+    if ctx.small:
+        config = config.small()
+    r = train_ranker(
+        ctx.tables(), up, uc, rp, rc, als, ctx.matrix(), ctx.word2vec(),
+        now=ctx.now, config=config, weight_cols=WEIGHT_COLUMNS, timer=ctx.timer, device=ctx.device,
+    )
+    for weight_col, auc in r.grid:
+        print(f"[cv_lr] {weight_col} -> AUC {auc:.6f}")
+    best = r.grid[0]
+    print(f"[cv_lr] best weight column = {best[0]}")
+    _report("cv_lr", "AUC", best[1], t0)
+
+
 def popularity_job(args) -> None:
     """``PopularityRecommenderBuilder`` (NDCG@30 gate 0.00202)."""
     t0 = time.time()
@@ -539,5 +619,5 @@ JOBS = {
     "train_als": train_als_job, "train_word2vec": train_word2vec_job, "train_lr": train_lr_job,
     "popularity": popularity_job, "curation": curation_job, "content": content_job,
     "item_cf": item_cf_job, "user_cf": user_cf_job, "ranking_mf": ranking_mf_job,
-    "tfidf_content": tfidf_content_job, "serve": serve_job,
+    "tfidf_content": tfidf_content_job, "serve": serve_job, "cv_als": cv_als_job, "cv_lr": cv_lr_job,
 }

@@ -18,9 +18,11 @@ The feature target is the block ``FeatureMatrix`` (gathers + K8 segment
 sums on the card) rather than million-wide one-hot vectors — same math.
 
 Port of ``albedo_tpu/builders/ranker.py``. The LR fit and the scoring run on
-the device of the ALS model unless ``device`` says otherwise. Not ported:
-the CV weight grid (``weight_cols``, ``grid_mesh``) and the row-sharded LR
-(``lr_mesh``), which raise ``NotImplementedError``.
+the device of the ALS model unless ``device`` says otherwise. The CV weight
+grid (``weight_cols``) fits every column in one batched L-BFGS solve
+(``LogisticRegression.fit_many``). Not ported: the grid over several devices
+(``grid_mesh``) and the row-sharded LR (``lr_mesh``), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -152,6 +154,9 @@ class RankerResult:
     auc: float
     ndcg: float | None
     n_rows: int = 0  # balanced (positive + sampled-negative) training rows
+    # Weight-column CV grid results [(weight_col, auc)], best first, when
+    # train_ranker ran with weight_cols (LogisticRegressionRankerCV parity).
+    grid: list | None = None
 
 
 def reduce_starring(starring: pd.DataFrame, max_count: int) -> pd.DataFrame:
@@ -235,9 +240,15 @@ def train_ranker(
     ``timer`` (``albedo_tpu_torch.utils.profiling.Timer``) if given records
     per-stage wall-clock; device stages stop their clock after a device
     synchronize. ``device`` is where the LR trains and scores (default: the
-    ALS model's device)."""
-    if weight_cols or grid_mesh is not None:
-        raise NotImplementedError("train_ranker(weight_cols=...): the CV weight grid is not ported yet")
+    ALS model's device).
+
+    ``weight_cols`` switches the LR stage into CV-grid mode
+    (``LogisticRegressionRankerCV.scala:326-332``): the shared featurized set
+    is fit once per weight column in one batched L-BFGS solve, each model
+    scored by AUC; the best column's model continues into fusion and NDCG@30
+    and the grid is returned best first."""
+    if grid_mesh is not None:
+        raise NotImplementedError("train_ranker(grid_mesh=...): the multi-GPU CV grid is not ported yet")
     if lr_mesh is not None:
         raise NotImplementedError("train_ranker(lr_mesh=...): the row-sharded LR is not ported yet")
     dev = resolve_device(device if device is not None else als_model.device)
@@ -290,25 +301,43 @@ def train_ranker(
         weigher = InstanceWeigher(now=now)
         train_w = weigher.transform(train_df)
         fm_train = assembler.assemble(train_w)
+    grid = None
     with timer.section("lr_fit", sync=dev):
         lr = LogisticRegression(
             max_iter=config.lr_max_iter, reg_param=config.lr_reg_param, device=dev,
         )
-        lr_model = lr.fit(
-            fm_train, train_w["starring"].to_numpy(np.float32),
-            sample_weight=train_w[config.weight_col].to_numpy(np.float32),
-        )
+        labels = train_w["starring"].to_numpy(np.float32)
+        if not weight_cols:
+            lr_model = lr.fit(
+                fm_train, labels, sample_weight=train_w[config.weight_col].to_numpy(np.float32),
+            )
+            first_model = lr_model
+        else:
+            ws = np.stack([train_w[c].to_numpy(np.float32) for c in weight_cols])
+            grid_models = lr.fit_many(fm_train, labels, ws)
+            first_model = grid_models[0]
     # The host part of the fit (batch layout, standardization moments,
-    # upload) is its own stage, lr_prepare; lr_fit keeps the solve.
-    timer.totals["lr_fit"] = max(0.0, timer.totals["lr_fit"] - lr_model.prep_s)
-    timer.totals["lr_prepare"] = timer.totals.get("lr_prepare", 0.0) + lr_model.prep_s
+    # upload) is its own stage, lr_prepare; lr_fit keeps the solve. In grid
+    # mode the preparation is shared by the whole solve: it comes from the
+    # first model, once.
+    timer.totals["lr_fit"] = max(0.0, timer.totals["lr_fit"] - first_model.prep_s)
+    timer.totals["lr_prepare"] = timer.totals.get("lr_prepare", 0.0) + first_model.prep_s
     timer.counts["lr_prepare"] = timer.counts.get("lr_prepare", 0) + 1
 
     # 6a. AUC on the held-out split (:354-364).
     with timer.section("auc_eval", sync=dev):
         fm_test = assembler.assemble(test_df)
         test_labels = test_df["starring"].to_numpy(np.float32)
-        auc = area_under_roc(test_labels, lr_model.predict_proba(fm_test))
+        if not weight_cols:
+            auc = area_under_roc(test_labels, lr_model.predict_proba(fm_test))
+        else:
+            scored = [
+                (col, float(area_under_roc(test_labels, m.predict_proba(fm_test))), m)
+                for col, m in zip(weight_cols, grid_models)
+            ]
+            scored.sort(key=lambda t: -t[1])  # stable: ties keep the column order
+            grid = [(col, auc_g) for col, auc_g, _ in scored]
+            _, auc, lr_model = scored[0]
 
     model = RankerModel(
         feature_pipeline=feature_model,
@@ -342,4 +371,4 @@ def train_ranker(
                 predicted, actual
             )
 
-    return RankerResult(model=model, auc=float(auc), ndcg=ndcg, n_rows=len(train_df))
+    return RankerResult(model=model, auc=float(auc), ndcg=ndcg, n_rows=len(train_df), grid=grid)

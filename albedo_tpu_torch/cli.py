@@ -2,7 +2,8 @@
 
 Port of ``albedo_tpu/cli.py`` for the jobs this package has (``train_als``,
 ``train_word2vec``, ``train_lr``, ``popularity``, ``curation``, ``content``,
-``item_cf``, ``user_cf``, ``ranking_mf``, ``tfidf_content``, ``serve``).
+``item_cf``, ``user_cf``, ``ranking_mf``, ``tfidf_content``, ``serve``,
+``cv_als``, ``cv_lr``).
 ``serve`` takes flags of its own after the job (``serve --port 8080``).
 ``--device`` picks where the job runs: ``cuda`` (the default) runs the CUDA
 kernels and fails when there is no card; ``cpu`` runs their plain PyTorch

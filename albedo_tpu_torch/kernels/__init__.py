@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port and their launch counts.
 
-``csrc/`` holds one CUDA C++ source per kernel (for ``sm_90a``); ``build``
+``csrc/`` holds one CUDA C++ source per kernel (for ``sm_90a``; a source
+may also export a kernel's variants, ``build.ENTRIES``); ``build``
 compiles them with ``nvcc`` into ``build/kernels/`` at first use and launches
 them through ``ctypes``. The PyTorch-facing wrappers, with the plain
 versions beside them, are in ``albedo_tpu_torch.ops``.

@@ -1,8 +1,9 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source under ``csrc/`` exports one C function, ``<name>_launch``, that
-takes raw device pointers, sizes and a CUDA stream, launches its kernel and
-returns ``cudaGetLastError()``. Each compiles on its own into a shared
+Each source under ``csrc/`` exports a C function ``<name>_launch`` for each
+of its entry points (one, named as the source, unless ``ENTRIES`` names
+more), that takes raw device pointers, sizes and a CUDA stream, launches its
+kernel and returns ``cudaGetLastError()``. Each source compiles on its own into a shared
 library under ``build/kernels/`` at the root of the checkout, named by the
 hash of its source and of the shared headers (``csrc/*.cuh``), so an edited
 source is rebuilt and a stale library is never loaded. The ``nvcc``
@@ -52,6 +53,8 @@ SIGNATURES: dict[str, list] = {
     "bank_query": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, idx, val, indptr, out, S, stream
     "segment_dot": [_P, _P, _P, _P, _P, _I, _P],
+    # x, n_x, idx, val, indptr, out, S, G, stream
+    "segment_dot_grid": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
     "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
@@ -65,11 +68,33 @@ SIGNATURES: dict[str, list] = {
     "topk_select": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # base, tables (host array of J pointers), idxs (likewise), J, N, out, stream
     "gather_sum": [_P, _P, _P, _I, _I, _P, _P],
+    # base, tables, idxs, sizes (host array of J sizes), J, N, G, out, stream
+    "gather_sum_grid": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # pool, n_slots, target, landing, out, n_target, k, stream
+    "land_rows": [_P, _L, _P, _P, _P, _I, _I, _P],
+    # target, row_ids, solved, out, n_slots, n_target, k, stream
+    "scatter_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
     # u, nu, v, nv, parts, G, out, stream
     "factor_health": [_P, _L, _P, _L, _P, _I, _P, _P],
     # x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg, stream
     "bpr_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+
+# Entry points of a source other than the one named as the source: entry ->
+# source. K8g and K8c-g (K8 and K8c over a leading grid axis) live beside
+# their one-row kernels; ``scatter_rows`` (K4's ``scatter_solved``) beside
+# ``land_rows`` (K4's landing).
+ENTRIES = {
+    "segment_dot_grid": "segment_dot",
+    "gather_sum_grid": "gather_sum",
+    "scatter_rows": "land_rows",
+}
+
+
+def source_of(name: str) -> str:
+    """The ``csrc/<source>.cu`` that defines entry point ``name``."""
+    return ENTRIES.get(name, name)
+
 
 # Second code paths of a kernel, counted apart from the first: count name ->
 # library. K5's wide path (rank > 64: the content sources, K14) and K1-K3's
@@ -94,7 +119,7 @@ LAUNCHES: dict[str, int] = dict.fromkeys([*SIGNATURES, *PATHS], 0)
 LAUNCHES_LOCK = threading.Lock()
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # entry point -> its source's loaded library
 
 
 def nvcc_path() -> str:
@@ -122,15 +147,16 @@ def _library_path(name: str) -> Path:
 
 def build(verbose: bool = False) -> dict[str, float]:
     """Compile every kernel whose library is missing, all ``nvcc`` runs in
-    parallel, and load all of them. Returns the seconds each build took
+    parallel, and load all of them. Returns the seconds each source's build took
     (0.0 for one already built). ``verbose`` adds ``-Xptxas -v`` and prints
     the compiler's report of registers, shared memory and spills."""
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs: dict[str, tuple[subprocess.Popen, Path, Path, float]] = {}
-        seconds = {name: 0.0 for name in SIGNATURES}
-        for name in SIGNATURES:
+        sources = sorted({source_of(name) for name in SIGNATURES})
+        seconds = {name: 0.0 for name in sources}
+        for name in sources:
             out = _library_path(name)
             if out.is_file():
                 continue
@@ -151,9 +177,13 @@ def build(verbose: bool = False) -> dict[str, float]:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}")
+        loaded: dict[str, ctypes.CDLL] = {}
         for name in SIGNATURES:
             if name not in _libs:
-                lib = ctypes.CDLL(str(_library_path(name)))
+                src = source_of(name)
+                if src not in loaded:
+                    loaded[src] = ctypes.CDLL(str(_library_path(src)))
+                lib = loaded[src]
                 fn = getattr(lib, f"{name}_launch")
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int

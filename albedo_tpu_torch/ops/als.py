@@ -13,7 +13,10 @@ kernel launch:
 - K1 :func:`bucket_partial_terms` gathers the fixed side's rows and forms the
   Gramian correction and the b-vector (kernel ``als_partials``);
 - K2 :func:`solve_corrected` is the batched Cholesky solve;
-- K3 :func:`bucket_cg_body` is the warm-started Jacobi-PCG alternative.
+- K3 :func:`bucket_cg_body` is the warm-started Jacobi-PCG alternative;
+- K4 :func:`land_rows` lands the solved rows in the new table (kernel
+  ``land_rows``), and :func:`scatter_solved` is the same landing by row ids
+  (kernel ``scatter_rows``).
 
 Each has a plain PyTorch version beside it (``*_reference``). A wrapper runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
@@ -21,8 +24,12 @@ its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
 each kernel's narrow path (a row's system in registers or static shared
 memory), wider ranks its wide path (K1 tiles the correction over CTAs; K2
 and K3 keep their system in dynamic shared memory while it fits, else in a
-global-memory workspace the wrapper allocates). :func:`half_sweep` lands the solved rows with one
-gather through the precomputed landing permutation, as the JAX sweep does.
+global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
+solved rows through the precomputed landing permutation, as the JAX sweep
+does: K2/K3 write each group's block into one solved pool and K4 reads the
+pool and the old table where they lie (no concatenated copy). K4 is a kernel of its own rather than an epilogue of K2
+and K3, which keep their measured times; :func:`gramian` stays a matmul, as
+the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -43,6 +50,78 @@ WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chun
 def gramian(factors: torch.Tensor) -> torch.Tensor:
     """``F^T F`` in float32 — the shared ``YtY`` term of every implicit solve."""
     return factors.T @ factors
+
+
+def scatter_solved_reference(target: torch.Tensor, row_ids: torch.Tensor, solved: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`scatter_solved`: a copy of ``target`` with
+    ``out[row_ids[i]] = solved[i]``, the slots whose id lies outside
+    ``[0, n_target)`` (the -1 padding) dropped, as the JAX scatter's
+    ``mode="drop"``."""
+    out = target.clone()
+    ids = row_ids.reshape(-1).long()
+    keep = (ids >= 0) & (ids < target.shape[0])
+    out[ids[keep]] = solved.reshape(-1, target.shape[1])[keep]
+    return out
+
+
+def scatter_solved(target: torch.Tensor, row_ids: torch.Tensor, solved: torch.Tensor) -> torch.Tensor:
+    """K4's ``scatter_solved``: land a solved block into a new table, padding
+    slots (``row_ids == -1``) dropped (CUDA kernel ``scatter_rows``, after a
+    copy of ``target``). ``target`` (n_target, k) f32; ``row_ids`` (n_slots,)
+    or (..., B) int32, unique where in range; ``solved`` (n_slots, k) f32
+    (or shaped as ``row_ids`` plus k). ``target`` is not modified."""
+    if on_cpu("scatter_rows", target, row_ids, solved):
+        return scatter_solved_reference(target, row_ids, solved)
+    n_target, k = target.shape
+    dev = target.device
+    ids = row_ids.reshape(-1)
+    rows = solved.reshape(-1, k)
+    n_slots = ids.shape[0]
+    check_operand("scatter_rows", "target", target, torch.float32, (n_target, k), dev)
+    check_operand("scatter_rows", "row_ids", ids, torch.int32, (n_slots,), dev)
+    check_operand("scatter_rows", "solved", rows, torch.float32, (n_slots, k), dev)
+    out = torch.empty_like(target)
+    call("scatter_rows", dev, target.data_ptr(), ids.data_ptr(), rows.data_ptr(), out.data_ptr(),
+         n_slots, n_target, k)
+    return out
+
+
+def land_rows_reference(target: torch.Tensor, pool: torch.Tensor, landing: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`land_rows`: ``cat(pool, target)[landing]``."""
+    return torch.cat([pool, target])[landing]
+
+
+def land_rows(target: torch.Tensor, pool: torch.Tensor, landing: torch.Tensor) -> torch.Tensor:
+    """K4: the new (n_target, k) table ``cat(pool, target)[landing]`` (CUDA
+    kernel ``land_rows``), written from ``pool`` and ``target`` where they
+    lie. ``pool`` (n_slots, k) f32 holds the solved blocks of every group in
+    order; ``landing`` (n_target,) int64 is row r's slot in it, or
+    ``n_slots + r`` to keep its old row."""
+    if on_cpu("land_rows", target, pool, landing):
+        return land_rows_reference(target, pool, landing)
+    n_target, k = target.shape
+    n_slots = pool.shape[0]
+    dev = target.device
+    check_operand("land_rows", "target", target, torch.float32, (n_target, k), dev)
+    check_operand("land_rows", "pool", pool, torch.float32, (n_slots, k), dev)
+    check_operand("land_rows", "landing", landing, torch.int64, (n_target,), dev)
+    out = torch.empty_like(target)
+    call("land_rows", dev, pool.data_ptr(), n_slots, target.data_ptr(), landing.data_ptr(), out.data_ptr(),
+         n_target, k)
+    return out
+
+
+def _solved_into(out: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """A plain version's result, written into ``out`` when one is given."""
+    return x if out is None else out.copy_(x)
+
+
+def _output(kernel: str, out: torch.Tensor | None, b: int, k: int, dev) -> torch.Tensor:
+    """A kernel's (b, k) result: ``out`` once checked, else a new tensor."""
+    if out is None:
+        return torch.empty((b, k), dtype=torch.float32, device=dev)
+    check_operand(kernel, "out", out, torch.float32, (b, k), dev)
+    return out
 
 
 def _check_rank(kernel: str, k: int) -> None:
@@ -135,12 +214,13 @@ def solve_corrected_reference(
 
 def solve_corrected(
     yty: torch.Tensor, corr: torch.Tensor, b_vec: torch.Tensor,
-    n_b: torch.Tensor, reg: float,
+    n_b: torch.Tensor, reg: float, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K2: one k x k Cholesky solve per bucket row (CUDA kernel
-    ``solve_corrected``)."""
-    if on_cpu("solve_corrected", yty, corr, b_vec, n_b):
-        return solve_corrected_reference(yty, corr, b_vec, n_b, reg)
+    ``solve_corrected``), into ``out`` (B, k) when given (a half-sweep's
+    slice of its solved pool)."""
+    if on_cpu("solve_corrected", yty, corr, b_vec, n_b, *([] if out is None else [out])):
+        return _solved_into(out, solve_corrected_reference(yty, corr, b_vec, n_b, reg))
     k = yty.shape[0]
     b = b_vec.shape[0]
     _check_rank("solve_corrected", k)
@@ -149,7 +229,7 @@ def solve_corrected(
     check_operand("solve_corrected", "corr", corr, torch.float32, (b, k, k), dev)
     check_operand("solve_corrected", "b_vec", b_vec, torch.float32, (b, k), dev)
     check_operand("solve_corrected", "n_b", n_b, torch.float32, (b,), dev)
-    x = torch.empty((b, k), dtype=torch.float32, device=dev)
+    x = _output("solve_corrected", out, b, k, dev)
     chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks(k * (k + 1) + k, b, dev)
     for r0, rows, ws in chunks:
         call(
@@ -164,11 +244,13 @@ def solve_corrected(
 def bucket_solve_body(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
     val: torch.Tensor, mask: torch.Tensor, reg: float, alpha: float,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The exact normal-equation solve of a padded bucket: K1 then K2."""
+    """The exact normal-equation solve of a padded bucket: K1 then K2
+    (into ``out`` when given)."""
     corr, b_vec = bucket_partial_terms(source, idx, val, mask, alpha)
     n_b = mask.sum(dim=1, dtype=torch.float32)
-    return solve_corrected(yty, corr, b_vec, n_b, reg)
+    return solve_corrected(yty, corr, b_vec, n_b, reg, out=out)
 
 
 # --------------------------------------------------------------------- K3
@@ -224,12 +306,13 @@ def bucket_cg_reference(
 def bucket_cg_body(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
     val: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
-    reg: float, alpha: float, cg_steps: int,
+    reg: float, alpha: float, cg_steps: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K3: matrix-free warm-started Jacobi-PCG on the implicit normal
-    equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``)."""
-    if on_cpu("bucket_cg", source, yty, idx, val, mask, x0):
-        return bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps)
+    equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``), into ``out``
+    (B, k) when given."""
+    if on_cpu("bucket_cg", source, yty, idx, val, mask, x0, *([] if out is None else [out])):
+        return _solved_into(out, bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps))
     n, k = source.shape
     b, length = idx.shape
     _check_rank("bucket_cg", k)
@@ -240,7 +323,7 @@ def bucket_cg_body(
     check_operand("bucket_cg", "val", val, torch.float32, (b, length), dev)
     check_operand("bucket_cg", "mask", mask, torch.bool, (b, length), dev)
     check_operand("bucket_cg", "x0", x0, torch.float32, (b, k), dev)
-    x = torch.empty((b, k), dtype=torch.float32, device=dev)
+    x = _output("bucket_cg", out, b, k, dev)
     chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
     for r0, rows, ws in chunks:
         call(
@@ -271,27 +354,33 @@ def half_sweep(
     table (``target`` is not modified).
 
     Every target row appears in at most one bucket, so all groups are solved
-    against the PRE-SWEEP ``target`` (CG warm starts read it), and the solved
-    blocks land once: ``cat(solved..., target)[landing]``, where
-    ``landing[r]`` is row r's flat slot, or ``n_slots + r`` to keep its old
-    factor. Each (N, B, L) group is solved as N*B rows in one launch.
+    against the PRE-SWEEP ``target`` (CG warm starts read it), each group's
+    N*B rows in one launch written into its slice of one solved pool (group
+    order, the JAX sweep's ``concatenate(all_solved)`` built in place), and
+    the pool lands once through K4: ``cat(pool, target)[landing]``, where
+    ``landing[r]`` is row r's slot, or ``n_slots + r`` to keep its old
+    factor.
     """
     if solver not in ("cholesky", "cg"):
         raise ValueError(f"unknown solver {solver!r} (expected 'cholesky' or 'cg')")
     yty = gramian(source)
-    solved = []
+    pool = torch.empty((sum(g.row_ids.numel() for g in groups), target.shape[1]),
+                       dtype=torch.float32, device=target.device)
+    off = 0
     for g in groups:
         n, b, length = g.idx.shape
         idx = g.idx.reshape(n * b, length)
         val = g.val.reshape(n * b, length)
         mask = g.mask.reshape(n * b, length)
+        out = pool[off:off + n * b]
         if solver == "cg":
             rows = g.row_ids.reshape(-1).clamp(min=0).long()
             x0 = target[rows]
-            solved.append(bucket_cg_body(source, yty, idx, val, mask, x0, reg, alpha, cg_steps))
+            bucket_cg_body(source, yty, idx, val, mask, x0, reg, alpha, cg_steps, out=out)
         else:
-            solved.append(bucket_solve_body(source, yty, idx, val, mask, reg, alpha))
-    return torch.cat(solved + [target])[landing]
+            bucket_solve_body(source, yty, idx, val, mask, reg, alpha, out=out)
+        off += n * b
+    return land_rows(target, pool, landing)
 
 
 def fit_loop(

@@ -22,6 +22,13 @@ reduces by cumsum differences (a TPU workaround); the port sums each segment
 directly, which computes the same function with less round-off, so the two
 agree to a tolerance, not bit for bit.
 
+The CV weight grid (``LogisticRegression.fit_many``) solves G models on one
+batch at once: parameters with a leading grid axis give (G, N) logits and
+(G,) losses, each row the single-model function of its own parameters (the
+JAX module's functions under ``jax.vmap``). K8g (``segment_dot`` with x of
+shape (G, n)) and K8c-g (``gather_sum`` with base of shape (G, N)) read each
+index once for all G rows; the dense block stays one matmul, (N, D) @ (D, G).
+
 Standardization (Spark ``setStandardization(true)``): features are scaled by
 ``1/std`` (no centering of the sparse blocks, as MLlib); the L2 penalty
 applies to the scaled coefficients; ``fold_scales`` converts back to raw
@@ -203,14 +210,16 @@ def segment_dot_reference(
 ) -> torch.Tensor:
     """Plain version of K8: ``out[s] = sum_{j in segment s} x[idx[j]] * val[j]``
     (``val`` None reads as ones) by ``index_add_`` over each entry's
-    segment id; empty segments give 0."""
+    segment id; empty segments give 0. With x (G, n) (K8g), each row's sums:
+    out (G, S)."""
     n_seg = indptr.shape[0] - 1
     counts = (indptr[1:] - indptr[:-1]).long()
     seg = torch.repeat_interleave(torch.arange(n_seg, device=x.device), counts)
-    terms = x[idx.long()]
+    terms = x[..., idx.long()]
     if val is not None:
         terms = terms * val
-    return torch.zeros(n_seg, dtype=x.dtype, device=x.device).index_add_(0, seg, terms)
+    out = torch.zeros(x.shape[:-1] + (n_seg,), dtype=x.dtype, device=x.device)
+    return out.index_add_(x.dim() - 1, seg, terms)
 
 
 def segment_dot(
@@ -219,13 +228,17 @@ def segment_dot(
     """K8: (S,) CSR segment sums of ``x[idx] * val`` over ``indptr`` (S + 1,)
     (CUDA kernel ``segment_dot``). ``x`` (n,) f32; ``idx`` (nnz,) int32 in
     [0, n); ``val`` (nnz,) f32 or None for ones; ``indptr`` int32,
-    nondecreasing, ``indptr[-1] == nnz``."""
+    nondecreasing, ``indptr[-1] == nnz``. With ``x`` (G, n), K8g: (G, S),
+    the sums of each row (CUDA kernel ``segment_dot_grid``, counted apart)."""
     operands = [x, idx, indptr] + ([] if val is None else [val])
-    if on_cpu("segment_dot", *operands):
+    kernel = "segment_dot_grid" if x.dim() == 2 else "segment_dot"
+    if on_cpu(kernel, *operands):
         return segment_dot_reference(x, idx, val, indptr)
     dev = x.device
     nnz = idx.shape[0]
     n_seg = indptr.shape[0] - 1
+    if x.dim() == 2:
+        return _segment_dot_grid(x, idx, val, indptr, nnz, n_seg, dev)
     check_operand("segment_dot", "x", x, torch.float32, (x.shape[0],), dev)
     check_operand("segment_dot", "idx", idx, torch.int32, (nnz,), dev)
     check_operand("segment_dot", "indptr", indptr, torch.int32, (n_seg + 1,), dev)
@@ -237,9 +250,25 @@ def segment_dot(
     return out
 
 
+def _segment_dot_grid(x, idx, val, indptr, nnz: int, n_seg: int, dev) -> torch.Tensor:
+    g, n_x = x.shape
+    check_operand("segment_dot_grid", "x", x, torch.float32, (g, n_x), dev)
+    check_operand("segment_dot_grid", "idx", idx, torch.int32, (nnz,), dev)
+    check_operand("segment_dot_grid", "indptr", indptr, torch.int32, (n_seg + 1,), dev)
+    if val is not None:
+        check_operand("segment_dot_grid", "val", val, torch.float32, (nnz,), dev)
+    if g < 1:
+        raise ValueError("segment_dot_grid: x needs at least one grid row")
+    out = torch.empty((g, n_seg), dtype=torch.float32, device=dev)
+    call("segment_dot_grid", dev, x.data_ptr(), n_x, idx.data_ptr(),
+         None if val is None else val.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_seg, g)
+    return out
+
+
 class _BagTerm(torch.autograd.Function):
     """Per-row bag logit contribution: forward K8 over the row-sorted flats,
-    backward (wrt ``w``) K8 over the vocab-sorted copy."""
+    backward (wrt ``w``) K8 over the vocab-sorted copy (K8g for a (G, V)
+    ``w``: (G, N) out, (G, N) cotangent)."""
 
     @staticmethod
     def forward(ctx, w, r_vocab, r_val, r_indptr, v_rows, v_val, v_indptr):
@@ -259,10 +288,11 @@ def gather_sum_reference(
     base: torch.Tensor, tables: list[torch.Tensor], idxs: list[torch.Tensor]
 ) -> torch.Tensor:
     """Plain version of K8c: ``base + tables[0][idxs[0]] + ...``, added left
-    to right (the kernel's order, so the two agree bit for bit)."""
+    to right (the kernel's order, so the two agree bit for bit). With base
+    (G, N) and tables (G, size_j) (K8c-g), each row's sums."""
     out = base
     for table, idx in zip(tables, idxs):
-        out = out + table[idx.long()]
+        out = out + table[..., idx.long()]
     return out
 
 
@@ -275,9 +305,14 @@ def gather_sum(
     """K8c: (N,) ``base[n] + sum_j tables[j][idxs[j][n]]`` (CUDA kernel
     ``gather_sum``). ``base`` (N,) f32; ``tables[j]`` (size_j,) f32;
     ``idxs[j]`` (N,) int32 in [0, size_j) (the plain version raises on an
-    index out of range, the kernel cannot)."""
-    if on_cpu("gather_sum", base, *tables, *idxs):
+    index out of range, the kernel cannot). With ``base`` (G, N) and
+    ``tables[j]`` (G, size_j), K8c-g: (G, N), each row's sums (CUDA kernel
+    ``gather_sum_grid``, counted apart)."""
+    kernel = "gather_sum_grid" if base.dim() == 2 else "gather_sum"
+    if on_cpu(kernel, base, *tables, *idxs):
         return gather_sum_reference(base, tables, idxs)
+    if base.dim() == 2:
+        return _gather_sum_grid(base, tables, idxs)
     import ctypes
 
     dev = base.device
@@ -298,18 +333,45 @@ def gather_sum(
     return out
 
 
+def _gather_sum_grid(base, tables, idxs) -> torch.Tensor:
+    import ctypes
+
+    dev = base.device
+    g, n = base.shape
+    check_operand("gather_sum_grid", "base", base, torch.float32, (g, n), dev)
+    if g < 1:
+        raise ValueError("gather_sum_grid: base needs at least one grid row")
+    for j, (table, idx) in enumerate(zip(tables, idxs)):
+        check_operand("gather_sum_grid", f"tables[{j}]", table, torch.float32, (g, table.shape[-1]), dev)
+        check_operand("gather_sum_grid", f"idxs[{j}]", idx, torch.int32, (n,), dev)
+    out = torch.empty((g, n), dtype=torch.float32, device=dev)
+    src = base
+    for j0 in range(0, max(len(tables), 1), GATHER_MAXJ):
+        chunk = range(j0, min(j0 + GATHER_MAXJ, len(tables)))
+        width = max(len(chunk), 1)
+        t_ptrs = (ctypes.c_void_p * width)(*(tables[j].data_ptr() for j in chunk))
+        i_ptrs = (ctypes.c_void_p * width)(*(idxs[j].data_ptr() for j in chunk))
+        sizes = (ctypes.c_longlong * width)(*(tables[j].shape[-1] for j in chunk))
+        call("gather_sum_grid", dev, src.data_ptr(), ctypes.addressof(t_ptrs), ctypes.addressof(i_ptrs),
+             ctypes.addressof(sizes), len(chunk), n, g, out.data_ptr())
+        src = out
+    return out
+
+
 class _GatherSum(torch.autograd.Function):
     """K8c with its backward: the gradient wrt ``base`` is ``g``, and wrt
     table j it is K8 (``val`` null) over ``orders[j]``, the rows sorted by
     ``idxs[j]``, with ``indptrs[j]`` spanning table j: a segment sum per
     table entry, no atomics. A table whose layout the batch does not carry
     (a ``cat:`` field of a batch built without ``grad_layout``) gets it
-    sorted on its device when its gradient is first needed."""
+    sorted on its device when its gradient is first needed. On the grid
+    (base (G, N), tables (G, size_j)) the forward is K8c-g and each table's
+    gradient K8g over the (G, N) cotangent."""
 
     @staticmethod
     def forward(ctx, base, layout, *tables):
         idxs, orders, indptrs = layout
-        ctx.layout = (idxs, orders, indptrs, [t.shape[0] for t in tables])
+        ctx.layout = (idxs, orders, indptrs, [t.shape[-1] for t in tables])
         return gather_sum(base.contiguous(), [t.contiguous() for t in tables], idxs)
 
     @staticmethod
@@ -350,6 +412,8 @@ def block_logits(
 ) -> torch.Tensor:
     """(N,) logits; ``params`` are standardized-space coefficients and
     ``scales`` the per-feature 1/std factors (all-ones for raw space).
+    Parameters with a leading grid axis (``bias`` (G,), every other leaf
+    (G, size)) give (G, N) logits, row g those of model g.
     ``center`` (optional) is subtracted from the dense block before scaling.
     The terms (:func:`logit_terms`) are summed by K8c in one pass
     (:class:`_GatherSum`)."""
@@ -372,11 +436,16 @@ def logit_terms(
     through ``_bag_term``. The bias, the dense product and the bag terms of
     unfactored bag fields form the base; the gather terms are the vec
     fields' rep expansions, then, in batch order, each ``cat:`` field's
-    weights and each factored bag field's rep expansion."""
+    weights and each factored bag field's rep expansion. On the grid every
+    term gains the leading G axis; the dense products are (N, D) @ (D, G)."""
+    grid = params["bias"].dim() == 1
     w_dense = params["dense"] * scales["dense"]
     d_scalar = batch["dense"].shape[1]
     dense = batch["dense"] if center is None else batch["dense"] - center[:d_scalar]
-    base = params["bias"] + dense @ w_dense[:d_scalar]
+    if grid:
+        base = params["bias"][:, None] + (dense @ w_dense[:, :d_scalar].T).T
+    else:
+        base = params["bias"] + dense @ w_dense[:d_scalar]
     tables: list[torch.Tensor] = []
     idxs: list[torch.Tensor] = []
     orders: list[torch.Tensor | None] = []
@@ -397,12 +466,13 @@ def logit_terms(
     for f in vec_fields:
         arr = batch[f"vecflat:{f}:vec"]
         d = arr.shape[1]
-        w_f = w_dense[off:off + d]
+        w_f = w_dense[..., off:off + d]
         # Center BEFORE the contraction (no cancellation of two large
         # near-equal dots per distinct vector).
         vals = arr if center is None else arr - center[off:off + d]
         p = f"vecflat:{f}:"
-        gather(vals @ w_f, batch[p + "rep"], batch[p + "order"], batch[p + "indptr"])
+        term = (vals @ w_f.T).T if grid else vals @ w_f
+        gather(term, batch[p + "rep"], batch[p + "order"], batch[p + "indptr"])
         off += d
     for key, arr in batch.items():
         if key.startswith("cat:"):
@@ -437,7 +507,9 @@ def weighted_logloss(
     center: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """MLlib objective: (sum_i w_i * ce_i) / sum_i w_i + 0.5 * reg * ||beta_std||^2
-    (bias unpenalized)."""
+    (bias unpenalized). On the grid (parameters with a leading G axis,
+    ``weights`` (G, N)): the (G,) losses, row g the objective of model g
+    under weight row g."""
     logits = block_logits(params, scales, batch, center=center)
     # Pre-clip to a finite range so the straight-through correction below
     # can never be inf - inf; 1e6 is exact in float32.
@@ -451,8 +523,12 @@ def weighted_logloss(
     # has JAX's slope, so the two solvers start from the same gradient.
     abs_logits = torch.where(logits >= 0, logits, -logits)
     ce = torch.maximum(logits, torch.zeros_like(logits)) - logits * labels + torch.log1p(torch.exp(-abs_logits))
-    data = torch.sum(weights * ce) / torch.sum(weights)
-    pen = sum(torch.sum(v**2) for k, v in params.items() if k != "bias")
+    if params["bias"].dim() == 1:
+        data = torch.sum(weights * ce, dim=1) / torch.sum(weights, dim=1)
+        pen = sum(torch.sum(v**2, dim=1) for k, v in params.items() if k != "bias")
+    else:
+        data = torch.sum(weights * ce) / torch.sum(weights)
+        pen = sum(torch.sum(v**2) for k, v in params.items() if k != "bias")
     return data + 0.5 * reg * pen
 
 

@@ -8,6 +8,8 @@ and the ranker job's AUC and NDCG@30.
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py serve [--port]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py two_stage [--port] [--shared]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py wide_rank [--port] [--rank 100]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py cv_als [--port] [--seeds 42,1,2,3] [--shared]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py cv_lr [--port] [--seeds 42,1,2,3] [--shared]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 ``synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)``, a 10%
@@ -67,6 +69,23 @@ paths): ``ImplicitALS(rank=100)``, 26 iterations, Cholesky, on the
 ``train_als`` job's tables from the numpy init of ``--shared``, evaluated as
 the job evaluates (the 250 test users' top 30 against their most recent 30
 stars). One JSON line; about a minute on a CPU.
+
+``cv_als`` runs the ``cv_als`` job at full size (the default synthetic
+tables, data policy ``off``): the grid the job takes without ``--tables``
+(rank [8, 16] x regParam [0.1, 0.5] x alpha [1, 40], 13 iterations, 2
+folds), once per ALS seed of ``--seeds``, and prints each grid point's mean
+NDCG@30 and the best params (a few minutes per seed). ``cv_als --shared``
+runs the real grid (rank [50, 100] x regParam [0.01, 0.5] x alpha [0.01,
+40], 13 iterations, 2 folds) through ``cross_validate`` on the same tables,
+every fit from the numpy init of ``--shared`` (rank-wide), scored as the
+job scores a fold, and prints the per-fold NDCG@30 of every grid point and
+the best params (about ten minutes).
+
+``cv_lr`` runs the ``cv_lr`` job at full size (Word2Vec dim 200 x 30 epochs,
+LR 300 iterations, the five weight columns in one batched solve), once per
+ALS/Word2Vec seed of ``--seeds`` or once with ``--shared`` (the weights of
+``ranker --shared``), and prints each column's AUC in the job's grid order.
+A few minutes per run.
 """
 
 from __future__ import annotations
@@ -399,6 +418,109 @@ def wide_rank(argv: list[str]) -> None:
     }), flush=True)
 
 
+def _cv_packages(port: bool):
+    if port:
+        from albedo_tpu_torch import cv
+        from albedo_tpu_torch.builders import jobs
+        from albedo_tpu_torch.models import als, word2vec
+    else:
+        from albedo_tpu import cv
+        from albedo_tpu.builders import jobs
+        from albedo_tpu.models import als, word2vec
+    return cv, jobs, als, word2vec
+
+
+CV_ALS_REAL_GRID = {"rank": [50, 100], "reg_param": [0.01, 0.5], "alpha": [0.01, 40.0]}
+
+
+def cv_fold_ndcg(model, train, test, recommender_cls, datasets, evaluators) -> float:
+    """The ``cv_als`` job's fold metric (``albedo_tpu/builders/jobs.py:540``):
+    NDCG@30 of 150 test users sampled from the fold's test stars, their top
+    30 from ``model`` (seen items kept) against their 30 most recent test
+    stars; ``datasets``/``evaluators`` are either package's modules."""
+    users = datasets.sample_test_users(test, n=150)
+    frame = recommender_cls(model, train, top_k=30).recommend_for_users(train.user_ids[users])
+    predicted = evaluators.user_items_from_pairs(
+        train.users_of(frame["user_id"].to_numpy(np.int64)),
+        train.items_of(frame["repo_id"].to_numpy(np.int64)),
+        order_key=frame["score"].to_numpy(np.float64), k=30,
+    )
+    return evaluators.RankingEvaluator(metric_name="ndcg@k", k=30).evaluate(
+        predicted, evaluators.user_actual_items(test, k=30))
+
+
+def cv_als(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py cv_als")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--seeds", default="42", help="comma-separated ALS seeds")
+    ap.add_argument("--shared", action="store_true",
+                    help="the real grid, every fit from the shared numpy init")
+    args = ap.parse_args(argv)
+    cv, jobs, als, _ = _cv_packages(args.port)
+    package = "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)"
+    if not args.shared:
+        current = {"value": 42}
+        _seeded(als.ImplicitALS, "fit", current)
+        for seed in (int(x) for x in args.seeds.split(",")):
+            current["value"] = seed
+            text = _run_job(jobs, "cv_als", args.port)
+            points = re.findall(r"^(\{.*\}) -> (\S+)$", text, flags=re.M)
+            print(json.dumps({
+                "package": package, "grid": "job", "seed": seed,
+                "mean_ndcg": {p: float(v) for p, v in points},
+                "best": re.search(r"\[cv_als\] best params = (.*)", text).group(1),
+                "ndcg": float(re.search(r"NDCG@30 = (\S+)", text).group(1)),
+            }), flush=True)
+        return
+    if args.port:
+        from albedo_tpu_torch import datasets, evaluators
+        from albedo_tpu_torch.recommenders import ALSRecommender
+    else:
+        from albedo_tpu import datasets, evaluators
+        from albedo_tpu.recommenders import ALSRecommender
+    with tempfile.TemporaryDirectory() as data_dir:
+        matrix = _job_context(jobs, args.port, data_dir).matrix()
+
+        def fit(params, train):
+            init = shared_als_init(train.n_users, train.n_items, params["rank"])
+            return als.ImplicitALS(max_iter=13, init_factors=init, **params,
+                                   **({"device": "cpu"} if args.port else {})).fit(train)
+
+        def evaluate(model, train, test):
+            return cv_fold_ndcg(model, train, test, ALSRecommender, datasets, evaluators)
+
+        results = cv.cross_validate(fit, evaluate, matrix, cv.param_grid(**CV_ALS_REAL_GRID), n_folds=2)
+    print(json.dumps({
+        "package": package, "grid": "real", "init": "shared",
+        "results": [{"params": r.params, "fold_ndcg": r.fold_metrics, "mean": r.mean_metric} for r in results],
+        "best": results[0].params,
+    }), flush=True)
+
+
+def cv_lr(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py cv_lr")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--seeds", default="42", help="comma-separated ALS/Word2Vec seeds")
+    ap.add_argument("--shared", action="store_true",
+                    help="numpy ALS init and numpy Word2Vec vectors, the same in both packages")
+    args = ap.parse_args(argv)
+    _, jobs, als, word2vec = _cv_packages(args.port)
+    current = {"value": 42}
+    _seeded(als.ImplicitALS, "fit", current)
+    _seeded(word2vec.Word2Vec, "fit_corpus", current)
+    if args.shared:
+        _share_weights(als, word2vec)
+    for seed in ([SHARED_SEED] if args.shared else (int(x) for x in args.seeds.split(","))):
+        current["value"] = seed
+        text = _run_job(jobs, "cv_lr", args.port, w2v_full=True)
+        grid = re.findall(r"\[cv_lr\] (\S+) -> AUC (\S+)", text)
+        print(json.dumps({
+            "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+            "weights": "shared" if args.shared else "seeded", "seed": seed,
+            "grid": [[col, float(auc)] for col, auc in grid],
+        }), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ranker"]:
         ranker(sys.argv[2:])
@@ -410,5 +532,9 @@ if __name__ == "__main__":
         two_stage(sys.argv[2:])
     elif sys.argv[1:2] == ["wide_rank"]:
         wide_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["cv_als"]:
+        cv_als(sys.argv[2:])
+    elif sys.argv[1:2] == ["cv_lr"]:
+        cv_lr(sys.argv[2:])
     else:
         main(sys.argv[1:] or ["cholesky", "cg"])

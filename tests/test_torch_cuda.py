@@ -26,7 +26,10 @@ arithmetic), and a K6 row equals K5 on that user alone. K1-K3's wide paths
 K8c's forward exactly (the plain version's order) and its gradients to 1e-5
 of each entry's mass (K8 sums in another order than the plain autograd);
 K12's count and max exactly and its rms to 1e-6 relative (float64 sums in
-another order, rounded once to float32), repeating bit for bit.
+another order, rounded once to float32), repeating bit for bit. K8g and
+K8c-g (K8 and K8c over a leading grid axis): each row equal to K8 or K8c on
+that row bit for bit (G = 1 included), and to the plain version as K8 and
+K8c are. K4's land_rows and scatter_rows move rows: exact.
 """
 
 import numpy as np
@@ -538,3 +541,89 @@ def test_k12_factor_health_matches_plain(dev, plant):
     assert torch.equal(got[:2], want[:2])
     assert abs(float(got[2]) - float(want[2])) <= 1e-6 * float(want[2])
     assert torch.equal(got, watchdog.factor_health(uf, vf))
+
+
+@pytest.mark.parametrize("n_grid", [1, 5, 7, 9])
+@pytest.mark.parametrize("with_val", [True, False])
+def test_k8g_segment_dot_grid_matches_k8_rows_and_plain(dev, n_grid, with_val):
+    """K8g: each row bit for bit K8 on that row; against the plain version
+    to 1e-5 of each segment's mass. G = 9 takes two passes of 8 rows."""
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 40, size=3000)
+    counts[::7] = 0
+    counts[5] = 20000
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    x = torch.as_tensor(rng.normal(size=(n_grid, 500)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 500, size=nnz).astype(np.int32), device=dev)
+    val = torch.as_tensor(rng.normal(size=nnz).astype(np.float32), device=dev) if with_val else None
+    ip = torch.as_tensor(indptr, device=dev)
+    kernels.reset_launches()
+    got = ops_sl.segment_dot(x, idx, val, ip)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segment_dot_grid"] == 1 and kernels.LAUNCHES["segment_dot"] == 0
+    assert got.shape == (n_grid, 3000)
+    for g in range(n_grid):
+        assert torch.equal(got[g], ops_sl.segment_dot(x[g].contiguous(), idx, val, ip))
+    want = ops_sl.segment_dot_reference(x, idx, val, ip)
+    mass = ops_sl.segment_dot_reference(x.abs(), idx, None if val is None else val.abs(), ip)
+    assert bool(((got - want).abs() <= 1e-5 * mass).all())
+
+
+@pytest.mark.parametrize("n_grid", [1, 5, 7, 9])
+def test_k8cg_gather_sum_grid_matches_k8c_rows_and_plain(dev, n_grid):
+    """K8c-g: exactly the plain version, and each row K8c on that row."""
+    rng = np.random.default_rng(22)
+    n, sizes = 50_000, (1, 9, 3000, 40)
+    base = torch.as_tensor(rng.normal(size=(n_grid, n)).astype(np.float32), device=dev)
+    idxs = [torch.as_tensor(rng.integers(0, s, size=n).astype(np.int32), device=dev) for s in sizes]
+    tabs = [torch.as_tensor(rng.normal(size=(n_grid, s)).astype(np.float32), device=dev) for s in sizes]
+    kernels.reset_launches()
+    got = ops_sl.gather_sum(base, tabs, idxs)
+    assert kernels.LAUNCHES["gather_sum_grid"] == 1 and kernels.LAUNCHES["gather_sum"] == 0
+    assert torch.equal(got, ops_sl.gather_sum_reference(base, tabs, idxs))
+    for g in range(n_grid):
+        assert torch.equal(got[g], ops_sl.gather_sum(base[g].contiguous(), [t[g].contiguous() for t in tabs], idxs))
+
+
+@pytest.mark.parametrize("k", [16, 50, 100])
+def test_k4_land_rows_and_scatter_rows_exact(dev, k):
+    """K4: land_rows equals ``cat(pool, target)[landing]`` and scatter_rows
+    ``scatter_solved_reference`` exactly: -1 padding slots drop, rows in no
+    bucket keep their old row."""
+    rng = np.random.default_rng(23)
+    n_target = 5000
+    sizes = rng.integers(1, 60, size=70)
+    n_slots = int(sizes.sum())
+    row_ids = np.full(n_slots, -1, np.int32)
+    live = rng.random(n_slots) < 0.8
+    rows = rng.permutation(n_target)[: int(live.sum())].astype(np.int32)  # some rows in no bucket
+    row_ids[live] = rows
+    landing = np.arange(n_slots, n_slots + n_target, dtype=np.int64)
+    landing[row_ids[live]] = np.flatnonzero(live)
+    target = torch.as_tensor(rng.normal(size=(n_target, k)).astype(np.float32), device=dev)
+    flat = torch.as_tensor(rng.normal(size=(n_slots, k)).astype(np.float32), device=dev)
+    land = torch.as_tensor(landing, device=dev)
+    kernels.reset_launches()
+    got = ops_als.land_rows(target, flat, land)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["land_rows"] == 1
+    assert torch.equal(got, ops_als.land_rows_reference(target, flat, land))
+    ids = torch.as_tensor(row_ids, device=dev)
+    sc = ops_als.scatter_solved(target, ids, flat)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_rows"] == 1
+    assert torch.equal(sc, ops_als.scatter_solved_reference(target, ids, flat))
+    assert torch.equal(sc, got)
+
+
+def test_grid_and_landing_kernels_raise_instead_of_falling_back(dev):
+    x = torch.ones((2, 4), device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        ops_sl.segment_dot(x, torch.zeros(3, dtype=torch.int64, device=dev), None,
+                           torch.tensor([0, 3], dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        ops_sl.gather_sum(x, [torch.ones((3, 5), device=dev)], [torch.zeros(4, dtype=torch.int32, device=dev)])
+    with pytest.raises(ValueError, match="int64"):
+        ops_als.land_rows(torch.ones((3, 2), device=dev), torch.ones((1, 2), device=dev),
+                          torch.zeros(3, dtype=torch.int32, device=dev))

@@ -46,7 +46,7 @@ def test_every_module_imports_without_nvcc():
                    "serving.batcher", "serving.service", "serving.cache", "serving.metrics",
                    "serving.overload", "serving.http", "retrieval.bank", "retrieval.build",
                    "retrieval.parity", "serving.pipeline", "serving.breaker", "utils.retry",
-                   "utils.watchdog"):
+                   "utils.watchdog", "cv"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
@@ -59,10 +59,11 @@ def test_every_module_imports_without_nvcc():
         "gather_topk", "bank_query", "topk_select", "gather_sum", "factor_health",
         "als_partials_wide", "solve_corrected_wide", "bucket_cg_wide",
         "topk_scores_select", "gather_topk_select", "bank_query_select",
+        "segment_dot_grid", "gather_sum_grid", "land_rows", "scatter_rows",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:
-        assert (build.CSRC / f"{build.PATHS.get(name, name)}.cu").is_file()
+        assert (build.CSRC / f"{build.source_of(build.PATHS.get(name, name))}.cu").is_file()
 
 
 def test_tf32_is_off():

@@ -8,7 +8,9 @@ coefficients rtol 1e-4, because folding the scales multiplies by 1/std
 (~1e3 for the near-constant column) and the centering shift into the bias
 by its mean (250); probabilities atol 1e-5; L-BFGS iterations within 2 of
 the JAX count (a float32 rounding in another order can move one accepted
-step; measured equal on these problems); AUC within 1e-4.
+step; measured equal on these problems); AUC within 1e-4. ``fit_many`` (the
+CV weight grid, one batched solve) is held row by row at the same bands
+against JAX's vmapped ``fit_many`` and the port's own sequential ``fit``.
 """
 
 import numpy as np
@@ -87,5 +89,49 @@ def test_unported_options_raise():
         LogisticRegression(solver="adam", device="cpu").fit(tfm, y, w)
     with pytest.raises(NotImplementedError):
         LogisticRegression(mesh=object(), device="cpu").fit(tfm, y, w)
-    with pytest.raises(NotImplementedError):
-        LogisticRegression(device="cpu").fit_many(tfm, y, np.stack([w, w]))
+    with pytest.raises(NotImplementedError, match="grid_mesh"):
+        LogisticRegression(device="cpu").fit_many(tfm, y, np.stack([w, w]), grid_mesh=object())
+
+
+def _grid_weights(y, w, seed):
+    """Five weight rows that converge at different speeds: the problem's
+    weights, other uniform weights, a random half of the rows, four rows
+    only, and one row alone (its fit stops after 2 steps, long before the
+    others)."""
+    rng = np.random.default_rng(seed)
+    n = len(y)
+    return np.stack([
+        w,
+        rng.uniform(0.1, 2.0, size=n),
+        np.where(rng.random(n) < 0.5, w, 0.0),
+        np.where(np.arange(n) < 4, 1.0, 0.0),
+        np.eye(1, n, 7)[0],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,factored", [(0, False), (1, True)])
+def test_fit_many_rows_match_jax_and_sequential_fits(seed, factored):
+    jfm, tfm, y, w = _problem(seed, n=500, factored=factored)
+    ws = _grid_weights(y, w, seed)
+    mj = JLR(max_iter=100, reg_param=0.7).fit_many(jfm, y, ws)
+    mt = LogisticRegression(max_iter=100, reg_param=0.7, device="cpu").fit_many(tfm, y, ws)
+    seq = [LogisticRegression(max_iter=100, reg_param=0.7, device="cpu").fit(tfm, y, row) for row in ws]
+    steps = [m.n_iter_run for m in mt]
+    assert steps[-1] == 2 and min(steps[:-1]) > 5, steps  # the lone row stops early
+    assert len({m.prep_s for m in mt}) == 1 and len({m.run_s for m in mt}) == 1
+    for g, (t, j, s) in enumerate(zip(mt, mj, seq)):
+        for ref in (j, s):
+            np.testing.assert_allclose(t.train_loss, float(ref.train_loss), rtol=1e-6, err_msg=str(g))
+            assert abs(t.n_iter_run - int(ref.n_iter_run)) <= 2, (g, t.n_iter_run, ref.n_iter_run)
+            for k in t.params:
+                np.testing.assert_allclose(t.params[k], np.asarray(ref.params[k]), atol=1e-5, err_msg=f"{g} {k}")
+
+
+def test_fit_many_rejects_what_jax_rejects():
+    _, tfm, y, w = _problem(4, n=50)
+    with pytest.raises(ValueError, match="lbfgs"):
+        LogisticRegression(solver="adam", device="cpu").fit_many(tfm, y, np.stack([w]))
+    with pytest.raises(ValueError, match="grid_mesh"):
+        LogisticRegression(mesh=object(), device="cpu").fit_many(tfm, y, np.stack([w]))
+    with pytest.raises(ValueError, match="at least one grid row"):
+        LogisticRegression(device="cpu").fit_many(tfm, y, np.zeros((0, len(w)), np.float32))

@@ -140,3 +140,55 @@ def test_unknown_solver_and_mixed_devices_raise():
             torch.as_tensor(src), torch.as_tensor(idx), torch.as_tensor(val),
             torch.as_tensor(mask).to("meta"), ALPHA,
         )
+
+
+# ------------------------------------------------------------------- K4
+
+
+def _solved_groups(seed=5, k=7):
+    """Bucket groups of an item half-sweep (with -1 padding slots and rows
+    in no bucket) and random solved blocks shaped like them."""
+    m = synthetic_stars(n_users=90, n_items=60, mean_stars=5, seed=seed)
+    groups = grouped_bucket_rows(*m.csc(), batch_size=16, max_entries=300)
+    rng = np.random.default_rng(seed)
+    n_target = m.n_items + 4  # four rows in no bucket
+    target = rng.standard_normal((n_target, k)).astype(np.float32)
+    solved = [rng.standard_normal((g.row_ids.size, k)).astype(np.float32) for g in groups]
+    return groups, target, solved
+
+
+def test_k4_scatter_solved_matches_jax():
+    """``scatter_solved``'s plain version equals JAX's (exactly): -1 slots
+    drop, rows in no bucket keep their old factor."""
+    groups, target, solved = _solved_groups()
+    rows = np.concatenate([g.row_ids.reshape(-1) for g in groups])
+    flat = np.concatenate(solved)
+    assert (rows < 0).any()
+    want = np.asarray(jals.scatter_solved(jnp.asarray(target), jnp.asarray(rows), jnp.asarray(flat)))
+    got = tals.scatter_solved(torch.as_tensor(target), torch.as_tensor(rows), torch.as_tensor(flat))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy()[-4:], target[-4:])
+    # The reference takes the row ids in their (N, B) group shape too.
+    g0 = groups[0]
+    want0 = np.asarray(jals.scatter_solved(jnp.asarray(target), jnp.asarray(g0.row_ids.reshape(-1)),
+                                           jnp.asarray(solved[0])))
+    got0 = tals.scatter_solved(torch.as_tensor(target), torch.as_tensor(g0.row_ids),
+                               torch.as_tensor(solved[0]).reshape(g0.row_ids.shape + (-1,)))
+    np.testing.assert_array_equal(got0.numpy(), want0)
+
+
+def test_k4_land_rows_matches_jax_landing():
+    """``land_rows``'s plain version on the pool of solved blocks is
+    ``scan_half_sweep``'s landing gather (``concat(solved..., target)
+    [landing]``) exactly, and equals the scatter of the same blocks."""
+    groups, target, solved = _solved_groups(seed=6)
+    landing = _landing_perm(groups, target.shape[0])
+    want = np.asarray(jnp.concatenate([jnp.asarray(b) for b in solved] + [jnp.asarray(target)])[landing])
+    got = tals.land_rows(torch.as_tensor(target), torch.as_tensor(np.concatenate(solved)),
+                         torch.as_tensor(landing).long())
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = np.concatenate([g.row_ids.reshape(-1) for g in groups])
+    scattered = jals.scatter_solved(jnp.asarray(target), jnp.asarray(rows), jnp.asarray(np.concatenate(solved)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(scattered))
+    keep = tals.land_rows(torch.as_tensor(target), torch.zeros((0, target.shape[1])), torch.arange(target.shape[0]))
+    np.testing.assert_array_equal(keep.numpy(), target)  # no blocks: every row keeps its factor

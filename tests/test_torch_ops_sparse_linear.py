@@ -291,3 +291,70 @@ def test_gather_sum_backward_is_each_tables_segment_sums():
         np.add.at(want, idx.numpy(), g.numpy().astype(np.float64))
         np.testing.assert_allclose(tab.grad.numpy(), want, atol=1e-5)
         assert (tab.grad.numpy()[s // 2 + 1:] == 0).all()  # categories no row reads
+
+
+# ------------------------------------------------------- the grid (K8g, K8c-g)
+
+
+def _stack(trees):
+    return {k: np.stack([np.asarray(t[k], np.float32) for t in trees]) for k in trees[0]}
+
+
+@jax.jit
+def _jax_grid_value_and_grad(params, scales, batch, y, ws, center):
+    """JAX's objective under ``jax.vmap`` over (params, weights) rows, as
+    ``_lbfgs_fit_many_impl`` batches it."""
+    def one(p, w):
+        return jax.value_and_grad(lambda q: J.weighted_logloss(q, scales, batch, y, w, 0.7, center=center))(p)
+
+    return jax.vmap(one)(params, ws)
+
+
+@pytest.mark.parametrize("n_grid", [1, 3])
+def test_grid_logits_loss_and_grads_match_vmapped_jax(n_grid):
+    """Parameters with a leading grid axis (K8g and K8c-g's plain versions)
+    against the JAX functions under ``jax.vmap``: logits rtol 1e-5 atol 1e-4,
+    losses rtol 1e-6, gradients atol 1e-6 (the single-model tolerances)."""
+    rng = np.random.default_rng(12)
+    jfm, tfm = _fm(rng)
+    n = jfm.n_rows
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    ws = rng.uniform(0.1, 1.0, size=(n_grid, n)).astype(np.float32)
+    scales, center = J.inverse_std_scales(jfm), J.dense_center(jfm)
+    params = _stack([_params(jfm, rng) for _ in range(n_grid)])
+    jb = J.feature_batch(jfm)
+    want_logits = np.asarray(jax.vmap(lambda p: J.block_logits(p, scales, jb, center))(params))
+    v_j, g_j = _jax_grid_value_and_grad(params, scales, jb, jnp.asarray(y), jnp.asarray(ws), center)
+    tb = T.feature_batch(tfm, "cpu", grad_layout=True)
+    pt = {k: v.requires_grad_(True) for k, v in _t(params).items()}
+    logits = T.block_logits(pt, _t(scales), tb, torch.as_tensor(center))
+    assert logits.shape == (n_grid, n)
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, rtol=1e-5, atol=1e-4)
+    v_t = T.weighted_logloss(pt, _t(scales), tb, torch.as_tensor(y), torch.as_tensor(ws), 0.7,
+                             center=torch.as_tensor(center))
+    assert v_t.shape == (n_grid,)
+    v_t.sum().backward()
+    np.testing.assert_allclose(v_t.detach().numpy(), np.asarray(v_j), rtol=1e-6)
+    for k in params:
+        np.testing.assert_allclose(pt[k].grad.numpy(), np.asarray(g_j[k]), atol=1e-6, err_msg=k)
+
+
+def test_grid_plain_versions_are_each_rows_single_version():
+    """K8g's and K8c-g's plain versions: row g of the grid call equals the
+    one-row call on row g exactly (the kernels' contract, G = 1 included)."""
+    rng = np.random.default_rng(13)
+    x, idx, val, indptr = _csr(rng, 200, 300, 40)
+    xs = torch.as_tensor(rng.normal(size=(3, 40)).astype(np.float32))
+    t_idx, t_val, t_ptr = torch.as_tensor(idx), torch.as_tensor(val), torch.as_tensor(indptr)
+    for v in (t_val, None):
+        grid = T.segment_dot(xs, t_idx, v, t_ptr)
+        assert grid.shape == (3, 200)
+        for g in range(3):
+            torch.testing.assert_close(grid[g], T.segment_dot(xs[g], t_idx, v, t_ptr), rtol=0, atol=0)
+    n, sizes = 250, (4, 30)
+    base = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32))
+    tables = [torch.as_tensor(rng.normal(size=(3, s)).astype(np.float32)) for s in sizes]
+    idxs = [torch.as_tensor(rng.integers(0, s, size=n).astype(np.int32)) for s in sizes]
+    grid = T.gather_sum(base, tables, idxs)
+    for g in range(3):
+        torch.testing.assert_close(grid[g], T.gather_sum(base[g], [t[g] for t in tables], idxs), rtol=0, atol=0)
