@@ -41,10 +41,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES: dict[str, list] = {
     # source, idx, val, mask, corr, bvec, B, L, k, alpha, stream
     "als_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # the same, with source bf16
+    "als_partials_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # yty, corr, bvec, n_b, reg, x, B, k, ws, stream
     "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _P],
     # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws, stream
     "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
+    # the same, with source bf16
+    "bucket_cg_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
     # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
     "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # uf_all, items, user_idx, excl, excl_by_user, out_s, out_i, B, I, r, k, E, Epad, stream
@@ -57,6 +61,8 @@ SIGNATURES: dict[str, list] = {
     "segment_dot_grid": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
     # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
     "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # in, out, centers, contexts, pool, grad_in, grad_out, loss_acc, g, B, d, K, neg_scale, stream
+    "sgns_shared": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
     "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     # x, indptr, idx, val, out, S, B, stream
@@ -83,11 +89,14 @@ SIGNATURES: dict[str, list] = {
 # Entry points of a source other than the one named as the source: entry ->
 # source. K8g and K8c-g (K8 and K8c over a leading grid axis) live beside
 # their one-row kernels; ``scatter_rows`` (K4's ``scatter_solved``) beside
-# ``land_rows`` (K4's landing).
+# ``land_rows`` (K4's landing); K1-bf16 and K3-bf16 (the bf16 gathers) are
+# K1 and K3 instantiated for a bf16 table.
 ENTRIES = {
     "segment_dot_grid": "segment_dot",
     "gather_sum_grid": "gather_sum",
     "scatter_rows": "land_rows",
+    "als_partials_bf16": "als_partials",
+    "bucket_cg_bf16": "bucket_cg",
 }
 
 
@@ -106,6 +115,8 @@ PATHS = {
     "als_partials_wide": "als_partials",
     "solve_corrected_wide": "solve_corrected",
     "bucket_cg_wide": "bucket_cg",
+    "als_partials_bf16_wide": "als_partials",
+    "bucket_cg_bf16_wide": "bucket_cg",
     "topk_scores_select": "topk_select",
     "gather_topk_select": "topk_select",
     "bank_query_select": "topk_select",

@@ -37,22 +37,57 @@
 // still most of them). Tile (i, j) and tile (j, i) form each product from
 // the commuted pair in the same entry order, so the result stays exactly
 // symmetric. The b-vector is written by the CTAs of tile column 0.
+//
+// K1-bf16 (entry als_partials_bf16): the same kernels reading a bf16 copy of
+// the table, as albedo_tpu/ops/als.py bucket_partial_terms does under
+// gather_dtype="bfloat16" (_gather :62, the einsums :127-135). The tiles hold
+// the bf16 rows as they are (half the shared memory and half the gathered
+// bytes) and widen each value to float32 on use; the correction's c1 is
+// rounded to bf16 (__float2bfloat16_rn, as JAX casts it to the rows' dtype),
+// the b-vector's w = 1 + c1 is not. Each product c1 * (y_i * y_j) then holds
+// at most 8 + 8 + 8 significant bits and is exact in float32, so only the
+// order of the float32 sums differs from JAX. The bound moves little: the
+// (B, k, k) correction the kernel writes is most of its bytes either way.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// How the gathered rows are read: float32 as they are, or bf16 widened to
+// float32, with ``round`` the value a float32 operand takes when JAX casts
+// it to the rows' dtype (the identity for float32 rows).
+template <typename T>
+struct Rows;
+
+template <>
+struct Rows<float> {
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float zero() { return 0.f; }
+};
+
+template <>
+struct Rows<__nv_bfloat16> {
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+};
 
 constexpr int KMAX = 64;
 constexpr int THREADS = 256;
 constexpr int TILE = 32;
 constexpr int PER_THREAD = KMAX * KMAX / THREADS;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) als_partials_kernel(
-    const float* __restrict__ source, const int* __restrict__ idx,
+    const T* __restrict__ source, const int* __restrict__ idx,
     const float* __restrict__ val, const unsigned char* __restrict__ mask,
     float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
     float alpha) {
-  __shared__ float ys[TILE][KMAX];
+  __shared__ T ys[TILE][KMAX];
   __shared__ float c1s[TILE];
   __shared__ float ws[TILE];
   __shared__ int s_end;
@@ -81,7 +116,7 @@ __global__ void __launch_bounds__(THREADS) als_partials_kernel(
       const int l = e / k;
       const int c = e - l * k;
       const int gl = l0 + l;
-      float y = 0.f;
+      T y = Rows<T>::zero();
       if (gl < end && mask[base + gl])
         y = source[(long long)idx[base + gl] * k + c];
       ys[l][c] = y;
@@ -93,13 +128,13 @@ __global__ void __launch_bounds__(THREADS) als_partials_kernel(
         c1 = alpha * val[base + gl];
         w = 1.f + c1;
       }
-      c1s[tid] = c1;
+      c1s[tid] = Rows<T>::round(c1);
       ws[tid] = w;
     }
     __syncthreads();
     const int nl = min(TILE, end - l0);
     if (tid < k)
-      for (int l = 0; l < nl; ++l) bacc += ws[l] * ys[l][tid];
+      for (int l = 0; l < nl; ++l) bacc += ws[l] * Rows<T>::widen(ys[l][tid]);
 #pragma unroll
     for (int q = 0; q < PER_THREAD; ++q) {
       const int p = tid + q * THREADS;
@@ -107,7 +142,8 @@ __global__ void __launch_bounds__(THREADS) als_partials_kernel(
         const int i = p / k;
         const int j = p - i * k;
         float a = acc[q];
-        for (int l = 0; l < nl; ++l) a += c1s[l] * (ys[l][i] * ys[l][j]);
+        for (int l = 0; l < nl; ++l)
+          a += c1s[l] * (Rows<T>::widen(ys[l][i]) * Rows<T>::widen(ys[l][j]));
         acc[q] = a;
       }
     }
@@ -126,13 +162,14 @@ __global__ void __launch_bounds__(THREADS) als_partials_kernel(
 constexpr int WT = 64;  // output tile side, wide path
 constexpr int W_PER_THREAD = WT * WT / THREADS;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
-    const float* __restrict__ source, const int* __restrict__ idx,
+    const T* __restrict__ source, const int* __restrict__ idx,
     const float* __restrict__ val, const unsigned char* __restrict__ mask,
     float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
     float alpha) {
-  __shared__ float yi[TILE][WT];
-  __shared__ float yj[TILE][WT];
+  __shared__ T yi[TILE][WT];
+  __shared__ T yj[TILE][WT];
   __shared__ float c1s[TILE];
   __shared__ float ws[TILE];
   __shared__ int s_end;
@@ -168,9 +205,9 @@ __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
         const int l = e / WT;
         const int c = e - l * WT;
         const int gl = l0 + l;
-        float a = 0.f, b = 0.f;
+        T a = Rows<T>::zero(), b = Rows<T>::zero();
         if (gl < end && mask[base + gl]) {
-          const float* y = source + (long long)idx[base + gl] * k;
+          const T* y = source + (long long)idx[base + gl] * k;
           if (c < ni) a = y[i0 + c];
           if (c < nj) b = y[j0 + c];
         }
@@ -184,20 +221,21 @@ __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
           c1 = alpha * val[base + gl];
           w = 1.f + c1;
         }
-        c1s[tid] = c1;
+        c1s[tid] = Rows<T>::round(c1);
         ws[tid] = w;
       }
       __syncthreads();
       const int nl = min(TILE, end - l0);
       if (j0 == 0 && tid < ni)
-        for (int l = 0; l < nl; ++l) bacc += ws[l] * yi[l][tid];
+        for (int l = 0; l < nl; ++l) bacc += ws[l] * Rows<T>::widen(yi[l][tid]);
 #pragma unroll
       for (int q = 0; q < W_PER_THREAD; ++q) {
         const int p = tid + q * THREADS;
         const int i = p / WT;
         const int j = p - i * WT;
         float a = acc[q];
-        for (int l = 0; l < nl; ++l) a += c1s[l] * (yi[l][i] * yj[l][j]);
+        for (int l = 0; l < nl; ++l)
+          a += c1s[l] * (Rows<T>::widen(yi[l][i]) * Rows<T>::widen(yj[l][j]));
         acc[q] = a;
       }
       __syncthreads();
@@ -215,6 +253,19 @@ __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
   }
 }
 
+template <typename T>
+int launch(const T* source, const int* idx, const float* val, const unsigned char* mask,
+           float* corr, float* bvec, int B, int L, int k, float alpha, cudaStream_t stream) {
+  if (B > 0 && k <= KMAX) {
+    als_partials_kernel<T><<<B, THREADS, 0, stream>>>(source, idx, val, mask, corr, bvec, L, k, alpha);
+  } else if (B > 0) {
+    const int tiles = (k + WT - 1) / WT;
+    als_partials_wide_kernel<T><<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0, stream>>>(
+        source, idx, val, mask, corr, bvec, L, k, alpha);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32;
@@ -224,13 +275,14 @@ extern "C" int als_partials_launch(const float* source, const int* idx,
                                    const float* val, const unsigned char* mask,
                                    float* corr, float* bvec, int B, int L,
                                    int k, float alpha, void* stream) {
-  if (B > 0 && k <= KMAX) {
-    als_partials_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        source, idx, val, mask, corr, bvec, L, k, alpha);
-  } else if (B > 0) {
-    const int tiles = (k + WT - 1) / WT;
-    als_partials_wide_kernel<<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0, (cudaStream_t)stream>>>(
-        source, idx, val, mask, corr, bvec, L, k, alpha);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(source, idx, val, mask, corr, bvec, B, L, k, alpha, (cudaStream_t)stream);
+}
+
+// K1-bf16: as als_partials_launch, with source (n, k) bf16.
+extern "C" int als_partials_bf16_launch(const void* source, const int* idx,
+                                        const float* val, const unsigned char* mask,
+                                        float* corr, float* bvec, int B, int L,
+                                        int k, float alpha, void* stream) {
+  return launch<__nv_bfloat16>((const __nv_bfloat16*)source, idx, val, mask, corr, bvec, B, L, k, alpha,
+                               (cudaStream_t)stream);
 }

@@ -27,19 +27,52 @@
 // workspace of the same layout, one slice per CTA, which the wrapper
 // allocates. Each thread owns the columns c = tid, tid + THREADS, ... of
 // every vector, so any k fits.
+//
+// K3-bf16 (entry bucket_cg_bf16): the same kernels reading a bf16 copy of
+// the table, as bucket_cg_body does under gather_dtype="bfloat16" (:180,
+// :193-203). The entry tile holds the bf16 rows as they are and widens each
+// value on use; the kernel rounds where the JAX program rounds and nowhere
+// else (round = __float2bfloat16_rn, nearest even, as XLA's convert):
+//     diag   = max(diag(YtY) + sum_l round(y_l^2) round(c1_l) + reg n, 1e-12)
+//     A p    = YtY p + sum_l y_l round(c1_l (y_l . round(p))) + reg n p
+// with b = sum_l w_l y_l (w unrounded). The iterate p stays float32; only
+// the two gathered contractions see its rounded copy, formed on the fly.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// How the gathered rows are read (see als_partials.cu): float32 as they
+// are, or bf16 widened to float32; ``round`` is the identity for float32.
+template <typename T>
+struct Rows;
+
+template <>
+struct Rows<float> {
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float zero() { return 0.f; }
+};
+
+template <>
+struct Rows<__nv_bfloat16> {
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+};
 
 constexpr int KMAX = 64;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 32;
 
+template <typename T>
 struct Shared {
   float yty[KMAX][KMAX];
-  float ys[TILE][KMAX];
+  T ys[TILE][KMAX];
   float c1s[TILE];
   float ws[TILE];
   float ts[TILE];
@@ -51,7 +84,8 @@ struct Shared {
 
 // Load entries [l0, l0 + TILE) of the row into the shared tile; entries that
 // are masked out (or past `end`) load as zero rows with zero weights.
-__device__ void load_tile(Shared& s, const float* __restrict__ source,
+template <typename T>
+__device__ void load_tile(Shared<T>& s, const T* __restrict__ source,
                           const int* __restrict__ idx,
                           const float* __restrict__ val,
                           const unsigned char* __restrict__ mask,
@@ -61,7 +95,7 @@ __device__ void load_tile(Shared& s, const float* __restrict__ source,
     const int l = e / k;
     const int c = e - l * k;
     const int gl = l0 + l;
-    float y = 0.f;
+    T y = Rows<T>::zero();
     if (gl < s.end && mask[base + gl])
       y = source[(long long)idx[base + gl] * k + c];
     s.ys[l][c] = y;
@@ -79,7 +113,8 @@ __device__ void load_tile(Shared& s, const float* __restrict__ source,
 }
 
 // sum_i a[i] * b[i] over k entries, returned to every thread.
-__device__ float block_dot(Shared& s, const float* a, const float* b, int k) {
+template <typename T>
+__device__ float block_dot(Shared<T>& s, const float* a, const float* b, int k) {
   __syncthreads();
   if (threadIdx.x == 0) {
     float acc = 0.f;
@@ -91,8 +126,9 @@ __device__ float block_dot(Shared& s, const float* a, const float* b, int k) {
 }
 
 // out = A v (see the header), for the whole CTA.
-__device__ void matvec(Shared& s, const float* v, float* out,
-                       const float* __restrict__ source,
+template <typename T>
+__device__ void matvec(Shared<T>& s, const float* v, float* out,
+                       const T* __restrict__ source,
                        const int* __restrict__ idx,
                        const float* __restrict__ val,
                        const unsigned char* __restrict__ mask, long long base,
@@ -108,13 +144,13 @@ __device__ void matvec(Shared& s, const float* v, float* out,
     const int nl = min(TILE, s.end - l0);
     for (int l = warp; l < nl; l += WARPS) {
       float d = 0.f;
-      for (int c = lane; c < k; c += 32) d += s.ys[l][c] * v[c];
+      for (int c = lane; c < k; c += 32) d += Rows<T>::widen(s.ys[l][c]) * Rows<T>::round(v[c]);
       for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (lane == 0) s.ts[l] = s.c1s[l] * d;
+      if (lane == 0) s.ts[l] = Rows<T>::round(s.c1s[l] * d);
     }
     __syncthreads();
     if (tid < k)
-      for (int l = 0; l < nl; ++l) acc += s.ys[l][tid] * s.ts[l];
+      for (int l = 0; l < nl; ++l) acc += Rows<T>::widen(s.ys[l][tid]) * s.ts[l];
   }
   __syncthreads();
   if (tid < k) {
@@ -125,13 +161,14 @@ __device__ void matvec(Shared& s, const float* v, float* out,
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
-    const float* __restrict__ source, const float* __restrict__ yty,
+    const T* __restrict__ source, const float* __restrict__ yty,
     const int* __restrict__ idx, const float* __restrict__ val,
     const unsigned char* __restrict__ mask, const float* __restrict__ x0,
     float* __restrict__ xout, int L, int k, float reg, float alpha,
     int cg_steps) {
-  __shared__ Shared s;
+  __shared__ Shared<T> s;
   const int tid = threadIdx.x;
   const long long row = blockIdx.x;
   const long long base = row * L;
@@ -164,9 +201,9 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
     const int nl = min(TILE, s.end - l0);
     if (tid < k)
       for (int l = 0; l < nl; ++l) {
-        const float y = s.ys[l][tid];
+        const float y = Rows<T>::widen(s.ys[l][tid]);
         bacc += s.ws[l] * y;
-        dacc += (y * y) * s.c1s[l];
+        dacc += Rows<T>::round(y * y) * Rows<T>::round(s.c1s[l]);
       }
   }
   if (tid < k) {
@@ -204,15 +241,19 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
 
 // The wide path's per-CTA region (shared or global): the entry tile (TILE x
 // k), the CG vectors (k each) and the entry weights (TILE each).
+// A bf16 tile uses the first half of the tile's room, so the layout (and
+// the workspace the wrapper sizes) is one for both element types.
+template <typename T>
 struct Wide {
-  float* ys;
+  T* ys;
   float *x, *r, *z, *p, *ap, *diag, *b;
   float *c1s, *ws, *ts;
 };
 
-__device__ Wide wide_region(float* base, int k) {
-  Wide w;
-  w.ys = base;
+template <typename T>
+__device__ Wide<T> wide_region(float* base, int k) {
+  Wide<T> w;
+  w.ys = reinterpret_cast<T*>(base);
   float* v = base + TILE * k;
   w.x = v; w.r = v + k; w.z = v + 2 * k; w.p = v + 3 * k;
   w.ap = v + 4 * k; w.diag = v + 5 * k; w.b = v + 6 * k;
@@ -220,7 +261,8 @@ __device__ Wide wide_region(float* base, int k) {
   return w;
 }
 
-__device__ void wide_load_tile(const Wide& w, int end, const float* __restrict__ source,
+template <typename T>
+__device__ void wide_load_tile(const Wide<T>& w, int end, const T* __restrict__ source,
                                const int* __restrict__ idx, const float* __restrict__ val,
                                const unsigned char* __restrict__ mask, long long base,
                                int l0, int k, float alpha) {
@@ -229,7 +271,7 @@ __device__ void wide_load_tile(const Wide& w, int end, const float* __restrict__
     const int l = e / k;
     const int c = e - l * k;
     const int gl = l0 + l;
-    float y = 0.f;
+    T y = Rows<T>::zero();
     if (gl < end && mask[base + gl]) y = source[(long long)idx[base + gl] * k + c];
     w.ys[e] = y;
   }
@@ -256,8 +298,9 @@ __device__ float wide_dot(float* red, const float* a, const float* b, int k) {
   return *red;
 }
 
-__device__ void wide_matvec(const Wide& w, int end, const float* v, float* out,
-                            const float* __restrict__ yty, const float* __restrict__ source,
+template <typename T>
+__device__ void wide_matvec(const Wide<T>& w, int end, const float* v, float* out,
+                            const float* __restrict__ yty, const T* __restrict__ source,
                             const int* __restrict__ idx, const float* __restrict__ val,
                             const unsigned char* __restrict__ mask, long long base, int k,
                             float alpha, float rn) {
@@ -273,14 +316,14 @@ __device__ void wide_matvec(const Wide& w, int end, const float* v, float* out,
     const int nl = min(TILE, end - l0);
     for (int l = warp; l < nl; l += WARPS) {
       float d = 0.f;
-      for (int c = lane; c < k; c += 32) d += w.ys[l * k + c] * v[c];
+      for (int c = lane; c < k; c += 32) d += Rows<T>::widen(w.ys[l * k + c]) * Rows<T>::round(v[c]);
       for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (lane == 0) w.ts[l] = w.c1s[l] * d;
+      if (lane == 0) w.ts[l] = Rows<T>::round(w.c1s[l] * d);
     }
     __syncthreads();
     for (int c = tid; c < k; c += THREADS) {
       float a = out[c];
-      for (int l = 0; l < nl; ++l) a += w.ys[l * k + c] * w.ts[l];
+      for (int l = 0; l < nl; ++l) a += Rows<T>::widen(w.ys[l * k + c]) * w.ts[l];
       out[c] = a;
     }
   }
@@ -295,8 +338,9 @@ __device__ void wide_matvec(const Wide& w, int end, const float* v, float* out,
 
 // ws: null to keep the region in dynamic shared memory, else a workspace of
 // B x ((TILE + 7) k + 3 TILE) floats, one slice per CTA.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
-    const float* __restrict__ source, const float* __restrict__ yty,
+    const T* __restrict__ source, const float* __restrict__ yty,
     const int* __restrict__ idx, const float* __restrict__ val,
     const unsigned char* __restrict__ mask, const float* __restrict__ x0,
     float* __restrict__ xout, int L, int k, float reg, float alpha,
@@ -308,7 +352,7 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
   const long long row = blockIdx.x;
   const long long base = row * L;
   const long long per_cta = (long long)(TILE + 7) * k + 3 * TILE;
-  const Wide w = wide_region(ws == nullptr ? smem : ws + row * per_cta, k);
+  const Wide<T> w = wide_region<T>(ws == nullptr ? smem : ws + row * per_cta, k);
 
   if (tid == 0) {
     s_end = 0;
@@ -342,9 +386,9 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
     for (int c = tid; c < k; c += THREADS) {
       float bacc = w.b[c], dacc = w.diag[c];
       for (int l = 0; l < nl; ++l) {
-        const float y = w.ys[l * k + c];
+        const float y = Rows<T>::widen(w.ys[l * k + c]);
         bacc += w.ws[l] * y;
-        dacc += (y * y) * w.c1s[l];
+        dacc += Rows<T>::round(y * y) * Rows<T>::round(w.c1s[l]);
       }
       w.b[c] = bacc;
       w.diag[c] = dacc;
@@ -383,9 +427,30 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
   for (int c = tid; c < k; c += THREADS) xout[row * k + c] = w.x[c];
 }
 
+template <typename T>
+int launch(const T* source, const float* yty, const int* idx, const float* val,
+           const unsigned char* mask, const float* x0, float* x, int B, int L, int k,
+           float reg, float alpha, int cg_steps, float* ws, cudaStream_t stream) {
+  if (B > 0 && k <= KMAX) {
+    bucket_cg_kernel<T><<<B, THREADS, 0, stream>>>(
+        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps);
+  } else if (B > 0) {
+    const size_t smem =
+        ws == nullptr ? ((size_t)(TILE + 7) * k + 3 * TILE) * sizeof(float) : 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          bucket_cg_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    bucket_cg_wide_kernel<T><<<B, THREADS, smem, stream>>>(
+        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps, ws);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// source (n, k); yty (k, k); idx, val, mask (B, L); x0, x (B, k); any k >= 1.
+// source (n, k) f32; yty (k, k); idx, val, mask (B, L); x0, x (B, k); any k >= 1.
 // ws is null (k <= 64, or the wide region fits shared memory) or a workspace
 // of B x ((TILE + 7) k + 3 TILE) floats. Returns cudaGetLastError() after the
 // launch (0 = launched).
@@ -394,19 +459,16 @@ extern "C" int bucket_cg_launch(const float* source, const float* yty,
                                 const unsigned char* mask, const float* x0,
                                 float* x, int B, int L, int k, float reg,
                                 float alpha, int cg_steps, float* ws, void* stream) {
-  if (B > 0 && k <= KMAX) {
-    bucket_cg_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps);
-  } else if (B > 0) {
-    const size_t smem =
-        ws == nullptr ? ((size_t)(TILE + 7) * k + 3 * TILE) * sizeof(float) : 0;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          bucket_cg_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    bucket_cg_wide_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps, ws);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws,
+                       (cudaStream_t)stream);
+}
+
+// K3-bf16: as bucket_cg_launch, with source (n, k) bf16.
+extern "C" int bucket_cg_bf16_launch(const void* source, const float* yty,
+                                     const int* idx, const float* val,
+                                     const unsigned char* mask, const float* x0,
+                                     float* x, int B, int L, int k, float reg,
+                                     float alpha, int cg_steps, float* ws, void* stream) {
+  return launch<__nv_bfloat16>((const __nv_bfloat16*)source, yty, idx, val, mask, x0, x, B, L, k,
+                               reg, alpha, cg_steps, ws, (cudaStream_t)stream);
 }

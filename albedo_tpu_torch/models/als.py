@@ -8,9 +8,11 @@ Port of the single-device resident fit of ``albedo_tpu/models/als.py``: the
 ratings are uploaded once as tier-packed bucket groups, and each iteration is
 two half-sweeps of bucket solves (``ops.als``: K1+K2 for Cholesky, K3 for
 CG) on the device. Iteration order matches MLlib: item factors update first,
-then user factors. Not ported yet (they raise ``NotImplementedError``): the
-mesh, sharded and chunked fits, capacity admission, the compiled-program
-cache, and ``gather_dtype="bfloat16"``.
+then user factors. ``gather_dtype="bfloat16"`` reads the fixed side's
+table through a bf16 copy in both solvers (K1-bf16, K3-bf16); the factor
+tables stay float32. Not ported yet (they raise ``NotImplementedError``):
+the mesh, sharded and chunked fits, capacity admission and the
+compiled-program cache.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from albedo_tpu_torch.datasets.ragged import Bucket, grouped_bucket_rows, to_device
 from albedo_tpu_torch.datasets.star_matrix import StarMatrix
-from albedo_tpu_torch.ops.als import fit_loop
+from albedo_tpu_torch.ops.als import GATHER_DTYPES, fit_loop
 from albedo_tpu_torch.ops.topk import topk_scores
 from albedo_tpu_torch.utils.device import resolve_device
 
@@ -169,7 +171,8 @@ class ImplicitALS:
     # "cg" = matrix-free Jacobi-PCG warm-started from the previous sweep (K3).
     solver: str = "cholesky"
     cg_steps: int = 3
-    gather_dtype: str | None = None  # only None (float32) is ported
+    # None = float32 gathers; "bfloat16" halves the gathered bytes (K1-bf16, K3-bf16).
+    gather_dtype: str | None = None
     batch_size: int = 8192
     max_entries: int = 1 << 21  # B*L budget per bucket
     max_len: int | None = None
@@ -213,8 +216,8 @@ class ImplicitALS:
         return cache[key]
 
     def _check_ported(self) -> None:
-        if self.gather_dtype is not None:
-            raise NotImplementedError("gather_dtype='bfloat16' is not ported yet")
+        if self.gather_dtype not in GATHER_DTYPES:
+            raise ValueError(f"unknown gather_dtype {self.gather_dtype!r} (expected None or 'bfloat16')")
         if self.mesh is not None or self.sharded:
             raise NotImplementedError("mesh and sharded ALS fits are not ported yet")
         if self.chunked:
@@ -228,8 +231,9 @@ class ImplicitALS:
 
         ``self.last_fit_report`` records ``prep_s`` (bucket layout + upload;
         ~0 when this matrix's layout is cached), ``device_s`` (init and the
-        sweeps, synchronized by the health read), ``prep_cached`` and
-        ``health`` (``utils.watchdog.health_dict`` of the final factors).
+        sweeps, synchronized by the health read), ``prep_cached``,
+        ``health`` (``utils.watchdog.health_dict`` of the final factors) and
+        ``gather_dtype``.
         """
         self._check_ported()
         dev = resolve_device(self.device)
@@ -258,6 +262,7 @@ class ImplicitALS:
             user_f, item_f, ug, ig, u_land, i_land,
             float(self.reg_param), float(self.alpha), int(self.max_iter),
             solver=self.solver, cg_steps=self.cg_steps, callback=host_callback,
+            gather_dtype=self.gather_dtype,
         )
         # The health vector depends on every factor element, so reading it
         # to the host is also the fit's completion barrier.
@@ -271,5 +276,6 @@ class ImplicitALS:
             "prep_cached": bool(cache_warm),
             "health": health,
             "mode": "resident",
+            "gather_dtype": self.gather_dtype,
         }
         return ALSModel(user_factors=user_f, item_factors=item_f, rank=self.rank)

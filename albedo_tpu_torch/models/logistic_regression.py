@@ -34,9 +34,16 @@ As under ``vmap``, a row whose loop or line search has stopped keeps its
 state while the others go on; a row that stopped never runs again, so the
 rows still running share one step count.
 
-Not ported: ``solver="adam"``, ``mesh`` and ``fit_many(grid_mesh=...)``
-(multi-GPU; all raise ``NotImplementedError``), and the persistent
-executable cache.
+``solver="adam"`` is the JAX module's ``_run_adam``: ``max_iter`` steps,
+each the loss and gradient at the current parameters (K8, K8c) followed by
+one ``optax.adam`` update of the flat vector (the ``adam_dense`` kernel;
+optax's update is elementwise, so over the flat vector it equals its
+per-leaf update). As in JAX there is no stop rule, ``train_loss`` is the loss
+of the last step, at the parameters before its update, and ``n_iter_run`` is
+None.
+
+Not ported: ``mesh`` and ``fit_many(grid_mesh=...)`` (multi-GPU; both raise
+``NotImplementedError``), and the persistent executable cache.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from albedo_tpu_torch.features.assembler import FeatureMatrix
+from albedo_tpu_torch.ops.sgns import adam_dense
 from albedo_tpu_torch.ops.sparse_linear import (
     block_logits,
     dense_center,
@@ -128,7 +136,8 @@ class LogisticRegression:
     max_iter: int = 300
     reg_param: float = 0.7
     standardization: bool = True
-    solver: str = "lbfgs"
+    solver: str = "lbfgs"  # "lbfgs" (MLlib parity) or "adam"
+    learning_rate: float = 0.05  # adam only
     tol: float = 1e-6
     mesh: Any | None = None
     device: str | torch.device = "cuda"
@@ -149,9 +158,7 @@ class LogisticRegression:
     ) -> LogisticRegressionModel:
         if self.mesh is not None:
             raise NotImplementedError("LogisticRegression(mesh=...): the row-sharded fit is not ported yet")
-        if self.solver == "adam":
-            raise NotImplementedError("LogisticRegression(solver='adam') is not ported yet")
-        if self.solver != "lbfgs":
+        if self.solver not in ("lbfgs", "adam"):
             raise ValueError(f"unknown solver {self.solver!r}")
         dev = resolve_device(self.device)
         t_prep = time.perf_counter()
@@ -174,7 +181,11 @@ class LogisticRegression:
             return weighted_logloss(layout.views(theta), scales, batch, y, w, reg, center=center)
 
         t0 = time.perf_counter()
-        theta, loss_t, n_done = _lbfgs_loop(loss_fn, theta0, self.max_iter, self.tol)
+        if self.solver == "lbfgs":
+            theta, loss_t, n_done = _lbfgs_loop(loss_fn, theta0, self.max_iter, self.tol)
+        else:
+            theta, loss_t = _adam_loop(loss_fn, theta0, self.max_iter, self.learning_rate)
+            n_done = None
         loss = float(loss_t)  # device read: the completion barrier
         run_s = time.perf_counter() - t0
 
@@ -321,6 +332,23 @@ def _lbfgs_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Te
     with torch.no_grad():
         loss = loss_fn(theta)
     return theta, loss, i
+
+
+def _adam_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+               max_iter: int, lr: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX module's ``_run_adam``: ``max_iter`` steps of the loss and
+    gradient at ``theta`` followed by one Adam update (``adam_dense``, in
+    place on a copy of ``theta``). Returns ``(theta, loss of the last
+    step)``: the loss at the parameters before the last update, the JAX
+    scan's ``losses[-1]``."""
+    if max_iter < 1:
+        raise ValueError(f"solver='adam' runs max_iter >= 1 steps, got {max_iter}")
+    theta = theta.clone()
+    m, v = torch.zeros_like(theta), torch.zeros_like(theta)
+    for count in range(1, max_iter + 1):
+        loss, grad = _value_and_grad(loss_fn, theta)
+        adam_dense(theta, grad, m, v, count, lr)
+    return theta, loss
 
 
 def _value_and_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor):

@@ -9,16 +9,19 @@ text-column featurizer (``LogisticRegressionRanker.scala:210-215``).
 Skip-gram with negative sampling, as the JAX module: the vocabulary, the
 subsampling and the (center, context) pairs are built on the host with
 ``np.random.default_rng(seed)`` and are byte-identical to the JAX module's.
-The device half runs the K9 kernel (``ops/sgns.py sgns_step``) and the dense
-Adam kernel (``adam_dense``, over both tables at once) once per minibatch. Device randomness — the
+The device half runs the K9 kernel (``ops/sgns.py sgns_step``), or with
+``shared_negatives = K > 0`` the K9s kernel (``sgns_shared_step``: one (K,)
+pool of negatives per minibatch, the negative term a (B, K) logits GEMM
+scaled by ``negatives / K``), and the dense Adam kernel (``adam_dense``,
+over both tables at once) once per minibatch. Device randomness — the
 uniform(±0.5/dim) init of the input table, the per-epoch permutation (the
-remainder of the last minibatch is dropped) and the per-pair negatives,
-drawn by inverse CDF over the float32 cumulative unigram^0.75 table — comes
-from one ``torch.Generator`` on the fit's device seeded with ``seed``, so it
-cannot reproduce ``jax.random``'s draws: seeded fits are compared by metric.
+remainder of the last minibatch is dropped) and the negatives, drawn by
+inverse CDF over the float32 cumulative unigram^0.75 table — comes from one
+``torch.Generator`` on the fit's device seeded with ``seed``, so it cannot
+reproduce ``jax.random``'s draws: seeded fits are compared by metric.
 
-Not ported: ``shared_negatives > 0`` and ``mesh`` (both raise
-``NotImplementedError``), and the persistent executable cache.
+Not ported: ``mesh`` (raises ``NotImplementedError``), and the persistent
+executable cache.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from albedo_tpu_torch.datasets.ragged import segment_positions
 from albedo_tpu_torch.features.pipeline import Transformer, memo_map
-from albedo_tpu_torch.ops.sgns import adam_dense, sgns_step
+from albedo_tpu_torch.ops.sgns import adam_dense, sgns_shared_step, sgns_step
 from albedo_tpu_torch.utils.device import resolve_device
 
 
@@ -201,8 +204,6 @@ class Word2Vec:
         return CorpusPlan(vocab, freq, centers, contexts)
 
     def fit_corpus(self, sentences: list[list[str]]) -> Word2VecModel:
-        if self.shared_negatives:
-            raise NotImplementedError("Word2Vec(shared_negatives>0) is not ported yet")
         if self.mesh is not None:
             raise NotImplementedError("Word2Vec(mesh=...): the data-parallel fit is not ported yet")
         dev = resolve_device(self.device)
@@ -217,7 +218,9 @@ class Word2Vec:
 
     def train(self, plan: CorpusPlan, dev: torch.device) -> tuple[dict, dict]:
         """The device loop: ``max_iter`` epochs of shuffled minibatches, each
-        one K9 step and one dense Adam step. The "in" and "out" tables are
+        one K9 step (K9s with a shared pool) and one dense Adam step. The
+        shared pool is drawn once per step, ``(K,)`` uniforms through the
+        inverse CDF, as the JAX step draws it. The "in" and "out" tables are
         one (2, V, dim) tensor, as are their gradients and moments, so one
         Adam launch updates both. Returns the final optimizer state
         (``tables``, ``moments`` (m, v) and step ``count``, on the device)
@@ -240,6 +243,10 @@ class Word2Vec:
         grads = torch.zeros_like(tables)
         moments = (torch.zeros_like(tables), torch.zeros_like(tables))
         loss_acc = torch.zeros(1, dtype=torch.float32, device=dev)
+        shared = self.shared_negatives
+        neg_shape = (shared,) if shared else (bs, self.negatives)
+        # K9s's (B, K) logit gradients between its passes, allocated once.
+        workspace = torch.empty(bs * shared, dtype=torch.float32, device=dev) if shared else None
         count = 0
         epoch_loss = []
         for _ in range(self.max_iter):
@@ -248,9 +255,13 @@ class Word2Vec:
             o_sh = contexts[perm].view(steps, bs)
             loss_acc.zero_()
             for s in range(steps):
-                u = torch.rand((bs, self.negatives), generator=gen, device=dev)
+                u = torch.rand(neg_shape, generator=gen, device=dev)
                 neg = torch.searchsorted(noise_cdf, u).clamp_max_(v_size - 1).to(torch.int32)
-                sgns_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], loss_acc)
+                if shared:
+                    sgns_shared_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], loss_acc,
+                                     self.negatives / shared, workspace)
+                else:
+                    sgns_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], loss_acc)
                 count += 1
                 adam_dense(tables, grads, *moments, count, self.learning_rate)
             epoch_loss.append(loss_acc / steps)

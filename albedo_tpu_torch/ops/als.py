@@ -18,6 +18,24 @@ kernel launch:
   ``land_rows``), and :func:`scatter_solved` is the same landing by row ids
   (kernel ``scatter_rows``).
 
+K1 and K3 also take ``gather_dtype="bfloat16"``, as the JAX functions do:
+the fixed side's table is read through a bf16 copy (``half_sweep`` casts it
+once per half-sweep, round to nearest even as XLA's convert), which halves
+the gathered bytes, and every contraction over the gathered rows sums in
+float32. The bf16 entries of the kernels (``als_partials_bf16``,
+``bucket_cg_bf16``) round where the JAX program rounds, and nowhere else:
+
+- K1: ``corr = sum_l y b(c1) y^T`` and ``b = sum_l w y`` with ``w = 1 + c1``
+  unrounded (``b(.)`` a round to bf16, ``y`` a bf16 row widened exactly). Each
+  product ``y_k b(c1) y_m`` holds at most 24 significant bits, so it is exact
+  in float32: only the order of the sums differs from JAX.
+- K3: the Jacobi diagonal sums ``b(y * y) b(c1)``; each matvec contracts the
+  rows with ``b(p)``, forms ``t = c1 q`` in float32 and contracts the rows
+  with ``b(t)``; ``YtY p``, ``reg n p``, the residuals and the updates stay
+  float32 on the unrounded iterate. (Compiled for the CPU, XLA may keep the
+  diagonal's ``y * y`` in float32, as excess precision allows; op by op the
+  JAX function rounds it, and so does the port.)
+
 Each has a plain PyTorch version beside it (``*_reference``). A wrapper runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
@@ -47,9 +65,27 @@ TILE = 32  # entries per shared-memory tile of K3 (bucket_cg.cu)
 WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
 
 
+GATHER_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
+
+
 def gramian(factors: torch.Tensor) -> torch.Tensor:
     """``F^T F`` in float32 — the shared ``YtY`` term of every implicit solve."""
     return factors.T @ factors
+
+
+def gather_table(source: torch.Tensor, gather_dtype: str | None) -> torch.Tensor:
+    """The table the gathers read: ``source`` itself (float32), or its bf16
+    copy (round to nearest even; ``source`` is returned as it is when it is
+    bf16 already, so a half-sweep casts once)."""
+    if gather_dtype not in GATHER_DTYPES:
+        raise ValueError(f"unknown gather_dtype {gather_dtype!r} (expected None or 'bfloat16')")
+    return source.to(GATHER_DTYPES[gather_dtype])
+
+
+def _round(x: torch.Tensor, gather_dtype: str | None) -> torch.Tensor:
+    """``x`` rounded to the gather dtype and widened back to float32 (the
+    identity under float32 gathers)."""
+    return x if gather_dtype is None else x.to(torch.bfloat16).float()
 
 
 def scatter_solved_reference(target: torch.Tensor, row_ids: torch.Tensor, solved: torch.Tensor) -> torch.Tensor:
@@ -154,40 +190,50 @@ def bucket_partial_terms_reference(
     val: torch.Tensor,     # (B, L) f32 ratings, 0 on padding
     mask: torch.Tensor,    # (B, L) bool
     alpha: float,
+    gather_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: ``corr = sum_l c1 y y^T`` (B, k, k) and
-    ``b = sum_l w y`` (B, k), through the materialized (B, L, k) gather."""
-    gathered = source[idx.long()]
+    ``b = sum_l w y`` (B, k), through the materialized (B, L, k) gather;
+    under bf16 gathers ``y`` and the ``c1`` of ``corr`` are rounded to bf16
+    and widened back, so every contraction runs in float32."""
+    gathered = gather_table(source, gather_dtype)[idx.long()].float()
     c1 = alpha * val
     w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
-    corr = torch.einsum("blk,bl,blm->bkm", gathered, c1, gathered)
+    corr = torch.einsum("blk,bl,blm->bkm", gathered, _round(c1, gather_dtype), gathered)
     b_vec = torch.einsum("blk,bl->bk", gathered, w)
     return corr, b_vec
 
 
+def _entry(kernel: str, gather_dtype: str | None) -> str:
+    """The entry point of ``kernel`` for the gather dtype."""
+    return kernel if gather_dtype is None else f"{kernel}_bf16"
+
+
 def bucket_partial_terms(
     source: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-    mask: torch.Tensor, alpha: float,
+    mask: torch.Tensor, alpha: float, gather_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the Gramian correction and b-vector of a padded bucket, with the
-    row gather fused in (CUDA kernel ``als_partials``; the (B, L, k) block is
-    never materialized)."""
+    row gather fused in (CUDA kernel ``als_partials``, or ``als_partials_bf16``
+    reading the bf16 table; the (B, L, k) block is never materialized)."""
     if on_cpu("als_partials", source, idx, val, mask):
-        return bucket_partial_terms_reference(source, idx, val, mask, alpha)
+        return bucket_partial_terms_reference(source, idx, val, mask, alpha, gather_dtype)
+    table = gather_table(source, gather_dtype)
+    kernel = _entry("als_partials", gather_dtype)
     n, k = source.shape
     b, length = idx.shape
-    _check_rank("als_partials", k)
+    _check_rank(kernel, k)
     dev = source.device
-    check_operand("als_partials", "source", source, torch.float32, (n, k), dev)
-    check_operand("als_partials", "idx", idx, torch.int32, (b, length), dev)
-    check_operand("als_partials", "val", val, torch.float32, (b, length), dev)
-    check_operand("als_partials", "mask", mask, torch.bool, (b, length), dev)
+    check_operand(kernel, "source", table, GATHER_DTYPES[gather_dtype], (n, k), dev)
+    check_operand(kernel, "idx", idx, torch.int32, (b, length), dev)
+    check_operand(kernel, "val", val, torch.float32, (b, length), dev)
+    check_operand(kernel, "mask", mask, torch.bool, (b, length), dev)
     corr = torch.empty((b, k, k), dtype=torch.float32, device=dev)
     b_vec = torch.empty((b, k), dtype=torch.float32, device=dev)
     call(
-        "als_partials", dev, source.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        kernel, dev, table.data_ptr(), idx.data_ptr(), val.data_ptr(),
         mask.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), b, length, k,
-        float(alpha), count=_path("als_partials", k),
+        float(alpha), count=_path(kernel, k),
     )
     return corr, b_vec
 
@@ -244,11 +290,12 @@ def solve_corrected(
 def bucket_solve_body(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
     val: torch.Tensor, mask: torch.Tensor, reg: float, alpha: float,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, gather_dtype: str | None = None,
 ) -> torch.Tensor:
     """The exact normal-equation solve of a padded bucket: K1 then K2
-    (into ``out`` when given)."""
-    corr, b_vec = bucket_partial_terms(source, idx, val, mask, alpha)
+    (into ``out`` when given). ``yty`` is the float32 Gramian of the float32
+    table, under bf16 gathers too, as in JAX."""
+    corr, b_vec = bucket_partial_terms(source, idx, val, mask, alpha, gather_dtype)
     n_b = mask.sum(dim=1, dtype=torch.float32)
     return solve_corrected(yty, corr, b_vec, n_b, reg, out=out)
 
@@ -266,23 +313,28 @@ def bucket_cg_reference(
     reg: float,
     alpha: float,
     cg_steps: int,
+    gather_dtype: str | None = None,
 ) -> torch.Tensor:
-    """Plain version of K3, line for line the JAX ``bucket_cg_body``."""
-    gathered = source[idx.long()]
+    """Plain version of K3, line for line the JAX ``bucket_cg_body``, with
+    its bf16 rounding sites (``_round``) under bf16 gathers."""
+    def rnd(x):
+        return _round(x, gather_dtype)
+
+    gathered = gather_table(source, gather_dtype)[idx.long()].float()
     c1 = alpha * val
     w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
     n_b = mask.sum(dim=1, dtype=torch.float32)
     b_vec = torch.einsum("blk,bl->bk", gathered, w)
     diag = (
         torch.diagonal(yty)[None]
-        + torch.einsum("blk,bl->bk", gathered * gathered, c1)
+        + torch.einsum("blk,bl->bk", rnd(gathered * gathered), rnd(c1))
         + (reg * n_b)[:, None]
     )
     diag = torch.clamp(diag, min=1e-12)
 
     def matvec(p):
-        t = c1 * torch.einsum("blk,bk->bl", gathered, p)
-        return p @ yty + torch.einsum("blk,bl->bk", gathered, t) + (reg * n_b)[:, None] * p
+        t = c1 * torch.einsum("blk,bk->bl", gathered, rnd(p))
+        return p @ yty + torch.einsum("blk,bl->bk", gathered, rnd(t)) + (reg * n_b)[:, None] * p
 
     tiny = 1e-30
     x = x0
@@ -307,32 +359,37 @@ def bucket_cg_body(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
     val: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
     reg: float, alpha: float, cg_steps: int, out: torch.Tensor | None = None,
+    gather_dtype: str | None = None,
 ) -> torch.Tensor:
     """K3: matrix-free warm-started Jacobi-PCG on the implicit normal
-    equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``), into ``out``
-    (B, k) when given."""
+    equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``, or
+    ``bucket_cg_bf16`` reading the bf16 table), into ``out`` (B, k) when
+    given."""
     if on_cpu("bucket_cg", source, yty, idx, val, mask, x0, *([] if out is None else [out])):
-        return _solved_into(out, bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps))
+        return _solved_into(out, bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps,
+                                                     gather_dtype))
+    table = gather_table(source, gather_dtype)
+    kernel = _entry("bucket_cg", gather_dtype)
     n, k = source.shape
     b, length = idx.shape
-    _check_rank("bucket_cg", k)
+    _check_rank(kernel, k)
     dev = source.device
-    check_operand("bucket_cg", "source", source, torch.float32, (n, k), dev)
-    check_operand("bucket_cg", "yty", yty, torch.float32, (k, k), dev)
-    check_operand("bucket_cg", "idx", idx, torch.int32, (b, length), dev)
-    check_operand("bucket_cg", "val", val, torch.float32, (b, length), dev)
-    check_operand("bucket_cg", "mask", mask, torch.bool, (b, length), dev)
-    check_operand("bucket_cg", "x0", x0, torch.float32, (b, k), dev)
-    x = _output("bucket_cg", out, b, k, dev)
+    check_operand(kernel, "source", table, GATHER_DTYPES[gather_dtype], (n, k), dev)
+    check_operand(kernel, "yty", yty, torch.float32, (k, k), dev)
+    check_operand(kernel, "idx", idx, torch.int32, (b, length), dev)
+    check_operand(kernel, "val", val, torch.float32, (b, length), dev)
+    check_operand(kernel, "mask", mask, torch.bool, (b, length), dev)
+    check_operand(kernel, "x0", x0, torch.float32, (b, k), dev)
+    x = _output(kernel, out, b, k, dev)
     chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
     for r0, rows, ws in chunks:
         call(
-            "bucket_cg", dev, source.data_ptr(), yty.data_ptr(),
+            kernel, dev, table.data_ptr(), yty.data_ptr(),
             idx.data_ptr() + 4 * r0 * length, val.data_ptr() + 4 * r0 * length,
             mask.data_ptr() + r0 * length, x0.data_ptr() + 4 * r0 * k,
             x.data_ptr() + 4 * r0 * k, rows, length, k, float(reg), float(alpha),
             int(cg_steps), None if ws is None else ws.data_ptr(),
-            count=_path("bucket_cg", k),
+            count=_path(kernel, k),
         )
     return x
 
@@ -349,9 +406,12 @@ def half_sweep(
     alpha: float,
     solver: str = "cholesky",
     cg_steps: int = 3,
+    gather_dtype: str | None = None,
 ) -> torch.Tensor:
     """Update every row of ``target`` that appears in a bucket; returns a new
-    table (``target`` is not modified).
+    table (``target`` is not modified). Under ``gather_dtype="bfloat16"``
+    the fixed side's table is cast to bf16 once here; ``YtY`` stays the
+    float32 Gramian of the float32 table.
 
     Every target row appears in at most one bucket, so all groups are solved
     against the PRE-SWEEP ``target`` (CG warm starts read it), each group's
@@ -364,6 +424,7 @@ def half_sweep(
     if solver not in ("cholesky", "cg"):
         raise ValueError(f"unknown solver {solver!r} (expected 'cholesky' or 'cg')")
     yty = gramian(source)
+    table = gather_table(source, gather_dtype)
     pool = torch.empty((sum(g.row_ids.numel() for g in groups), target.shape[1]),
                        dtype=torch.float32, device=target.device)
     off = 0
@@ -376,9 +437,10 @@ def half_sweep(
         if solver == "cg":
             rows = g.row_ids.reshape(-1).clamp(min=0).long()
             x0 = target[rows]
-            bucket_cg_body(source, yty, idx, val, mask, x0, reg, alpha, cg_steps, out=out)
+            bucket_cg_body(table, yty, idx, val, mask, x0, reg, alpha, cg_steps, out=out,
+                           gather_dtype=gather_dtype)
         else:
-            bucket_solve_body(source, yty, idx, val, mask, reg, alpha, out=out)
+            bucket_solve_body(table, yty, idx, val, mask, reg, alpha, out=out, gather_dtype=gather_dtype)
         off += n * b
     return land_rows(target, pool, landing)
 
@@ -396,13 +458,17 @@ def fit_loop(
     solver: str = "cholesky",
     cg_steps: int = 3,
     callback=None,
+    gather_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``n_iter`` alternating sweeps in MLlib order: item factors first (from
     the user factors), then user factors. ``callback(it, user_f, item_f)``,
-    if given, runs after each sweep with the device tensors."""
+    if given, runs after each sweep with the device tensors. The factor
+    tables stay float32 under bf16 gathers."""
     for it in range(n_iter):
-        item_f = half_sweep(user_f, item_f, item_groups, item_landing, reg, alpha, solver, cg_steps)
-        user_f = half_sweep(item_f, user_f, user_groups, user_landing, reg, alpha, solver, cg_steps)
+        item_f = half_sweep(user_f, item_f, item_groups, item_landing, reg, alpha, solver, cg_steps,
+                            gather_dtype)
+        user_f = half_sweep(item_f, user_f, user_groups, user_landing, reg, alpha, solver, cg_steps,
+                            gather_dtype)
         if callback is not None:
             callback(it, user_f, item_f)
     return user_f, item_f

@@ -98,8 +98,8 @@ class TrainingDiverged(RuntimeError):
 
 
 def damped(als):
-    """A remediation estimator: regularization damped UP by ``10x`` (and
-    float32 gathers, the only kind this port has)."""
+    """A remediation estimator: regularization damped UP by ``10x``, with
+    float32 gathers (a bf16-gather fit re-runs in full precision)."""
     return dataclasses.replace(
         als, gather_dtype=None, reg_param=float(als.reg_param) * 10.0
     )

@@ -2,8 +2,9 @@
 against: the held-out NDCG@30 on the bench split from the pinned numpy init,
 and the ranker job's AUC and NDCG@30.
 
-    JAX_PLATFORMS=cpu python jax_reference_ndcg.py [cholesky|cg ...]
-    JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py [cholesky|cg ...] [--gather-dtype bfloat16]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py ranker [--port] [--seeds 42,1,2] [--shared] [--lr-solver adam]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py w2v_shared [--port] [--seeds 42,1,2,3]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py candidates [--port] [--seeds 42,1,2,3]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py serve [--port]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py two_stage [--port] [--shared]
@@ -16,7 +17,8 @@ Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
 per-user split (seed 42), rank 50 x 26 iterations from
 ``default_rng(42)`` Gaussian factors scaled by 1/sqrt(50), 500 test users,
 seen items excluded. Prints one JSON line per solver. Takes about a minute
-and a half per solver on a CPU.
+and a half per solver on a CPU. ``--gather-dtype bfloat16`` fits with the
+bf16 gathers (``ImplicitALS(gather_dtype="bfloat16")``) from the same init.
 
 ``ranker`` runs the ``train_lr`` job as ``chip_smoke.py`` runs it: the
 default synthetic tables (5000 x 3000, mean 20 stars, seed 42), Word2Vec at
@@ -25,7 +27,21 @@ the reference config (dim 200, 30 epochs), LR 300 iterations at reg 0.7,
 ALS and Word2Vec seeds set to each value (the JAX and torch generators
 differ, so the seed spread is what bounds a seeded port run against the
 JAX values); ``--port`` runs the port on the CPU instead of the JAX package.
-One JSON line per seed; about a minute per seed on a CPU.
+One JSON line per seed; about a minute per seed on a CPU. ``--lr-solver
+adam`` fits the LR with ``solver="adam"`` (300 steps at learning rate 0.05)
+and adds its ``train_loss`` to the line (``--lr-max-iter`` sets the
+steps). ``--permute-seeds 1,2,3`` runs the
+job once more per seed with the LR's training rows in another order
+(``default_rng(seed).permutation``): the objective is a sum over rows, so
+only the float32 summation order changes, and the spread of these runs is
+how far round-off alone moves a fit.
+
+``w2v_shared`` fits the ``train_word2vec`` job's Word2Vec (the reference
+config: dim 200, 30 epochs, batch 4096, min count 10, no subsampling) on the
+job's corpus with ``shared_negatives=512``, once per seed of ``--seeds``,
+and prints each epoch's mean loss (the JAX fit does not return its losses:
+they are read from the epoch program's outputs, as the port's report keeps
+them). A few minutes per seed on a CPU.
 
 ``ranker --shared`` takes the random streams out of the comparison: every
 ALS fit starts from one numpy init (``default_rng(1)`` Gaussian factors
@@ -93,6 +109,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -109,7 +126,11 @@ from albedo_tpu.evaluators import RankingEvaluator, UserItems, user_actual_items
 from albedo_tpu.models.als import ImplicitALS
 
 
-def main(solvers: list[str]) -> None:
+def main(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py")
+    ap.add_argument("solvers", nargs="*", default=["cholesky", "cg"])
+    ap.add_argument("--gather-dtype", default=None, choices=["bfloat16"])
+    args = ap.parse_args(argv)
     matrix = synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42)
     train, test = random_split_by_user(matrix, test_ratio=0.1, seed=42)
     rng = np.random.default_rng(42)
@@ -120,16 +141,17 @@ def main(solvers: list[str]) -> None:
     indptr, cols, _ = train.csr()
     excl = padded_rows(indptr, cols, users)
     actual = user_actual_items(test, k=30)
-    for solver in solvers:
+    for solver in args.solvers:
         model = ImplicitALS(
             rank=50, reg_param=0.5, alpha=40.0, max_iter=26, seed=42, solver=solver,
-            cg_steps=3, init_factors=(u0, v0), chunked=False,
+            cg_steps=3, init_factors=(u0, v0), chunked=False, gather_dtype=args.gather_dtype,
         ).fit(train)
         _, idx = model.recommend(users, k=30, exclude_idx=excl)
         ndcg = RankingEvaluator(metric_name="ndcg@k", k=30).evaluate(
             UserItems(users=users, items=idx.astype(np.int32)), actual
         )
-        print(json.dumps({"solver": solver, "ndcg": ndcg, "train_nnz": train.nnz}), flush=True)
+        print(json.dumps({"solver": solver, "gather_dtype": args.gather_dtype, "ndcg": ndcg,
+                          "train_nnz": train.nnz}), flush=True)
 
 
 def _seeded(cls, method: str, seed: dict) -> None:
@@ -223,27 +245,116 @@ def ranker(argv: list[str]) -> None:
     ap.add_argument("--seeds", default="42", help="comma-separated ALS/Word2Vec seeds")
     ap.add_argument("--shared", action="store_true",
                     help="numpy ALS init and numpy Word2Vec vectors, the same in both packages")
+    ap.add_argument("--lr-solver", default="lbfgs", choices=["lbfgs", "adam"])
+    ap.add_argument("--permute-seeds", default="", help="comma-separated seeds of LR row permutations")
+    ap.add_argument("--lr-max-iter", type=int, default=None, help="the LR's max_iter (the job's 300 if not given)")
     args = ap.parse_args(argv)
     if args.port:
         from albedo_tpu_torch.builders import jobs
-        from albedo_tpu_torch.models import als, word2vec
+        from albedo_tpu_torch.models import als, logistic_regression, word2vec
     else:
         from albedo_tpu.builders import jobs
-        from albedo_tpu.models import als, word2vec
+        from albedo_tpu.models import als, logistic_regression, word2vec
     current = {"value": 42}
     _seeded(als.ImplicitALS, "fit", current)
     _seeded(word2vec.Word2Vec, "fit_corpus", current)
     if args.shared:
         _share_weights(als, word2vec)
+    lr_fit = logistic_regression.LogisticRegression.fit
+    fitted = {}
+
+    permutation = {"seed": None}
+
+    def fit(self, fm, labels, sample_weight=None, *a, **k):
+        self.solver, self.learning_rate = args.lr_solver, ADAM_LEARNING_RATE
+        self.max_iter = args.lr_max_iter or self.max_iter
+        if permutation["seed"] is not None:
+            fm, labels, sample_weight = _permuted_rows(fm, labels, sample_weight, permutation["seed"])
+        fitted["model"], fitted["model_max_iter"] = lr_fit(self, fm, labels, sample_weight, *a, **k), self.max_iter
+        return fitted["model"]
+
+    logistic_regression.LogisticRegression.fit = fit
+    perms = [None] + [int(x) for x in args.permute_seeds.split(",") if x]
     for seed in ([SHARED_SEED] if args.shared else (int(x) for x in args.seeds.split(","))):
         current["value"] = seed
-        text = _run_job(jobs, "train_lr", args.port, w2v_full=True)
-        print(json.dumps({
-            "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
-            "weights": "shared" if args.shared else "seeded", "seed": seed,
-            "auc": float(re.search(r"areaUnderROC = (\S+)", text).group(1)),
-            "ndcg": float(re.search(r"NDCG@30 = (\S+)", text).group(1)),
-        }), flush=True)
+        for perm in perms:
+            permutation["seed"] = perm
+            text = _run_job(jobs, "train_lr", args.port, w2v_full=True)
+            print(json.dumps({
+                "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+                "weights": "shared" if args.shared else "seeded", "seed": seed,
+                "auc": float(re.search(r"areaUnderROC = (\S+)", text).group(1)),
+                "ndcg": float(re.search(r"NDCG@30 = (\S+)", text).group(1)),
+                "lr_solver": args.lr_solver, "lr_max_iter": fitted["model_max_iter"],
+                "train_loss": float(fitted["model"].train_loss), "row_permutation": perm,
+            }), flush=True)
+
+
+def _permuted_rows(fm, labels, weights, seed: int):
+    """The LR's training set with its rows in the order of
+    ``default_rng(seed).permutation``: per-row blocks are permuted, the
+    factored (distinct-row) tables stay and their row indices move."""
+    perm = np.random.default_rng(seed).permutation(fm.n_rows)
+    fields = {f.name: getattr(fm, f.name) for f in dataclasses.fields(fm)}
+    rep = fields["bag_rep"]
+    fields.update(
+        dense=fields["dense"][perm],
+        cat={k: v[perm] for k, v in fields["cat"].items()},
+        bag_idx={k: v if k in rep else v[perm] for k, v in fields["bag_idx"].items()},
+        bag_val={k: v if k in rep else v[perm] for k, v in fields["bag_val"].items()},
+        bag_rep={k: v[perm] for k, v in rep.items()},
+        vec_rep={k: v[perm] for k, v in fields["vec_rep"].items()},
+    )
+    weights = np.ones(fm.n_rows, np.float32) if weights is None else np.asarray(weights)
+    return type(fm)(**fields), np.asarray(labels)[perm], weights[perm]
+
+
+ADAM_LEARNING_RATE = 0.05  # LogisticRegression's default for solver="adam"
+SHARED_NEGATIVES = 512
+
+
+def w2v_shared(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py w2v_shared")
+    ap.add_argument("--port", action="store_true", help="run the port on the CPU")
+    ap.add_argument("--seeds", default="42", help="comma-separated Word2Vec seeds")
+    args = ap.parse_args(argv)
+    if args.port:
+        from albedo_tpu_torch.builders import jobs
+    else:
+        import albedo_tpu.models.word2vec as jax_w2v
+        from albedo_tpu.builders import jobs
+
+        # The JAX fit drops each epoch's mean loss: keep it from the epoch
+        # program's outputs.
+        losses: list[float] = []
+        acquire = jax_w2v.persistent_aot_executable
+
+        def recording_acquire(*a, **k):
+            compiled, *rest = acquire(*a, **k)
+
+            def run(*args_):
+                out = compiled(*args_)
+                losses.append(float(out[3]))
+                return out
+
+            return (run, *rest)
+
+        jax_w2v.persistent_aot_executable = recording_acquire
+    with tempfile.TemporaryDirectory() as data_dir:
+        ctx = _job_context(jobs, args.port, data_dir, w2v_full=True)
+        corpus = ctx.word2vec_corpus()
+        for seed in (int(x) for x in args.seeds.split(",")):
+            est = ctx.word2vec_estimator()
+            est.seed, est.shared_negatives = seed, SHARED_NEGATIVES
+            if not args.port:
+                losses.clear()
+            est.fit_corpus(corpus)
+            epoch_loss = est.last_fit_report["epoch_loss"] if args.port else list(losses)
+            print(json.dumps({
+                "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+                "seed": seed, "dim": est.dim, "batch": est.batch_size, "shared_negatives": SHARED_NEGATIVES,
+                "epochs": len(epoch_loss), "final_epoch_loss": epoch_loss[-1], "epoch_loss": epoch_loss,
+            }), flush=True)
 
 
 def candidates(argv: list[str]) -> None:
@@ -536,5 +647,7 @@ if __name__ == "__main__":
         cv_als(sys.argv[2:])
     elif sys.argv[1:2] == ["cv_lr"]:
         cv_lr(sys.argv[2:])
+    elif sys.argv[1:2] == ["w2v_shared"]:
+        w2v_shared(sys.argv[2:])
     else:
-        main(sys.argv[1:] or ["cholesky", "cg"])
+        main(sys.argv[1:])

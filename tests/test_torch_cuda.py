@@ -29,7 +29,12 @@ K12's count and max exactly and its rms to 1e-6 relative (float64 sums in
 another order, rounded once to float32), repeating bit for bit. K8g and
 K8c-g (K8 and K8c over a leading grid axis): each row equal to K8 or K8c on
 that row bit for bit (G = 1 included), and to the plain version as K8 and
-K8c are. K4's land_rows and scatter_rows move rows: exact.
+K8c are. K4's land_rows and scatter_rows move rows: exact. K1-bf16 (bf16
+gathers) is held as K1 (rel 1e-4: its products are exact in float32, the
+order of the sums differs), K3-bf16 to rel 5e-4 (a float32 round-off in
+another order can flip one rounding of its bf16 iterate; see
+``chip_smoke.BF16_REL``); K9s (the shared negative pool) as K9, to 5e-5 of
+``ops.sgns.sgns_shared_grad_mass`` and of |loss| at its batch of 4096.
 """
 
 import numpy as np
@@ -46,6 +51,7 @@ from albedo_tpu_torch.ops import topk as ops_topk
 
 pytestmark = pytest.mark.cuda
 REL = 1e-4
+K3_BF16_REL = 5e-4  # a float32 round-off can flip one of K3-bf16's bf16 roundings (chip_smoke.BF16_REL)
 K9_MASS, ADAM_REL = 5e-5, 1e-6
 
 
@@ -68,9 +74,9 @@ def _bucket(dev, k, b=40, length=37, n_source=200, n_pad=5, seed=0):
     return [torch.as_tensor(a, device=dev) for a in (src, idx, val, mask, x0)]
 
 
-def _close(got, want):
+def _close(got, want, rel=REL):
     scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= REL * max(scale, 1e-30)
+    assert float((got - want).abs().max()) <= rel * max(scale, 1e-30)
 
 
 @pytest.mark.parametrize("k", [16, 50])
@@ -460,6 +466,55 @@ def test_k1_k2_k3_wide_paths_match_plain(dev, k):
            ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3))
     for name in ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide"):
         assert kernels.LAUNCHES[name] >= 1
+
+
+@pytest.mark.parametrize("k", [8, 50, 65, 256])
+def test_k1_k3_bf16_match_plain(dev, k):
+    """K1-bf16 and K3-bf16 at ranks on both sides of 64, with the plain
+    versions' bf16 rounding sites; only the bf16 entries launch."""
+    src, idx, val, mask, x0 = _bucket(dev, k, length=300)
+    yty = ops_als.gramian(src)
+    kernels.reset_launches()
+    corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, "bfloat16")
+    corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0, "bfloat16")
+    _close(corr, corr_p)
+    _close(b_vec, b_p)
+    _close(ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype="bfloat16"),
+           ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, "bfloat16"), K3_BF16_REL)
+    torch.cuda.synchronize()
+    path = "" if k <= 64 else "_wide"
+    assert kernels.LAUNCHES[f"als_partials_bf16{path}"] == 1
+    assert kernels.LAUNCHES[f"bucket_cg_bf16{path}"] == 1
+    assert kernels.LAUNCHES["als_partials"] == kernels.LAUNCHES["bucket_cg"] == 0
+
+
+@pytest.mark.parametrize("b,d,k", [(1, 8, 1), (7, 8, 32), (4096, 200, 512)])
+def test_k9s_sgns_shared_matches_plain(dev, b, d, k):
+    rng = np.random.default_rng(4)
+    v = 146
+    in_t = torch.as_tensor(rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32), device=dev)
+    out_t = torch.as_tensor(rng.normal(scale=0.1, size=(v, d)).astype(np.float32), device=dev)
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    c[: b // 3] = 1                 # duplicate centers
+    o = rng.integers(0, v, size=b).astype(np.int32)
+    pool = rng.integers(0, v, size=k).astype(np.int32)
+    pool[: k // 2] = 0              # repeated pool slots
+    pool[-1] = o[0]                 # a pool word that is also a context
+    args = [torch.as_tensor(a, device=dev) for a in (c, o, pool)]
+    res = {}
+    for name, fn in (("kernel", ops_sgns.sgns_shared_step), ("plain", ops_sgns.sgns_shared_step_reference)):
+        gi, go = torch.zeros_like(in_t), torch.zeros_like(out_t)
+        loss = torch.zeros(1, device=dev)
+        kernels.reset_launches()
+        fn(in_t, out_t, *args, gi, go, loss, 5 / k)
+        torch.cuda.synchronize()
+        res[name] = (gi, go, loss)
+        if name == "kernel":
+            assert kernels.LAUNCHES["sgns_shared"] == 1
+    mass = ops_sgns.sgns_shared_grad_mass(in_t, out_t, *args, 5 / k)
+    for a, e, m in zip(res["kernel"], res["plain"], mass):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
+    assert float((res["kernel"][2] - res["plain"][2]).abs()) <= K9_MASS * float(res["plain"][2].abs())
 
 
 @pytest.mark.parametrize("k", [513, 600, 2048])

@@ -60,6 +60,8 @@ def test_every_module_imports_without_nvcc():
         "als_partials_wide", "solve_corrected_wide", "bucket_cg_wide",
         "topk_scores_select", "gather_topk_select", "bank_query_select",
         "segment_dot_grid", "gather_sum_grid", "land_rows", "scatter_rows",
+        "als_partials_bf16", "bucket_cg_bf16", "als_partials_bf16_wide", "bucket_cg_bf16_wide",
+        "sgns_shared",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:

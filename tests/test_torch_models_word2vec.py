@@ -6,13 +6,15 @@
   and tables match the JAX formula (``loss_fn`` of the JAX module, autodiff,
   ``optax.adam(0.025)``): loss rtol 1e-6, gradients and tables atol 1e-6
   (float32 sums in another order; duplicate rows in the batch exercise the
-  accumulation).
+  accumulation). The same with a shared negative pool (K9s, the shared
+  branch of ``loss_fn``), with repeated pool slots.
 - Seeded fits cannot match (torch's generator is not ``jax.random``), so the
-  fitted model is held to the JAX package's own cluster test.
-- ``sgns_grad_mass``, the scale the K9 kernel is held to on the card (5e-5
-  of each gradient element's L1 mass): the float32 step lies within it of
-  the float64 step, and a step whose last negative slot is scaled by 1.001
-  does not.
+  fitted model is held to the JAX package's own cluster test, with per-pair
+  negatives and with a shared pool of 32.
+- ``sgns_grad_mass`` and ``sgns_shared_grad_mass``, the scales the K9 and
+  K9s kernels are held to on the card (5e-5 of each gradient element's L1
+  mass): the float32 step lies within it of the float64 step, and a step
+  whose last negative slot is scaled by 1.001 does not.
 """
 
 import jax
@@ -24,7 +26,15 @@ import torch
 
 import albedo_tpu.models.word2vec as jw2v
 from albedo_tpu_torch.models.word2vec import Word2Vec, Word2VecModel, skipgram_pairs
-from albedo_tpu_torch.ops.sgns import adam_dense, sgns_grad_mass, sgns_step, sgns_step_reference
+from albedo_tpu_torch.ops.sgns import (
+    adam_dense,
+    sgns_grad_mass,
+    sgns_shared_grad_mass,
+    sgns_shared_step,
+    sgns_shared_step_reference,
+    sgns_step,
+    sgns_step_reference,
+)
 
 
 def _corpus(seed=0, n=400):
@@ -64,16 +74,30 @@ def test_skipgram_pairs_match_jax():
         np.testing.assert_array_equal(a, e)
 
 
-def _jax_loss(p, c_idx, o_idx, neg_idx):
-    """``loss_fn`` of albedo_tpu/models/word2vec.py (per-pair negatives)."""
+def _jax_loss(p, c_idx, o_idx, neg_idx, neg=5):
+    """``loss_fn`` of albedo_tpu/models/word2vec.py: per-pair negatives for
+    a (B, K) ``neg_idx``; the shared branch for a (K,) pool, whose negative
+    term is scaled by ``neg / K``."""
     vc = p["in"][c_idx]
+    if neg_idx.ndim == 1:
+        shared = neg_idx.shape[0]
+        pos_logit = jnp.sum(vc * p["out"][o_idx], axis=1)
+        neg_logits = vc @ p["out"][neg_idx].T
+        pos_loss = optax.sigmoid_binary_cross_entropy(pos_logit, jnp.ones_like(pos_logit))
+        neg_loss = optax.sigmoid_binary_cross_entropy(
+            neg_logits, jnp.zeros_like(neg_logits)
+        ).sum(axis=1) * (neg / shared)
+        return (pos_loss + neg_loss).mean()
     rows = jnp.concatenate([o_idx[:, None], neg_idx], axis=1)
     logits = jnp.einsum("bd,bkd->bk", vc, p["out"][rows])
     labels = jnp.zeros_like(logits).at[:, 0].set(1.0)
     return optax.sigmoid_binary_cross_entropy(logits, labels).sum(axis=1).mean()
 
 
-def test_sgns_adam_steps_match_jax_formula():
+@pytest.mark.parametrize("shared", [0, 7])
+def test_sgns_adam_steps_match_jax_formula(shared):
+    """K9's (``shared = 0``) or K9s's (a pool of ``shared`` slots) plain
+    version and Adam, three steps, against the JAX formula."""
     rng = np.random.default_rng(5)
     v_size, d, b, k = 13, 8, 40, 5
     tables = {
@@ -87,6 +111,10 @@ def test_sgns_adam_steps_match_jax_formula():
         o = rng.integers(0, v_size, size=b).astype(np.int32)
         neg = rng.integers(0, v_size, size=(b, k)).astype(np.int32)
         neg[:, :2] = 0  # duplicate negatives
+        if shared:
+            neg = rng.integers(0, v_size, size=shared).astype(np.int32)
+            neg[:3] = 4  # repeated pool slots
+            neg[3] = o[0]  # a pool word that is also a context
         batches.append((c, o, neg))
 
     opt = optax.adam(0.025)
@@ -101,8 +129,12 @@ def test_sgns_adam_steps_match_jax_formula():
         params = optax.apply_updates(params, updates)
 
         loss_t = torch.zeros(1)
-        sgns_step(t["in"], t["out"], torch.as_tensor(c), torch.as_tensor(o), torch.as_tensor(neg),
-                  grads["in"], grads["out"], loss_t)
+        step_args = (t["in"], t["out"], torch.as_tensor(c), torch.as_tensor(o), torch.as_tensor(neg),
+                     grads["in"], grads["out"], loss_t)
+        if shared:
+            sgns_shared_step(*step_args, k / shared)
+        else:
+            sgns_step(*step_args)
         np.testing.assert_allclose(grads["in"].numpy(), np.asarray(g["in"]), atol=1e-6)
         np.testing.assert_allclose(grads["out"].numpy(), np.asarray(g["out"]), atol=1e-6)
         for key in ("in", "out"):
@@ -113,9 +145,10 @@ def test_sgns_adam_steps_match_jax_formula():
             np.testing.assert_allclose(t[key].numpy(), np.asarray(params[key]), atol=1e-6, err_msg=key)
 
 
-@pytest.fixture(scope="module")
-def w2v_clusters():
-    """The JAX package's cluster world (tests/test_models.py), fit by the port."""
+@pytest.fixture(scope="module", params=[0, 32], ids=["per_pair", "shared_32"])
+def w2v_clusters(request):
+    """The JAX package's cluster world (tests/test_models.py), fit by the
+    port with per-pair negatives and with a shared pool of 32."""
     rng = np.random.default_rng(0)
     a = ["apple", "banana", "cherry", "grape"]
     b = ["python", "jax", "compiler", "kernel"]
@@ -125,7 +158,7 @@ def w2v_clusters():
         sentences.append([pool[i] for i in rng.integers(0, 4, size=6)])
     model = Word2Vec(
         dim=16, window=3, min_count=1, max_iter=25, batch_size=512, subsample=0.0, seed=1,
-        device="cpu",
+        shared_negatives=request.param, device="cpu",
     ).fit_corpus(sentences)
     return a, b, model
 
@@ -159,8 +192,9 @@ def test_model_from_jax_arrays_transforms_like_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        Word2Vec(shared_negatives=8, device="cpu").fit_corpus(_corpus(n=20))
+    est = Word2Vec(dim=4, min_count=1, max_iter=2, batch_size=16, shared_negatives=8, device="cpu")
+    model = est.fit_corpus(_corpus(n=20))  # shared negatives are ported
+    assert np.isfinite(model.vectors).all() and np.isfinite(est.last_fit_report["epoch_loss"]).all()
     with pytest.raises(NotImplementedError):
         Word2Vec(mesh=object(), device="cpu").fit_corpus(_corpus(n=20))
 
@@ -199,3 +233,35 @@ def test_grad_mass_bounds_round_off_and_catches_a_slot_fault():
         assert bool(((got.double() - exact).abs() <= 5e-5 * m).all())
     faulty = _grad_out_scaled(in_t.double(), out_t.double(), *args, 1.001)
     assert float(((faulty - res[torch.float64][1]).abs() / mass[1].clamp_min(1e-300)).max()) > 5e-5
+
+
+@pytest.mark.parametrize("b", [2048, 65536])
+def test_shared_grad_mass_bounds_round_off_and_catches_a_slot_fault(b):
+    """K9s's mass at the reference scale's d and K: the float32 step within
+    5e-5 x max(1, B / 4096) of the float64 step's mass (the bound the card
+    holds K9s to: K9's, scaled with the terms a sum adds beyond K9's batch),
+    and a step whose last pool slot's terms are scaled by 1 + 0.001 x
+    max(1, B / 4096) outside it."""
+    rng = np.random.default_rng(12)
+    v, d, k, neg = 146, 200, 512, 5
+    tol = 5e-5 * max(1.0, b / 4096)
+    in_t = torch.tensor(rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32))
+    out_t = torch.tensor(rng.normal(scale=0.1, size=(v, d)).astype(np.float32))
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    c[: b // 3] = 1   # one center row takes a third of the batch
+    pool = rng.integers(0, v, size=k).astype(np.int32)
+    pool[: k // 4] = 0  # one word takes a quarter of the pool
+    args = [torch.as_tensor(a) for a in (c, rng.integers(0, v, size=b).astype(np.int32), pool)]
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        g = (torch.zeros(v, d, dtype=dt), torch.zeros(v, d, dtype=dt), torch.zeros(1, dtype=dt))
+        sgns_shared_step_reference(in_t.to(dt), out_t.to(dt), *args, *g, neg / k)
+        res[dt] = g
+    mass = [m.double() for m in sgns_shared_grad_mass(in_t, out_t, *args, neg / k)]
+    for got, exact, m in zip(res[torch.float32], res[torch.float64], mass):
+        assert bool(((got.double() - exact).abs() <= tol * m).all())
+    vc = in_t.double()[args[0].long()]
+    gn = torch.sigmoid(vc @ out_t.double()[pool].T) * (neg / k / b)
+    fault = 0.001 * max(1.0, b / 4096) * gn[:, -1:].T @ vc
+    last = torch.zeros_like(out_t, dtype=torch.float64).index_add_(0, args[2][-1:].long(), fault)
+    assert float((last.abs() / mass[1].clamp_min(1e-300)).max()) > tol

@@ -68,15 +68,29 @@ def test_trip_counters_match_jax():
             assert events.watchdog_trips.value(kind=kind) == 1, (wd_mod.__name__, kind)
 
 
-def test_watchdog_fault_drill_remediates_as_jax():
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+def test_watchdog_fault_drill_remediates_as_jax(gather_dtype, monkeypatch):
     """``train.watchdog:error@1`` writes a NaN into the checked factors: the
-    fit trips ``nonfinite``, re-fits damped once, and checks healthy."""
+    fit trips ``nonfinite``, re-fits damped once, and checks healthy. The
+    damped re-fit runs with float32 gathers and 10x the regularization, as
+    JAX's."""
     j_faults.arm("train.watchdog", kind="error", at=1)
     t_faults.arm("train.watchdog", kind="error", at=1)
     j_matrix = j_tables(n_users=60, n_items=40, mean_stars=5, seed=2).star_matrix(policy="off")
     t_matrix = t_tables(n_users=60, n_items=40, mean_stars=5, seed=2).star_matrix(policy="off")
-    _, j_trips = j_wd.guarded_fit(JALS(rank=4, max_iter=2, seed=0), j_matrix)
-    _, t_trips = t_wd.guarded_fit(TALS(rank=4, max_iter=2, seed=0, device="cpu"), t_matrix)
+    fits = []
+    fit = TALS.fit
+
+    def recording_fit(self, matrix, *a, **k):
+        fits.append((self.gather_dtype, self.reg_param))
+        return fit(self, matrix, *a, **k)
+
+    monkeypatch.setattr(TALS, "fit", recording_fit)
+    _, j_trips = j_wd.guarded_fit(JALS(rank=4, max_iter=2, seed=0, gather_dtype=gather_dtype), j_matrix)
+    _, t_trips = t_wd.guarded_fit(TALS(rank=4, max_iter=2, seed=0, device="cpu", gather_dtype=gather_dtype),
+                                  t_matrix)
+    assert fits == [(gather_dtype, 0.5), (None, 5.0)]
+    assert j_wd.damped(JALS(gather_dtype=gather_dtype)).gather_dtype is None
     assert [(t["kinds"], t["remediated"]) for t in t_trips] == [(t["kinds"], t["remediated"]) for t in j_trips] \
         == [(["nonfinite"], True)]
     assert t_events.watchdog_trips.value(kind="nonfinite") == 1 == j_events.watchdog_trips.value(kind="nonfinite")
