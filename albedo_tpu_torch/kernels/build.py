@@ -55,10 +55,10 @@ SIGNATURES: dict[str, list] = {
     "gather_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # users, items, user_idx, excl, excl_map, mean_rows, out_s, out_i, B, I, d, k, E, Epad, dpad, stream
     "bank_query": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, idx, val, indptr, out, S, stream
-    "segment_dot": [_P, _P, _P, _P, _P, _I, _P],
-    # x, n_x, idx, val, indptr, out, S, G, stream
-    "segment_dot_grid": [_P, _L, _P, _P, _P, _P, _I, _I, _P],
+    # x, idx, val, indptr, out, S, nnz, ws, cap, stream
+    "segment_dot": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # x, n_x, idx, val, indptr, out, S, G, nnz, ws, cap, stream
+    "segment_dot_grid": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
     "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # in, out, centers, contexts, pool, grad_in, grad_out, loss_acc, g, B, d, K, neg_scale, stream
@@ -208,14 +208,22 @@ def call(name: str, device, *args, count: str | None = None) -> None:
     ``kernels.LAUNCHES`` under ``count`` (a key of ``PATHS``) or ``name``.
     ``args`` are the launch function's arguments before the stream; the
     launch runs with ``device`` current, on PyTorch's current stream there,
-    whichever device the caller had current."""
+    whichever device the caller had current. When ``device`` (a
+    ``torch.device`` with an index) is already current, the launch skips the
+    device switch and takes the raw stream handle, a few microseconds less a
+    launch: K8 launches thousands of times a fit."""
     import torch
 
     if name not in _libs:
         build()  # under the build lock: a second thread waits, then loads
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(_libs[name], f"{name}_launch")(*args, stream)
+    fn = getattr(_libs[name], f"{name}_launch")
+    index = getattr(device, "index", None)
+    raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # None in a CPU-only build
+    if index is not None and raw_stream is not None and index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     with LAUNCHES_LOCK:

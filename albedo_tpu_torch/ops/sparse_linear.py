@@ -38,6 +38,8 @@ space. Not ported: the padded ``bag_idx:`` layout of the mesh path
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -222,47 +224,97 @@ def segment_dot_reference(
     return out.index_add_(x.dim() - 1, seg, terms)
 
 
+# segment_dot.cu's partition: merge steps (segment ends + entries) a CTA
+# and a thread, and K8g's grid rows a pass. Its workspace holds, for a
+# capacity of ``cap`` CTAs, ``cap`` flags (0 between launches: each launch
+# lowers the flags it raised) and ``SEGMENT_DOT_ROWS * cap`` partials.
+SEGMENT_DOT_STEPS = 256
+SEGMENT_DOT_IPT = 2
+SEGMENT_DOT_ROWS = 8
+# One zeroed workspace per (device, stream), grown as calls need: launches
+# on one stream run in order, so they can share it, and K8 saves an
+# allocation and a zeroing in each of its thousands of calls a fit.
+_K8_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
+_K8_WORKSPACE_LOCK = threading.Lock()
+
+
+def _segment_dot_workspace(n_seg: int, nnz: int, dev: torch.device) -> tuple[torch.Tensor, int]:
+    """The (device, current stream)'s workspace and its capacity in CTAs."""
+    n_cta = -(-(n_seg + nnz) // SEGMENT_DOT_STEPS)
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _K8_WORKSPACE.get(key)
+    if ws is None or ws.numel() < n_cta * (1 + SEGMENT_DOT_ROWS):
+        with _K8_WORKSPACE_LOCK:
+            ws = _K8_WORKSPACE.get(key)
+            cap = 0 if ws is None else ws.numel() // (1 + SEGMENT_DOT_ROWS)
+            if cap < n_cta:
+                cap = max(n_cta, 1024, 2 * cap)
+                ws = torch.zeros(cap * (1 + SEGMENT_DOT_ROWS), dtype=torch.int32, device=dev)
+                _K8_WORKSPACE[key] = ws
+    return ws, ws.numel() // (1 + SEGMENT_DOT_ROWS)
+
+
 def segment_dot(
     x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor | None, indptr: torch.Tensor
 ) -> torch.Tensor:
     """K8: (S,) CSR segment sums of ``x[idx] * val`` over ``indptr`` (S + 1,)
     (CUDA kernel ``segment_dot``). ``x`` (n,) f32; ``idx`` (nnz,) int32 in
     [0, n); ``val`` (nnz,) f32 or None for ones; ``indptr`` int32,
-    nondecreasing, ``indptr[-1] == nnz``. With ``x`` (G, n), K8g: (G, S),
-    the sums of each row (CUDA kernel ``segment_dot_grid``, counted apart)."""
-    operands = [x, idx, indptr] + ([] if val is None else [val])
-    kernel = "segment_dot_grid" if x.dim() == 2 else "segment_dot"
-    if on_cpu(kernel, *operands):
-        return segment_dot_reference(x, idx, val, indptr)
+    nondecreasing, ``indptr[0] == 0``, ``indptr[-1] == nnz``. With ``x``
+    (G, n), K8g: (G, S), the sums of each row (CUDA kernel
+    ``segment_dot_grid``, counted apart). On the card the kernel splits the
+    work by a merge path over segment ends and entries, not by segments, and
+    passes its carries between CTAs through a workspace kept per device and
+    stream; one launch is counted a call."""
+    if not _kernel_layout(x, idx, val, indptr):
+        operands = [x, idx, indptr] + ([] if val is None else [val])
+        if on_cpu("segment_dot_grid" if x.dim() == 2 else "segment_dot", *operands):
+            return segment_dot_reference(x, idx, val, indptr)
+        _raise_on_layout(x, idx, val, indptr)
     dev = x.device
     nnz = idx.shape[0]
     n_seg = indptr.shape[0] - 1
+    ws, cap = _segment_dot_workspace(n_seg, nnz, dev)
+    val_ptr = None if val is None else val.data_ptr()
     if x.dim() == 2:
-        return _segment_dot_grid(x, idx, val, indptr, nnz, n_seg, dev)
-    check_operand("segment_dot", "x", x, torch.float32, (x.shape[0],), dev)
-    check_operand("segment_dot", "idx", idx, torch.int32, (nnz,), dev)
-    check_operand("segment_dot", "indptr", indptr, torch.int32, (n_seg + 1,), dev)
-    if val is not None:
-        check_operand("segment_dot", "val", val, torch.float32, (nnz,), dev)
-    out = torch.empty(n_seg, dtype=torch.float32, device=dev)
-    call("segment_dot", dev, x.data_ptr(), idx.data_ptr(),
-         None if val is None else val.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_seg)
+        g, n_x = x.shape
+        out = torch.empty((g, n_seg), dtype=torch.float32, device=dev)
+        call("segment_dot_grid", dev, x.data_ptr(), n_x, idx.data_ptr(), val_ptr, indptr.data_ptr(), out.data_ptr(),
+             n_seg, g, nnz, ws.data_ptr(), cap)
+    else:
+        out = torch.empty(n_seg, dtype=torch.float32, device=dev)
+        call("segment_dot", dev, x.data_ptr(), idx.data_ptr(), val_ptr, indptr.data_ptr(), out.data_ptr(), n_seg,
+             nnz, ws.data_ptr(), cap)
     return out
 
 
-def _segment_dot_grid(x, idx, val, indptr, nnz: int, n_seg: int, dev) -> torch.Tensor:
-    g, n_x = x.shape
-    check_operand("segment_dot_grid", "x", x, torch.float32, (g, n_x), dev)
-    check_operand("segment_dot_grid", "idx", idx, torch.int32, (nnz,), dev)
-    check_operand("segment_dot_grid", "indptr", indptr, torch.int32, (n_seg + 1,), dev)
+def _kernel_layout(x, idx, val, indptr) -> bool:
+    """True when every operand lies on one CUDA device in the layout K8 (or
+    K8g) reads: checked in one expression, as K8 runs thousands of times a
+    fit and each check costs host time the card waits for."""
+    d = x.get_device()
+    return (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()
+            and (x.dim() == 1 or (x.dim() == 2 and x.shape[0] >= 1))
+            and idx.get_device() == d and idx.dtype == torch.int32 and idx.dim() == 1 and idx.is_contiguous()
+            and indptr.get_device() == d and indptr.dtype == torch.int32 and indptr.dim() == 1
+            and indptr.is_contiguous()
+            and (val is None or (val.get_device() == d and val.dtype == torch.float32 and val.shape == idx.shape
+                                 and val.is_contiguous())))
+
+
+def _raise_on_layout(x, idx, val, indptr) -> None:
+    """Raise ``ValueError`` naming what K8 (or K8g) cannot read."""
+    kernel = "segment_dot_grid" if x.dim() == 2 else "segment_dot"
+    dev = x.device
+    nnz = idx.shape[0]
+    check_operand(kernel, "x", x, torch.float32, (x.shape[0], x.shape[1]) if x.dim() == 2 else (x.shape[0],), dev)
+    check_operand(kernel, "idx", idx, torch.int32, (nnz,), dev)
+    check_operand(kernel, "indptr", indptr, torch.int32, (indptr.shape[0],), dev)
     if val is not None:
-        check_operand("segment_dot_grid", "val", val, torch.float32, (nnz,), dev)
-    if g < 1:
-        raise ValueError("segment_dot_grid: x needs at least one grid row")
-    out = torch.empty((g, n_seg), dtype=torch.float32, device=dev)
-    call("segment_dot_grid", dev, x.data_ptr(), n_x, idx.data_ptr(),
-         None if val is None else val.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_seg, g)
-    return out
+        check_operand(kernel, "val", val, torch.float32, (nnz,), dev)
+    if x.dim() == 2:
+        raise ValueError(f"{kernel}: x needs at least one grid row")
+    raise ValueError(f"{kernel}: operands not in the layout the kernel reads")
 
 
 class _BagTerm(torch.autograd.Function):

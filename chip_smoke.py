@@ -14,7 +14,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    another summation order), exact indices and scores for K5, ties included.
    Then the ranker kernels (K8 segment_dot, K9 sgns_step, adam_dense) on
    their edge cases: K8 with empty segments, one segment spanning every
-   entry, a zero-count vocab tail and a null ``val``; K9 with B = 1,
+   entry, a zero-count vocab tail and a null ``val`` (and K8 also within
+   its merge-path order's float32 bound against float64, the same bits on a
+   second call, one counted launch a call); K9 with B = 1,
    duplicate centers and negatives, d = 8 and 200; Adam at step 1 and 1000.
    Each is held against its plain version relative to the scale of what it
    compares (below), with no floor, so small gradients are held as tightly
@@ -60,10 +62,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    NDCG@30 to the JAX values of that mode at float32 round-off. Then, on the
    inputs the seeded run gave its kernels (the LR fit's feature batch and
    fitted coefficients, the Word2Vec pairs and final optimizer state), holds
-   K8 (every call of one forward and backward), K9 and Adam against their
+   K8 (every call of one forward and backward; also its order's bound, the
+   same bits twice and one launch a call), K9 and Adam against their
    plain versions, and times each with its plain version, a library call and
-   its bound; K9 and Adam also at a realistic vocabulary (100 000 words,
-   synthetic tables and pairs from a numpy seed).
+   its bound (K8 also call by call beside cuSPARSE, and the card's kernel
+   time of the 20 calls); K9 and Adam also at a realistic vocabulary
+   (100 000 words, synthetic tables and pairs from a numpy seed).
 6. candidates — runs ``popularity``, ``curation``, ``item_cf``, ``user_cf``,
    ``ranking_mf``, ``tfidf_content``, ``content --w2v-full`` and ``content``
    with the Word2Vec vectors shared with JAX, counts set to 0 before each
@@ -119,8 +123,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. cv — first (``cv_kernels``, after phase 5) K8g segment_dot_grid and K8c-g
    gather_sum_grid at G = 1, 5 and 7 on skewed segments, chained gathers
    and the ranker fit's batch (K8g against float64 within the float32
-   summation bound of its order, (len/32 + 6) 2^-24 of each segment's mass,
-   K8c-g exactly; each row equal to K8 or K8c on that row bit for bit), and K4's
+   summation bound of its first order, (len/32 + 6) 2^-24 of each segment's
+   mass, and of its merge-path order, the same bits twice, one launch a
+   call; K8c-g exactly; each row equal to K8 or K8c on that row bit for
+   bit), and K4's
    land_rows and scatter_rows exactly at ranks 8-256 with -1 padding slots
    and rows in no bucket. Then, each with the counts
    set to 0 before and read after: ``cv_als`` as the CLI runs it (each grid
@@ -454,7 +460,57 @@ def _k9_err(in_t, out_t, c, o, neg, got, want) -> tuple[float, float]:
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def _k8_case(rng, counts, n_x: int, with_val: bool, dev) -> tuple[float, float]:
+def _k8_orders(x, idx, val, ip, got) -> dict:
+    """K8's (or K8g's) error against its plain version computed in float64,
+    over the round-off bound of two summation orders, each as the worst
+    error over the bound (at most 1 when it holds): ``bound_ratio``, the
+    order K8 had before its merge-path partition (a warp per segment:
+    (ceil(L / 32) + 6) 2^-24 of each segment's L1 mass), and
+    ``bound_ratio_merge``, its own (``segment_dot.cu``: (min(L, 2) + 9 +
+    [C > 1] (ceil((C - 1) / 32) + 6)) 2^-24 of the mass, C the CTAs whose
+    merge steps the segment spans); with ``err``, (max |got - exact|, max of
+    that over the mass)."""
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    v64 = None if val is None else val.double()
+    want64 = sl.segment_dot_reference(x.double(), idx, v64, ip)
+    mass64 = sl.segment_dot_reference(x.double().abs(), idx, None if v64 is None else v64.abs(), ip)
+    lens = (ip[1:] - ip[:-1]).double()
+    seg = torch.arange(lens.numel(), device=ip.device, dtype=torch.float64)
+    steps = sl.SEGMENT_DOT_STEPS
+    ctas = torch.floor((seg + ip[1:].double()) / steps) - torch.floor((seg + ip[:-1].double()) / steps) + 1
+    merge = torch.clamp(lens, max=sl.SEGMENT_DOT_IPT) + 9 + (ctas > 1) * (torch.ceil((ctas - 1) / 32) + 6)
+    diff = (got.double() - want64).abs()
+    tiny = torch.finfo(torch.float64).tiny
+
+    def ratio(depth):
+        return float((diff / (depth * 2.0**-24 * mass64).clamp_min(tiny)).max()) if diff.numel() else 0.0
+
+    return {"err": mass_err(got.double(), want64, mass64), "bound_ratio": ratio(torch.ceil(lens / 32) + 6),
+            "bound_ratio_merge": ratio(merge)}
+
+
+def _k8_run(x, idx, val, ip) -> tuple[torch.Tensor, dict]:
+    """One K8 (K8g for a 2-D ``x``) call, and whether it counted exactly one
+    launch and a second call gave the same bits."""
+    from albedo_tpu_torch.kernels import launch_counts
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    before = launch_counts()
+    got = sl.segment_dot(x, idx, val, ip)
+    after = launch_counts()
+    name, other = ("segment_dot_grid", "segment_dot") if x.dim() == 2 else ("segment_dot", "segment_dot_grid")
+    one = after[name] - before[name] == 1 and after[other] == before[other]
+    return got, {"one_launch": one, "repeat_equal": bool(torch.equal(got, sl.segment_dot(x, idx, val, ip)))}
+
+
+def _k8_new_checks_ok(c: dict) -> bool:
+    """The checks K8's merge-path partition added: its own order's bound,
+    the same bits twice, one counted launch a call."""
+    return c["bound_ratio_merge"] <= 1.0 and c["repeat_equal"] and c["one_launch"]
+
+
+def _k8_case(rng, counts, n_x: int, with_val: bool, dev) -> dict:
     from albedo_tpu_torch.ops import sparse_linear as sl
 
     indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
@@ -463,7 +519,10 @@ def _k8_case(rng, counts, n_x: int, with_val: bool, dev) -> tuple[float, float]:
     idx = torch.as_tensor(rng.integers(0, n_x, size=nnz).astype(np.int32), device=dev)
     val = torch.as_tensor(rng.normal(size=nnz).astype(np.float32), device=dev) if with_val else None
     ip = torch.as_tensor(indptr, device=dev)
-    return _k8_err(x, idx, val, ip, sl.segment_dot(x, idx, val, ip), sl.segment_dot_reference(x, idx, val, ip))
+    got, run = _k8_run(x, idx, val, ip)
+    orders = _k8_orders(x, idx, val, ip, got)
+    return dict(run, err=_k8_err(x, idx, val, ip, got, sl.segment_dot_reference(x, idx, val, ip)),
+                bound_ratio=orders["bound_ratio"], bound_ratio_merge=orders["bound_ratio_merge"])
 
 
 def _k9_case(rng, b: int, d: int, v: int, k: int, dev) -> tuple[float, float]:
@@ -505,15 +564,16 @@ def phase_ranker_kernels() -> dict:
     worst = {name: 0.0 for name in RANKER_REL}
     cases = []
 
-    def note(name, label, err):
+    def note(name, label, err, **more):
         worst[name] = max(worst[name], err[1])
-        cases.append({"kernel": name, "case": label, "abs": err[0], "rel": err[1]})
+        cases.append(dict({"kernel": name, "case": label, "abs": err[0], "rel": err[1]}, **more))
 
     heavy = rng.integers(0, 30, size=2000)
     heavy[::5] = 0
     heavy[[0, -1]] = 0
     heavy[3] = 50000  # a power-law head segment
     tail = np.concatenate([rng.integers(1, 60, size=300), np.zeros(200, np.int64)])
+    k8_new_ok = True
     for label, counts, n_x in (
         ("empty segments", heavy, 700),
         ("one segment spans all entries", np.array([70000]), 900),
@@ -521,18 +581,21 @@ def phase_ranker_kernels() -> dict:
         ("no entries", np.zeros(64, np.int64), 10),
     ):
         for with_val in (True, False):
-            note("segment_dot", f"{label}, val {'f32' if with_val else 'null'}",
-                 _k8_case(rng, counts, n_x, with_val, dev))
+            c = _k8_case(rng, counts, n_x, with_val, dev)
+            note("segment_dot", f"{label}, val {'f32' if with_val else 'null'}", c.pop("err"), **c)
+            k8_new_ok = k8_new_ok and _k8_new_checks_ok(c)
     for b, d in ((1, 8), (1, 200), (4096, 8), (4096, 200)):
         note("sgns_step", f"B={b} d={d} duplicates", _k9_case(rng, b, d, 146, 5, dev))
     for count in (1, 1000):
         for d in (8, 200):
             note("adam_dense", f"count={count} d={d}", _adam_case(rng, (2, 146, d), count, dev))
     torch.cuda.synchronize()
-    ok = all(worst[n] <= RANKER_REL[n] for n in RANKER_REL)
-    emit({"phase": "ranker_kernels", "ok": ok, "rel_tol": RANKER_REL, "worst_rel": worst, "cases": cases})
+    ok = all(worst[n] <= RANKER_REL[n] for n in RANKER_REL) and k8_new_ok
+    emit({"phase": "ranker_kernels", "ok": ok, "rel_tol": RANKER_REL, "worst_rel": worst,
+          "segment_dot_merge_checks": k8_new_ok, "cases": cases})
     if not ok:
-        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version")
+        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version (or K8 with its "
+                         "order's bound, itself, or its one launch)")
     return worst
 
 
@@ -1260,6 +1323,27 @@ def _lr_fit_profile(lr_inputs, iters: int = 5) -> dict:
     return dict({"iterations": model.n_iter_run}, **_device_summary(prof, wall))
 
 
+def _device_ms(fn) -> float | None:
+    """Milliseconds the card spends in kernels and copies during one run of
+    ``fn`` (``torch.profiler``, after a warm-up run): the device's share of
+    a time that CUDA events measure together with the host's launches. A
+    window with no device record (seen once on an H100 for a run that
+    launched 20 kernels) is profiled again, twice at most; None if all
+    three came back empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = _device_summary(prof, 1.0)["device_busy_s"]
+        if busy > 0:
+            return 1e3 * busy
+    return None
+
+
 def _device_summary(prof, wall: float) -> dict:
     """From a ``torch.profiler`` run of ``wall`` seconds: the device's busy
     seconds (kernel and copy time) and idle share, and the ops with the most
@@ -1436,7 +1520,13 @@ def phase_ranker_timing(inputs: dict) -> dict:
     out = {}
     # K8: every call of one forward + backward of the LR objective.
     calls = _k8_calls(inputs["lr"])
-    k8_errs = [_k8_err(*c, sl.segment_dot(*c), sl.segment_dot_reference(*c)) for c in calls]
+    runs = [_k8_run(*c) for c in calls]
+    k8_errs = [_k8_err(*c, got, sl.segment_dot_reference(*c)) for c, (got, _) in zip(calls, runs)]
+    orders = [_k8_orders(*c, got) for c, (got, _) in zip(calls, runs)]
+    merge_checks = {"bound_ratio": max(o["bound_ratio"] for o in orders),
+                    "bound_ratio_merge": max(o["bound_ratio_merge"] for o in orders),
+                    "repeat_equal": all(r["repeat_equal"] for _, r in runs),
+                    "one_launch": all(r["one_launch"] for _, r in runs)}
     # The library yardstick: each call as a CSR matrix times x (cuSPARSE
     # SpMV). Rows may repeat a column (a bag row counting one token twice),
     # which torch's invariant check refuses and SpMV sums, so the check is
@@ -1463,6 +1553,16 @@ def phase_ranker_timing(inputs: dict) -> dict:
                "segments": [int(c[3].numel() - 1) for c in calls],
                "longest": [int((c[3][1:] - c[3][:-1]).max()) if c[3].numel() > 1 else 0 for c in calls]},
     )
+    # Which calls set the time: each call alone (the kernel's wrapper and
+    # the SpMV, each 20 times), and the card's kernel time of the 20 calls
+    # (torch.profiler) beside the events' time, which includes the host's.
+    per_call = [{"nnz": int(c[1].numel()), "segments": int(c[3].numel() - 1),
+                 "longest": int((c[3][1:] - c[3][:-1]).max()) if c[3].numel() > 1 else 0,
+                 "val": c[2] is not None,
+                 "ms": cuda_ms(lambda c=c: sl.segment_dot(*c), reps=20),
+                 "library_ms": cuda_ms(lambda m=m, x=c[0]: m @ x, reps=20)} for m, c in zip(csr, calls)]
+    k8_device = {"ms": _device_ms(lambda: [sl.segment_dot(*c) for c in calls]),
+                 "library_ms": _device_ms(lambda: [m @ c[0] for m, c in zip(csr, calls)])}
 
     # K9 and Adam: a batch of the job's pairs at its final optimizer state.
     est, plan, state = inputs["w2v"]
@@ -1483,12 +1583,15 @@ def phase_ranker_timing(inputs: dict) -> dict:
     torch.cuda.synchronize()
     timed = {name: _timed(r) for name, r in out.items()}
     at_vocab = {name: _timed(r) for name, r in at_vocab.items()}
-    ok = all(max(timed[n]["rel_err"], at_vocab.get(n, timed[n])["rel_err"]) <= RANKER_REL[n] for n in RANKER_REL)
+    ok = (all(max(timed[n]["rel_err"], at_vocab.get(n, timed[n])["rel_err"]) <= RANKER_REL[n] for n in RANKER_REL)
+          and _k8_new_checks_ok(merge_checks))
     emit({"phase": "ranker_job_kernels", "ok": ok, "rel_tol": RANKER_REL, "timed": timed,
-          "at_vocab": at_vocab, "lr_evals_in_job": inputs["lr_evals"],
+          "segment_dot_merge_checks": merge_checks, "segment_dot_per_call": per_call,
+          "segment_dot_device": k8_device, "at_vocab": at_vocab, "lr_evals_in_job": inputs["lr_evals"],
           "lr_fit_profile": _lr_fit_profile(inputs["lr"])})
     if not ok:
-        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version at the job's inputs")
+        raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version at the job's inputs "
+                         "(or K8 with its order's bound, itself, or its one launch)")
     return timed
 
 
@@ -2520,7 +2623,7 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
     k5 = _timed(dict(err=_hold_topk(q, bvf, 512, ex),
                      ms=cuda_ms(lambda: ops_topk.topk_scores(q, bvf, 512, ex)),
                      plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q, bvf, 512, ex)),
-                     library_ms=None,
+                     library_ms=cuda_ms(lambda: _topk_library(q, bvf, 512, ex)),
                      bytes=4 * (q.numel() + bvf.numel() + ex.numel()) + 8 * 500 * 512,
                      flops=2 * 500 * bvf.shape[0] * bvf.shape[1]))
     # K4 (plain torch): the Gramian of each table and one half-sweep's landing
@@ -3072,28 +3175,22 @@ GRID_SIZES = (1, 5, 7)
 
 def _k8g_case(x, idx, val, ip) -> dict:
     """K8g at (G, n) ``x``: each row against K8 on that row bit for bit, and
-    against the plain version computed in float64. A lane adds a segment's
-    terms one by one (len / 32 of them) and a warp folds 32 lanes in 5
-    steps, so each sum is within (len / 32 + 6) u of its L1 mass of the
-    exact one (u = 2^-24, the float32 rounding): ``bound_ratio``, the worst
-    error over that bound, must be at most 1. The float32 plain version adds
-    with atomics in another order; on the fit's 200 000-row category
-    segments it strays up to 3e-4 of the mass from float64 on an H100
-    (cuSPARSE 2e-5), so its distance is reported (``err_f32_plain``) and
-    not held."""
+    against the plain version computed in float64 within the float32
+    summation bound of two orders (``_k8_orders``): ``bound_ratio``, that of
+    the one-warp-per-segment order K8g had first, (ceil(len / 32) + 6) u of
+    each segment's L1 mass (u = 2^-24), held since K8g's first port, and
+    ``bound_ratio_merge``, its merge-path order's own; each at most 1. Also
+    one counted launch and the same bits on a second call. The float32 plain
+    version adds with atomics in another order; on the fit's 200 000-row
+    category segments it strays up to 3e-4 of the mass from float64 on an
+    H100 (cuSPARSE 2e-5), so its distance is reported (``err_f32_plain``)
+    and not held."""
     from albedo_tpu_torch.ops import sparse_linear as sl
 
-    got = sl.segment_dot(x, idx, val, ip)
-    want64 = sl.segment_dot_reference(x.double(), idx, None if val is None else val.double(), ip)
-    mass64 = sl.segment_dot_reference(x.double().abs(), idx, None if val is None else val.double().abs(), ip)
-    lens = (ip[1:] - ip[:-1]).double()
-    bound = (torch.ceil(lens / 32) + 6) * 2.0**-24 * mass64
-    diff = (got.double() - want64).abs()
-    ratio = float((diff / bound.clamp_min(torch.finfo(torch.float64).tiny)).max()) if diff.numel() else 0.0
-    err = mass_err(got.double(), want64, mass64)
+    got, run = _k8_run(x, idx, val, ip)
     err_f32 = _k8_err(x, idx, val, ip, got, sl.segment_dot_reference(x, idx, val, ip))
     rows_equal = all(torch.equal(got[g], sl.segment_dot(x[g].contiguous(), idx, val, ip)) for g in range(x.shape[0]))
-    return {"err": err, "bound_ratio": ratio, "err_f32_plain": err_f32, "rows_equal_k8": rows_equal}
+    return dict(_k8_orders(x, idx, val, ip, got), **run, err_f32_plain=err_f32, rows_equal_k8=rows_equal)
 
 
 def _k8cg_case(base, tables, idxs) -> dict:
@@ -3191,21 +3288,26 @@ def phase_cv_kernels(lr_inputs) -> dict:
     for k in (8, 50, 100, 256):
         k4[f"k={k}"] = _k4_case(rng, 5000, rng.integers(1, 60, size=70), k, dev)
     torch.cuda.synchronize()
-    ok = (all(c["bound_ratio"] <= 1.0 and c["rows_equal_k8"] for c in k8g.values())
+    ok = (all(c["bound_ratio"] <= 1.0 and c["rows_equal_k8"] and _k8_new_checks_ok(c) for c in k8g.values())
           and all(c["exact"] and c["rows_equal_k8c"] for c in k8cg.values())
           and all(c["land_exact"] and c["scatter_exact"] and c["agree"] for c in k4.values()))
     emit({"phase": "cv_kernels", "ok": ok, "segment_dot_grid": k8g, "gather_sum_grid": k8cg, "land_rows": k4,
-          "tol": {"segment_dot_grid": "(len/32 + 6) 2^-24 of the mass", "gather_sum_grid": 0.0, "land_rows": 0.0}})
+          "tol": {"segment_dot_grid": "(len/32 + 6) 2^-24 of the mass; merge order (min(len, 2) + 9 + "
+                                      "[C > 1](ceil((C - 1)/32) + 6)) 2^-24", "gather_sum_grid": 0.0,
+                  "land_rows": 0.0}})
     if not ok:
-        raise SystemExit("chip_smoke: K8g, K8c-g or K4 disagrees with its plain version or its one-row kernel")
+        raise SystemExit("chip_smoke: K8g, K8c-g or K4 disagrees with its plain version, its one-row kernel, "
+                         "its order's bound, itself, or its one launch")
     return {"segment_dot_grid": k8g, "gather_sum_grid": k8cg, "land_rows": k4}
 
 
 def _worst_k8g(cases: list[dict]) -> dict:
     return {"calls": len(cases), "err": (max(c["err"][0] for c in cases), max(c["err"][1] for c in cases)),
             "bound_ratio": max(c["bound_ratio"] for c in cases),
+            "bound_ratio_merge": max(c["bound_ratio_merge"] for c in cases),
             "err_f32_plain": max(c["err_f32_plain"][1] for c in cases),
-            "rows_equal_k8": all(c["rows_equal_k8"] for c in cases)}
+            "rows_equal_k8": all(c["rows_equal_k8"] for c in cases),
+            "repeat_equal": all(c["repeat_equal"] for c in cases), "one_launch": all(c["one_launch"] for c in cases)}
 
 
 def _grid_calls(est, fm, labels, ws, models) -> tuple[list, dict]:
@@ -3446,10 +3548,13 @@ def _time_grid_kernels(fit) -> dict:
         shape={"G": n_grid, "rows": n, "terms": len(tables), "table_entries": entries},
     )
     k8c_rows_ms = cuda_ms(lambda: [sl.gather_sum(b, t, idxs) for b, t in zip(base_rows, table_rows)], reps=20)
-    return {"segment_dot_grid": dict(_timed(k8g), k8_rows_ms=k8_rows_ms,
-                                     rows_equal_k8=all(c["rows_equal_k8"] for c in cases),
-                                     bound_ratio=max(c["bound_ratio"] for c in cases),
-                                     err_f32_plain=max(c["err_f32_plain"][1] for c in cases)),
+    worst = _worst_k8g(cases)
+    device = {"ms": _device_ms(lambda: [sl.segment_dot(*c) for c in calls]),
+              "library_ms": _device_ms(lambda: [m @ t for m, t in zip(csr, xt)]),
+              "k8_rows_ms": _device_ms(lambda: [sl.segment_dot(r, *c[1:]) for rs, c in zip(rows, calls) for r in rs])}
+    return {"segment_dot_grid": dict(_timed(k8g), k8_rows_ms=k8_rows_ms, device=device,
+                                     **{k: worst[k] for k in ("rows_equal_k8", "bound_ratio", "bound_ratio_merge",
+                                                              "err_f32_plain", "repeat_equal", "one_launch")}),
             "gather_sum_grid": dict(_timed(k8cg), k8c_rows_ms=k8c_rows_ms, rows_equal_k8c=k8cg_case["rows_equal_k8c"])}
 
 
@@ -3541,7 +3646,7 @@ def phase_cv(bench_train) -> dict:
                                                _job_matrix())))
     scatter = _time_scatter(landing)
     ok = (grid_timed["segment_dot_grid"]["bound_ratio"] <= 1.0
-          and grid_timed["segment_dot_grid"]["rows_equal_k8"]
+          and grid_timed["segment_dot_grid"]["rows_equal_k8"] and _k8_new_checks_ok(grid_timed["segment_dot_grid"])
           and grid_timed["gather_sum_grid"]["rel_err"] == 0.0 and grid_timed["gather_sum_grid"]["rows_equal_k8c"]
           and land["rel_err"] == 0.0 and wide["rel_err"] == 0.0 and scatter["rel_err"] == 0.0
           and profile["loss_rel_gap"] <= 1e-5)

@@ -367,8 +367,8 @@ def test_candidate_kernels_raise_instead_of_falling_back(dev):
         ops_spmm.spmm_rows(w, torch.zeros((4, 2), device=dev))
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops_spmm.spmm_rows(w, torch.zeros((3, 2)))
-    with pytest.raises(ValueError, match="k in"):
-        ops_spmm.masked_topk(torch.zeros((2, 5), device=dev), None, 200)
+    with pytest.raises(ValueError, match="k in"):  # k past the kernel's KMAX (512 since K5's k <= 512)
+        ops_spmm.masked_topk(torch.zeros((2, 5), device=dev), None, ops_topk.KMAX + 1)
     p = [torch.zeros(s, device=dev) for s in ((4, 200), (5, 200), (5,), (1,))]
     i32 = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="ranks"):
@@ -682,3 +682,145 @@ def test_grid_and_landing_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="int64"):
         ops_als.land_rows(torch.ones((3, 2), device=dev), torch.ones((1, 2), device=dev),
                           torch.zeros(3, dtype=torch.int32, device=dev))
+
+
+# ------------------------------------------ K8/K8g: the merge-path partition
+
+_STEPS = ops_sl.SEGMENT_DOT_STEPS
+
+
+def ranker_skew_features(rng, n: int) -> dict:
+    """FeatureMatrix arrays (keyword arguments) skewed as the ranker fit's
+    batch: a ``cat:`` field whose 3 categories hold 80%, 15% and 5% of the
+    rows (the category gradient's 3 segments, the longest 80% of the rows),
+    one of 16 Zipf-sized categories, a per-row bag whose head token sits in
+    90% of the rows, a factored bag whose head token is in most documents,
+    and a factored vector field over Zipf-repeated distinct vectors. Shared
+    with the CPU parity test (``test_torch_ops_sparse_linear.py``), so the
+    card is held on the inputs the CPU suite holds against JAX."""
+    def zipf(size, count, a=1.1):
+        p = 1.0 / np.arange(1, size + 1) ** a
+        return rng.choice(size, size=count, p=p / p.sum()).astype(np.int32)
+
+    bag = np.where(rng.random((n, 4)) < 0.4, -1, zipf(30, 4 * n).reshape(n, 4)).astype(np.int32)
+    bag[:, 0] = np.where(rng.random(n) < 0.9, 0, bag[:, 0])
+    docs = np.where(rng.random((400, 6)) < 0.3, -1, zipf(25, 2400).reshape(400, 6)).astype(np.int32)
+    docs[:, 0] = np.where(rng.random(400) < 0.85, 0, docs[:, 0])
+    return dict(
+        dense=rng.normal(size=(n, 3)).astype(np.float32),
+        dense_names=["d0", "d1", "d2"] + [f"v[{i}]" for i in range(4)],
+        cat={"c3": rng.choice(3, size=n, p=[0.8, 0.15, 0.05]).astype(np.int32), "c16": zipf(16, n)},
+        cat_sizes={"c3": 3, "c16": 16},
+        bag_idx={"b": bag, "f": docs},
+        bag_val={"b": np.where(bag >= 0, rng.integers(1, 3, size=bag.shape), 0).astype(np.float32),
+                 "f": np.where(docs >= 0, 1.0, 0.0).astype(np.float32)},
+        bag_sizes={"b": 30, "f": 25},
+        vec={"v": rng.normal(size=(500, 4)).astype(np.float32)},
+        vec_rep={"v": zipf(500, n, a=0.8)},
+        bag_rep={"f": zipf(400, n, a=0.8)},
+    )
+
+
+def _merge_counts(case: str) -> np.ndarray:
+    """Segment lengths that put the partition's edges where they hurt."""
+    rng = np.random.default_rng(41)
+    if case == "one segment of 250000":
+        return np.array([250_000])
+    if case == "three segments over 250000":
+        return np.array([206_705, 38_000, 5_295])
+    if case == "a segment over many chunks":
+        counts = rng.integers(0, 30, size=400)
+        counts[200] = 40 * _STEPS + 17
+        return counts
+    if case == "lengths E-1, E, E+1 at chunk edges":
+        # The first segment ends one step before the first chunk edge; the
+        # others start and end at, before and after later edges.
+        return np.array([_STEPS - 1, _STEPS - 1, _STEPS, _STEPS + 1, 0, _STEPS - 1, _STEPS, _STEPS + 1, 3, _STEPS])
+    if case == "runs of empty segments across an edge":
+        return np.array([_STEPS - 5] + [0] * 50 + [3] + [0] * 3000 + [2] + [0] * 700)
+    if case == "no entries":
+        return np.zeros(3000, np.int64)
+    if case == "no segments":
+        return np.zeros(0, np.int64)
+    raise KeyError(case)
+
+
+def _hold_merge(x, idx, val, ip) -> torch.Tensor:
+    """K8 (1-D ``x``) or K8g (2-D): one counted launch; the same bits on a
+    second call; within 1e-5 of each segment's mass of the plain version
+    (computed in float64, so the plain version's own float32 atomics do not
+    count) and within the kernel's order bound
+    ``(min(L, 2) + 9 + [C > 1](ceil((C - 1) / 32) + 6)) 2^-24`` of it
+    (``segment_dot.cu``); a K8g row equal to K8 on that row bit for bit."""
+    name = "segment_dot_grid" if x.dim() == 2 else "segment_dot"
+    kernels.reset_launches()
+    got = ops_sl.segment_dot(x, idx, val, ip)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == 1 and sum(kernels.LAUNCHES.values()) == 1
+    assert torch.equal(got, ops_sl.segment_dot(x, idx, val, ip))
+    v64 = None if val is None else val.double()
+    want = ops_sl.segment_dot_reference(x.double(), idx, v64, ip)
+    mass = ops_sl.segment_dot_reference(x.double().abs(), idx, None if v64 is None else v64.abs(), ip)
+    diff = (got.double() - want).abs()
+    assert bool((diff <= 1e-5 * mass).all())
+    seg = torch.arange(ip.shape[0] - 1, device=ip.device, dtype=torch.float64)
+    lo, hi = ip[:-1].double(), ip[1:].double()
+    chunks = torch.floor((seg + hi) / _STEPS) - torch.floor((seg + lo) / _STEPS) + 1
+    depth = torch.clamp(hi - lo, max=ops_sl.SEGMENT_DOT_IPT) + 9 + (chunks > 1) * (torch.ceil((chunks - 1) / 32) + 6)
+    assert bool((diff <= depth * 2.0**-24 * mass).all())
+    if x.dim() == 2:
+        for g in range(x.shape[0]):
+            assert torch.equal(got[g], ops_sl.segment_dot(x[g].contiguous(), idx, val, ip))
+    return got
+
+
+@pytest.mark.parametrize("case", ["one segment of 250000", "three segments over 250000",
+                                  "a segment over many chunks", "lengths E-1, E, E+1 at chunk edges",
+                                  "runs of empty segments across an edge", "no entries", "no segments"])
+@pytest.mark.parametrize("n_grid", [None, 1, 5, 7, 9])  # None: K8 on a 1-D x
+@pytest.mark.parametrize("with_val", [True, False])
+def test_k8_k8g_merge_partition_edges(dev, case, n_grid, with_val):
+    rng = np.random.default_rng(42)
+    counts = _merge_counts(case)
+    ip = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32), device=dev)
+    nnz, n_x = int(counts.sum()), 700
+    x = torch.as_tensor(rng.normal(size=(n_x,) if n_grid is None else (n_grid, n_x)).astype(np.float32),
+                        device=dev)
+    idx = torch.as_tensor(rng.integers(0, n_x, size=nnz).astype(np.int32), device=dev)
+    val = torch.as_tensor(rng.normal(size=nnz).astype(np.float32), device=dev) if with_val else None
+    got = _hold_merge(x, idx, val, ip)
+    assert got.shape == x.shape[:-1] + (counts.size,)
+    assert bool((got[..., torch.as_tensor(counts == 0, device=dev)] == 0).all())
+
+
+@pytest.mark.parametrize("n_grid", [None, 5])
+def test_k8_k8g_on_the_ranker_skew(dev, n_grid):
+    """Every K8 (or K8g) call of one forward and backward of the LR objective
+    on ``ranker_skew_features`` at the fit's batch size (257 023 rows):
+    each held as in ``_hold_merge``."""
+    from albedo_tpu_torch.features.assembler import FeatureMatrix
+
+    rng = np.random.default_rng(43)
+    fm = FeatureMatrix(**ranker_skew_features(rng, 257_023))
+    batch = ops_sl.feature_batch(fm, dev, grad_layout=True)
+    scales = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+              for k, v in ops_sl.inverse_std_scales(fm).items()}
+    shape = () if n_grid is None else (n_grid,)
+    params = {k: torch.as_tensor(rng.normal(size=shape + np.shape(v)).astype(np.float32), device=dev)
+              .requires_grad_(True) for k, v in ops_sl.init_params(fm).items()}
+    y = torch.as_tensor((rng.random(fm.n_rows) < 0.3).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, size=shape + (fm.n_rows,)).astype(np.float32), device=dev)
+    calls, orig = [], ops_sl.segment_dot
+
+    def recording(x, idx, val, indptr):
+        calls.append((x.detach().clone(), idx, val, indptr))
+        return orig(x, idx, val, indptr)
+
+    ops_sl.segment_dot = recording
+    try:
+        ops_sl.weighted_logloss(params, scales, batch, y, w, 0.7).sum().backward()
+    finally:
+        ops_sl.segment_dot = orig
+    assert max(int((ip[1:] - ip[:-1]).max()) for _, _, _, ip in calls) > 0.75 * fm.n_rows
+    for call in calls:
+        _hold_merge(*call)

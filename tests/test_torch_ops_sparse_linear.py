@@ -358,3 +358,34 @@ def test_grid_plain_versions_are_each_rows_single_version():
     grid = T.gather_sum(base, tables, idxs)
     for g in range(3):
         torch.testing.assert_close(grid[g], T.gather_sum(base[g], [t[g] for t in tables], idxs), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("at", ["zero", "random"])
+def test_logloss_at_the_ranker_skew_matches_jax(at):
+    """The objective and its gradient at the ranker fit's skew
+    (``test_torch_cuda.ranker_skew_features``: 3 categories holding 80/15/5%
+    of the rows, bag head tokens in 90% of the rows), the generator the card
+    test of K8/K8g reuses at the fit's 257 023 rows, here at the parity
+    tolerances above (value rtol 1e-6, gradient atol 1e-6) and the other
+    parity tests' 300 rows: the JAX program's cumsum-difference error grows
+    with the head token's running prefix and reaches 1.0e-6 on a bag weight
+    at 600 rows (the port sums each segment directly)."""
+    from test_torch_cuda import ranker_skew_features
+
+    rng = np.random.default_rng(14)
+    arrays = ranker_skew_features(rng, 300)
+    jfm, tfm = JFM(**arrays), TFM(**arrays)
+    n = jfm.n_rows
+    assert np.bincount(arrays["cat"]["c3"]).max() > 0.75 * n
+    y = (rng.random(n) < 0.3).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, size=n).astype(np.float32)
+    scales, center = J.inverse_std_scales(jfm), J.dense_center(jfm)
+    params = J.init_params(jfm) if at == "zero" else _params(jfm, rng)
+    v_j, g_j = _jax_value_and_grad(params, scales, J.feature_batch(jfm), jnp.asarray(y), jnp.asarray(w), center)
+    pt = {k: v.requires_grad_(True) for k, v in _t(params).items()}
+    v_t = T.weighted_logloss(pt, _t(scales), T.feature_batch(tfm, "cpu", grad_layout=True), torch.as_tensor(y),
+                             torch.as_tensor(w), 0.7, center=torch.as_tensor(center))
+    v_t.backward()
+    np.testing.assert_allclose(float(v_t.detach()), float(v_j), rtol=1e-6)
+    for k in params:
+        np.testing.assert_allclose(pt[k].grad.numpy(), np.asarray(g_j[k]), atol=1e-6, err_msg=k)
