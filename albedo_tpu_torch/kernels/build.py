@@ -49,8 +49,8 @@ SIGNATURES: dict[str, list] = {
     "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
     # the same, with source bf16
     "bucket_cg_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
-    # users, items, excl, out_s, out_i, U, I, r, k, E, Epad, stream
-    "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # users, items, excl, out_s, out_i, U, I, r, k, E, tile, split, split1, rows, ws, bws, mask, stream
+    "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # uf_all, items, user_idx, excl, excl_by_user, out_s, out_i, B, I, r, k, E, Epad, stream
     "gather_topk": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # users, items, user_idx, excl, excl_map, mean_rows, out_s, out_i, B, I, d, k, E, Epad, dpad, stream
@@ -106,10 +106,11 @@ def source_of(name: str) -> str:
 
 
 # Second code paths of a kernel, counted apart from the first: count name ->
-# library. K5's wide path (rank > 64: the content sources, K14) and K1-K3's
-# wide paths (rank > 64) are other __global__ functions behind the same
-# launch function; the select path of K5-K7 (k > 512, or exclusion rows the
-# streaming body cannot sort) is its own library, counted per caller.
+# library. K1-K3's wide paths (rank > 64) are other __global__ functions
+# behind the same launch function; K5 at rank > 64 (the content sources,
+# K14) runs K5's kernels and is counted apart as K14; the select path of
+# K5-K7 (k > 512; for K6 and K7 also exclusion rows their streaming body
+# cannot sort) is its own library, counted per caller.
 PATHS = {
     "topk_scores_wide": "topk_scores",
     "als_partials_wide": "als_partials",

@@ -1,21 +1,25 @@
-"""User x item scoring with a streaming top-k (PyTorch + CUDA).
+"""User x item scoring with a top-k (PyTorch + CUDA).
 
 Port of ``albedo_tpu/ops/topk.py``, the retrieval hot loop of the
 reference's ``recommenders/ALSRecommender.scala:21-61``. K5
-:func:`topk_scores` runs the CUDA kernel ``topk_scores``: one CTA per query
-row streams the item table, masks the row's excluded items and keeps a
-running top-k, so no U x I score matrix is ever written. It takes any rank:
-factor tables (r <= 64) and the wide rows of the content sources (K14:
-tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200), which it
-streams through shared memory in chunks; and any k and exclusion width. Up
-to k = 512 (the serving path's ``max_k`` = 500, rounded up to a power of
-two), with an exclusion row the kernel can sort in shared memory, it runs
-the streaming body; beyond either limit the same wrapper runs the select
-path (``csrc/topk_select.cu``): the masked scores of a chunk of rows are
-written to a scratch buffer and each row's top k is found by a radix select,
-in the same order and with the same scores.
+:func:`topk_scores` runs the CUDA kernel ``topk_scores``
+(``csrc/topk_scores.cu``): a grid of (32-row tile) x (item split) scores the
+rows against the item table through shared memory, each (row, split) keeps
+its best k (above k = 32, only the keys at or above a floor that a first
+pass at k <= 32 finds), and one CTA per row merges its splits' keys, so no
+U x I score matrix is ever written and one query row spreads over the card.
+It takes any rank: factor tables (r <= 64) and the wide rows of the content
+sources (K14: tf-idf rows, r ~ 3000; Word2Vec document vectors, r = 200);
+any exclusion width (the exclusions become a bitmask); and any k. Up to
+k = 512 (the serving path's ``max_k`` = 500, rounded up to a power of two)
+it runs that kernel; beyond (or above k = 32 with fewer 32-item tiles than
+the first pass needs), the same wrapper runs the select path
+(``csrc/topk_select.cu``): the masked scores of a chunk of rows are written
+to a scratch buffer and each row's top k is found by a radix select, in the
+same order and with the same scores.
 
-Two kernels run the same body with another prologue (``csrc/topk_body.cuh``):
+Two kernels run the streaming body K5 ran before its split design
+(``csrc/topk_body.cuh``: one CTA per query row) with another prologue:
 
 - K6 :func:`gather_topk`, the serving micro-batcher's batch program
   (``albedo_tpu/serving/batcher.py`` ``_gather_topk``,
@@ -28,7 +32,8 @@ Two kernels run the same body with another prologue (``csrc/topk_body.cuh``):
 The plain PyTorch versions (``*_reference``) build the score matrix and sort
 it. All return exactly the JAX program's answer: the k admissible items
 ordered by score descending, then item index ascending, with the remaining
-slots ``(-inf, -1)``.
+slots ``(-inf, -1)``. (K5 also follows JAX on NaN scores: +NaN ranks first,
+-NaN is never admitted; K6, K7 and the select path never admit a NaN.)
 """
 
 from __future__ import annotations
@@ -38,15 +43,25 @@ import torch
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 from albedo_tpu_torch.utils import pow2_at_least
 
-RMAX = 64            # widest rank of the narrow path; wider rows take the wide path
-KMAX = 512           # largest k the streaming body keeps; larger k takes the select path
-EXCLUDE_MAX = 32768  # longest exclusion row the streaming body sorts in shared memory
+RMAX = 64            # widest rank of K5's narrow count; wider rows count as topk_scores_wide (K14)
+KMAX = 512           # largest k of K5's kernel and K6/K7's streaming body; larger k takes the select path
+EXCLUDE_MAX = 32768  # longest exclusion row the streaming body (K6, K7) sorts in shared memory
 # Dynamic shared memory the streaming kernels may ask for: the card's 227 KB
 # per block less their static running list (at most 16.4 KB at k > 128).
 SMEM_MAX = 232448 - 17 * 1024
 SELECT_SCRATCH = 256 << 20  # bytes of select-path scratch per launch (rows are chunked to fit)
 SORT_SMEM_MAX = 64 * 1024   # the select path sorts in shared memory up to this many bytes
 MAX_GRID_Y = 65535          # the select path's score grid spans a chunk's rows in y
+# K5's plan (csrc/topk_scores.cu): a CTA scores 32 rows; its item tile is
+# 32 or 128 items; the workspace (each (row, split)'s keys, the first pass's
+# keys and the exclusion bitmask) of one pass of rows stays under
+# K5_WORKSPACE bytes, and the merge kernel's shared memory under
+# K5_MERGE_SMEM.
+K5_ROWS = 32
+K5_WORKSPACE = 64 << 20
+K5_MERGE_SMEM = 96 * 1024
+K5_MAX_SPLITS = 1024        # splits of a row the merge kernel takes
+SM_SHARED = 233472          # shared memory of one SM (228 KB), for the CTAs an SM holds
 
 
 def _scores(user_factors: torch.Tensor, item_factors: torch.Tensor) -> torch.Tensor:
@@ -79,9 +94,12 @@ def exclude_and_rank(
     excluded items (-1-padded, any order, duplicates allowed) to -inf, then
     order by (score desc, index asc) with two stable steps (the items are
     already in index order; a stable descending sort keeps it among equal
-    scores); slots past the admissible items are ``(-inf, -1)``."""
+    scores); slots past the admissible items are ``(-inf, -1)``. NaN scores
+    follow ``lax.top_k``'s total order: a NaN with the sign bit clear ranks
+    above +inf, one with it set below -inf (never admitted)."""
     n_users, n_items = scores.shape
     dev = scores.device
+    scores = scores.masked_fill(torch.isnan(scores) & torch.signbit(scores), float("-inf"))
     if exclude_idx is not None and exclude_idx.numel():
         ex = exclude_idx.long()
         ex = torch.where((ex < 0) | (ex >= n_items), n_items, ex)
@@ -121,18 +139,91 @@ def topk_scores(
     _check_rank("topk_scores", r)
     check_operand("topk_scores", "user_factors", user_factors, torch.float32, (n_users, r), dev)
     check_operand("topk_scores", "item_factors", item_factors, torch.float32, (n_items, r), dev)
-    excl_ptr, n_excl, excl_pad = _exclusion("topk_scores", "exclude_idx", exclude_idx, n_users, dev)
+    excl_ptr, n_excl, _ = _exclusion("topk_scores", "exclude_idx", exclude_idx, n_users, dev)
     vals, idx = _outputs(n_users, k, dev)
-    if _select_path(k, r, n_excl, excl_pad):
+    if not _k5_takes(n_items, k):
         _select("topk_scores", dev, vals, idx, users=user_factors, items=item_factors,
                 excl=exclude_idx, n_rows=n_users, k=k, n_excl=n_excl)
         return vals, idx
+    tile, split, split1, rows = _k5_plan(n_users, n_items, k, n_excl > 0,
+                                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    # One workspace: the lists (rows x splits x pow2(k) keys; with a first
+    # pass, then a count of each), the first pass's keys (rows x its splits)
+    # and the exclusion bits (rows x I/32).
+    n_splits = max(1, -(-n_items // split))
+    n_ws = rows * n_splits * pow2_at_least(k) + (-(-rows * n_splits // 2) if k > 32 else 0)
+    n_bws = rows * -(-n_items // split1) if k > 32 else 0
+    n_mask = max(1, -(-rows * -(-n_items // 32) // 2)) if n_excl else 0
+    ws = torch.empty(n_ws + n_bws + n_mask, dtype=torch.int64, device=dev)
+    base = ws.data_ptr()
     call(
         "topk_scores", dev, user_factors.data_ptr(), item_factors.data_ptr(), excl_ptr,
-        vals.data_ptr(), idx.data_ptr(), n_users, n_items, r, k, n_excl,
-        excl_pad, count="topk_scores_wide" if r > RMAX else None,
+        vals.data_ptr(), idx.data_ptr(), n_users, n_items, r, k, n_excl, tile, split, split1, rows,
+        base, base + 8 * n_ws if k > 32 else None, base + 8 * (n_ws + n_bws) if n_excl else None,
+        count="topk_scores_wide" if r > RMAX else None,
     )
     return vals, idx
+
+
+def _k5_takes(n_items: int, k: int) -> bool:
+    """K5's kernel takes k <= KMAX, and above k = 32 needs the ceil(k / 32)
+    first-pass splits of at least 32 items each; other calls take the select
+    path."""
+    return k <= 32 or (k <= KMAX and -(-n_items // 32) >= -(-k // 32))
+
+
+def _k5_smem(tile: int, k: int) -> int:
+    """Dynamic shared memory of K5's score kernel (``score_smem`` in
+    ``csrc/topk_scores.cu``): its staging stages of 64 columns and, above
+    k = 32, the warps' candidate buffers."""
+    stages = 2 if tile == 128 else 4
+    return 4 * stages * (K5_ROWS + tile) * 68 + (8 * 8 * tile if k > 32 else 0)
+
+
+def _k5_splits(row_tiles: int, n_tiles: int, tile: int, k: int, n_sm: int, cap: int) -> int:
+    """Tiles per split so that row tiles x splits fill one wave of the CTAs
+    the card holds at this k (at most ``cap`` splits)."""
+    per_sm = max(1, min(4, SM_SHARED // (_k5_smem(tile, k) + 1024)))
+    n_splits = max(1, min(n_tiles, cap, n_sm * per_sm // row_tiles))
+    return -(-n_tiles // n_splits)
+
+
+def _k5_plan(n_users: int, n_items: int, k: int, excl: bool, n_sm: int,
+             tile: int | None = None) -> tuple[int, int, int, int]:
+    """(item tile, items per split, items per first-pass split, rows per
+    pass) of a K5 launch: the 128-item tile where the grid has enough CTAs
+    with it, else 32 (or ``tile``); above k = 32 a first pass at k1 <= 32
+    over at least ceil(k / 32) splits (the caller sends a call with fewer
+    32-item tiles than that to the select path) gives each row its floor;
+    splits that fill one wave of the CTAs ``n_sm`` SMs hold (each pass), no
+    more than the merge kernel takes; rows cut so that a pass's workspace
+    stays under K5_WORKSPACE."""
+    lp = pow2_at_least(k)
+    need = -(-k // 32)
+    row_tiles = max(1, -(-n_users // K5_ROWS))
+    if tile is None:
+        n_tiles = max(1, -(-n_items // 128))
+        tile = 128 if row_tiles * n_tiles >= 2 * n_sm and (k <= 32 or n_tiles >= need) else 32
+    n_tiles = max(1, -(-n_items // tile))
+    split1 = n_bound = 0
+    if k > 32:
+        tiles1 = _k5_splits(row_tiles, n_tiles, tile, 32, n_sm, n_tiles)
+        if -(-n_tiles // tiles1) < need:
+            tiles1 = n_tiles // need
+        split1 = tiles1 * tile
+        n_bound = -(-n_items // split1)
+    # Above k = 32 the merge kernel gathers a row's keys into pow2(splits)
+    # slots of lp keys in shared memory.
+    cap = K5_MAX_SPLITS
+    if k > 32:
+        cap = max(1, K5_MERGE_SMEM // (8 * lp))
+        cap = 1 << (cap.bit_length() - 1)
+    split = _k5_splits(row_tiles, n_tiles, tile, k, n_sm, cap) * tile
+    n_splits = max(1, -(-n_items // split))
+    per_row = 8 * n_splits * lp + (4 * n_splits + 8 * n_bound if k > 32 else 0) + (
+        4 * -(-n_items // 32) if excl else 0)
+    rows = max(K5_ROWS, K5_WORKSPACE // per_row // K5_ROWS * K5_ROWS)
+    return tile, split, split1, min(rows, row_tiles * K5_ROWS)
 
 
 def _check_k(kernel: str, k: int) -> None:
@@ -156,7 +247,7 @@ def _exclusion(kernel: str, name: str, table, n_rows: int, dev) -> tuple[int | N
 
 
 def _select_path(k: int, r: int, n_excl: int, excl_pad: int, dpad: int = 0) -> bool:
-    """True when a launch exceeds the streaming body (topk_body.cuh): k above
+    """True when a K6 or K7 launch exceeds the streaming body (topk_body.cuh): k above
     KMAX, an exclusion row longer than EXCLUDE_MAX, or more dynamic shared
     memory (the sorted exclusion row, the wide path's tile, the mean query)
     than the card gives a block."""

@@ -27,7 +27,8 @@ remap table.
 
 **Query.** One K7 launch per (source, batch of at most ``max_batch``
 users): the kernel builds each query row (a user-table row, or the masked
-mean of example rows) and streams the source table with K5's body.
+mean of example rows) and streams the source table with the one-CTA-a-row
+top-k body (``csrc/topk_body.cuh``).
 
 **Overlay.** ``publish_user_rows`` lands freshly solved user rows into a
 ``user_rows`` source's table; the next query reads them.

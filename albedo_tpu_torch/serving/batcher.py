@@ -37,9 +37,10 @@ Mechanics:
   the worker spends a launch on it.
 
 Parity: a batched answer is byte-identical to the single-request path
-(``ALSModel.recommend``, K5). K6 runs K5's body on each user's row with the
-same arithmetic, and a row's result does not depend on the rest of its
-launch; the exclusion width only pads the sorted list. Pinned by
+(``ALSModel.recommend``, K5). K6 scores each user's row with K5's
+arithmetic and order (both exact against one plain version), and a row's
+result does not depend on the rest of its launch; the exclusion width only
+pads the sorted list. Pinned by
 ``tests/test_torch_serving_batcher.py``.
 """
 

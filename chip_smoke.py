@@ -28,7 +28,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    a row whose every column is starred and k > n; K10's bpr_step at B = 1
    and 8192 with duplicate users and items, negatives equal to the positive
    and side features of width 2. Then the serving kernels, exactly: K5 at
-   k = 129, 256, 512 (and fewer admissible items than k); K6 gather_topk at
+   k = 129, 256, 512 (and fewer admissible items than k), and on the edge
+   cases of its split design (``topk_bench.k5_edge_cases``: ties across
+   every 32-item boundary, a row of zeros, cancelling, NaN and +-inf
+   scores, odd exclusion rows, a row excluding every item, fewer admissible
+   items than k, one row and 500, ranks 1 to 3010, k 1 to 512; each call
+   also the same bits as a second one); K6 gather_topk at
    buckets 1/8/64 x k 32/512 in each exclusion mode, each row also equal to
    K5 on that user alone; K7 bank_query for user rows (plain, excluded,
    remapped) and item means at d 16, 50, 200, 3010 with an empty query row.
@@ -36,7 +41,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bench-shaped buckets with a power-law row (7624 entries) and K3 at rank
    1500 (their wide paths, the global workspaces included), rel 1e-4; K5 at
    k = 513, 600, 2048 and the whole catalogue, fewer admissible items than k,
-   the wide rank, and an exclusion row of 40 000 (the select path), K6 at
+   the wide rank (the select path), an exclusion row of 40 000 (K5's own
+   path since its bitmask takes any width), and 500 rows in 16 passes of 32
+   (its workspace budget cut to nothing), K6 at
    buckets 1/8/64 x those k in each exclusion mode and with 40 000-wide
    device rows (each row equal to K5 on that user alone), K7 for user rows
    and item means at k 600 and 2048, all exactly. Then K8c gather_sum
@@ -99,7 +106,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    user-similarity sources): the test users' candidates against the host
    paths, K7 held at every recorded launch. Then timings: K6 at buckets
    1/8/64 x k 32/512 at the job and bench scales, K7 per source at batch
-   64, K5 at k = 512, K4 and K12 (plain torch), each with its bound; and the
+   64, K5 at k = 512 and on one user with that user's history excluded (the
+   direct path's call), K4 and K12 (plain torch), each with its bound; and the
    service's requests/s and p50/p99 at closed-loop concurrency 1, 8 and 64
    from a client process (and 64 again with ``http.server``'s default
    listen backlog of 5), with the card's busy share.
@@ -752,8 +760,10 @@ def phase_candidate_kernels() -> dict:
 
 
 def phase_serving_kernels() -> dict:
-    """K5 at k > 128, K6 gather_topk and K7 bank_query on edge cases, each
-    against its plain version, exactly (ties and -inf slots included)."""
+    """K5 at k > 128 and on its split design's edge cases, K6 gather_topk and
+    K7 bank_query on edge cases, each against its plain version, exactly
+    (ties, NaN and -inf slots included)."""
+    from albedo_tpu_torch.kernels.topk_bench import k5_edge_cases
     from albedo_tpu_torch.ops import topk as ops_topk
 
     dev = torch.device("cuda")
@@ -786,6 +796,18 @@ def phase_serving_kernels() -> dict:
     note("topk_scores", "k=512, 400 admissible of 600", _hold_topk(t(uf), t(vf[:600]), 512, t(small_excl)))
     wide_v, wide_u = factors(1500, 200), factors(9, 200)
     note("topk_scores_wide", "r=200, k=512", _hold_topk(t(wide_u), t(wide_v), 512, t(excl[:9])))
+    # K5's split design (topk_bench.k5_edge_cases): ties across every 32-item
+    # boundary, a row of zeros, cancelling, NaN and +-inf scores, exclusion
+    # rows with -1, out-of-range entries and duplicates, a row excluding
+    # every item, fewer admissible items than k, one row and 500 rows, ranks
+    # 1 to 3010, k 1 to 512; each call also bit-identical to a second one.
+    for label, u, v, k, ex in k5_edge_cases():
+        q_t, v_t, ex_t = t(u), t(v), None if ex is None else t(ex)
+        first = ops_topk.topk_scores(q_t, v_t, k, ex_t)
+        again = _exact(first, ops_topk.topk_scores(q_t, v_t, k, ex_t))
+        err = _exact(first, ops_topk.topk_scores_reference(q_t, v_t, k, ex_t))
+        note("topk_scores" if u.shape[1] <= 64 else "topk_scores_wide", f"split design: {label}",
+             (err[0], max(err[1], again[1])))
 
     # K6 at buckets 1, 8 and 64, k = 32 and 512, in each exclusion mode: the
     # device table of every user's history (width = the longest), the
@@ -955,6 +977,19 @@ def phase_any_size_kernels() -> dict:
         exact("topk_scores", f"exclusion row of 40000, k={k}",
               ops_topk.topk_scores(t(big_u), t(big_v), k, t(long_excl)),
               ops_topk.topk_scores_reference(t(big_u), t(big_v), k, t(long_excl)))
+
+    # K5 with its workspace budget cut so that 500 rows take 16 passes of 32.
+    budget = ops_topk.K5_WORKSPACE
+    ops_topk.K5_WORKSPACE = 1
+    try:
+        pass_u, pass_v = factors(500, 50), factors(19991, 50)
+        pass_ex = rng.integers(-1, 19991, size=(500, 700)).astype(np.int32)
+        for k in (30, 512):
+            exact("topk_scores", f"500 rows in passes of 32, k={k}",
+                  ops_topk.topk_scores(t(pass_u), t(pass_v), k, t(pass_ex)),
+                  ops_topk.topk_scores_reference(t(pass_u), t(pass_v), k, t(pass_ex)))
+    finally:
+        ops_topk.K5_WORKSPACE = budget
 
     # K6 at buckets 1/8/64 x k 513/600/2048 in each exclusion mode, each row
     # also equal to K5 on that user alone; and a device table of 40 000-wide
@@ -1502,13 +1537,16 @@ def _timed(r: dict) -> dict:
     """A kernel's record for the kernels line: its errors and times, and
     its bound from the bytes and operations of the work."""
     t_bytes, t_ops = r["bytes"] / PEAK_BYTES * 1e3, r["flops"] / PEAK_FP32 * 1e3
-    return {
+    out = {
         "max_abs_err": r["err"][0], "rel_err": r["err"][1], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "library_ms": r["library_ms"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": r["bytes"], "flops": r["flops"], "shape": r.get("shape"),
         "library_rel_err": r.get("library_rel_err"),
     }
+    if r.get("no_fma"):  # K5/K14: a multiply and an add a term, half the FP32 peak
+        out["bound_no_fma_ms"] = max(t_bytes, 2 * t_ops)
+    return out
 
 
 def phase_ranker_timing(inputs: dict) -> dict:
@@ -1857,6 +1895,7 @@ def _time_topk(calls) -> dict:
                   for q, v, k, ex in calls),
         flops=sum(2 * q.shape[0] * v.shape[0] * q.shape[1] for q, v, _, _ in calls),
         shape={"calls": [[int(q.shape[0]), int(v.shape[0]), int(q.shape[1]), k] for q, v, k, _ in calls]},
+        no_fma=True,
     )
 
 
@@ -2001,11 +2040,12 @@ def _hold_sweeps(calls, names) -> dict:
 def _exact(got, want) -> tuple[float, float]:
     """A top-k kernel's (scores, indices) against its plain version's: (max
     abs score error, 0.0 when indices and scores are all equal, ties and
-    -inf slots included, else inf)."""
-    (s, i), (s_p, i_p) = got, want
-    exact = bool(torch.equal(i, i_p)) and bool(torch.equal(s, s_p))
-    diff = torch.where(s == s_p, torch.zeros_like(s), (s - s_p).abs())
-    return float(diff.max()), 0.0 if exact else float("inf")
+    -inf slots included, NaN where NaN, else inf)."""
+    from albedo_tpu_torch.kernels.topk_bench import same
+
+    (s, _), (s_p, _) = got, want
+    diff = torch.where((s == s_p) | (s.isnan() & s_p.isnan()), torch.zeros_like(s), (s - s_p).abs())
+    return float(diff.max()) if diff.numel() else 0.0, 0.0 if same(torch, got, want) else float("inf")
 
 
 def _hold_topk(q, items, k, ex) -> tuple[float, float]:
@@ -2176,7 +2216,7 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     }
     out = {
         name: _timed(dict(err=(abs_err, rel), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bytes=work[name][0], flops=work[name][1]))
+                          bytes=work[name][0], flops=work[name][1], no_fma=name == "topk_scores"))
         for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items()
     }
     ok = _within_tol({name: (v["max_abs_err"], v["rel_err"]) for name, v in out.items()})
@@ -2588,11 +2628,12 @@ def _load(url: str, users, concurrency: int, seconds: float) -> dict:
 def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench_train) -> dict:
     """K6 per batch at buckets 1/8/64 and k 32/512 at the job scale and the
     bench scale (30000 x 20000, the train split's exclusion table), K7 per
-    source at batch 64, K5 at k = 512, K4 and K12 (plain torch) at bench
-    scale, each against its bound; then the serve path's requests/s and
-    p50/p99 latency at closed-loop concurrency 1, 8 and 64 (10 s each, the
-    result cache off so every request reaches the card) with the device's
-    busy share."""
+    source at batch 64, K5 at k = 512 and on one job user (the direct
+    path's call: 1 x 2936 x 50, k 30, the user's history excluded), K4 and
+    K12 (plain torch) at bench scale, each against its bound; then the
+    serve path's requests/s and p50/p99 latency at closed-loop concurrency
+    1, 8 and 64 (10 s each, the result cache off so every request reaches
+    the card) with the device's busy share."""
     from albedo_tpu_torch.datasets.ragged import padded_rows
     from albedo_tpu_torch.ops import als as ops_als
     from albedo_tpu_torch.ops import topk as ops_topk
@@ -2625,7 +2666,18 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
                      plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q, bvf, 512, ex)),
                      library_ms=cuda_ms(lambda: _topk_library(q, bvf, 512, ex)),
                      bytes=4 * (q.numel() + bvf.numel() + ex.numel()) + 8 * 500 * 512,
-                     flops=2 * 500 * bvf.shape[0] * bvf.shape[1]))
+                     flops=2 * 500 * bvf.shape[0] * bvf.shape[1], no_fma=True))
+    # K5 on one user of the job's model with that user's history excluded:
+    # the direct path's call (serve --no-batch, ALSModel.recommend of one user).
+    one = int(rng.integers(0, uf.shape[0]))
+    q1, ex1 = uf[one:one + 1].contiguous(), job_table[one:one + 1].contiguous()
+    k5_one = _timed(dict(err=_hold_topk(q1, vf, 30, ex1),
+                         ms=cuda_ms(lambda: ops_topk.topk_scores(q1, vf, 30, ex1), reps=20),
+                         plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q1, vf, 30, ex1)),
+                         library_ms=cuda_ms(lambda: _topk_library(q1, vf, 30, ex1), reps=20),
+                         bytes=4 * (q1.numel() + vf.numel() + ex1.numel()) + 8 * 30,
+                         flops=2 * vf.shape[0] * vf.shape[1], no_fma=True,
+                         shape={"calls": [[1, int(vf.shape[0]), int(vf.shape[1]), 30]]}))
     # K4 (plain torch): the Gramian of each table and one half-sweep's landing
     # gather. (K12 is a kernel now, timed in phase 10.)
     land = torch.randperm(buf.shape[0], device=buf.device)
@@ -2656,9 +2708,10 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
         finally:
             http_mod._Server.request_queue_size = backlog
     torch.cuda.synchronize()
-    ok = (all(v["rel_err"] == 0.0 for v in [*k6.values(), *k7.values(), k5])
+    ok = (all(v["rel_err"] == 0.0 for v in [*k6.values(), *k7.values(), k5, k5_one])
           and all(set(r_["codes"]) == {"200"} for r_ in load))
-    emit({"phase": "serving_timing", "ok": ok, "k6": k6, "k7": k7, "k5_k512": k5, "plain_torch": timed_plain,
+    emit({"phase": "serving_timing", "ok": ok, "k6": k6, "k7": k7, "k5_k512": k5, "k5_one_row": k5_one,
+          "plain_torch": timed_plain,
           "load": load, "mean_batch": mean_batch})
     if not ok:
         raise SystemExit("chip_smoke: a serving kernel disagrees at its timed inputs, or a load run saw non-200")

@@ -19,8 +19,10 @@ held to 1e-6 of each element's L1 mass (kernel and plain version both sum in
 float64, in other orders, and round once) and K10's bpr_step to 5e-5 of
 ``ops.bpr.bpr_grad_mass`` and of |loss| (atomics, as K9). No tolerance has a floor, so the small gradients
 are held as tightly as the tables. K5 at k > 128, K6 gather_topk and K7
-bank_query are exact, ties and (-inf, -1) slots included (K5's body and
-arithmetic), and a K6 row equals K5 on that user alone. K1-K3's wide paths
+bank_query are exact, ties and (-inf, -1) slots included (K5's arithmetic),
+and a K6 row equals K5 on that user alone. K5's split design is exact too,
+NaN scores included (``lax.top_k``'s order, which the plain version follows:
++NaN first, -NaN never). K1-K3's wide paths
 (ranks above 64) are held as the narrow ones (rel 1e-4); K5-K7's select path
 (k above 512, exclusion rows longer than the streaming body sorts) exactly.
 K8c's forward exactly (the plain version's order) and its gradients to 1e-5
@@ -274,6 +276,67 @@ def test_k5_wide_path_matches_plain_exactly(dev, r):
     s_p, i_p = ops_topk.topk_scores_reference(uf, vf, 30, ex)
     assert torch.equal(i, i_p) and torch.equal(s, s_p)
     assert kernels.LAUNCHES["topk_scores_wide"] == 1 and kernels.LAUNCHES["topk_scores"] == 0
+
+
+def _k5_same(got, want):
+    from albedo_tpu_torch.kernels.topk_bench import same
+
+    assert same(torch, got, want)
+
+
+@pytest.mark.parametrize("n_rows", [1, 500])
+@pytest.mark.parametrize("k", [1, 30, 128, 129, 512])
+@pytest.mark.parametrize("r", [1, 50, 64, 65, 200, 3010])
+def test_k5_split_design_matches_plain(dev, r, k, n_rows):
+    """K5's split design at each rank path and list size, on one query row
+    (its parallelism from the item splits alone) and on 500: exact against
+    the plain version with ties planted across every 32-item boundary and
+    the 1024 mark, and exclusion rows with -1, out-of-range entries and
+    duplicates; one launch a call; two calls bit-identical."""
+    rng = np.random.default_rng(1000 * r + k)
+    n_items = 2500
+    vf_np = (rng.standard_normal((n_items, r)) / np.sqrt(r)).astype(np.float32)
+    vf_np[32::32] = vf_np[31:-1:32][: len(vf_np[32::32])]
+    vf_np[1024:1124] = vf_np[:100]
+    uf_np = (rng.standard_normal((n_rows, r)) / np.sqrt(r)).astype(np.float32)
+    ex_np = rng.integers(-3, n_items + 3, size=(n_rows, 150)).astype(np.int32)
+    ex_np[:, 1] = ex_np[:, 0]
+    uf, vf, ex = (torch.as_tensor(a, device=dev) for a in (uf_np, vf_np, ex_np))
+    kernels.reset_launches()
+    got = ops_topk.topk_scores(uf, vf, k, ex)
+    counts = kernels.launch_counts()
+    assert counts["topk_scores" if r <= 64 else "topk_scores_wide"] == 1 and sum(counts.values()) == 1
+    _k5_same(got, ops_topk.topk_scores(uf, vf, k, ex))
+    _k5_same(got, ops_topk.topk_scores_reference(uf, vf, k, ex))
+
+
+def test_k5_edge_cases_match_plain(dev):
+    """``topk_bench.k5_edge_cases``: ties across boundaries, a row of zeros,
+    cancelling, NaN and +-inf scores, odd exclusion rows, a row excluding
+    every item, fewer admissible items than k, ranks 1 to 3010."""
+    from albedo_tpu_torch.kernels.topk_bench import k5_edge_cases, same
+
+    for label, u, v, k, ex in k5_edge_cases():
+        q_t, v_t = torch.as_tensor(u, device=dev), torch.as_tensor(v, device=dev)
+        ex_t = None if ex is None else torch.as_tensor(ex, device=dev)
+        got = ops_topk.topk_scores(q_t, v_t, k, ex_t)
+        assert same(torch, got, ops_topk.topk_scores_reference(q_t, v_t, k, ex_t)), label
+
+
+@pytest.mark.parametrize("k", [30, 512])
+def test_k5_passes_of_rows_match_plain(dev, monkeypatch, k):
+    """With the workspace budget cut to nothing, 500 rows run in 16 passes
+    of 32 inside the one launch call, still exact."""
+    monkeypatch.setattr(ops_topk, "K5_WORKSPACE", 1)
+    rng = np.random.default_rng(k)
+    uf = torch.as_tensor((rng.standard_normal((500, 50)) / 7).astype(np.float32), device=dev)
+    vf = torch.as_tensor((rng.standard_normal((19991, 50)) / 7).astype(np.float32), device=dev)
+    ex = torch.as_tensor(rng.integers(-1, 19991, size=(500, 700)).astype(np.int32), device=dev)
+    assert ops_topk._k5_plan(500, 19991, k, True, 132)[3] == 32
+    kernels.reset_launches()
+    got = ops_topk.topk_scores(uf, vf, k, ex)
+    assert kernels.LAUNCHES["topk_scores"] == 1
+    _k5_same(got, ops_topk.topk_scores_reference(uf, vf, k, ex))
 
 
 @pytest.mark.parametrize("b", [1, 256, 300])
