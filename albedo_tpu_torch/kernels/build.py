@@ -39,10 +39,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # name -> argtypes of ``<name>_launch`` (pointers and the stream as c_void_p,
 # so ctypes never cuts a 64-bit address to an int).
 SIGNATURES: dict[str, list] = {
-    # source, idx, val, mask, corr, bvec, B, L, k, alpha, stream
-    "als_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # source, idx, val, mask, corr, bvec, B, L, k, alpha, chunk, n_chunks, per_cta, ws, stream
+    "als_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P],
     # the same, with source bf16
-    "als_partials_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "als_partials_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P],
     # yty, corr, bvec, n_b, reg, x, B, k, ws, stream
     "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _P],
     # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws, stream
@@ -69,6 +69,8 @@ SIGNATURES: dict[str, list] = {
     "spmm_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
     # scores, sb, si, starred, norm, out_s, out_i, B, n, k, L, Lpad, stream
     "masked_topk": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # scores, sb, si, starred, norm, out_s, out_i, row0, B, n, k, L, scratch, sortbuf, sort_pad, stream
+    "masked_select": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # users, items, user_idx, excl, excl_by_user, excl_map, mean_rows, out_s, out_i, row0, B, I,
     # r, k, E, dpad, qbuf, has, scratch, sortbuf, sort_pad, stream
     "topk_select": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -90,13 +92,15 @@ SIGNATURES: dict[str, list] = {
 # source. K8g and K8c-g (K8 and K8c over a leading grid axis) live beside
 # their one-row kernels; ``scatter_rows`` (K4's ``scatter_solved``) beside
 # ``land_rows`` (K4's landing); K1-bf16 and K3-bf16 (the bf16 gathers) are
-# K1 and K3 instantiated for a bf16 table.
+# K1 and K3 instantiated for a bf16 table; ``masked_select`` (K11's
+# masked_topk at any k and starred width) lives beside the select path.
 ENTRIES = {
     "segment_dot_grid": "segment_dot",
     "gather_sum_grid": "gather_sum",
     "scatter_rows": "land_rows",
     "als_partials_bf16": "als_partials",
     "bucket_cg_bf16": "bucket_cg",
+    "masked_select": "topk_select",
 }
 
 
@@ -110,7 +114,10 @@ def source_of(name: str) -> str:
 # behind the same launch function; K5 at rank > 64 (the content sources,
 # K14) runs K5's kernels and is counted apart as K14; the select path of
 # K5-K7 (k > 512; for K6 and K7 also exclusion rows their streaming body
-# cannot sort) is its own library, counted per caller.
+# cannot sort) is its own library, counted per caller, and K11's masked_topk
+# takes it above k = 128 or a starred row of 32768 (``masked_select``); K9's
+# and K10's wide paths (d > 512; rank > 128 or side width > 32) are other
+# __global__ functions behind their launch functions.
 PATHS = {
     "topk_scores_wide": "topk_scores",
     "als_partials_wide": "als_partials",
@@ -121,6 +128,9 @@ PATHS = {
     "topk_scores_select": "topk_select",
     "gather_topk_select": "topk_select",
     "bank_query_select": "topk_select",
+    "masked_topk_select": "topk_select",
+    "sgns_step_wide": "sgns_step",
+    "bpr_step_wide": "bpr_step",
 }
 
 # Launches of each kernel (and path) in this process (see

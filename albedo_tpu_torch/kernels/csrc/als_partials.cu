@@ -9,45 +9,75 @@
 //     b_b    = sum_l w_l * y_l                   (k)
 // with y_l = source[idx_l].
 //
-// What bounds it on an H100: the JAX program writes the gathered (B, L, k)
-// block to device memory and reads it back for two einsums; at the bench
-// shape one such block is 400 MB. Here the block never leaves the chip: one
-// CTA per bucket row copies tiles of TILE gathered rows into shared memory
-// and accumulates the k*k correction in registers (16 entries per thread at
-// k = 64). The entry lists and the source rows (which stay in the 50 MB L2:
-// a 30000 x 50 f32 table is 6 MB) are then a small part of the bytes: the
-// (B, k, k) correction it writes, and K2 reads back, is most of them (about
-// 670 of 744 MB per bench iteration), so its bound is set by bytes, not by
-// its 2 k^2 FP32 FLOP per entry. Fusing K1 with K2 removes that round trip.
-// It computes the full square rather than the upper triangle (twice the
-// FMAs of a symmetric accumulation): each product c1 * (y_i * y_j) is formed
-// from the commuted pair, so the result is exactly symmetric. Masked entries
-// contribute nothing; entries past the row's last masked-in entry are not
-// visited at all, so padding slots (all-false masks) cost one mask scan.
-// k is a runtime argument; up to KMAX = 64 (rank 50 pads to 64 inside the
-// kernel) one CTA holds the whole k x k correction in registers.
+// What bounds it on an H100: bytes. The gathered (B, L, k) block never
+// leaves the chip; the entry lists and the source rows (which stay in the
+// 50 MB L2: a 30000 x 50 f32 table is 6 MB) are a small part of the bytes.
+// The (B, k, k) correction it writes, and K2 reads back, is most of them
+// (about 670 of 744 MB per bench iteration, 0.222 ms at 3.35 TB/s); its
+// k (k + 1) + 2k FLOP per masked-in entry take 0.19 ms at the FP32 peak.
+// Rows split across CTAs add a workspace of partial sums (below), a few MB
+// per iteration that stay in L2.
 //
-// Ranks above 64 take the wide path (als_partials_wide_kernel): a per-thread
-// (k, k) accumulator no longer fits in registers, so the correction is cut
-// into 64 x 64 output tiles and CTA (b, t) computes tile t of row b,
-// streaming the row's entries through shared memory twice as wide (the
-// tile's 64 row columns and 64 column columns of each gathered row). Every
-// tile re-reads the row's entries (T^2 times for T = ceil(k / 64) tiles a
-// side), from L2; the bytes bound is unchanged (the correction it writes is
-// still most of them). Tile (i, j) and tile (j, i) form each product from
-// the commuted pair in the same entry order, so the result stays exactly
-// symmetric. The b-vector is written by the CTAs of tile column 0.
+// Rank k <= 64 (the split design). A bucket group is (B, L) with rows of
+// every length: the ALS fit's groups run from 3072 rows x 16 slots to one
+// row x 7624 slots, and a design of one CTA per row left 131 of 132 SMs idle
+// on the narrow tall groups (74% of K1's time at the bench shape). So the
+// work is cut by entries, not by rows, in a plan the wrapper computes
+// (ops/als.py _k1_plan, mirrored there entry for entry):
+//   - each row's L slots are cut into n_chunks chunks of `chunk` slots (a
+//     multiple of the 32-entry tile); a unit is one (row, chunk). A group
+//     with few rows gets chunks short enough for ~8 units per SM, down to
+//     64 slots; a group with many rows keeps one chunk per row;
+//   - CTA g takes units [g per_cta, (g + 1) per_cta): several short rows to
+//     a CTA when the rows are many (the CTA start, the pipeline's fill and
+//     the metadata loads are paid once for all of them), one unit when rows
+//     are split;
+//   - a unit whose row has one chunk writes its row of the output; a split
+//     row's units write partial sums to a workspace (one per unit), and a
+//     second kernel of the same launch closes each row by adding its
+//     chunks' partials in chunk order. No float atomics: two calls give
+//     the same bits.
+// Inside a CTA the units' tiles of 32 entries stream through a ring of two
+// shared-memory slots: the entries' metadata (idx, val, mask) is loaded two
+// tiles ahead into registers, the gathered rows one tile ahead by cp.async
+// (zero-filled for a masked-out entry, none for the tile's padding past its
+// last masked-in entry, so an all-padding tile costs its metadata loads
+// only). Each staged entry gets c1 * y once in shared memory, with column k
+// holding w, so every product of the correction and of the b-vector is one
+// FMA: thread t owns a 4 x 4 block (I, J), I <= J, of the upper triangle of
+// the (k, k + 1) matrix [corr | b] and reads 4 + 4 operands per entry
+// (two 16-byte shared loads for 16 FMAs). At rank 50 that is 91 blocks,
+// 1456 products an entry against the 4096 of a full padded square. The
+// result is mirrored on write (element (i, j), i <= j, is written to (i, j)
+// and (j, i)), so it is exactly symmetric; a row's output goes through
+// shared memory so its k * k floats are written coalesced.
+//
+// Round-off: an element is the sum of one term per masked-in entry, t_l =
+// y_il * fl(c1_l y_jl). A unit sums its terms in entry order (one rounding
+// per FMA), the closing kernel adds the units' sums in chunk order, so the
+// error is at most (chunk + n_chunks - 1) 2^-24 sum_l |t_l| (the - 1 less
+// under bf16 gathers, where c1 y is exact), against (L - 1) 2^-24 for one
+// sequential sum.
+//
+// Ranks above 64 take the wide path (als_partials_wide_kernel): the
+// correction is cut into 64 x 64 output tiles and CTA (b, t) computes tile t
+// of row b, streaming the row's entries through shared memory twice as wide
+// (the tile's 64 row columns and 64 column columns of each gathered row).
+// Every tile re-reads the row's entries (T^2 times for T = ceil(k / 64)
+// tiles a side), from L2; the bytes bound is unchanged. Tile (i, j) and tile
+// (j, i) form each product from the commuted pair c1 * (y_i * y_j) in the
+// same entry order, so the result stays exactly symmetric. The b-vector is
+// written by the CTAs of tile column 0.
 //
 // K1-bf16 (entry als_partials_bf16): the same kernels reading a bf16 copy of
 // the table, as albedo_tpu/ops/als.py bucket_partial_terms does under
-// gather_dtype="bfloat16" (_gather :62, the einsums :127-135). The tiles hold
-// the bf16 rows as they are (half the shared memory and half the gathered
-// bytes) and widen each value to float32 on use; the correction's c1 is
-// rounded to bf16 (__float2bfloat16_rn, as JAX casts it to the rows' dtype),
-// the b-vector's w = 1 + c1 is not. Each product c1 * (y_i * y_j) then holds
-// at most 8 + 8 + 8 significant bits and is exact in float32, so only the
-// order of the float32 sums differs from JAX. The bound moves little: the
-// (B, k, k) correction the kernel writes is most of its bytes either way.
+// gather_dtype="bfloat16" (_gather :62, the einsums :127-135). The rows are
+// staged as bf16 (half the gathered bytes) and widened once per entry; the
+// correction's c1 is rounded to bf16 (__float2bfloat16_rn, as JAX casts it
+// to the rows' dtype), the b-vector's w = 1 + c1 is not. Each staged
+// c1 * y then holds at most 16 significant bits and each product y_i c1 y_j
+// at most 24, exact in float32, so only the order of the float32 sums
+// differs from JAX.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,87 +107,338 @@ struct Rows<__nv_bfloat16> {
 };
 
 constexpr int KMAX = 64;
-constexpr int THREADS = 256;
-constexpr int TILE = 32;
-constexpr int PER_THREAD = KMAX * KMAX / THREADS;
+constexpr int THREADS = 256;  // wide path
+constexpr int TILE = 32;      // wide path: entries per shared-memory tile
+
+// ------------------------------------------------------------ split design
+
+constexpr int E = 32;           // entries per staged tile (one warp's ballot)
+constexpr int KP = 68;          // staged row stride: k columns and the w column, in 4-blocks
+constexpr int SLAB = E * KP;    // floats of one staged tile
+constexpr int NT_MAX = 160;     // threads of a CTA at k = 64 (152 blocks)
+constexpr int CLOSE_THREADS = 256;
+
+struct Plan {
+  int B, L, k;
+  int chunk, n_chunks, per_cta;  // slots a unit, units a row, units a CTA
+  int kbi, kbj, n_blocks;        // 4-blocks of the rows, of the columns (k + 1), blocks a unit
+  int wb;                        // bytes a cp.async word of a gathered row (8, 4), 0: plain loads
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Walks a thread's share of an (n, width) grid of a tile, elements tid,
+// tid + blockDim.x, ..., as (row, column) pairs without a division per step.
+struct Stride {
+  int l, c, dl, dc, width;
+  __device__ __forceinline__ Stride(int width_) : width(width_) {
+    l = threadIdx.x / width;
+    c = threadIdx.x - l * width;
+    dl = blockDim.x / width;
+    dc = blockDim.x - dl * width;
+  }
+  __device__ __forceinline__ void next() {
+    l += dl;
+    c += dc;
+    if (c >= width) {
+      c -= width;
+      ++l;
+    }
+  }
+};
+
+// A unit's tile: unit u (row u / n_chunks, chunk u % n_chunks), tile j.
+struct Pos {
+  int u, j;
+};
+
+__device__ __forceinline__ int unit_start(const Plan& p, int u) { return (u % p.n_chunks) * p.chunk; }
+
+// Tiles of unit u: its slots in tiles of E, at least one (an empty unit
+// still writes its zeros).
+__device__ __forceinline__ int unit_tiles(const Plan& p, int u) {
+  const int len = min(p.L - unit_start(p, u), p.chunk);
+  return len > 0 ? (len + E - 1) / E : 1;
+}
+
+__device__ __forceinline__ Pos advance(const Plan& p, Pos q) {
+  return q.j + 1 < unit_tiles(p, q.u) ? Pos{q.u, q.j + 1} : Pos{q.u + 1, 0};
+}
+
+// One entry's metadata, held by thread e < E of the CTA for tile position q.
+struct Meta {
+  int idx;
+  float val;
+  bool m;
+};
+
+__device__ __forceinline__ Meta load_meta(const Plan& p, Pos q, const int* __restrict__ idx,
+                                          const float* __restrict__ val,
+                                          const unsigned char* __restrict__ mask) {
+  Meta r{0, 0.f, false};
+  const int start = unit_start(p, q.u);
+  const int l = start + q.j * E + threadIdx.x;
+  if (l < min(p.L, start + p.chunk)) {
+    const long long o = (long long)(q.u / p.n_chunks) * p.L + l;
+    r.idx = idx[o];
+    r.val = val[o];
+    r.m = mask[o] != 0;
+  }
+  return r;
+}
+
+// Per-slot metadata in shared memory.
+struct SlotMeta {
+  int idx[2][E];
+  float c1[2][E];  // rounded to the rows' dtype
+  float w[2][E];
+  unsigned char m[2][E];
+  int nl[2];       // one past the tile's last masked-in entry
+};
+
+// T = float: [raw slot 0 | cys | raw slot 1], each SLAB floats; the rows are
+// read from their raw slot. T = bf16: [raw slots 0, 1 (bf16) | ysf | cys];
+// the rows are widened into ysf. A row's output (k * k <= 4096 floats) is
+// staged in two consumed SLABs: raw slot s and cys (float), ysf and cys
+// (bf16).
+template <typename T>
+struct Smem;
+
+template <>
+struct Smem<float> {
+  static __device__ __forceinline__ float* raw(float* sm, int s) { return sm + (s ? 2 * SLAB : 0); }
+  static __device__ __forceinline__ float* rows(float* sm, int s) { return raw(sm, s); }
+  static __device__ __forceinline__ float* cys(float* sm) { return sm + SLAB; }
+  static __device__ __forceinline__ float* out(float* sm, int s) { return sm + (s ? SLAB : 0); }
+};
+
+template <>
+struct Smem<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16* raw(float* sm, int s) {
+    return reinterpret_cast<__nv_bfloat16*>(sm) + s * SLAB;
+  }
+  static __device__ __forceinline__ float* rows(float* sm, int) { return sm + SLAB; }
+  static __device__ __forceinline__ float* cys(float* sm) { return sm + 2 * SLAB; }
+  static __device__ __forceinline__ float* out(float* sm, int) { return sm + SLAB; }
+};
+
+// Issue the copies of slot s's gathered rows: entries below the tile's last
+// masked-in one, a masked-out entry zero-filled. Rows are copied in p.wb-byte
+// words: 8 (float rows of even k), 4 (float rows of odd k, bf16 rows of even
+// k), or 0: bf16 rows of odd k (not 4-byte aligned) by plain loads.
+template <typename T>
+__device__ __forceinline__ void issue_rows(const Plan& p, const T* __restrict__ source, float* sm,
+                                           const SlotMeta& sd, int s) {
+  const int nl = sd.nl[s];
+  T* raw = Smem<T>::raw(sm, s);
+  const int k = p.k;
+  if (p.wb == 0) {
+    for (Stride it(k); it.l < nl; it.next()) {
+      const int l = it.l, c = it.c;
+      raw[l * KP + c] = sd.m[s][l] ? source[(long long)sd.idx[s][l] * k + c] : Rows<T>::zero();
+    }
+    return;
+  }
+  const int wb = p.wb;
+  const int words = k * (int)sizeof(T) / wb;
+  for (Stride it(words); it.l < nl; it.next()) {
+    const int l = it.l, c = it.c;
+    const bool m = sd.m[s][l];
+    const char* src = reinterpret_cast<const char*>(source + (long long)(m ? sd.idx[s][l] : 0) * k) + c * wb;
+    char* dst = reinterpret_cast<char*>(raw + l * KP) + c * wb;
+    if (wb == 8) cp_async8(dst, src, m);
+    else cp_async4(dst, src, m);
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) als_partials_kernel(
-    const T* __restrict__ source, const int* __restrict__ idx,
+__global__ void __launch_bounds__(NT_MAX) als_split_kernel(
+    Plan p, const T* __restrict__ source, const int* __restrict__ idx,
     const float* __restrict__ val, const unsigned char* __restrict__ mask,
-    float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
-    float alpha) {
-  __shared__ T ys[TILE][KMAX];
-  __shared__ float c1s[TILE];
-  __shared__ float ws[TILE];
-  __shared__ int s_end;
+    float* __restrict__ corr, float* __restrict__ bvec, float* __restrict__ ws, float alpha) {
+  __shared__ __align__(16) float sm[3 * SLAB];
+  __shared__ SlotMeta sd;
 
   const int tid = threadIdx.x;
-  const long long base = (long long)blockIdx.x * L;
+  const int u_end = min(p.B * p.n_chunks, ((int)blockIdx.x + 1) * p.per_cta);
+  const int k = p.k;
 
-  // One past the row's last masked-in entry.
-  if (tid == 0) s_end = 0;
-  __syncthreads();
-  int my_end = 0;
-  for (int l = tid; l < L; l += THREADS)
-    if (mask[base + l]) my_end = l + 1;
-  if (my_end) atomicMax(&s_end, my_end);
-  __syncthreads();
-  const int end = s_end;
-  const int kk = k * k;
-
-  float acc[PER_THREAD];
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) acc[q] = 0.f;
-  float bacc = 0.f;
-
-  for (int l0 = 0; l0 < end; l0 += TILE) {
-    for (int e = tid; e < TILE * k; e += THREADS) {
-      const int l = e / k;
-      const int c = e - l * k;
-      const int gl = l0 + l;
-      T y = Rows<T>::zero();
-      if (gl < end && mask[base + gl])
-        y = source[(long long)idx[base + gl] * k + c];
-      ys[l][c] = y;
+  // This thread's 4 x 4 block (I, J) of [corr | b], row-major over I <= J.
+  const bool active = tid < p.n_blocks;
+  int I = 0, J = 0;
+  if (active) {
+    int t = tid;
+    while (t >= p.kbj - I) {
+      t -= p.kbj - I;
+      ++I;
     }
-    if (tid < TILE) {
-      const int gl = l0 + tid;
-      float c1 = 0.f, w = 0.f;
-      if (gl < end && mask[base + gl]) {
-        c1 = alpha * val[base + gl];
-        w = 1.f + c1;
+    J = I + t;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+
+  auto stage_meta = [&](int s, const Meta& r) {
+    if (tid < E) {
+      const float c1 = r.m ? alpha * r.val : 0.f;
+      sd.idx[s][tid] = r.idx;
+      sd.c1[s][tid] = Rows<T>::round(c1);
+      sd.w[s][tid] = r.m ? 1.f + c1 : 0.f;
+      sd.m[s][tid] = r.m;
+    }
+    if (tid < 32) {
+      const unsigned int bal = __ballot_sync(0xffffffffu, tid < E && r.m);
+      if (tid == 0) sd.nl[s] = 32 - __clz(bal);
+    }
+  };
+
+  Pos pc{(int)blockIdx.x * p.per_cta, 0};  // the tile computed this iteration
+  Pos pn = advance(p, pc);                 // its rows in flight
+  Pos pm = advance(p, pn);                 // its metadata in registers
+  Meta reg = tid < E ? load_meta(p, pc, idx, val, mask) : Meta{0, 0.f, false};
+  stage_meta(0, reg);
+  __syncthreads();
+  issue_rows<T>(p, source, sm, sd, 0);
+  cp_async_commit();
+  if (tid < E && pn.u < u_end) reg = load_meta(p, pn, idx, val, mask);
+
+  for (int s = 0;; s ^= 1) {
+    const bool has_next = pn.u < u_end;
+    if (has_next) stage_meta(s ^ 1, reg);
+    __syncthreads();  // slot s ^ 1's metadata is staged; the last tile's reads are done
+    if (has_next) issue_rows<T>(p, source, sm, sd, s ^ 1);
+    cp_async_commit();
+    if (tid < E && pm.u < u_end) reg = load_meta(p, pm, idx, val, mask);
+    cp_async_wait1();
+    __syncthreads();  // slot s's rows have landed
+
+    // c1 * y once per staged entry, w in column k (bf16: the rows widened).
+    const int nl = sd.nl[s];
+    float* rows = Smem<T>::rows(sm, s);
+    float* cys = Smem<T>::cys(sm);
+    {
+      const T* raw = Smem<T>::raw(sm, s);
+      for (Stride it(k + 1); it.l < nl; it.next()) {
+        const int l = it.l, c = it.c;
+        if (c < k) {
+          const float y = Rows<T>::widen(raw[l * KP + c]);
+          if (sizeof(T) == 2) rows[l * KP + c] = y;
+          cys[l * KP + c] = sd.c1[s][l] * y;
+        } else {
+          cys[l * KP + k] = sd.w[s][l];
+        }
       }
-      c1s[tid] = Rows<T>::round(c1);
-      ws[tid] = w;
     }
     __syncthreads();
-    const int nl = min(TILE, end - l0);
-    if (tid < k)
-      for (int l = 0; l < nl; ++l) bacc += ws[l] * Rows<T>::widen(ys[l][tid]);
+
+    if (active) {
+      const float* yb = rows + 4 * I;
+      const float* cb = cys + 4 * J;
+#pragma unroll 4
+      for (int l = 0; l < nl; ++l) {
+        const float4 y = *reinterpret_cast<const float4*>(yb + l * KP);
+        const float4 c = *reinterpret_cast<const float4*>(cb + l * KP);
+        const float ya[4] = {y.x, y.y, y.z, y.w};
+        const float ca[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int p = tid + q * THREADS;
-      if (p < kk) {
-        const int i = p / k;
-        const int j = p - i * k;
-        float a = acc[q];
-        for (int l = 0; l < nl; ++l)
-          a += c1s[l] * (Rows<T>::widen(ys[l][i]) * Rows<T>::widen(ys[l][j]));
-        acc[q] = a;
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ya[a], ca[b], acc[a][b]);
       }
     }
-    __syncthreads();
-  }
 
-  float* out = corr + (long long)blockIdx.x * kk;
+    if (pc.j == unit_tiles(p, pc.u) - 1) {  // the unit's last tile: write it out
+      const int row = pc.u / p.n_chunks;
+      if (p.n_chunks == 1) {
+        float* so = Smem<T>::out(sm, s);
+        __syncthreads();  // every thread is done with the consumed slabs
+        if (active) {
 #pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int p = tid + q * THREADS;
-    if (p < kk) out[p] = acc[q];
+          for (int a = 0; a < 4; ++a) {
+            const int i = 4 * I + a;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int j = 4 * J + b;
+              if (i >= k || (I == J && a > b)) continue;
+              if (j == k) bvec[(long long)row * k + i] = acc[a][b];
+              else if (j < k) so[i * k + j] = so[j * k + i] = acc[a][b];
+            }
+          }
+        }
+        __syncthreads();
+        float* out = corr + (long long)row * k * k;
+        if ((k & 1) == 0) {  // k * k % 4 == 0: the row is 16-byte aligned
+          for (int e = tid; e < k * k / 4; e += blockDim.x)
+            reinterpret_cast<float4*>(out)[e] = reinterpret_cast<const float4*>(so)[e];
+        } else {
+          for (int e = tid; e < k * k; e += blockDim.x) out[e] = so[e];
+        }
+      } else if (active) {
+        float4* out = reinterpret_cast<float4*>(ws + ((long long)pc.u * p.n_blocks + tid) * 16);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) out[a] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    }
+    if (!has_next) break;
+    pc = pn;
+    pn = pm;
+    pm = advance(p, pm);
   }
-  if (tid < k) bvec[(long long)blockIdx.x * k + tid] = bacc;
 }
+
+// Close the split rows: element e of row b's [corr | b] is the sum of its
+// n_chunks units' partials in chunk order ((i, j) read at (min, max): the
+// upper triangle the units computed).
+__global__ void __launch_bounds__(CLOSE_THREADS) als_close_kernel(Plan p, const float* __restrict__ ws,
+                                                                  float* __restrict__ corr,
+                                                                  float* __restrict__ bvec) {
+  const int k = p.k;
+  const long long row = blockIdx.x;
+  const int e = blockIdx.y * CLOSE_THREADS + threadIdx.x;
+  if (e >= k * k + k) return;
+  int i, j;
+  if (e < k * k) {
+    i = e / k;
+    j = e - i * k;
+    if (i > j) {
+      const int t = i;
+      i = j;
+      j = t;
+    }
+  } else {
+    i = e - k * k;
+    j = k;
+  }
+  const int bi = i >> 2, bj = j >> 2;
+  const int blk = bi * p.kbj - bi * (bi - 1) / 2 + (bj - bi);
+  const float* part = ws + (row * p.n_chunks * p.n_blocks + blk) * 16 + (i & 3) * 4 + (j & 3);
+  const long long stride = (long long)p.n_blocks * 16;
+  float s = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < p.n_chunks; ++c) s += part[c * stride];  // loads run ahead, adds in chunk order
+  if (e < k * k) corr[row * k * k + e] = s;
+  else bvec[row * k + i] = s;
+}
+
+// ------------------------------------------------------------- wide path
 
 constexpr int WT = 64;  // output tile side, wide path
 constexpr int W_PER_THREAD = WT * WT / THREADS;
@@ -255,34 +536,64 @@ __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
 
 template <typename T>
 int launch(const T* source, const int* idx, const float* val, const unsigned char* mask,
-           float* corr, float* bvec, int B, int L, int k, float alpha, cudaStream_t stream) {
-  if (B > 0 && k <= KMAX) {
-    als_partials_kernel<T><<<B, THREADS, 0, stream>>>(source, idx, val, mask, corr, bvec, L, k, alpha);
-  } else if (B > 0) {
-    const int tiles = (k + WT - 1) / WT;
-    als_partials_wide_kernel<T><<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0, stream>>>(
-        source, idx, val, mask, corr, bvec, L, k, alpha);
+           float* corr, float* bvec, int B, int L, int k, float alpha, int chunk, int n_chunks,
+           int per_cta, float* ws, cudaStream_t stream) {
+  if (k < 1 || B < 0 || L < 0) return (int)cudaErrorInvalidValue;
+  if (k > KMAX) {
+    if (B > 0) {
+      const int tiles = (k + WT - 1) / WT;
+      als_partials_wide_kernel<T><<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0,
+                                     stream>>>(source, idx, val, mask, corr, bvec, L, k, alpha);
+    }
+    return (int)cudaGetLastError();
   }
+  // The plan (ops/als.py _k1_plan): chunks of whole tiles covering the row
+  // once, several units a CTA only for unsplit rows, a workspace for split ones.
+  const long long need = L > 0 ? ((long long)L + chunk - 1) / chunk : 1;
+  if (chunk < E || chunk % E != 0 || n_chunks != need || per_cta < 1 || (n_chunks > 1 && per_cta != 1) ||
+      (n_chunks > 1 && ws == nullptr) || (long long)B * n_chunks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  // Words of 8 bytes where every row starts 8-byte aligned, else 4 (bf16:
+  // 4-byte aligned rows, else plain loads).
+  const unsigned long long base = reinterpret_cast<unsigned long long>(source);
+  const bool even = (k & 1) == 0;
+  const int wb = sizeof(T) == 4 ? (even && base % 8 == 0 ? 8 : 4) : (even && base % 4 == 0 ? 4 : 0);
+  Plan p{B, L, k, chunk, n_chunks, per_cta, (k + 3) / 4, (k + 4) / 4, 0, wb};
+  p.n_blocks = p.kbi * p.kbj - p.kbi * (p.kbi - 1) / 2;
+  const int threads = (p.n_blocks + 31) / 32 * 32;
+  const int units = B * n_chunks;
+  als_split_kernel<T><<<(units + per_cta - 1) / per_cta, threads, 0, stream>>>(p, source, idx, val, mask, corr,
+                                                                              bvec, ws, alpha);
+  if (n_chunks > 1)
+    als_close_kernel<<<dim3(B, (k * k + k + CLOSE_THREADS - 1) / CLOSE_THREADS), CLOSE_THREADS, 0, stream>>>(
+        p, ws, corr, bvec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32;
-// any k >= 1 (k > 64 takes the wide path).
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int als_partials_launch(const float* source, const int* idx,
-                                   const float* val, const unsigned char* mask,
-                                   float* corr, float* bvec, int B, int L,
-                                   int k, float alpha, void* stream) {
-  return launch<float>(source, idx, val, mask, corr, bvec, B, L, k, alpha, (cudaStream_t)stream);
+// any k >= 1 (k > 64 takes the wide path, which ignores the plan). The plan
+// of k <= 64: chunk slots a unit (a multiple of 32), n_chunks = ceil(L /
+// chunk) units a row (1 when L == 0), per_cta units a CTA (1 when n_chunks >
+// 1), and ws, B * n_chunks * 16 * blocks floats (blocks = the 4 x 4 blocks
+// of [corr | b]: ops/als.py k1_blocks), when n_chunks > 1.
+// Returns cudaGetLastError() after the launches (0 = launched;
+// cudaErrorInvalidValue for a plan that does not cover the rows).
+extern "C" int als_partials_launch(const float* source, const int* idx, const float* val,
+                                   const unsigned char* mask, float* corr, float* bvec, int B, int L,
+                                   int k, float alpha, int chunk, int n_chunks, int per_cta, float* ws,
+                                   void* stream) {
+  return launch<float>(source, idx, val, mask, corr, bvec, B, L, k, alpha, chunk, n_chunks, per_cta, ws,
+                       (cudaStream_t)stream);
 }
 
 // K1-bf16: as als_partials_launch, with source (n, k) bf16.
-extern "C" int als_partials_bf16_launch(const void* source, const int* idx,
-                                        const float* val, const unsigned char* mask,
-                                        float* corr, float* bvec, int B, int L,
-                                        int k, float alpha, void* stream) {
+extern "C" int als_partials_bf16_launch(const void* source, const int* idx, const float* val,
+                                        const unsigned char* mask, float* corr, float* bvec, int B,
+                                        int L, int k, float alpha, int chunk, int n_chunks, int per_cta,
+                                        float* ws, void* stream) {
   return launch<__nv_bfloat16>((const __nv_bfloat16*)source, idx, val, mask, corr, bvec, B, L, k, alpha,
-                               (cudaStream_t)stream);
+                               chunk, n_chunks, per_cta, ws, (cudaStream_t)stream);
 }

@@ -27,6 +27,14 @@
 // one row at once and the sum order (and the last bits) changes from run to
 // run. The loss and gw are reduced over the CTA's pairs in shared memory
 // and added with one atomic each per CTA.
+//
+// Ranks above RMAX and side widths above DMAX take the wide path
+// (bpr_step_wide_kernel): the same warp per pair, holding no row in
+// registers. Each score is one strided pass over r and d (the rows read from
+// L2); each negative's terms go into gx[u], gy[neg] and gw with atomics as
+// soon as its c_bn is known, and the positive's after the last negative:
+// any width, more atomics than the narrow path, for widths no job of the
+// repo runs.
 
 #include <cuda_runtime.h>
 
@@ -139,20 +147,95 @@ __global__ void __launch_bounds__(WARPS * 32) bpr_step_kernel(
   }
 }
 
+__global__ void __launch_bounds__(WARPS * 32) bpr_step_wide_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ bias, const float* __restrict__ w,
+    const float* __restrict__ g, const int* __restrict__ users,
+    const int* __restrict__ pos, const int* __restrict__ neg,
+    float* __restrict__ gx, float* __restrict__ gy, float* __restrict__ gbias,
+    float* __restrict__ gw, float* __restrict__ loss_acc, int B, int N, int r,
+    int d, float reg) {
+  __shared__ float s_loss[WARPS];
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + wi;
+  const float inv_bn = 1.0f / ((float)B * (float)N);
+  const float two_reg_b = 2.0f * reg / (float)B;
+  float loss = 0.0f;  // the same on every lane
+  if (b < B) {  // uniform over the warp
+    const float* xu = x + (long long)users[b] * r;
+    const long long ip = pos[b];
+    const float* yp = y + ip * r;
+    const float* gp = g + ip * d;
+    float dot = 0.0f;
+    float sq = 0.0f;  // this lane's share of |x_u|^2 + |y_pos|^2 + sum_n |y_neg|^2
+    for (int c = lane; c < r; c += 32) {
+      dot += xu[c] * yp[c];
+      sq += xu[c] * xu[c] + yp[c] * yp[c];
+    }
+    for (int j = lane; j < d; j += 32) dot += gp[j] * w[j];
+    const float s_pos = warp_sum(dot) + bias[ip];
+    float csum = 0.0f;
+    float* gxr = gx + (long long)users[b] * r;
+    for (int n = 0; n < N; ++n) {
+      const long long in = neg[(long long)b * N + n];
+      const float* yn = y + in * r;
+      const float* gn = g + in * d;
+      dot = 0.0f;
+      for (int c = lane; c < r; c += 32) {
+        dot += xu[c] * yn[c];
+        sq += yn[c] * yn[c];
+      }
+      for (int j = lane; j < d; j += 32) dot += gn[j] * w[j];
+      const float diff = s_pos - (warp_sum(dot) + bias[in]);
+      loss += softplus(-diff) * inv_bn;
+      const float cb = -inv_bn / (1.0f + expf(diff));  // -sigmoid(-diff) / (B N)
+      csum += cb;
+      float* gyn = gy + in * r;
+      for (int c = lane; c < r; c += 32) {
+        atomicAdd(gxr + c, cb * (yp[c] - yn[c]));
+        atomicAdd(gyn + c, -cb * xu[c] + two_reg_b * yn[c]);
+      }
+      for (int j = lane; j < d; j += 32) atomicAdd(gw + j, -cb * gn[j]);
+      if (lane == 0) atomicAdd(gbias + in, -cb);
+    }
+    loss += reg / (float)B * warp_sum(sq);
+    float* gyp = gy + ip * r;
+    for (int c = lane; c < r; c += 32) {
+      atomicAdd(gxr + c, two_reg_b * xu[c]);
+      atomicAdd(gyp + c, csum * xu[c] + two_reg_b * yp[c]);
+    }
+    for (int j = lane; j < d; j += 32) atomicAdd(gw + j, csum * gp[j]);
+    if (lane == 0) atomicAdd(gbias + ip, csum);
+  }
+  if (lane == 0) s_loss[wi] = loss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int i = 0; i < WARPS; ++i) s += s_loss[i];
+    atomicAdd(loss_acc, s);
+  }
+}
+
 }  // namespace
 
 // x (U, r), y (I, r), bias (I,), w (d,), g (I, d) f32; users, pos (B,) and
 // neg (B, N) i32 row ids; gx, gy, gbias, gw the gradients of x, y, bias, w,
-// added into; loss_acc (1,) f32, added into. r <= 128, 1 <= d <= 32.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// added into; loss_acc (1,) f32, added into. Any r >= 1 and d >= 1 (r >
+// 128 or d > 32 takes the wide path). Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int bpr_step_launch(const float* x, const float* y, const float* bias,
                                const float* w, const float* g, const int* users,
                                const int* pos, const int* neg, float* gx, float* gy,
                                float* gbias, float* gw, float* loss_acc, int B, int N,
                                int r, int d, float reg, void* stream) {
-  if (r < 1 || r > RMAX || d < 1 || d > DMAX || N < 1) return (int)cudaErrorInvalidValue;
-  if (B > 0)
-    bpr_step_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
+  if (r < 1 || d < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (B + WARPS - 1) / WARPS;
+  if (B > 0 && r <= RMAX && d <= DMAX)
+    bpr_step_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg);
+  else if (B > 0)
+    bpr_step_wide_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
         x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg);
   return (int)cudaGetLastError();
 }

@@ -70,7 +70,7 @@ extern "C" int masked_topk_launch(const float* scores, long long sb, long long s
                                   void* stream) {
   if (k < 1 || k > topk::KMAX_SMALL) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Lpad * sizeof(int);
-  if (smem > 48 * 1024) {
+  if (smem + topk::STATIC_SMEM_MAX > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         masked_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

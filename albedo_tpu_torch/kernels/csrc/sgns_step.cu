@@ -21,6 +21,13 @@
 // row at once, and the sum order (and the last bits) changes from run to
 // run. The loss is reduced over the CTA's pairs in shared memory and added
 // with one atomic per CTA.
+//
+// Embeddings wider than DMAX take the wide path (sgns_step_wide_kernel): the
+// same warp per pair, but no row is held in registers. For each of its 1 + K
+// rows the warp forms the logit in one strided pass over d (in[c] and the
+// row read from L2), then adds g * row into grad_in[c] and g * in[c] into
+// grad_out[row] in a second pass, with atomics: any d, (1 + K) times the
+// narrow path's grad_in atomics, for a width no job of the repo runs.
 
 #include <cuda_runtime.h>
 
@@ -96,19 +103,62 @@ __global__ void __launch_bounds__(WARPS * 32) sgns_step_kernel(
   }
 }
 
+__global__ void __launch_bounds__(WARPS * 32) sgns_step_wide_kernel(
+    const float* __restrict__ in_t, const float* __restrict__ out_t,
+    const int* __restrict__ centers, const int* __restrict__ contexts,
+    const int* __restrict__ negs, float* __restrict__ grad_in,
+    float* __restrict__ grad_out, float* __restrict__ loss_acc, int B, int d,
+    int K, float inv_b) {
+  __shared__ float pair_loss[WARPS];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * WARPS + w;
+  float loss = 0.0f;
+  if (b < B) {  // uniform over the warp
+    const float* vc = in_t + (long long)centers[b] * d;
+    float* gi = grad_in + (long long)centers[b] * d;
+    for (int k = 0; k <= K; ++k) {
+      const long long row = k == 0 ? contexts[b] : negs[(long long)b * K + (k - 1)];
+      const float* vo = out_t + row * d;
+      float dot = 0.0f;
+      for (int i = lane; i < d; i += 32) dot += vc[i] * vo[i];
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      const float label = k == 0 ? 1.0f : 0.0f;
+      const float g = (1.0f / (1.0f + expf(-dot)) - label) * inv_b;
+      loss += bce_with_logits(dot, label);
+      float* go = grad_out + row * d;
+      for (int i = lane; i < d; i += 32) {
+        atomicAdd(gi + i, g * vo[i]);
+        atomicAdd(go + i, g * vc[i]);
+      }
+    }
+  }
+  if (lane == 0) pair_loss[w] = loss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int i = 0; i < WARPS; ++i) s += pair_loss[i];
+    atomicAdd(loss_acc, s * inv_b);
+  }
+}
+
 }  // namespace
 
 // in_t, out_t (V, d) f32; centers, contexts (B,) int32; negs (B, K) int32;
 // grad_in, grad_out (V, d) f32, added into; loss_acc (1,) f32, added into.
-// d <= 512. Returns cudaGetLastError() after the launch (0 = launched).
+// any d >= 1 (d > 512 takes the wide path). Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int sgns_step_launch(const float* in_t, const float* out_t, const int* centers,
                                 const int* contexts, const int* negs, float* grad_in,
                                 float* grad_out, float* loss_acc, int B, int d, int K,
                                 void* stream) {
-  if (d > DMAX) return (int)cudaErrorInvalidValue;
-  if (B > 0)
-    sgns_step_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
-        in_t, out_t, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K,
-        1.0f / (float)B);
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (B + WARPS - 1) / WARPS;
+  if (B > 0 && d <= DMAX)
+    sgns_step_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        in_t, out_t, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, 1.0f / (float)B);
+  else if (B > 0)
+    sgns_step_wide_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        in_t, out_t, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, 1.0f / (float)B);
   return (int)cudaGetLastError();
 }

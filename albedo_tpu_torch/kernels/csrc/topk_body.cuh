@@ -203,7 +203,7 @@ inline int launch(const QuerySpec& q, int B, const float* items, float* out_s, i
   const void* kernel =
       wide ? (small_list ? (const void*)wide_kernel<KMAX_SMALL> : (const void*)wide_kernel<KMAX>)
            : (small_list ? (const void*)narrow_kernel<KMAX_SMALL> : (const void*)narrow_kernel<KMAX>);
-  if (smem > 48 * 1024) {
+  if (smem + STATIC_SMEM_MAX > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

@@ -3,10 +3,14 @@
 //
 // The order is that of the JAX programs: score descending, then item index
 // ascending (lax.top_k keeps the lower position on ties), and the slots past
-// the admissible items are (-inf, -1). -inf and NaN scores are never
-// admitted. The running list lives in shared memory: each tile of items
-// appends only the items that beat the current k-th entry, and a merge
-// places each survivor at its rank in the total order.
+// the admissible items are (-inf, -1). NaN follows lax.top_k's total order:
+// a NaN with the sign bit clear ranks above +inf (NaNs among themselves by
+// index), one with it set below -inf; -inf and such a -NaN are never
+// admitted; -0.0 and +0.0 tie. The order compares K5's 32-bit order key
+// (topk_scores.cu score_key), then the index. The running list lives in
+// shared memory: each tile of items appends only the items that beat the
+// current k-th entry, and a merge places each survivor at its rank in the
+// total order.
 //
 // A row's excluded items arrive as a -1-padded, unsorted list that may hold
 // duplicates; it is copied into shared memory and sorted (bitonic), so a
@@ -29,9 +33,24 @@ namespace topk {
 constexpr int THREADS = 256;
 constexpr int KMAX_SMALL = 128;
 constexpr int KMAX = 512;
+// The largest static shared memory of a kernel holding a running list
+// (topk_body.cuh narrow_kernel<KMAX>: 22.8 KB). A launch whose dynamic
+// shared memory and this exceed the 48 KB a block gets by default opts in
+// to more (cudaFuncAttributeMaxDynamicSharedMemorySize) first.
+constexpr size_t STATIC_SMEM_MAX = 24 * 1024;
 
-__device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
+// Order key of a score: larger = better; 0 = not admissible (-inf, -NaN).
+// +NaN is the largest; -0.0 and +0.0 tie.
+__device__ __forceinline__ unsigned int order_key(float s) {
+  if (s != s) return (__float_as_uint(s) & 0x80000000u) ? 0u : 0xFFFFFFFFu;
+  if (!(s > -INFINITY)) return 0u;
+  const unsigned int u = __float_as_uint(__fadd_rn(s, 0.0f));  // -0.0 -> +0.0: they tie
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// (key a, item a) comes before (key b, item b).
+__device__ __forceinline__ bool beats(unsigned int ka, int ia, unsigned int kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
 }
 
 // Copy ``list[0..E)`` into ``s_list[0..Epad)`` (negative entries and the
@@ -84,7 +103,7 @@ __device__ __forceinline__ bool contains(const int* s_list, int Epad, int item) 
 // What a thread needs to test a candidate against the current k-th entry.
 struct Threshold {
   int nr;
-  float s;
+  unsigned int key;
   int i;
 };
 
@@ -98,6 +117,7 @@ struct Running {
   int new_i[KM];
   float cand_s[TILE];
   int cand_i[TILE];
+  unsigned int keys[KM + TILE];  // order keys of the list and the candidates, for the merge
   int n_cand;
   int n_real;
 
@@ -111,14 +131,15 @@ struct Running {
     if (threadIdx.x == 0) n_cand = 0;
     __syncthreads();
     const int nr = n_real;
-    return {nr, nr == k ? top_s[k - 1] : -INFINITY, nr == k ? top_i[k - 1] : -1};
+    return {nr, nr == k ? order_key(top_s[k - 1]) : 0u, nr == k ? top_i[k - 1] : -1};
   }
 
   // Add (s, item) to the tile's candidates if it is admissible and beats the
   // k-th entry.
   __device__ __forceinline__ void offer(const Threshold& th, float s, int item, int k) {
-    if (!(s > -INFINITY)) return;  // -inf and NaN are never admitted
-    if (th.nr == k && !beats(s, item, th.s, th.i)) return;
+    const unsigned int key = order_key(s);
+    if (key == 0u) return;  // -inf and -NaN are never admitted
+    if (th.nr == k && !beats(key, item, th.key, th.i)) return;
     const int slot = atomicAdd(&n_cand, 1);
     cand_s[slot] = s;
     cand_i[slot] = item;
@@ -132,14 +153,16 @@ struct Running {
     if (nc == 0) return;
     const int nr = n_real;
     const int M = nr + nc;
+    for (int e = tid; e < M; e += THREADS) keys[e] = order_key(e < nr ? top_s[e] : cand_s[e - nr]);
+    __syncthreads();
     for (int e = tid; e < M; e += THREADS) {
       const float se = e < nr ? top_s[e] : cand_s[e - nr];
       const int ie = e < nr ? top_i[e] : cand_i[e - nr];
+      const unsigned int ke = keys[e];
       int rank = 0;
       for (int f = 0; f < M; ++f) {
-        const float sf = f < nr ? top_s[f] : cand_s[f - nr];
         const int jf = f < nr ? top_i[f] : cand_i[f - nr];
-        rank += beats(sf, jf, se, ie);
+        rank += beats(keys[f], jf, ke, ie);
       }
       if (rank < k) {
         new_s[rank] = se;

@@ -29,8 +29,17 @@
 //      (score desc, index asc) with a bitonic sort (in shared memory, or in a
 //      global-memory buffer for large k), and writes them, then (-inf, -1) in
 //      the slots past the admissible items.
+// A second entry, masked_select (K11's masked_topk above the streaming
+// kernel's k <= 128 or a starred row longer than 32768), takes the scores as
+// given: step 2 reads the strided (B, n) block and divides column i by
+// max(col_norm[i], 1e-12) when a norm is given (IEEE division, as
+// masked_topk.cu and the plain version), step 3 drops each row's starred
+// columns, and step 4 is the same select.
+//
 // The order and tie rule are topk_merge.cuh's: score descending, then item
-// index ascending; -inf and NaN are never admitted; -0.0 and +0.0 tie.
+// index ascending; a NaN with the sign bit clear ranks above +inf (NaNs by
+// index), -inf and a NaN with it set are never admitted (lax.top_k's total
+// order); -0.0 and +0.0 tie.
 //
 // What bounds it on an H100: the (rows, I) score scratch it writes and reads
 // back about six times (the score pass, the exclusions, the count, four radix
@@ -49,12 +58,7 @@ constexpr int STHREADS = 256;            // score and exclude kernels
 constexpr int KTHREADS = 1024;           // select kernel
 constexpr int KWARPS = KTHREADS / 32;
 
-// Order key of a score: larger key = better; 0 = not admissible (-inf, NaN).
-__device__ __forceinline__ unsigned int order_key(float s) {
-  if (!(s > -INFINITY)) return 0u;
-  const unsigned int u = __float_as_uint(s + 0.0f);  // -0.0 -> +0.0: they tie
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
+using topk::order_key;  // larger key = better; 0 = not admissible (-inf, -NaN)
 
 __global__ void __launch_bounds__(QTHREADS) query_kernel(topk::QuerySpec q, const float* __restrict__ items,
                                                          int r, float* qbuf, int qstride, int* has) {
@@ -91,6 +95,29 @@ __global__ void __launch_bounds__(STHREADS) exclude_kernel(topk::QuerySpec q, in
   for (int e = threadIdx.x; e < q.E; e += STHREADS) {
     int x = ex[e];
     if (x >= 0 && q.excl_map != nullptr) x = q.excl_map[x];
+    if (x >= 0 && x < n_items) scratch[b * n_items + x] = -INFINITY;
+  }
+}
+
+// K11's scores as given: (row, column) of the strided block, divided by the
+// column's norm when one is given.
+__global__ void __launch_bounds__(STHREADS) given_kernel(const float* __restrict__ scores, long long sb,
+                                                         long long si, const float* __restrict__ norm,
+                                                         int n_items, float* __restrict__ scratch) {
+  const long long b = blockIdx.y;
+  const int item = blockIdx.x * STHREADS + threadIdx.x;
+  if (item >= n_items) return;
+  float s = scores[b * sb + item * si];
+  if (norm != nullptr) s = s / fmaxf(norm[item], 1e-12f);
+  scratch[b * n_items + item] = s;
+}
+
+// K11's starred columns (-1-padded rows of L) to -inf.
+__global__ void __launch_bounds__(STHREADS) starred_kernel(const int* __restrict__ starred, int L,
+                                                           int n_items, float* __restrict__ scratch) {
+  const long long b = blockIdx.x;
+  for (int e = threadIdx.x; e < L; e += STHREADS) {
+    const int x = starred[b * L + e];
     if (x >= 0 && x < n_items) scratch[b * n_items + x] = -INFINITY;
   }
 }
@@ -254,6 +281,36 @@ extern "C" int topk_select_launch(const float* users, const float* items, const 
     score_kernel<<<dim3((n_items + STHREADS - 1) / STHREADS, B), STHREADS, 0, st>>>(
         qbuf, qstride, has, items, n_items, r, scratch);
     if (excl != nullptr && E > 0) exclude_kernel<<<B, STHREADS, 0, st>>>(q, n_items, scratch);
+  }
+  const size_t smem = sortbuf == nullptr ? (size_t)sort_pad * sizeof(unsigned long long) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  select_kernel<<<B, KTHREADS, smem, st>>>(scratch, n_items, k, out_s + (long long)row0 * k,
+                                           out_i + (long long)row0 * k, sortbuf, sort_pad);
+  return (int)cudaGetLastError();
+}
+
+// K11's masked_topk for any k and any starred width: element (b, i) of the
+// scores at scores[b * sb + i * si], f32, rows x n; norm (n,) f32 or null;
+// starred (rows, L) i32, -1-padded, or null when L == 0; out_s, out_i
+// (rows, k). This call serves rows [row0, row0 + B): scratch (B, n) f32 and
+// sortbuf as topk_select_launch's. Returns cudaGetLastError() after the
+// launches (0 = launched).
+extern "C" int masked_select_launch(const float* scores, long long sb, long long si, const int* starred,
+                                    const float* norm, float* out_s, int* out_i, int row0, int B,
+                                    int n_items, int k, int L, float* scratch, unsigned long long* sortbuf,
+                                    int sort_pad, void* stream) {
+  if (k < 1 || sort_pad < 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_items > 0) {
+    given_kernel<<<dim3((n_items + STHREADS - 1) / STHREADS, B), STHREADS, 0, st>>>(
+        scores + (long long)row0 * sb, sb, si, norm, n_items, scratch);
+    if (starred != nullptr && L > 0)
+      starred_kernel<<<B, STHREADS, 0, st>>>(starred + (long long)row0 * L, L, n_items, scratch);
   }
   const size_t smem = sortbuf == nullptr ? (size_t)sort_pad * sizeof(unsigned long long) : 0;
   if (smem > 48 * 1024) {

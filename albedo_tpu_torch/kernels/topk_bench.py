@@ -4,6 +4,7 @@ K5's split design must get right.
     python -m albedo_tpu_torch.kernels.topk_bench calls
     python -m albedo_tpu_torch.kernels.topk_bench variants
     python /path/to/topk_bench.py calls     # from any checkout's root
+    python -m albedo_tpu_torch.kernels.topk_bench streaming
 
 ``calls``: K5 (``ops.topk.topk_scores``) at the shapes of ``CALLS`` (the
 bench's 500 users at k 30 and 512, the ``train_als`` and ``ranking_mf``
@@ -21,8 +22,11 @@ running it from two checkouts on one card compares them. ``variants``: the
 same calls through other plans of the current kernel (item tile 32 or 128,
 splits for 0.5 to 4 waves of CTAs) and through copies of its source
 (``SOURCE_VARIANTS``: the selection cut out, the sorting network for every
-candidate batch, 128 columns a step), kernel ms only. Each mode prints one JSON line. Needs a GPU;
-the CPU has nothing to measure here.
+candidate batch, 128 columns a step), kernel ms only. ``streaming``: the
+calls of the streaming body (``STREAMING``: K11's masked_topk, K6, K7) held
+exactly and timed (kernel and event ms), also importing from the working
+directory. Each mode prints one JSON line. Needs a GPU; the CPU has nothing
+to measure here.
 """
 
 from __future__ import annotations
@@ -356,13 +360,59 @@ def mode_variants(torch) -> dict:
     return out
 
 
+# name -> shape of the streaming body's calls (csrc/topk_merge.cuh): K11's
+# masked_topk on a CF job's block (users, items, stars, k), K6 at the serve
+# job's scale (users, items, history width, batch, k), K7's item-mean query
+# (items, d, examples, batch, k).
+STREAMING = {"masked_topk": (256, 2936, 280, 30), "gather_topk": (5000, 2936, 280, 64, 32),
+             "bank_query": (2936, 50, 32, 64, 30)}
+
+
+def mode_streaming(torch) -> dict:
+    """The streaming body's calls (K6, K7, K11's masked_topk) from a numpy
+    seed at ``STREAMING``'s shapes: exact against the plain version, the
+    card's kernel ms (profiler) and CUDA-event ms. Imports the package from
+    the working directory, so running it from two checkouts compares them."""
+    sys.path.insert(0, ".")
+    from albedo_tpu_torch.ops import spmm
+    from albedo_tpu_torch.ops import topk
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    b, n, stars, k = STREAMING["masked_topk"]
+    block = t(rng.normal(size=(n, b)).astype(np.float32)).t()
+    starred = t(np.stack([rng.choice(n, size=stars, replace=False) for _ in range(b)]).astype(np.int32))
+    norm = t(rng.uniform(0.5, 3.0, size=n).astype(np.float32))
+    users, items, width, bucket, k6 = STREAMING["gather_topk"]
+    uf, vf = t(rng.normal(size=(users, 50)).astype(np.float32)), t(rng.normal(size=(items, 50)).astype(np.float32))
+    table = t(np.stack([rng.choice(items, size=width, replace=False) for _ in range(users)]).astype(np.int32))
+    ui = t(rng.integers(0, users, size=bucket).astype(np.int32))
+    n7, d, q, b7, k7 = STREAMING["bank_query"]
+    vec = t(np.abs(rng.normal(size=(n7, d))).astype(np.float32))
+    q_idx = t(rng.integers(-1, n7, size=(b7, q)).astype(np.int32))
+    calls = {
+        "masked_topk": (lambda: spmm.masked_topk(block, starred, k, norm),
+                        lambda: spmm.masked_topk_reference(block, starred, k, norm)),
+        "gather_topk": (lambda: topk.gather_topk(uf, vf, ui, k6, exclude_table=table),
+                        lambda: topk.gather_topk_reference(uf, vf, ui, k6, exclude_table=table)),
+        "bank_query": (lambda: topk.bank_query(vec, k7, q_idx=q_idx), lambda: topk.bank_query_reference(vec, k7, q_idx=q_idx)),
+    }
+    return {name: {"shape": list(STREAMING[name]), "exact": same(torch, fn(), plain()), "kernel_ms": _kernel_ms(torch, fn),
+                   "ms": [_events_ms(torch, fn) for _ in range(3)]}
+            for name, (fn, plain) in calls.items()}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("topk_bench: needs a GPU", file=sys.stderr)
         return 1
-    modes = {"calls": mode_calls, "variants": mode_variants}
+    modes = {"calls": mode_calls, "variants": mode_variants, "streaming": mode_streaming}
     if len(argv) != 1 or argv[0] not in modes:
         print(f"usage: topk_bench {{{'|'.join(modes)}}}", file=sys.stderr)
         return 2

@@ -52,6 +52,8 @@ the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from albedo_tpu_torch.datasets.ragged import Bucket
@@ -63,6 +65,14 @@ KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wid
 SMEM_MAX = 232448 - 1024
 TILE = 32  # entries per shared-memory tile of K3 (bucket_cg.cu)
 WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
+# K1's split plan (csrc/als_partials.cu, ranks up to KMAX; :func:`_k1_plan`).
+K1_TILE = 32          # entries a staged tile; a chunk is whole tiles
+K1_MIN_CHUNK = 64     # the shortest chunk a row is cut into
+K1_UNITS_PER_SM = 8   # units a split group aims for, per SM
+K1_CTAS_PER_SM = 16   # CTAs an unsplit group's grid aims for, per SM: two waves of the 8 an SM holds
+                      # (27 KB of shared memory each); both measured by als_partials_bench variants
+_K1_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
+_K1_WORKSPACE_LOCK = threading.Lock()
 
 
 GATHER_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
@@ -209,13 +219,67 @@ def _entry(kernel: str, gather_dtype: str | None) -> str:
     return kernel if gather_dtype is None else f"{kernel}_bf16"
 
 
+def k1_blocks(k: int) -> int:
+    """The 4 x 4 blocks (I, J), I <= J, of the upper triangle of K1's
+    (k, k + 1) matrix ``[corr | b]`` (the split design's threads, and the
+    floats / 16 of one unit's partial)."""
+    kbi, kbj = -(-k // 4), (k + 4) // 4
+    return kbi * kbj - kbi * (kbi - 1) // 2
+
+
+def _k1_plan(b: int, length: int, n_sm: int) -> tuple[int, int, int]:
+    """(chunk, n_chunks, per_cta) of a K1 launch at rank <= KMAX
+    (``csrc/als_partials.cu``): each of the ``b`` rows' ``length`` slots cut
+    into ``n_chunks`` chunks of ``chunk`` slots (whole 32-entry tiles), a
+    unit being one (row, chunk), and ``per_cta`` units a CTA. A group with
+    fewer rows than half of K1_UNITS_PER_SM x ``n_sm`` has its rows split,
+    chunks no shorter than K1_MIN_CHUNK, toward that many units, one a CTA;
+    other groups keep one chunk a row and give each CTA enough rows that the
+    grid has about K1_CTAS_PER_SM CTAs an SM."""
+    want = n_sm * K1_UNITS_PER_SM
+    n_chunks = 1
+    if 2 * b < want and length > K1_MIN_CHUNK:
+        n_chunks = min(-(-want // max(b, 1)), -(-length // K1_MIN_CHUNK))
+    chunk = max(K1_TILE, -(-(-(-length // n_chunks)) // K1_TILE) * K1_TILE)
+    n_chunks = max(1, -(-length // chunk))
+    per_cta = 1 if n_chunks > 1 else max(1, -(-b // (n_sm * K1_CTAS_PER_SM)))
+    return chunk, n_chunks, per_cta
+
+
+def k1_units(b: int, length: int, plan: tuple[int, int, int]) -> list[tuple[int, int, int, int, int]]:
+    """Every unit of a K1 plan as the kernel walks it: (CTA, row, chunk
+    index, first slot, one past the last slot). A split row's partials are
+    added in chunk index order."""
+    chunk, n_chunks, per_cta = plan
+    return [(u // per_cta, u // n_chunks, u % n_chunks, (u % n_chunks) * chunk,
+             min(length, (u % n_chunks) * chunk + chunk)) for u in range(b * n_chunks)]
+
+
+def _k1_workspace(n: int, dev: torch.device) -> torch.Tensor:
+    """At least ``n`` floats of the (device, current stream)'s K1 workspace
+    (split rows' partials), grown as calls need: launches on one stream run
+    in order, so they share it, and a fit's 74 calls an iteration allocate
+    nothing."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _K1_WORKSPACE.get(key)
+    if ws is None or ws.numel() < n:
+        with _K1_WORKSPACE_LOCK:
+            ws = _K1_WORKSPACE.get(key)
+            if ws is None or ws.numel() < n:
+                ws = torch.empty(max(n, 2 * (0 if ws is None else ws.numel())), dtype=torch.float32, device=dev)
+                _K1_WORKSPACE[key] = ws
+    return ws
+
+
 def bucket_partial_terms(
     source: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     mask: torch.Tensor, alpha: float, gather_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: the Gramian correction and b-vector of a padded bucket, with the
     row gather fused in (CUDA kernel ``als_partials``, or ``als_partials_bf16``
-    reading the bf16 table; the (B, L, k) block is never materialized)."""
+    reading the bf16 table; the (B, L, k) block is never materialized). Up
+    to rank KMAX one call is one launch of the split design (:func:`_k1_plan`;
+    a split row's partials are closed by a second kernel of the launch)."""
     if on_cpu("als_partials", source, idx, val, mask):
         return bucket_partial_terms_reference(source, idx, val, mask, alpha, gather_dtype)
     table = gather_table(source, gather_dtype)
@@ -230,10 +294,16 @@ def bucket_partial_terms(
     check_operand(kernel, "mask", mask, torch.bool, (b, length), dev)
     corr = torch.empty((b, k, k), dtype=torch.float32, device=dev)
     b_vec = torch.empty((b, k), dtype=torch.float32, device=dev)
+    chunk, n_chunks, per_cta = K1_TILE, 1, 1
+    ws = None
+    if k <= KMAX:
+        chunk, n_chunks, per_cta = _k1_plan(b, length, torch.cuda.get_device_properties(dev).multi_processor_count)
+        if n_chunks > 1:
+            ws = _k1_workspace(b * n_chunks * 16 * k1_blocks(k), dev).data_ptr()
     call(
         kernel, dev, table.data_ptr(), idx.data_ptr(), val.data_ptr(),
         mask.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), b, length, k,
-        float(alpha), count=_path(kernel, k),
+        float(alpha), chunk, n_chunks, per_cta, ws, count=_path(kernel, k),
     )
     return corr, b_vec
 

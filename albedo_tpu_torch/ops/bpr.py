@@ -7,8 +7,9 @@ Port of the device half of ``albedo_tpu/models/ranking_factorization.py``
 items). :func:`bpr_step` runs the CUDA kernel ``bpr_step``: one warp per
 pair gathers x_u, y_pos, the negatives' rows, the item biases and the side
 terms ``g_i . w``, forms the N pairwise differences, and adds the
-gradients of x, y, the item bias and w into dense tables with atomics. The
-plain version (:func:`bpr_step_reference`, autograd over :func:`bpr_loss`)
+gradients of x, y, the item bias and w into dense tables with atomics
+(above rank 128 or side width 32 a wide path keeps no row in registers, so
+any width runs). The plain version (:func:`bpr_step_reference`, autograd over :func:`bpr_loss`)
 runs for CPU tensors and is what ``chip_smoke.py`` holds the kernel
 against. The Adam update is ``ops.sgns.adam_dense`` over the flat buffer
 that holds all four parameters.
@@ -26,8 +27,8 @@ import torch.nn.functional as F
 
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 
-RMAX = 128  # widest factor rank the kernel takes
-DMAX = 32   # widest item side-feature vector the kernel takes
+RMAX = 128  # widest factor rank of the narrow path; wider ranks take the wide path (bpr_step_wide)
+DMAX = 32   # widest item side-feature vector of the narrow path; wider ones take the wide path
 
 
 def bpr_loss(
@@ -107,10 +108,8 @@ def bpr_step(
     n_users, r = x.shape
     n_items, d = g.shape
     b, n_neg = neg.shape
-    if not 1 <= r <= RMAX:
-        raise ValueError(f"bpr_step: the CUDA kernel takes ranks 1..{RMAX}, got {r}")
-    if not 1 <= d <= DMAX:
-        raise ValueError(f"bpr_step: the CUDA kernel takes side widths 1..{DMAX}, got {d}")
+    if r < 1 or d < 1:
+        raise ValueError(f"bpr_step: the CUDA kernel takes ranks and side widths >= 1, got {r} and {d}")
     if n_neg < 1:
         raise ValueError("bpr_step: needs at least one negative per pair")
     dev = x.device
@@ -124,4 +123,5 @@ def bpr_step(
         ("loss_acc", loss_acc, torch.float32, (1,)),
     ):
         check_operand("bpr_step", name, t, dtype, shape, dev)
-    call("bpr_step", dev, *(t.data_ptr() for t in tensors), b, n_neg, r, d, float(reg))
+    call("bpr_step", dev, *(t.data_ptr() for t in tensors), b, n_neg, r, d, float(reg),
+         count="bpr_step_wide" if r > RMAX or d > DMAX else None)

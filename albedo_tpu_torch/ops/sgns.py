@@ -6,7 +6,8 @@ Port of the device half of ``albedo_tpu/models/word2vec.py fit_corpus``
 K9 :func:`sgns_step` (per-pair negatives) runs the CUDA kernel ``sgns_step``: one warp per
 (center, context) pair gathers the rows, forms the 1 + K logits and the
 sigmoid cross-entropy gradient scalars, and adds the row gradients into
-dense (V, d) tables with atomics. :func:`adam_dense` runs the CUDA kernel
+dense (V, d) tables with atomics (above d = 512 a wide path keeps no row in
+registers, so any width runs). :func:`adam_dense` runs the CUDA kernel
 ``adam_dense``: ``optax.adam``'s update on every element of a table, fused
 with zeroing the gradient for the next step. K9s :func:`sgns_shared_step`
 (``shared_negatives = K > 0``: one (K,) pool of negatives for the whole
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
 
-DMAX = 512  # widest embedding the K9 kernel takes
+DMAX = 512  # widest embedding of K9's narrow path; wider ones take its wide path (sgns_step_wide)
 
 
 def sgns_step_reference(
@@ -93,8 +94,8 @@ def sgns_step(
         return
     v_size, d = in_t.shape
     b, k = negs.shape
-    if not 1 <= d <= DMAX:
-        raise ValueError(f"sgns_step: the CUDA kernel takes dims 1..{DMAX}, got {d}")
+    if d < 1:
+        raise ValueError(f"sgns_step: the CUDA kernel takes dims >= 1, got {d}")
     dev = in_t.device
     for name, t, dtype, shape in (
         ("in_t", in_t, torch.float32, (v_size, d)), ("out_t", out_t, torch.float32, (v_size, d)),
@@ -105,7 +106,7 @@ def sgns_step(
         check_operand("sgns_step", name, t, dtype, shape, dev)
     call("sgns_step", dev, in_t.data_ptr(), out_t.data_ptr(), centers.data_ptr(),
          contexts.data_ptr(), negs.data_ptr(), grad_in.data_ptr(), grad_out.data_ptr(),
-         loss_acc.data_ptr(), b, d, k)
+         loss_acc.data_ptr(), b, d, k, count="sgns_step_wide" if d > DMAX else None)
 
 
 def _bce(x: torch.Tensor, label: float) -> torch.Tensor:

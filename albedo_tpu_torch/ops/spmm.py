@@ -14,7 +14,11 @@ Port of the device half of ``albedo_tpu/recommenders/cf.py``:
   ``W @ 1`` and ``W^T t`` are the B = 1 cases.
 - :func:`masked_topk` runs the CUDA kernel ``masked_topk``: divide each
   column of a (B, n) block by an optional norm, mask each row's starred
-  columns, keep the top k in ``lax.top_k``'s order.
+  columns, keep the top k in ``lax.top_k``'s order. Above k = 128, or with
+  a starred row longer than 32768 columns, it runs the select path's
+  ``masked_select`` entry (``csrc/topk_select.cu``: the normalized block
+  written to a scratch buffer, starred columns to -inf, a radix select), so
+  it takes any k and any starred width, as ``lax.top_k`` does.
 
 The plain versions (:func:`spmm_rows_reference`, :func:`masked_topk_reference`)
 run for CPU tensors and are what ``chip_smoke.py`` holds the kernels against.
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 
 from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
-from albedo_tpu_torch.ops.topk import EXCLUDE_MAX, KMAX, exclude_and_rank
+from albedo_tpu_torch.ops.topk import EXCLUDE_MAX, exclude_and_rank, select_scratch
+
+KMAX_STREAM = 128  # largest k of the streaming masked_topk kernel; larger k takes the select path
 
 
 @dataclasses.dataclass
@@ -142,23 +148,27 @@ def masked_topk(
         return masked_topk_reference(scores, starred, k, col_norm)
     if scores.dim() != 2 or scores.dtype != torch.float32:
         raise ValueError(f"masked_topk: scores must be a 2-D float32 block, got {scores.dtype} {tuple(scores.shape)}")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"masked_topk: the CUDA kernel takes k in 1..{KMAX}, got {k}")
+    if k < 1:
+        raise ValueError(f"masked_topk: takes k >= 1, got {k}")
     n_rows, n = scores.shape
     dev = scores.device
-    n_star, pad, star_ptr = 0, 0, None
+    n_star, star_ptr = 0, None
     if starred is not None and starred.shape[1] > 0:
         n_star = int(starred.shape[1])
-        if n_star > EXCLUDE_MAX:
-            raise ValueError(f"masked_topk: starred rows longer than {EXCLUDE_MAX} are not supported, got {n_star}")
         check_operand("masked_topk", "starred", starred, torch.int32, (n_rows, n_star), dev)
-        pad = 1 << (n_star - 1).bit_length()
         star_ptr = starred.data_ptr()
     if col_norm is not None:
         check_operand("masked_topk", "col_norm", col_norm, torch.float32, (n,), dev)
+    norm_ptr = None if col_norm is None else col_norm.data_ptr()
     vals = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
-    call("masked_topk", dev, scores.data_ptr(), scores.stride(0), scores.stride(1), star_ptr,
-         None if col_norm is None else col_norm.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-         n_rows, n, k, n_star, pad)
+    if k <= KMAX_STREAM and n_star <= EXCLUDE_MAX:
+        call("masked_topk", dev, scores.data_ptr(), scores.stride(0), scores.stride(1), star_ptr, norm_ptr,
+             vals.data_ptr(), idx.data_ptr(), n_rows, n, k, n_star, 1 << (n_star - 1).bit_length() if n_star else 0)
+        return vals, idx
+    rows, sort_pad, scratch, sortbuf = select_scratch(n_rows, n, k, 0, dev)
+    for row0 in range(0, n_rows, rows):
+        call("masked_select", dev, scores.data_ptr(), scores.stride(0), scores.stride(1), star_ptr, norm_ptr,
+             vals.data_ptr(), idx.data_ptr(), row0, min(rows, n_rows - row0), n, k, n_star, scratch.data_ptr(),
+             None if sortbuf is None else sortbuf.data_ptr(), sort_pad, count="masked_topk_select")
     return vals, idx

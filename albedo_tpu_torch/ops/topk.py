@@ -32,8 +32,8 @@ Two kernels run the streaming body K5 ran before its split design
 The plain PyTorch versions (``*_reference``) build the score matrix and sort
 it. All return exactly the JAX program's answer: the k admissible items
 ordered by score descending, then item index ascending, with the remaining
-slots ``(-inf, -1)``. (K5 also follows JAX on NaN scores: +NaN ranks first,
--NaN is never admitted; K6, K7 and the select path never admit a NaN.)
+slots ``(-inf, -1)``, and NaN scores in ``lax.top_k``'s order: +NaN ranks
+first (NaNs by index), -NaN is never admitted.
 """
 
 from __future__ import annotations
@@ -47,8 +47,9 @@ RMAX = 64            # widest rank of K5's narrow count; wider rows count as top
 KMAX = 512           # largest k of K5's kernel and K6/K7's streaming body; larger k takes the select path
 EXCLUDE_MAX = 32768  # longest exclusion row the streaming body (K6, K7) sorts in shared memory
 # Dynamic shared memory the streaming kernels may ask for: the card's 227 KB
-# per block less their static running list (at most 16.4 KB at k > 128).
-SMEM_MAX = 232448 - 17 * 1024
+# per block less their static running list (at most 22.3 KB at k > 128,
+# its merge keys included).
+SMEM_MAX = 232448 - 23 * 1024
 SELECT_SCRATCH = 256 << 20  # bytes of select-path scratch per launch (rows are chunked to fit)
 SORT_SMEM_MAX = 64 * 1024   # the select path sorts in shared memory up to this many bytes
 MAX_GRID_Y = 65535          # the select path's score grid spans a chunk's rows in y
@@ -255,6 +256,20 @@ def _select_path(k: int, r: int, n_excl: int, excl_pad: int, dpad: int = 0) -> b
     return k > KMAX or n_excl > EXCLUDE_MAX or smem > SMEM_MAX
 
 
+def select_scratch(n_rows: int, n_items: int, k: int, extra: int, dev):
+    """(rows a chunk, sort_pad, score scratch, global sort buffer or None) of
+    a select-path launch over ``n_rows`` rows: a chunk's scratch (its score
+    rows, ``extra`` bytes a row and, for a large k, its sort buffers) stays
+    under SELECT_SCRATCH bytes and its rows under the score grid's y extent."""
+    sort_pad = pow2_at_least(max(1, min(k, n_items)))
+    sort_global = 8 * sort_pad > SORT_SMEM_MAX
+    per_row = 4 * n_items + extra + (8 * sort_pad if sort_global else 0)
+    rows = max(1, min(n_rows, MAX_GRID_Y, SELECT_SCRATCH // per_row))
+    scratch = torch.empty(rows * n_items, dtype=torch.float32, device=dev)
+    sortbuf = torch.empty(rows * sort_pad, dtype=torch.int64, device=dev) if sort_global else None
+    return rows, sort_pad, scratch, sortbuf
+
+
 def _select(
     kernel: str, dev, vals: torch.Tensor, idx: torch.Tensor, *, items: torch.Tensor,
     n_rows: int, k: int, n_excl: int, users: torch.Tensor | None = None,
@@ -267,15 +282,10 @@ def _select(
     for a large k, the sort buffers) stays under SELECT_SCRATCH bytes;
     counted as ``<kernel>_select``. The operands are checked by the caller."""
     n_items, r = items.shape
-    sort_pad = pow2_at_least(max(1, min(k, n_items)))
-    sort_global = 8 * sort_pad > SORT_SMEM_MAX
     qstride = 2 * dpad if mean_rows else r
-    per_row = 4 * n_items + 4 * qstride + 4 + (8 * sort_pad if sort_global else 0)
-    rows = max(1, min(n_rows, MAX_GRID_Y, SELECT_SCRATCH // per_row))
+    rows, sort_pad, scratch, sortbuf = select_scratch(n_rows, n_items, k, 4 * qstride + 4, dev)
     qbuf = torch.empty(rows * qstride, dtype=torch.float32, device=dev)
     has = torch.empty(rows, dtype=torch.int32, device=dev)
-    scratch = torch.empty(rows * n_items, dtype=torch.float32, device=dev)
-    sortbuf = torch.empty(rows * sort_pad, dtype=torch.int64, device=dev) if sort_global else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()

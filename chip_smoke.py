@@ -37,6 +37,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    buckets 1/8/64 x k 32/512 in each exclusion mode, each row also equal to
    K5 on that user alone; K7 bank_query for user rows (plain, excluded,
    remapped) and item means at d 16, 50, 200, 3010 with an empty query row.
+   Then the repaired refusals (``repair_kernels``): K6, K7, the select path
+   (k 600) and K11's masked_topk (with and without a column norm) on K5's
+   edge cases, NaN and +-inf scores included, exactly in ``lax.top_k``'s
+   order (+NaN first, NaNs by index, -NaN and -inf never); masked_topk at
+   k 129, 512, 513 and 1200 and with a 40 000-wide starred row (its select
+   path), exactly; K9 at d 513 and 1024 (B 1, 300, 4096) and K10 at rank
+   129 and 200 and side width 33 (their wide paths), to 5e-5 of each
+   gradient element's mass.
    Then the any-size paths: K1-K3 at ranks 65, 100, 128 and 256 on
    bench-shaped buckets with a power-law row (7624 entries) and K3 at rank
    1500 (their wide paths, the global workspaces included), rel 1e-4; K5 at
@@ -82,13 +90,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each NDCG@30 (``tfidf_content``: its similar-repo list) against the JAX
    package's CPU values (constants below), then each new kernel against its
    plain version on the inputs that run gave it (recorded on the way), then
-   times each with its plain version, a library call and its bound.
+   times each with its plain version, a library call and its bound. Then
+   (``wide_options``) the repaired paths through their entry points, with
+   the counts set to 0 before and read after: item-CF at ``top_k=200`` and
+   user-CF at 600 on the ``train_als`` job's matrix, Word2Vec at dim 1024
+   with per-pair negatives, the ranking factorization at rank 129 with 33
+   item side features; each result finite, each path launched, each
+   recorded call held against its plain version and timed.
 7. bench   — the JAX package's bench protocol at its scale (30000 x 20000,
    mean 60 stars, 10% held out per user): fits rank 50 x 26 iterations with
    both solvers from one pinned numpy init, and holds the held-out NDCG@30
    against the JAX package's CPU result for that same init (constants
    below). Then times each kernel, its plain version and one PyTorch library
-   call at the shapes of that fit, and computes each kernel's bound; and
+   call at the shapes of that fit, and computes each kernel's bound, with
+   K1-K3's kernel time group by group (``torch.profiler`` sums: the five
+   slowest groups and ``narrow_share``, the share in groups with fewer rows
+   than the card has SMs; K1-bf16's likewise in ``bench_bf16``); and
    K11 (one block of 256 users through both CFs) and K10 (B = 8192) on that
    train split.
 
@@ -305,6 +322,9 @@ KERNELS = {
     "als_partials_bf16": ("albedo_tpu_torch/kernels/csrc/als_partials.cu", "albedo_tpu/ops/als.py:108"),
     "bucket_cg_bf16": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
     "sgns_shared": ("albedo_tpu_torch/kernels/csrc/sgns_shared.cu", "albedo_tpu/models/word2vec.py:243"),
+    "masked_topk_select": ("albedo_tpu_torch/kernels/csrc/topk_select.cu", "albedo_tpu/recommenders/cf.py:218"),
+    "sgns_step_wide": ("albedo_tpu_torch/kernels/csrc/sgns_step.cu", "albedo_tpu/models/word2vec.py:241"),
+    "bpr_step_wide": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
 }
 
 
@@ -868,6 +888,87 @@ def phase_serving_kernels() -> dict:
     emit({"phase": "serving_kernels", "ok": ok, "worst_rel": worst, "cases": cases})
     if not ok:
         raise SystemExit("chip_smoke: a serving kernel disagrees with its plain version")
+    return worst
+
+
+def phase_repair_kernels() -> dict:
+    """The three repaired refusals, each against its plain version: lax.top_k's
+    NaN order in K6, K7, the select path (k 600) and K11's masked_topk (with
+    and without a column norm) on K5's edge cases (``topk_bench.k5_edge_cases``:
+    NaN and +-inf scores, zeros that cancel, ties across tiles), exactly;
+    masked_topk at k 129, 512, 513 and 1200 and with a 40 000-wide starred row
+    (its select path), exactly; K9 at d 513 and 1024 and K10 at rank 129 and
+    200 and side width 33 (their wide paths), to K9's and K10's tolerances."""
+    from albedo_tpu_torch.kernels.topk_bench import k5_edge_cases
+    from albedo_tpu_torch.ops import spmm
+    from albedo_tpu_torch.ops import topk as ops_topk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    tol = {"gather_topk": 0.0, "bank_query": 0.0, "gather_topk_select": 0.0, "masked_topk": 0.0,
+           "masked_topk_select": 0.0, "sgns_step_wide": RANKER_REL["sgns_step"],
+           "bpr_step_wide": CAND_REL["bpr_step"]}
+    worst = dict.fromkeys(tol, 0.0)
+    cases = []
+
+    def note(name, label, err):
+        worst[name] = max(worst[name], err[1])
+        cases.append({"kernel": name, "case": label, "abs": err[0], "rel": err[1]})
+
+    def t(a):
+        return None if a is None else torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    for label, u, v, k, ex in k5_edge_cases():
+        q, items, excl = t(u), t(v), t(ex)
+        rows = torch.arange(q.shape[0], dtype=torch.int32, device=dev)
+        note("gather_topk", label, _exact(ops_topk.gather_topk(q, items, rows, k, exclude=excl),
+                                          ops_topk.gather_topk_reference(q, items, rows, k, exclude=excl)))
+        note("bank_query", label, _exact(
+            ops_topk.bank_query(items, k, users=q, user_idx=rows, exclude_table=excl),
+            ops_topk.bank_query_reference(items, k, users=q, user_idx=rows, exclude_table=excl)))
+        note("gather_topk_select", f"k=600, {label}",
+             _exact(ops_topk.gather_topk(q, items, rows, 600, exclude=excl),
+                    ops_topk.gather_topk_reference(q, items, rows, 600, exclude=excl)))
+        scores = ops_topk._scores(q, items)
+        norm = torch.linspace(0.5, 2.0, items.shape[0], device=dev)
+        for kk in (k, 600):
+            name = "masked_topk" if kk <= spmm.KMAX_STREAM else "masked_topk_select"
+            for n in (None, norm):
+                note(name, f"k={kk}, norm={n is not None}, {label}", _hold_masked(scores, excl, kk, n))
+
+    block = rng.normal(size=(2936, 40)).astype(np.float32)
+    block[1500:1600] = block[:100]
+    block[:, 2] = 0.25
+    block[7, 5], block[8, 5], block[9, 6] = np.nan, -np.nan, np.inf
+    starred = np.full((40, 64), -1, np.int32)
+    starred[:, :50] = rng.integers(0, 2936, size=(40, 50))
+    scores = t(block).t()                               # a strided (B, n) view, as K11's callers pass it
+    norm = t(rng.uniform(0.0, 3.0, size=2936).astype(np.float32))
+    for k in (129, 512, 513, 1200):
+        for n in (None, norm):
+            note("masked_topk_select", f"k={k}, norm={n is not None}", _hold_masked(scores, t(starred), k, n))
+    wide = t(rng.normal(size=(3, 60000)).astype(np.float32))
+    long_star = t(np.stack([rng.choice(60000, size=40000, replace=False) for _ in range(3)]).astype(np.int32))
+    for k in (30, 600):
+        note("masked_topk_select", f"40000 starred, k={k}", _hold_masked(wide, long_star, k, None))
+
+    for d in (513, 1024):
+        for b in (1, 300, 4096):
+            note("sgns_step_wide", f"B={b}, d={d}", _k9_case(rng, b, d, 146, 5, dev))
+    for r, d in ((129, 2), (200, 2), (32, 33), (129, 33)):
+        params, g = _bpr_params(rng, 300, 200, r, d, dev)
+        users = rng.integers(0, 300, size=8192).astype(np.int32)
+        users[:2730] = 7
+        pos = rng.integers(0, 200, size=8192).astype(np.int32)
+        neg = rng.integers(0, 200, size=(8192, 4)).astype(np.int32)
+        neg[::2, 1] = pos[::2]
+        note("bpr_step_wide", f"r={r}, d={d}", _hold_bpr(params, g, t(users), t(pos), t(neg), 1e-4))
+    torch.cuda.synchronize()
+    ok = all(worst[n] <= tol[n] for n in tol)
+    emit({"phase": "repair_kernels", "ok": ok, "tol": tol, "worst_rel": worst, "cases": len(cases),
+          "failing": [c for c in cases if c["rel"] > tol[c["kernel"]]]})
+    if not ok:
+        raise SystemExit("chip_smoke: a repaired kernel path disagrees with its plain version")
     return worst
 
 
@@ -1464,32 +1565,39 @@ def _k9_adam_at(tables, moments, c, o, neg, count: int, lr: float) -> dict:
     operations of its bound."""
     from albedo_tpu_torch.ops import sgns
 
-    dev = tables.device
-    v_size, d = tables.shape[1:]
+    k9, plain_grads = _time_k9(tables[0], tables[1], c, o, neg)
+    return {"sgns_step": k9, "adam_dense": _adam_at(tables, torch.stack(plain_grads), moments, count, lr)}
+
+
+def _time_k9(in_t, out_t, c, o, neg) -> tuple[dict, tuple]:
+    """K9 (either path) at one batch: held against its plain version, timed
+    with it, with the bytes and operations of its bound; and the plain
+    version's (grad_in, grad_out)."""
+    from albedo_tpu_torch.ops import sgns
+
+    dev = in_t.device
+    v_size, d = in_t.shape
     bs, k = neg.shape
     res = []
     for fn in (sgns.sgns_step, sgns.sgns_step_reference):
-        g, loss = torch.zeros_like(tables), torch.zeros(1, device=dev)
-        fn(tables[0], tables[1], c, o, neg, g[0], g[1], loss)
-        res.append((g[0], g[1], loss))
-    k9_err = _k9_err(tables[0], tables[1], c, o, neg, *res)
-    g, loss = torch.zeros_like(tables), torch.zeros(1, device=dev)
-    k9_plain_ms = cuda_ms(lambda: sgns.sgns_step_reference(tables[0], tables[1], c, o, neg, g[0], g[1], loss))
+        gi, go, loss = torch.zeros_like(in_t), torch.zeros_like(out_t), torch.zeros(1, device=dev)
+        fn(in_t, out_t, c, o, neg, gi, go, loss)
+        res.append((gi, go, loss))
+    k9_err = _k9_err(in_t, out_t, c, o, neg, *res)
+    gi, go, loss = torch.zeros_like(in_t), torch.zeros_like(out_t), torch.zeros(1, device=dev)
+    k9_plain_ms = cuda_ms(lambda: sgns.sgns_step_reference(in_t, out_t, c, o, neg, gi, go, loss))
     # The rows the batch touches: each "in" and "out" row read once, each of
     # their gradient rows read and written once (K9 adds into them).
     rows = int(torch.unique(c).numel()) + int(torch.unique(torch.cat([o, neg.reshape(-1)])).numel())
-    out = {"sgns_step": dict(
+    return dict(
         err=k9_err,
-        ms=cuda_ms(lambda: sgns.sgns_step(tables[0], tables[1], c, o, neg, g[0], g[1], loss)),
+        ms=cuda_ms(lambda: sgns.sgns_step(in_t, out_t, c, o, neg, gi, go, loss)),
         # The library yardstick is the plain autograd step itself (gather,
         # einsum, binary_cross_entropy_with_logits, autograd's scatter-add).
         plain_ms=k9_plain_ms, library_ms=k9_plain_ms,
         bytes=4 * d * 3 * rows + 4 * bs * (2 + k) + 8, flops=bs * (1 + k) * (6 * d + 20),
         shape={"B": bs, "d": int(d), "V": int(v_size), "K": k, "rows_touched": rows},
-    )}
-
-    out["adam_dense"] = _adam_at(tables, torch.stack(res[1][:2]), moments, count, lr)
-    return out
+    ), res[1][:2]
 
 
 def _adam_at(tables, grad, moments, count: int, lr: float) -> dict:
@@ -2060,6 +2168,86 @@ def _within_tol(errs: dict) -> bool:
     return all(rel <= (0.0 if name == "topk_scores" else REL_TOL) for name, (_, rel) in errs.items())
 
 
+# ----------------------------------------------------------------- phase 6b
+
+
+@contextlib.contextmanager
+def _recording_sgns(calls: list):
+    """Keep the last K9 call a Word2Vec fit makes (its tables cloned: Adam
+    updates them in place after the step)."""
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    step = w2v_mod.sgns_step
+
+    def sgns_step(in_t, out_t, c, o, neg, grad_in, grad_out, loss_acc):
+        calls[:] = [(in_t.clone(), out_t.clone(), c, o, neg)]
+        return step(in_t, out_t, c, o, neg, grad_in, grad_out, loss_acc)
+
+    w2v_mod.sgns_step = sgns_step
+    try:
+        yield calls
+    finally:
+        w2v_mod.sgns_step = step
+
+
+def phase_wide_options() -> dict:
+    """The repaired refusals on their paths, through the entry points a user
+    calls, with the launch counts set to 0 just before and read just after:
+    item-CF at ``top_k=200`` and user-CF at 600 on the ``train_als`` job's
+    matrix (K11's masked_topk above k 128: its select path), Word2Vec at
+    dim 1024 with per-pair negatives (K9's wide path) and the ranking
+    factorization at rank 129 with 33 item side features (K10's wide path).
+    Each result finite and of its shape, each path launched, each recorded
+    call held against its plain version and timed with its bound."""
+    from albedo_tpu_torch.kernels import launch_counts, reset_launches
+    from albedo_tpu_torch.models.ranking_factorization import RankingFactorization
+    from albedo_tpu_torch.models.word2vec import Word2Vec
+    from albedo_tpu_torch.recommenders.cf import ItemCFRecommender, UserCFRecommender
+
+    matrix = _job_matrix()
+    rng = np.random.default_rng(29)
+    users = matrix.user_ids[rng.choice(matrix.n_users, size=256, replace=False)]
+    words = [f"w{i}" for i in range(2000)]
+    p = 1.0 / np.arange(1, 2001)
+    corpus = [[words[j] for j in rng.choice(2000, size=15, p=p / p.sum())] for _ in range(3000)]
+    side = rng.normal(size=(matrix.n_items, 33)).astype(np.float32)
+
+    t0 = time.perf_counter()
+    cand_calls, w2v_calls = [], []
+    reset_launches()
+    with _recording(cand_calls), _recording_sgns(w2v_calls):
+        frames = {name: cls(matrix, top_k=k, device="cuda").recommend_for_users(users)
+                  for name, cls, k in (("item_cf", ItemCFRecommender, 200), ("user_cf", UserCFRecommender, 600))}
+        w2v = Word2Vec(dim=1024, min_count=1, max_iter=1, device="cuda").fit_corpus(corpus)
+        mf = RankingFactorization(rank=129, epochs=1, device="cuda").fit(matrix, item_side=side)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    drive_s = time.perf_counter() - t0
+    needed = ("masked_topk_select", "sgns_step_wide", "bpr_step_wide")
+    finite = (all(np.isfinite(f["score"].to_numpy()).all() and len(f) > 0 for f in frames.values())
+              and np.isfinite(w2v.vectors).all() and w2v.vectors.shape[1] == 1024
+              and np.isfinite(mf.user_factors).all() and mf.user_factors.shape[1] == 129)
+    shapes = {name: len(f) <= k * len(users) for (name, f), k in zip(frames.items(), (200, 600))}
+    masked = [args for name, args in cand_calls if name == "masked_topk" and args[2] > 128]
+    bpr = [args for name, args in cand_calls if name == "bpr_step"]
+    timed = {
+        "masked_topk_select": _timed(_time_masked(masked)),
+        "sgns_step_wide": _timed(_time_k9(*w2v_calls[0])[0]),
+        "bpr_step_wide": _timed(_time_bpr(*bpr[-1])),
+    }
+    tol = {"masked_topk_select": 0.0, "sgns_step_wide": RANKER_REL["sgns_step"], "bpr_step_wide": CAND_REL["bpr_step"]}
+    held = all(timed[n]["rel_err"] <= tol[n] for n in tol)
+    launched = all(counts.get(n, 0) > 0 for n in needed)
+    ok = finite and all(shapes.values()) and launched and held
+    emit({"phase": "wide_options", "ok": ok, "drive_s": drive_s, "launches": counts, "finite": finite,
+          "rows": {n: len(f) for n, f in frames.items()}, "recorded": {"masked_topk": len(masked)},
+          "tol": tol, "timed": timed})
+    if not ok:
+        raise SystemExit("chip_smoke: a repaired path failed on its entry point (launches, finiteness or its "
+                         "kernel against the plain version)")
+    return {"launches": {n: counts.get(n, 0) for n in needed}, "timed": timed}
+
+
 # ------------------------------------------------------------------ phase 7
 
 
@@ -2105,6 +2293,30 @@ def phase_bench() -> dict:
     return _time_kernels(est, model, train, users, excl), train, model, state
 
 
+def _per_group(calls, per_call_fns) -> dict:
+    """Each bucket group's own kernel time (``torch.profiler`` sums over 5
+    calls; CUDA events around one call where the profiler misses a call,
+    which then include the host's launch path), summarized as
+    ``als_partials_bench.summarize`` does (the five slowest groups, the
+    share in groups with fewer rows than the card has SMs)."""
+    from albedo_tpu_torch.kernels.als_partials_bench import kernel_ms_each, summarize
+
+    ms, timer = kernel_ms_each(torch, per_call_fns), "profiler"
+    if not all(ms):
+        torch.cuda.synchronize()
+        events = []
+        for fn in per_call_fns:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            fn()
+            ev[1].record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        ms, timer = [a.elapsed_time(b) for a, b in events], "events"
+    shapes = [tuple(c[2].shape) for c in calls]
+    return {"timer": timer, **summarize(shapes, ms, torch.cuda.get_device_properties(0).multi_processor_count)}
+
+
 def _time_kernels(est, model, train, users, excl) -> dict:
     """Each kernel against its plain version and a library call, at the
     shapes of the bench fit: K1-K3 over all bucket groups of one iteration
@@ -2126,37 +2338,13 @@ def _time_kernels(est, model, train, users, excl) -> dict:
 
     partials = _k1(ops_als.bucket_partial_terms_reference, calls)
 
-    def breakdown(per_call_fns) -> dict:
-        """Each bucket group's own kernel time (one timed launch after a
-        warm-up): the five slowest groups as [rows, L, ms], and the share of
-        the iteration spent in groups with fewer rows than the card has SMs,
-        where a one-CTA-per-row grid leaves most of the card idle."""
-        for fn in per_call_fns:
-            fn()
-        torch.cuda.synchronize()
-        events = []
-        for fn in per_call_fns:
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            fn()
-            ev[1].record()
-            events.append(ev)
-        torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for a, b in events]
-        shapes = [tuple(c[2].shape) for c in calls]
-        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        narrow = [i for i, (rows, _) in enumerate(shapes) if rows < n_sm]
-        top = sorted(range(len(ms)), key=lambda i: -ms[i])[:5]
-        return {"top": [[shapes[i][0], shapes[i][1], ms[i]] for i in top],
-                "narrow_groups": len(narrow), "narrow_share": sum(ms[i] for i in narrow) / sum(ms)}
-
     groups_ms = {
-        "als_partials": breakdown([
+        "als_partials": _per_group(calls, [
             (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA)) for c in calls]),
-        "solve_corrected": breakdown([
+        "solve_corrected": _per_group(calls, [
             (lambda c=c, p=p: ops_als.solve_corrected(c[1], p[0], p[1], c[7], REG))
             for c, p in zip(calls, partials)]),
-        "bucket_cg": breakdown([
+        "bucket_cg": _per_group(calls, [
             (lambda c=c: ops_als.bucket_cg_body(*c[:6], REG, ALPHA, CG_STEPS)) for c in calls]),
     }
     # K2's plain version is the library call (``cholesky_ex`` +
@@ -3965,8 +4153,10 @@ def phase_bench_bf16(bench: dict) -> dict:
         for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items()
     }
     ok = all(v["rel_err"] <= BF16_REL[name] for name, v in out.items())
+    per_group = {"als_partials_bf16": _per_group(calls, [
+        (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA, "bfloat16")) for c in calls])}
     emit({"phase": "bench_bf16_kernels", "ok": ok, "rel_tol": BF16_REL, "groups": len(calls), "entries": entries, "rows": rows,
-          "timed": out})
+          "per_group": per_group, "timed": out})
     if not ok:
         raise SystemExit("chip_smoke: K1-bf16 or K3-bf16 disagrees with its plain version at the bench shapes")
     launches = {"als_partials_bf16": fits["cholesky"][2].get("als_partials_bf16", 0),
@@ -4198,6 +4388,7 @@ def main() -> int:
     phase_ranker_kernels()
     phase_candidate_kernels()
     phase_serving_kernels()
+    phase_repair_kernels()
     phase_any_size_kernels()
     phase_two_stage_kernels()
     phase_trainer_kernels()
@@ -4209,6 +4400,8 @@ def main() -> int:
     cand_launches, cand_calls = phase_candidates()
     cand_timed = phase_candidate_timing(cand_calls)
     launches.update({n: cand_launches[n] for n in cand_timed})
+    options = phase_wide_options()
+    launches.update(options["launches"])
     bench_timed, train, bench_model, bench_state = phase_bench()
     phase_candidate_bench(train)
     serve_state = phase_serve()
@@ -4226,7 +4419,7 @@ def main() -> int:
     launches.update(**wide["launches"], **two_stage["launches"], **cv["launches"], **bf16["launches"],
                     **w2v["launches"])
     timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed, **wide["timed"], **two_stage_timed,
-                 **cv["timed"], **bf16["timed"], sgns_shared=w2v["timed"]["sgns_shared"])
+                 **cv["timed"], **bf16["timed"], **options["timed"], sgns_shared=w2v["timed"]["sgns_shared"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -77,6 +77,28 @@ def test_cf_recommenders_match_jax(matrices, port_cls, jax_cls):
     assert not starred & set(zip(port["user_id"], port["repo_id"])), "a starred item leaked"
 
 
+@pytest.fixture(scope="module")
+def wide_matrices():
+    return (synthetic_stars(n_users=60, n_items=1300, mean_stars=25, seed=23),
+            jax_stars(n_users=60, n_items=1300, mean_stars=25, seed=23))
+
+
+@pytest.mark.parametrize("top_k", [200, 600])
+@pytest.mark.parametrize("port_cls, jax_cls", [
+    (ItemCFRecommender, jax_cf.ItemCFRecommender), (UserCFRecommender, jax_cf.UserCFRecommender),
+], ids=["item_cf", "user_cf"])
+def test_cf_recommenders_match_jax_at_large_k(wide_matrices, port_cls, jax_cls, top_k):
+    # k above the streaming masked_topk kernel's 128 (and above 512): on the
+    # card these run its select path. The lists are held with the near-tie
+    # rule: the sparse passes sum in other orders (scores part by ~1e-7),
+    # which can swap items that tie at the cut.
+    m, jm = wide_matrices
+    port = port_cls(m, top_k=top_k, user_block=64, device="cpu").recommend_for_users(m.user_ids)
+    ref = jax_cls(jm, top_k=top_k, user_block=64).recommend_for_users(m.user_ids)
+    assert len(port) == len(ref) == top_k * m.n_users
+    assert_same_topk(port, ref)
+
+
 def _random_csr(rng, n_rows, n_cols, with_val):
     counts = rng.integers(0, 9, size=n_rows)
     counts[::4] = 0                                   # empty rows

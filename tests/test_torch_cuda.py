@@ -37,6 +37,13 @@ order of the sums differs), K3-bf16 to rel 5e-4 (a float32 round-off in
 another order can flip one rounding of its bf16 iterate; see
 ``chip_smoke.BF16_REL``); K9s (the shared negative pool) as K9, to 5e-5 of
 ``ops.sgns.sgns_shared_grad_mass`` and of |loss| at its batch of 4096.
+K1's split design (rows cut into chunks across CTAs) at every bucket group
+shape of the bench fit, both gather dtypes: rel 1e-4, exactly symmetric,
+the same bits on a second call, one count a call. K6, K7, the select path
+and K11's masked_topk on ``topk_bench.k5_edge_cases`` (NaN, +-inf, +-0,
+ties): exact, NaN where NaN (``topk_bench.same``); masked_topk at any k and
+starred width exactly; K9's and K10's wide paths (d above 512; rank above
+128 or side width above 32) at K9's and K10's tolerances.
 """
 
 import numpy as np
@@ -44,6 +51,8 @@ import pytest
 import torch
 
 from albedo_tpu_torch import kernels
+from albedo_tpu_torch.kernels import topk_bench
+from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS
 from albedo_tpu_torch.ops import als as ops_als
 from albedo_tpu_torch.ops import bpr as ops_bpr
 from albedo_tpu_torch.ops import sgns as ops_sgns
@@ -253,9 +262,9 @@ def test_ranker_kernels_raise_instead_of_falling_back(dev):
         ops_sl.segment_dot(x.cpu(), torch.zeros(0, dtype=torch.int32, device=dev), None, ip)
     t = torch.zeros((4, 600), device=dev)
     i32 = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="dims"):
-        ops_sgns.sgns_step(t, t, i32, i32, torch.zeros((2, 5), dtype=torch.int32, device=dev),
-                           t, t, torch.zeros(1, device=dev))
+    with pytest.raises(ValueError, match="shape"):  # d 600 runs (wide path); a mis-shaped table does not
+        ops_sgns.sgns_step(t, torch.zeros((4, 601), device=dev), i32, i32,
+                           torch.zeros((2, 5), dtype=torch.int32, device=dev), t, t, torch.zeros(1, device=dev))
     p = torch.zeros(8, device=dev)
     with pytest.raises(ValueError, match="shape"):
         ops_sgns.adam_dense(p, torch.zeros(9, device=dev), p.clone(), p.clone(), 1, 0.025)
@@ -430,14 +439,28 @@ def test_candidate_kernels_raise_instead_of_falling_back(dev):
         ops_spmm.spmm_rows(w, torch.zeros((4, 2), device=dev))
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         ops_spmm.spmm_rows(w, torch.zeros((3, 2)))
-    with pytest.raises(ValueError, match="k in"):  # k past the kernel's KMAX (512 since K5's k <= 512)
-        ops_spmm.masked_topk(torch.zeros((2, 5), device=dev), None, ops_topk.KMAX + 1)
-    p = [torch.zeros(s, device=dev) for s in ((4, 200), (5, 200), (5,), (1,))]
+    # k past K5's KMAX: masked_topk takes it on the card (its select path),
+    # equal to the plain version.
+    block = torch.as_tensor(np.random.default_rng(0).normal(size=(2, 5)).astype(np.float32), device=dev)
+    kernels.reset_launches()
+    got = ops_spmm.masked_topk(block, None, ops_topk.KMAX + 1)
+    assert topk_bench.same(torch, got, ops_spmm.masked_topk_reference(block, None, ops_topk.KMAX + 1))
+    assert kernels.LAUNCHES["masked_topk_select"] == 1
+    # Rank 200: bpr_step takes it on the card (its wide path), equal to the
+    # plain version at K10's tolerance.
+    p = [torch.full(s, 0.01, device=dev) for s in ((4, 200), (5, 200), (5,), (1,))]
+    g = torch.ones((5, 1), device=dev)
     i32 = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="ranks"):
-        ops_bpr.bpr_step(*p, torch.zeros((5, 1), device=dev), i32, i32,
-                         torch.zeros((2, 4), dtype=torch.int32, device=dev),
-                         *[torch.zeros_like(t) for t in p], torch.zeros(1, device=dev), 1e-4)
+    batch = (i32, i32 + 1, torch.full((2, 4), 2, dtype=torch.int32, device=dev))
+    res = {}
+    for name, fn in (("kernel", ops_bpr.bpr_step), ("plain", ops_bpr.bpr_step_reference)):
+        grads = [torch.zeros_like(t) for t in p]
+        loss = torch.zeros(1, device=dev)
+        fn(*p, g, *batch, *grads, loss, 1e-4)
+        res[name] = (*grads, loss)
+    assert kernels.LAUNCHES["bpr_step_wide"] == 1
+    for a, e, m in zip(res["kernel"], res["plain"], ops_bpr.bpr_grad_mass(*p, g, *batch, 1e-4)):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
 
 
 @pytest.mark.parametrize("k", [129, 256, 512])
@@ -887,3 +910,190 @@ def test_k8_k8g_on_the_ranker_skew(dev, n_grid):
     assert max(int((ip[1:] - ip[:-1]).max()) for _, _, _, ip in calls) > 0.75 * fm.n_rows
     for call in calls:
         _hold_merge(*call)
+
+
+# ---- K1's split design, the NaN order (F5), masked_topk's select path (F6),
+# ---- K9's and K10's wide paths (F7) -------------------------------------
+
+
+def _bench_bucket(dev, b, length, k, n_source=20000, gaps=False, seed=0):
+    """A bucket at a bench group's shape: rows of L/2 to L front-packed
+    entries (a quarter of them all padding, as the bench groups' padding
+    slots), optional masked gaps inside rows; idx 0 / val 0 off the mask."""
+    rng = np.random.default_rng(seed)
+    src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+    lens = rng.integers(length // 2, length + 1, size=b)
+    lens[rng.random(b) < 0.25] = 0
+    mask = np.arange(length)[None, :] < lens[:, None]
+    if gaps:
+        mask &= rng.random((b, length)) > 0.3
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (src, idx, val, mask)]
+
+
+def _hold_k1(dev, src, idx, val, mask, gather_dtype):
+    entry = ops_als._entry("als_partials", gather_dtype) + ("" if src.shape[1] <= ops_als.KMAX else "_wide")
+    kernels.reset_launches()
+    corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, gather_dtype)
+    assert kernels.LAUNCHES[entry] == 1
+    again = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, gather_dtype)
+    torch.cuda.synchronize()
+    corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0, gather_dtype)
+    _close(corr, corr_p)
+    _close(b_vec, b_p)
+    assert torch.equal(corr, again[0]) and torch.equal(b_vec, again[1])    # no atomics: the same bits
+    assert torch.equal(corr, corr.transpose(1, 2))                         # mirrored on write
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("b, length", BENCH_GROUPS)
+def test_k1_split_design_at_the_bench_groups(dev, b, length, gather_dtype):
+    _hold_k1(dev, *_bench_bucket(dev, b, length, 50, seed=b + length), gather_dtype)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [1, 7, 50, 64, 65, 100])
+@pytest.mark.parametrize("b, length, gaps", [(4, 1, False), (1, 7624, False), (9, 300, False),
+                                             (5, 700, True), (3, 0, False)],
+                         ids=["L1", "one-row-7624", "padding-slots", "masked-gaps", "L0"])
+def test_k1_split_design_edges(dev, b, length, gaps, k, gather_dtype):
+    _hold_k1(dev, *_bench_bucket(dev, b, length, k, n_source=500, gaps=gaps, seed=k), gather_dtype)
+
+
+def _edge_calls(dev):
+    for label, u, v, k, ex in topk_bench.k5_edge_cases():
+        yield label, (torch.as_tensor(u, device=dev), torch.as_tensor(v, device=dev), k,
+                      None if ex is None else torch.as_tensor(ex, device=dev))
+
+
+@pytest.mark.parametrize("kernel", ["gather_topk", "bank_query", "select", "masked_topk"])
+def test_f5_nan_order_matches_plain_on_the_edge_cases(dev, kernel):
+    """lax.top_k's order (+NaN first, NaNs by index; -NaN and -inf never;
+    -0.0 ties +0.0) in K6, K7, the select path and masked_topk, on K5's edge
+    cases (NaN and +-inf scores, zeros that cancel, ties across tiles)."""
+    for label, (u, v, k, ex) in _edge_calls(dev):
+        rows = torch.arange(u.shape[0], dtype=torch.int32, device=dev)
+        if kernel == "gather_topk":
+            got = ops_topk.gather_topk(u, v, rows, k, exclude=ex)
+            want = ops_topk.gather_topk_reference(u, v, rows, k, exclude=ex)
+        elif kernel == "bank_query":
+            got = ops_topk.bank_query(v, k, users=u, user_idx=rows, exclude_table=ex)
+            want = ops_topk.bank_query_reference(v, k, users=u, user_idx=rows, exclude_table=ex)
+        elif kernel == "select":
+            got = ops_topk.gather_topk(u, v, rows, 600, exclude=ex)
+            want = ops_topk.gather_topk_reference(u, v, rows, 600, exclude=ex)
+        else:
+            scores = ops_topk._scores(u, v)
+            norm = torch.linspace(0.5, 2.0, v.shape[0], device=dev)
+            got = ops_spmm.masked_topk(scores, ex, k, norm)
+            want = ops_spmm.masked_topk_reference(scores, ex, k, norm)
+            assert topk_bench.same(torch, ops_spmm.masked_topk(scores, ex, k),
+                                   ops_spmm.masked_topk_reference(scores, ex, k)), label
+        assert topk_bench.same(torch, got, want), label
+
+
+@pytest.mark.parametrize("k", [129, 512, 513, 1200])
+@pytest.mark.parametrize("with_norm", [True, False])
+def test_f6_masked_topk_at_any_k(dev, k, with_norm):
+    rng = np.random.default_rng(k)
+    scores = rng.normal(size=(2936, 40)).astype(np.float32)   # (n, B): a strided (B, n) view
+    scores[1500:1600] = scores[:100]                          # ties
+    scores[:, 2] = 0.25                                       # a row of ties
+    scores[7, 5], scores[8, 5], scores[9, 6] = np.nan, -np.nan, np.inf
+    starred = np.full((40, 64), -1, np.int32)
+    starred[:, :50] = rng.integers(0, 2936, size=(40, 50))
+    starred[3] = np.arange(64)
+    norm = torch.as_tensor(rng.uniform(0.0, 3.0, size=2936).astype(np.float32), device=dev) if with_norm else None
+    block = torch.as_tensor(scores, device=dev).t()
+    st = torch.as_tensor(starred, device=dev)
+    kernels.reset_launches()
+    got = ops_spmm.masked_topk(block, st, k, norm)
+    assert kernels.LAUNCHES["masked_topk_select"] == 1 and kernels.LAUNCHES["masked_topk"] == 0
+    assert topk_bench.same(torch, got, ops_spmm.masked_topk_reference(block, st, k, norm))
+
+
+def test_f6_masked_topk_starred_rows_longer_than_the_streaming_kernel(dev):
+    """A 40 000-wide starred row (over EXCLUDE_MAX), at k 30 and 600."""
+    rng = np.random.default_rng(40)
+    block = torch.as_tensor(rng.normal(size=(3, 60000)).astype(np.float32), device=dev)
+    st = torch.as_tensor(np.stack([rng.choice(60000, size=40000, replace=False) for _ in range(3)])
+                         .astype(np.int32), device=dev)
+    for k in (30, 600):
+        got = ops_spmm.masked_topk(block, st, k)
+        assert topk_bench.same(torch, got, ops_spmm.masked_topk_reference(block, st, k))
+
+
+@pytest.mark.parametrize("d", [513, 1024])
+def test_f7_k9_sgns_step_wide_matches_plain(dev, d):
+    rng = np.random.default_rng(d)
+    v, k, b = 146, 5, 300
+    in_t = torch.as_tensor(rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32), device=dev)
+    out_t = torch.as_tensor(rng.normal(scale=0.1, size=(v, d)).astype(np.float32), device=dev)
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    c[: b // 3] = 1                 # duplicate centers
+    neg = rng.integers(0, v, size=(b, k)).astype(np.int32)
+    neg[:, 0] = 0                   # duplicate negatives
+    args = [torch.as_tensor(a, device=dev) for a in (c, rng.integers(0, v, size=b).astype(np.int32), neg)]
+    res = {}
+    for name, fn in (("kernel", ops_sgns.sgns_step), ("plain", ops_sgns.sgns_step_reference)):
+        gi, go = torch.zeros_like(in_t), torch.zeros_like(out_t)
+        loss = torch.zeros(1, device=dev)
+        kernels.reset_launches()
+        fn(in_t, out_t, *args, gi, go, loss)
+        torch.cuda.synchronize()
+        res[name] = (gi, go, loss)
+        if name == "kernel":
+            assert kernels.LAUNCHES["sgns_step_wide"] == 1 and kernels.LAUNCHES["sgns_step"] == 0
+    mass = ops_sgns.sgns_grad_mass(in_t, out_t, *args)
+    for a, e, m in zip(res["kernel"], res["plain"], mass):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
+    assert float((res["kernel"][2] - res["plain"][2]).abs()) <= K9_MASS * float(res["plain"][2].abs())
+
+
+@pytest.mark.parametrize("r, d", [(129, 2), (200, 2), (32, 33), (200, 33)])
+def test_f7_k10_bpr_step_wide_matches_plain(dev, r, d):
+    rng = np.random.default_rng(r + d)
+    n_users, n_items, b = 300, 200, 8192
+    params = [torch.as_tensor(rng.normal(scale=0.1, size=s).astype(np.float32), device=dev)
+              for s in ((n_users, r), (n_items, r), (n_items,), (d,))]
+    g = torch.as_tensor(rng.normal(size=(n_items, d)).astype(np.float32), device=dev)
+    users = rng.integers(0, n_users, size=b).astype(np.int32)
+    users[: b // 3] = 7                       # a hot user
+    pos = rng.integers(0, n_items, size=b).astype(np.int32)
+    neg = rng.integers(0, n_items, size=(b, 4)).astype(np.int32)
+    neg[::2, 1] = pos[::2]                    # negatives equal to the positive
+    batch = [torch.as_tensor(a, device=dev) for a in (users, pos, neg)]
+    res = {}
+    for name, fn in (("kernel", ops_bpr.bpr_step), ("plain", ops_bpr.bpr_step_reference)):
+        grads = [torch.zeros_like(p) for p in params]
+        loss = torch.zeros(1, device=dev)
+        kernels.reset_launches()
+        fn(*params, g, *batch, *grads, loss, 1e-4)
+        torch.cuda.synchronize()
+        res[name] = (*grads, loss)
+        if name == "kernel":
+            assert kernels.LAUNCHES["bpr_step_wide"] == 1 and kernels.LAUNCHES["bpr_step"] == 0
+    mass = ops_bpr.bpr_grad_mass(*params, g, *batch, 1e-4)
+    for a, e, m in zip(res["kernel"], res["plain"], mass):
+        assert bool(((a - e).abs() <= K9_MASS * m).all())
+    assert float((res["kernel"][4] - res["plain"][4]).abs()) <= K9_MASS * float(res["plain"][4].abs())
+
+
+@pytest.mark.parametrize("k", [30, 512])
+def test_k6_k7_streaming_body_above_the_48kb_default(dev, k):
+    """Launches whose static running list and dynamic shared memory pass
+    the 48 KB a block gets by default: K7's item-mean query at d 200 (the
+    wide body's tile and the mean, 36 KB) and K6 with 7000-wide exclusion
+    rows (28 KB), at k 30 and 512 (the 512-entry list: 22.8 KB static)."""
+    rng = np.random.default_rng(k)
+    vf = torch.as_tensor(np.abs(rng.standard_normal((2936, 200))).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.integers(-1, 2936, size=(64, 32)).astype(np.int32), device=dev)
+    got = ops_topk.bank_query(vf, k, q_idx=q)
+    assert topk_bench.same(torch, got, ops_topk.bank_query_reference(vf, k, q_idx=q))
+    uf = torch.as_tensor(rng.standard_normal((300, 50)).astype(np.float32), device=dev)
+    items = torch.as_tensor(rng.standard_normal((20000, 50)).astype(np.float32), device=dev)
+    table = torch.as_tensor(rng.integers(-1, 20000, size=(300, 7000)).astype(np.int32), device=dev)
+    ui = torch.as_tensor(rng.integers(0, 300, size=16).astype(np.int32), device=dev)
+    got = ops_topk.gather_topk(uf, items, ui, k, exclude_table=table)
+    assert topk_bench.same(torch, got, ops_topk.gather_topk_reference(uf, items, ui, k, exclude_table=table))

@@ -5,6 +5,8 @@ another summation order (measured max |diff| ~1e-6). Under bf16 gathers
 every product over the gathered rows is exact in float32, so the same
 tolerance holds: the sums' order is the only difference."""
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from albedo_tpu.datasets.synthetic import synthetic_stars
 from albedo_tpu.models.als import _landing_perm
 from albedo_tpu.ops import als as jals
 from albedo_tpu_torch.datasets.ragged import Bucket, to_device
+from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS
 from albedo_tpu_torch.ops import als as tals
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -280,3 +283,154 @@ def test_k4_land_rows_matches_jax_landing():
     np.testing.assert_array_equal(got.numpy(), np.asarray(scattered))
     keep = tals.land_rows(torch.as_tensor(target), torch.zeros((0, target.shape[1])), torch.arange(target.shape[0]))
     np.testing.assert_array_equal(keep.numpy(), target)  # no blocks: every row keeps its factor
+
+
+# --------------------------------------------------- K1's split design (plan)
+#
+# The card's K1 (csrc/als_partials.cu) cuts each row of a group into chunks
+# (``ops.als._k1_plan``), sums each (row, chunk) unit on its own and adds a
+# split row's partials in chunk order, then mirrors the upper triangle. The
+# plan and the block layout are mirrored in Python; these tests hold the
+# mirror (every slot covered once, in order) and a model of the kernel's
+# arithmetic built on it (against JAX and the plain version).
+
+N_SM = 132  # an H100's SMs
+K1_EDGES = [(1, 1), (4, 1), (1, 7624), (3, 0), (5, 31), (5, 33), (2, 64), (2, 65), (7, 2000), (131, 700)]
+
+
+@pytest.mark.parametrize("b, length", BENCH_GROUPS + K1_EDGES)
+def test_k1_plan_covers_each_slot_once_in_order(b, length):
+    plan = tals._k1_plan(b, length, N_SM)
+    chunk, n_chunks, per_cta = plan
+    assert chunk % tals.K1_TILE == 0 and chunk >= tals.K1_TILE
+    assert n_chunks == max(1, -(-length // chunk))
+    assert per_cta == 1 or n_chunks == 1
+    units = tals.k1_units(b, length, plan)
+    assert len(units) == b * n_chunks
+    per = Counter(u[0] for u in units)
+    assert sorted(per) == list(range(-(-len(units) // per_cta))) and max(per.values(), default=1) <= per_cta
+    cover = np.zeros((b, length), dtype=np.int64)
+    parts: dict[int, list] = {}
+    for _, row, c, start, end in units:
+        cover[row, start:end] += 1
+        parts.setdefault(row, []).append((c, start, end))
+    assert (cover == 1).all()
+    for row in range(b):
+        got = parts[row]
+        assert [c for c, _, _ in got] == list(range(n_chunks))       # walked (and added) in chunk order
+        assert got[0][1] == 0 and got[-1][2] == length
+        assert all(a[2] == z[1] for a, z in zip(got, got[1:]))      # contiguous
+    # A group with few rows is spread over the card: at least half the units
+    # the plan aims for, unless every row is already cut to its shortest chunks.
+    if 2 * b < tals.K1_UNITS_PER_SM * N_SM and length > tals.K1_MIN_CHUNK:
+        want = tals.K1_UNITS_PER_SM * N_SM // 2
+        assert len(units) >= min(want, b * (length // tals.K1_MIN_CHUNK))
+
+
+def _kernel_blocks(k):
+    """The kernel's thread -> 4 x 4 block (I, J) walk (als_split_kernel)."""
+    kbi, kbj = -(-k // 4), (k + 4) // 4
+    out = []
+    for t in range(tals.k1_blocks(k)):
+        i_blk = 0
+        while t >= kbj - i_blk:
+            t -= kbj - i_blk
+            i_blk += 1
+        out.append((i_blk, i_blk + t))
+    return kbi, kbj, out
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 16, 49, 50, 63, 64])
+def test_k1_blocks_cover_the_upper_triangle_and_the_b_column(k):
+    kbi, kbj, blocks = _kernel_blocks(k)
+    assert len(blocks) <= 160 and len(set(blocks)) == len(blocks)    # NT_MAX threads
+    assert set(blocks) == {(i, j) for i in range(kbi) for j in range(i, kbj)}
+    owner = {blk: t for t, blk in enumerate(blocks)}
+    for i in range(k):
+        for j in range(i, k + 1):  # column k is the b-vector
+            bi, bj = i // 4, j // 4
+            assert bi * kbj - bi * (bi - 1) // 2 + (bj - bi) == owner[(bi, bj)]  # als_close_kernel's index
+
+
+def _close_to_scale(got, want):
+    """Within RTOL of the largest |want| of the row block: a row of
+    thousands of entries sums terms that cancel (a correction of ~6000 has
+    elements near 1), so two summation orders part by ~1e-8 of the scale,
+    which the elementwise rtol would read as 3e-5 on the small elements."""
+    assert np.abs(got - want).max(initial=0.0) <= RTOL * max(np.abs(want).max(initial=0.0), 1e-30)
+
+
+def _k1_split_model(src, idx, val, mask, plan, gather_dtype=None):
+    """K1 as the split design computes it, on the CPU: each unit's partial
+    over its slots, a split row's partials added in chunk order, the upper
+    triangle mirrored."""
+    b, length = idx.shape
+    k = src.shape[1]
+    corr, bvec = torch.zeros((b, k, k)), torch.zeros((b, k))
+    for _, row, _, start, end in tals.k1_units(b, length, plan):
+        part = (t[row:row + 1, start:end] for t in (idx, val, mask))
+        pc, pb = tals.bucket_partial_terms_reference(src, *part, ALPHA, gather_dtype)
+        corr[row] += pc[0]
+        bvec[row] += pb[0]
+    return torch.triu(corr) + torch.triu(corr, 1).transpose(1, 2), bvec
+
+
+def _k1_bucket(k, b, length, n_source=300, n_pad=1, gaps=False, seed=0):
+    """A bucket as ``_bucket`` builds it, with optional masked gaps inside
+    rows (idx 0 / val 0 off the mask, as the layout keeps padding)."""
+    rng = np.random.default_rng(seed)
+    src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+    lens = rng.integers(max(1, length // 2), length + 1, size=b)
+    lens[b - n_pad:] = 0
+    mask = np.arange(length)[None, :] < lens[:, None]
+    if gaps:
+        mask &= rng.random((b, length)) > 0.3
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 1.5, size=(b, length)), 0).astype(np.float32)
+    return src, idx, val, mask
+
+
+@pytest.mark.parametrize("gather_dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("k", [1, 50, 64])
+@pytest.mark.parametrize("b, length, n_pad, gaps", [
+    (4, 1, 1, False), (1, 7624, 0, False), (6, 300, 3, False), (5, 700, 1, True),
+], ids=["L1", "one-row-7624", "all-padding-slots", "masked-gaps"])
+def test_k1_split_model_matches_jax(b, length, n_pad, gaps, k, gather_dtype):
+    src, idx, val, mask = _k1_bucket(k, b, length, n_pad=n_pad, gaps=gaps)
+    plan = tals._k1_plan(b, length, N_SM)
+    corr, bvec = _k1_split_model(*_t(src, idx, val, mask), plan, gather_dtype)
+    assert torch.equal(corr, corr.transpose(1, 2))
+    if gather_dtype is None:
+        jc, jb = _jax_partials(src, idx, val, mask)
+    else:
+        jc, jb = tals.bucket_partial_terms(*_t(src, idx, val, mask), ALPHA, gather_dtype)
+    for got, want in ((corr.numpy(), np.asarray(jc)), (bvec.numpy(), np.asarray(jb))):
+        _close_to_scale(got, want)
+    if n_pad:
+        assert not corr[-1].any() and not bvec[-1].any()
+
+
+def test_k1_split_model_on_a_fits_groups():
+    """Every bucket group of a reduced fit (both half-sweeps), planned for a
+    card of 4 SMs so that the small groups split: the model of the split
+    design against the plain version."""
+    from albedo_tpu_torch.datasets.synthetic import synthetic_stars as port_stars
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    m = port_stars(n_users=300, n_items=200, mean_stars=40, seed=3)
+    ug, ig, _, _ = ImplicitALS(rank=8, device="cpu").device_groups(m)
+    rng = np.random.default_rng(1)
+    tables = {"u": torch.as_tensor(rng.standard_normal((m.n_users, 8)).astype(np.float32)),
+              "i": torch.as_tensor(rng.standard_normal((m.n_items, 8)).astype(np.float32))}
+    split = 0
+    for src, groups in ((tables["u"], ig), (tables["i"], ug)):
+        for g in groups:
+            n, b, length = g.idx.shape
+            idx, val, mask = (t.reshape(n * b, length) for t in (g.idx, g.val, g.mask))
+            plan = tals._k1_plan(n * b, length, 4)
+            split += plan[1] > 1
+            corr, bvec = _k1_split_model(src, idx, val, mask, plan)
+            want = tals.bucket_partial_terms_reference(src, idx, val, mask, ALPHA)
+            _close_to_scale(corr.numpy(), want[0].numpy())
+            _close_to_scale(bvec.numpy(), want[1].numpy())
+    assert split > 0
