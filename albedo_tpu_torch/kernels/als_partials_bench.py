@@ -1,5 +1,5 @@
-"""K1/K1-bf16 timings on the card beyond ``chip_smoke.py``'s: every bucket
-group of one iteration of the bench ALS fit, group by group.
+"""K1-K3 timings on the card beyond ``chip_smoke.py``'s: every bucket group
+of one iteration of the bench ALS fit, group by group.
 
     python -m albedo_tpu_torch.kernels.als_partials_bench groups
     python -m albedo_tpu_torch.kernels.als_partials_bench groups --against /path/to/other/root
@@ -16,9 +16,13 @@ groups as [rows, L, ms], ``narrow_share`` (the share of the kernel time in
 groups with fewer rows than the card has SMs), the iteration's kernel ms,
 and CUDA-event ms of the iteration's 74 calls (host launch path included)
 beside the library yardstick (the gather, then two batched matrix
-products). With ``--against ROOT`` the groups, tables and the train split
+products). K2 (``solve_corrected``, on each group's plain K1 terms, the live
+rows held) and K3 / K3-bf16 (``bucket_cg_body``, 3 steps from the other
+table's rows) are held and timed the same way (K2's yardstick, its plain
+version, is ``cholesky_ex`` + ``cholesky_solve``; K3 has none). With
+``--against ROOT`` the groups, tables and the train split
 are saved under ``build/bench/`` and each tree times them, and the bench
-fit's device seconds (Cholesky, CG-3, Cholesky at bf16 gathers, 26
+fit's device seconds (Cholesky, CG-3, and both at bf16 gathers, 26
 iterations from the pinned init), in a process of its own,
 importing its own package (and building its own kernels), in the order
 ROOT, this tree, this tree, ROOT: the parent-against-change comparison of
@@ -26,8 +30,13 @@ one card. ``variants``: the float32 groups' kernel ms and ``narrow_share``
 under other plans of the split design (``PLAN_VARIANTS``: units aimed at an
 SM, the shortest chunk, CTAs an SM for packed rows) and through copies of
 its source with a part cut out (``SOURCE_VARIANTS``). Prints one JSON line
-(``--against``: each tree's, then the comparison). Needs a GPU; the CPU has
-nothing to measure here.
+(``--against``: each tree's, then the comparison). ``variants k2``: K2 over
+the groups through copies of its source with other tuning constants
+(``K2_SOURCE_VARIANTS``); ``variants k3``: K3 and K3-bf16 with other
+lengths of the rows warp mode takes (``K3_PACK_VARIANTS``) and other
+widest clusters (``K3_CLUSTER_VARIANTS``). ``ranks``: K2
+alone at ranks 8 to 64 on random systems (``K2_RANKS``). Needs a GPU; the
+CPU has nothing to measure here.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ BENCH_GROUPS = [
     (2048, 152), (3072, 16), (3072, 24), (3072, 32), (3072, 40), (3072, 48), (3072, 80),
     (3072, 96),
 ]
-ALPHA, RANK, REPS = 40.0, 50, 5
+ALPHA, RANK, REPS, REG, CG_STEPS = 40.0, 50, 5, 0.5, 3
 # name -> (K1_UNITS_PER_SM, K1_MIN_CHUNK, K1_CTAS_PER_SM) of ops/als.py.
 # Source variants of csrc/als_partials.cu (text replaced, built beside the
 # package's build; their answers are not K1's): "no products" skips the FMA
@@ -66,6 +75,28 @@ SOURCE_VARIANTS = {
     "no row copy": [("e < k * k / 4; e += blockDim.x)", "e < 0; e += blockDim.x)"),
                     ("e < k * k; e += blockDim.x) out[e] = so[e];", "e < 0; e += blockDim.x) out[e] = so[e];")],
 }
+# Source variants of csrc/solve_corrected.cu: K2's CTAs an SM (registers
+# capped for more), the column sums' shuffles as __shfl_sync (which the
+# compiler may hoist), and copies with a part cut out, for where the time
+# goes (their answers are not K2's): "no column dots" skips the sums of the
+# finished columns, "no substitutions" the two triangular solves, "no
+# staging" the copy of the next system's correction (a stale slab is read).
+K2_SOURCE_VARIANTS = {
+    "default": [],
+    "min ctas 3": [("constexpr int MIN_CTAS = 1;", "constexpr int MIN_CTAS = 3;")],
+    "min ctas 4": [("constexpr int MIN_CTAS = 1;", "constexpr int MIN_CTAS = 4;")],
+    "no column dots": [("#pragma unroll\n      for (int p = 0; p < j; ++p) {",
+                        "#pragma unroll\n      for (int p = 0; p < 0; ++p) {")],
+    "no substitutions": [("    for (int j = 0; j < KC; ++j) {\n      if (j >= k) break;\n      const float yj",
+                          "    for (int j = 0; j < 0; ++j) {\n      if (j >= k) break;\n      const float yj"),
+                         ("    for (int j = KC - 1; j >= 0; --j) {", "    for (int j = -1; j >= 0; --j) {")],
+    "no staging": [("    if (s + step < B) stage_upper(", "    if (false) stage_upper(")],
+    "builtin shuffles": [("        const float v = shfl_in_order(j < 32 ? A0(p) : A1(p), j & 31);",
+                          "        const float v = __shfl_sync(FULL, j < 32 ? A0(p) : A1(p), j & 31);")],
+}
+# K3's plan variants: the longest row warp mode takes (ops/als.py K3_PACK_L).
+K3_PACK_VARIANTS = (32, 64, 128)
+K3_CLUSTER_VARIANTS = (8, 16)  # the widest cluster a K3 plan may take (c_max of ops/als.py _k3_plan)
 PLAN_VARIANTS = {"default": (8, 64, 16), "units 4, ctas 8": (4, 64, 8), "units 2, ctas 8": (2, 64, 8),
                  "units 4, ctas 16": (4, 64, 16), "units 8, ctas 8": (8, 64, 8), "chunk 128": (8, 128, 16),
                  "chunk 32": (8, 32, 16), "ctas 4": (8, 64, 4)}
@@ -74,7 +105,8 @@ DATA = Path("build") / "bench" / "als_partials_groups.pt"
 
 def bench_data(torch, dev) -> dict:
     """The bench split's groups (flattened to (N B, L)) and the pinned
-    rank-50 tables, on ``dev``: calls [(source side, idx, val, mask)]."""
+    rank-50 tables, on ``dev``: calls [(source side, idx, val, mask, row
+    ids)] (a row id -1 is a padding slot)."""
     from albedo_tpu_torch.datasets import random_split_by_user
     from albedo_tpu_torch.datasets.synthetic import synthetic_stars
     from albedo_tpu_torch.models.als import ImplicitALS
@@ -90,7 +122,8 @@ def bench_data(torch, dev) -> dict:
     for side, groups in (("users", ig), ("items", ug)):  # the fixed side each half-sweep gathers
         for g in groups:
             n, b, length = g.idx.shape
-            calls.append((side, *(t.reshape(n * b, length).contiguous() for t in (g.idx, g.val, g.mask))))
+            calls.append((side, *(t.reshape(n * b, length).contiguous() for t in (g.idx, g.val, g.mask)),
+                          g.row_ids.reshape(-1).contiguous()))
     split = [torch.as_tensor(a) for a in (train.user_ids, train.item_ids, train.rows, train.cols, train.vals)]
     return {"users": torch.as_tensor(u0, device=dev), "items": torch.as_tensor(v0, device=dev), "calls": calls,
             "train": split}
@@ -98,7 +131,7 @@ def bench_data(torch, dev) -> dict:
 
 def time_fits(data: dict) -> dict:
     """The bench fit's device seconds (rank 50, 26 iterations, reg 0.5,
-    alpha 40, from the pinned init), Cholesky, CG-3 and Cholesky at bf16
+    alpha 40, from the pinned init), Cholesky and CG-3, at float32 and bf16
     gathers, as ``chip_smoke.py``'s bench phases fit it."""
     from albedo_tpu_torch.datasets.star_matrix import StarMatrix
     from albedo_tpu_torch.models.als import ImplicitALS
@@ -107,8 +140,8 @@ def time_fits(data: dict) -> dict:
     init = (data["users"].cpu().numpy(), data["items"].cpu().numpy())
     out = {}
     for name, solver, dtype in (("cholesky", "cholesky", None), ("cg", "cg", None),
-                                ("cholesky_bf16", "cholesky", "bfloat16")):
-        est = ImplicitALS(rank=RANK, reg_param=0.5, alpha=ALPHA, max_iter=26, solver=solver, cg_steps=3,
+                                ("cholesky_bf16", "cholesky", "bfloat16"), ("cg_bf16", "cg", "bfloat16")):
+        est = ImplicitALS(rank=RANK, reg_param=REG, alpha=ALPHA, max_iter=26, solver=solver, cg_steps=3,
                           init_factors=init, gather_dtype=dtype, device="cuda")
         est.fit(train)
         out[name] = est.last_fit_report["device_s"]
@@ -180,62 +213,109 @@ def _events_ms(torch, fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _rel(got, want, rows=None) -> float:
+    """Max |got - want| over max |want| (over ``rows`` when given)."""
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _timed_groups(torch, shapes, fns, n_sm: int) -> dict:
+    """The card's kernel ms of each group's call, summarized, with the
+    iteration's event ms."""
+    ms = kernel_ms_each(torch, fns)
+    return {**summarize(shapes, ms, n_sm), "per_group_ms": [[s[0], s[1], m] for s, m in zip(shapes, ms)],
+            "events_ms": _events_ms(torch, lambda: [fn() for fn in fns])}
+
+
 def time_groups(torch, data: dict) -> dict:
-    """Each gather dtype's per-group kernel ms, top five, narrow share,
-    errors against the plain version, and iteration ms against the library."""
+    """Each gather dtype's K1 per-group kernel ms, top five, narrow share,
+    errors against the plain version, and iteration ms against the library;
+    then K2 and K3 / K3-bf16 alike (``solve_corrected``, ``bucket_cg``,
+    ``bucket_cg_bf16``)."""
     from albedo_tpu_torch.ops import als as ops_als
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
     out = {}
     for dtype in (None, "bfloat16"):
         tables = {side: ops_als.gather_table(data[side], dtype) for side in ("users", "items")}
-        calls = [(tables[side], idx, val, mask) for side, idx, val, mask in data["calls"]]
+        calls = [(tables[side], idx, val, mask) for side, idx, val, mask, _ in data["calls"]]
         worst = 0.0
         for src, idx, val, mask in calls:
             got = ops_als.bucket_partial_terms(src, idx, val, mask, ALPHA, dtype)
             want = ops_als.bucket_partial_terms_reference(src, idx, val, mask, ALPHA, dtype)
             for a, b in zip(got, want):
-                worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+                worst = max(worst, _rel(a, b))
         fns = [(lambda c=c: ops_als.bucket_partial_terms(*c, ALPHA, dtype)) for c in calls]
-        ms = kernel_ms_each(torch, fns)
-        shapes = [tuple(c[1].shape) for c in calls]
         wide_src = [(src.float(), idx, val, mask) for src, idx, val, mask in calls]
         out["float32" if dtype is None else dtype] = {
             "max_rel_err": worst,
-            **summarize(shapes, ms, n_sm),
-            "per_group_ms": [[s[0], s[1], m] for s, m in zip(shapes, ms)],
-            "events_ms": _events_ms(torch, lambda: [fn() for fn in fns]),
+            **_timed_groups(torch, shapes, fns, n_sm),
             "library_ms": _events_ms(torch, lambda: [library(torch, *c) for c in wide_src]),
         }
+
+    other = {"users": "items", "items": "users"}
+    yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
+    k2 = []
+    for side, idx, val, mask, _ in data["calls"]:
+        corr, b_vec = ops_als.bucket_partial_terms_reference(data[side], idx, val, mask, ALPHA)
+        k2.append((yty[side], corr, b_vec, mask.sum(dim=1, dtype=torch.float32)))
+    worst = max(_rel(ops_als.solve_corrected(*c, REG), ops_als.solve_corrected_reference(*c, REG), c[3] > 0)
+                for c in k2)
+    out["solve_corrected"] = {
+        "max_rel_err": worst,
+        **_timed_groups(torch, shapes, [(lambda c=c: ops_als.solve_corrected(*c, REG)) for c in k2], n_sm),
+        "library_ms": _events_ms(torch, lambda: [ops_als.solve_corrected_reference(*c, REG) for c in k2]),
+    }
+    del k2
+    for dtype in (None, "bfloat16"):
+        tables = {side: ops_als.gather_table(data[side], dtype) for side in ("users", "items")}  # cast once
+        k3 = [(tables[side], yty[side], idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous())
+              for side, idx, val, mask, rows in data["calls"]]
+        worst = max(_rel(ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype),
+                         ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)) for c in k3)
+        fns = [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)) for c in k3]
+        out["bucket_cg" if dtype is None else "bucket_cg_bf16"] = {
+            "max_rel_err": worst, **_timed_groups(torch, shapes, fns, n_sm), "library_ms": None}
     return out
 
 
-def _build_variants() -> dict:
-    """SOURCE_VARIANTS built with nvcc: name -> loaded library."""
+def _build_variants(source: str = "als_partials", variants: dict | None = None) -> dict:
+    """Source variants of ``csrc/<source>.cu`` (default: K1's
+    SOURCE_VARIANTS) built with nvcc: name -> loaded library."""
     import ctypes
 
     from albedo_tpu_torch.kernels import build
 
-    src = (build.CSRC / "als_partials.cu").read_text()
-    work = build.BUILD_DIR / "als_variants"
+    variants = SOURCE_VARIANTS if variants is None else variants
+    src = (build.CSRC / f"{source}.cu").read_text()
+    work = build.BUILD_DIR / f"{source}_variants"
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(SOURCE_VARIANTS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in als_partials.cu")
+                raise RuntimeError(f"variant {name}: {old!r} not in {source}.cu")
             text = text.replace(old, new)
         (work / f"v{i}.cu").write_text(text)
-        procs[name] = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(work / f"v{i}.so"),
-                                        str(work / f"v{i}.cu")])
-    if any(p.wait() for p in procs.values()):
-        raise RuntimeError("nvcc failed for a variant")
+        procs[name] = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                                        str(work / f"v{i}.so"), str(work / f"v{i}.cu")],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        # each kernel's registers and spills, for the record
+        print(json.dumps({"variant": name, "ptxas": [ln.strip() for ln in log.splitlines()
+                                                      if "registers" in ln or "spill" in ln]}), file=sys.stderr)
     libs = {}
-    for i, name in enumerate(SOURCE_VARIANTS):
+    for i, name in enumerate(variants):
         lib = ctypes.CDLL(str(work / f"v{i}.so"))
-        lib.als_partials_launch.argtypes = build.SIGNATURES["als_partials"]
-        lib.als_partials_launch.restype = ctypes.c_int
+        fn = getattr(lib, f"{source}_launch")
+        fn.argtypes = build.SIGNATURES[source]
+        fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -247,7 +327,7 @@ def time_variants(torch, data: dict) -> dict:
     from albedo_tpu_torch.ops import als as ops_als
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    calls = [(data[side], idx, val, mask) for side, idx, val, mask in data["calls"]]
+    calls = [(data[side], idx, val, mask) for side, idx, val, mask, _ in data["calls"]]
     shapes = [tuple(c[1].shape) for c in calls]
     saved = (ops_als.K1_UNITS_PER_SM, ops_als.K1_MIN_CHUNK, ops_als.K1_CTAS_PER_SM)
     out = {}
@@ -270,6 +350,101 @@ def time_variants(torch, data: dict) -> dict:
     return out
 
 
+def time_k2_variants(torch, data: dict) -> dict:
+    """K2 over the bench groups (each group's plain K1 terms) under each
+    source of K2_SOURCE_VARIANTS: kernel ms, narrow share, the slowest
+    groups and the error against the plain version."""
+    from albedo_tpu_torch.kernels import build
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
+    calls = []
+    for side, idx, val, mask, _ in data["calls"]:
+        corr, b_vec = ops_als.bucket_partial_terms_reference(data[side], idx, val, mask, ALPHA)
+        calls.append((yty[side], corr, b_vec, mask.sum(dim=1, dtype=torch.float32)))
+    shapes = [tuple(c[1].shape[:1]) + (int(d[1].shape[1]),) for c, d in zip(calls, data["calls"])]
+    want = [ops_als.solve_corrected_reference(*c, REG) for c in calls]
+    build.build()
+    default = build._libs["solve_corrected"]
+    out = {}
+    try:
+        for name, lib in _build_variants("solve_corrected", K2_SOURCE_VARIANTS).items():
+            build._libs["solve_corrected"] = lib
+            err = max(_rel(ops_als.solve_corrected(*c, REG), w, c[3] > 0) for c, w in zip(calls, want))
+            ms = kernel_ms_each(torch, [(lambda c=c: ops_als.solve_corrected(*c, REG)) for c in calls])
+            out[name] = {"max_rel_err": err, **summarize(shapes, ms, n_sm)}
+    finally:
+        build._libs["solve_corrected"] = default
+    return out
+
+
+def time_k3_variants(torch, data: dict) -> dict:
+    """K3 and K3-bf16 over the bench groups under each K3_PACK_VARIANTS
+    value of ops/als.py K3_PACK_L, then under plans whose widest cluster is
+    each of K3_CLUSTER_VARIANTS: kernel ms, narrow share, the slowest groups
+    and the error against the plain version."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    other = {"users": "items", "items": "users"}
+    yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
+    saved = ops_als.K3_PACK_L, ops_als.k3_plan_for
+    out = {}
+
+    def timed(calls, want, dtype):
+        err = max(_rel(ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype), w)
+                  for c, w in zip(calls, want))
+        ms = kernel_ms_each(torch, [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS,
+                                                                         gather_dtype=dtype)) for c in calls])
+        return {"max_rel_err": err, **summarize(shapes, ms, n_sm)}
+
+    try:
+        for dtype in (None, "bfloat16"):
+            tables = {side: ops_als.gather_table(data[side], dtype) for side in ("users", "items")}
+            calls = [(tables[side], yty[side], idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous())
+                     for side, idx, val, mask, rows in data["calls"]]
+            want = [ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype) for c in calls]
+            for pack in K3_PACK_VARIANTS:
+                ops_als.K3_PACK_L = pack
+                out[f"{dtype or 'float32'} pack {pack}"] = timed(calls, want, dtype)
+            ops_als.K3_PACK_L = saved[0]
+            for c_max in K3_CLUSTER_VARIANTS:
+                ops_als.k3_plan_for = (lambda b, length, k, g, dev, c_max=c_max:
+                                       ops_als._k3_plan(b, length, k, g is not None, n_sm, c_max))
+                out[f"{dtype or 'float32'} clusters up to {c_max}"] = timed(calls, want, dtype)
+            ops_als.k3_plan_for = saved[1]
+    finally:
+        ops_als.K3_PACK_L, ops_als.k3_plan_for = saved
+    return out
+
+
+K2_RANKS = (8, 16, 17, 24, 32, 33, 40, 50, 64)
+
+
+def time_k2_ranks(torch) -> dict:
+    """K2 alone at each rank of K2_RANKS on 65 536 random positive definite
+    systems (YtY of a table of 4k + 40 rows, the Gramian of 8 random rows a
+    system, reg 0.5 x 8): CUDA-event ms of a call over 5 calls, ns a system,
+    and the max abs error against the plain version. Compares K2's rank
+    classes (16, 32, 64: a class's code is unrolled to its width)."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    dev = torch.device("cuda")
+    b, out = 65536, {}
+    for k in K2_RANKS:
+        g = torch.Generator(device=dev).manual_seed(k)
+        yty = ops_als.gramian(torch.randn(4 * k + 40, k, device=dev, generator=g) / k ** 0.5)
+        y = torch.randn(b, 8, k, device=dev, generator=g) / k ** 0.5
+        args = (yty, torch.einsum("bli,blj->bij", y, y).contiguous(), torch.randn(b, k, device=dev, generator=g),
+                torch.full((b,), 8.0, device=dev), REG)
+        err = float((ops_als.solve_corrected(*args) - ops_als.solve_corrected_reference(*args)).abs().max())
+        ms = _events_ms(torch, lambda: ops_als.solve_corrected(*args), reps=5)
+        out[str(k)] = {"ms": ms, "ns_per_system": ms * 1e6 / b, "max_abs_err": err}
+    return out
+
+
 def _card() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -284,10 +459,13 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("als_partials_bench: needs a GPU", file=sys.stderr)
         return 1
-    if not argv or argv[0] not in ("groups", "time", "variants"):
-        print("usage: als_partials_bench groups [--against ROOT] | variants", file=sys.stderr)
+    if not argv or argv[0] not in ("groups", "time", "variants", "ranks"):
+        print("usage: als_partials_bench groups [--against ROOT] | variants [k2|k3] | ranks", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if argv[0] == "ranks":
+        print(json.dumps({"mode": "ranks", "card": _card(), **time_k2_ranks(torch)}), flush=True)
+        return 0
     if argv[0] == "time":  # a child of --against: ``time ROOT DATA``, importing ROOT's package
         root, path = argv[1], argv[2]
         sys.path.insert(0, root)
@@ -296,7 +474,9 @@ def main(argv: list[str]) -> int:
         return 0
     data = bench_data(torch, dev)
     if argv[0] == "variants":
-        print(json.dumps({"mode": "variants", "card": _card(), **time_variants(torch, data)}), flush=True)
+        which = argv[1] if len(argv) > 1 else "k1"
+        timed = {"k1": time_variants, "k2": time_k2_variants, "k3": time_k3_variants}[which](torch, data)
+        print(json.dumps({"mode": f"variants {which}", "card": _card(), **timed}), flush=True)
         return 0
     if "--against" not in argv:
         print(json.dumps({"mode": "groups", "card": _card(), **time_groups(torch, data)}), flush=True)
@@ -315,9 +495,9 @@ def main(argv: list[str]) -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     summary = {
-        dtype: {key: [r[dtype][key] for r in runs] for key in ("kernel_ms", "narrow_share", "events_ms",
-                                                               "library_ms", "max_rel_err")}
-        for dtype in ("float32", "bfloat16")
+        name: {key: [r[name][key] for r in runs] for key in ("kernel_ms", "narrow_share", "events_ms",
+                                                             "library_ms", "max_rel_err")}
+        for name in ("float32", "bfloat16", "solve_corrected", "bucket_cg", "bucket_cg_bf16")
     }
     summary["fit_s"] = {name: [r["fit_s"][name] for r in runs] for name in runs[0]["fit_s"]}
     print(json.dumps({"mode": "groups", "card": _card(), "order": [other, here, here, other], **summary}), flush=True)

@@ -45,10 +45,10 @@ SIGNATURES: dict[str, list] = {
     "als_partials_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P],
     # yty, corr, bvec, n_b, reg, x, B, k, ws, stream
     "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _P],
-    # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws, stream
-    "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
+    # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, mode, c, slice, resident, ws, stream
+    "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     # the same, with source bf16
-    "bucket_cg_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
+    "bucket_cg_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     # users, items, excl, out_s, out_i, U, I, r, k, E, tile, split, split1, rows, ws, bws, mask, stream
     "topk_scores": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # uf_all, items, user_idx, excl, excl_by_user, out_s, out_i, B, I, r, k, E, Epad, stream
@@ -211,6 +211,15 @@ def build(verbose: bool = False) -> dict[str, float]:
                 fn.restype = ctypes.c_int
                 _libs[name] = lib
         return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of entry point ``name`` (building every kernel on
+    first use), for a query function its source exports beside the launch
+    functions (``bucket_cg_clusters``)."""
+    if name not in _libs:
+        build()
+    return _libs[name]
 
 
 def call(name: str, device, *args, count: str | None = None) -> None:

@@ -1,5 +1,5 @@
 // K3 bucket_cg: warm-started Jacobi-preconditioned conjugate gradient on the
-// implicit-ALS normal equations, matrix-free, one bucket row per CTA.
+// implicit-ALS normal equations, matrix-free.
 //
 // Replaces: albedo_tpu/ops/als.py bucket_cg_body (:154). For a row with
 // entries (y_l = source[idx_l], c1_l = alpha val_l, w_l = 1 + c1_l):
@@ -9,15 +9,49 @@
 // then cg_steps iterations from x0 with the tiny = 1e-30 guards, in the same
 // order as the JAX loop (:205-221).
 //
-// What bounds it on an H100: each matvec streams the row's gathered entries
-// once (L k FMAs twice over). A row reaches L = 7624 entries at the bench
-// scale (7624 x 50 x 4 B = 1.5 MB), so the gathered rows cannot all stay in
-// shared memory: every matvec re-reads them from the source table through
-// TILE-row shared-memory tiles. The table itself (4-6 MB at the bench scale)
-// stays in the 50 MB L2, so the kernel is bound by L2 traffic and by the
-// dependent chain of cg_steps + 1 matvecs per row, not by device memory.
-// YtY (k x k) and the CG vectors live in shared memory for the whole solve;
-// nothing of the (B, L, k) block or the (B, k, k) systems is ever written.
+// What bounds it on an H100: a row's cg_steps + 1 matvecs and its b/diag
+// pass each contract the row's gathered entries twice (4 k FLOP an entry a
+// matvec), about 0.09 ms of FP32 work a bench iteration; the bytes (the
+// entry lists and the 4-6 MB tables, which stay in the 50 MB L2) are less.
+// A bucket group is (B, L) with rows of every length: the ALS fit's groups
+// run from 3072 rows x 16 slots to one row x 7624 slots, and each CG step
+// needs the whole row's matvec before the next one. The first design (one
+// CTA a row, every matvec re-streaming the row from L2 in 32-entry tiles,
+// thread 0 taking each dot product alone) left the narrow tall groups on a
+// handful of SMs: 83% of K3's time in the 30 groups of fewer rows than SMs.
+//
+// Rank k <= 64: one plan a group (ops/als.py _k3_plan, mirrored entry for
+// entry in k3_units), in one of two modes.
+//   - Warp mode (rows of at most K3_PACK_L slots): one warp a row, PW rows a
+//     CTA. The warp stages its row's gathered rows into its own slice of
+//     shared memory once and runs the whole solve alone: the dots are warp
+//     shuffles and no CTA barrier follows the one that publishes YtY.
+//   - Cluster mode: a row's slots are cut into c slices of `slice` slots
+//     (c in {1, 2, 4, 8, 16}), one CTA of CW warps each, the row's c CTAs
+//     one thread-block cluster. Each CTA stages its slice's gathered rows,
+//     with c1 and w, into shared memory once (cp.async) and reads them from
+//     there for the b/diag pass and every matvec. A slice too long for
+//     shared memory even at the widest cluster is streamed instead: every
+//     pass walks it in windows of WIN slots through a two-slot cp.async ring
+//     (a path of the kernel, not a fallback). Each pass: every warp
+//     accumulates the partial k-vector of its contiguous block of entries
+//     (lane l owns columns l and l + 32), warp 0 adds the warps' partials in
+//     warp order, the cluster syncs, and warp 0 of every CTA adds the c
+//     CTAs' partials read through distributed shared memory in rank order
+//     0 .. c - 1 and runs the k-length CG update (YtY p, the dots, x, r,
+//     z, beta, p) itself. Every
+//     CTA computes the same bits from the same partials, so nothing is
+//     broadcast; partials are double-buffered, so one cluster barrier a pass
+//     suffices, and a last one keeps every CTA alive until its peers have
+//     read it. No float atomics: the same bits on every call.
+// Inside a pass, entry e's dot y_e . p is a warp sum (fixed xor tree) of
+// the lanes' two products, t_e = c1_e (y_e . p) goes back on the same
+// row values, and YtY p (warp 0, i ascending) is formed while the other
+// warps work. These are the first design's orders where one warp holds the
+// row (warp mode: every sum in entry order), and blocks of it otherwise.
+// Under bf16 gathers a float32 round-off in any other order can flip a bf16
+// rounding of p or t, which moves a row by up to ~1e-3 of the group's
+// largest value (PERF.md, K3-bf16 at the bench); hence K3-bf16's 5e-4 against K3's 1e-4.
 //
 // Ranks above KMAX = 64 take the wide path (bucket_cg_wide_kernel): the same
 // steps in the same order, with YtY read from global memory (one k x k table
@@ -30,16 +64,22 @@
 //
 // K3-bf16 (entry bucket_cg_bf16): the same kernels reading a bf16 copy of
 // the table, as bucket_cg_body does under gather_dtype="bfloat16" (:180,
-// :193-203). The entry tile holds the bf16 rows as they are and widens each
-// value on use; the kernel rounds where the JAX program rounds and nowhere
-// else (round = __float2bfloat16_rn, nearest even, as XLA's convert):
+// :193-203). The staged rows are the bf16 rows as they are, widened on use;
+// the kernel rounds where the JAX program rounds and nowhere else (round =
+// __float2bfloat16_rn, nearest even, as XLA's convert):
 //     diag   = max(diag(YtY) + sum_l round(y_l^2) round(c1_l) + reg n, 1e-12)
 //     A p    = YtY p + sum_l y_l round(c1_l (y_l . round(p))) + reg n p
 // with b = sum_l w_l y_l (w unrounded). The iterate p stays float32; only
 // the two gathered contractions see its rounded copy, formed on the fly.
+// Splitting a row across CTAs moves none of these rounding sites.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -65,178 +105,481 @@ struct Rows<__nv_bfloat16> {
 };
 
 constexpr int KMAX = 64;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // wide path
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 32;
+constexpr int TILE = 32;      // wide path: entries per shared-memory tile
+constexpr unsigned FULL = 0xffffffffu;
+
+// ------------------------------------------------------ narrow design (k <= 64)
+
+constexpr int PW = 4;             // rows (warps) of a warp-mode CTA
+constexpr int CW = 8;             // warps of a cluster-mode CTA
+constexpr int WIN = 64;           // slots of a streamed window
+constexpr int PACK_MAX = 128;     // the longest row warp mode takes
+constexpr int CPART = 144;        // floats of one exchanged partial: b | diag | count
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
+
+__host__ __device__ __forceinline__ int r16(long long bytes) { return (int)((bytes + 15) / 16 * 16); }
+
+// Staged row stride in elements: k rounded up so that a row is whole 16-byte words.
+template <typename T>
+__host__ __device__ __forceinline__ int row_elems(int k) {
+  const int q = 16 / (int)sizeof(T);
+  return (k + q - 1) / q * q;
+}
+
+// A region of n slots in shared memory: the gathered rows (n x kp), c1 and
+// w (n each), and per 32-slot chunk one past its last masked-in slot (nl)
+// and its masked-in count (cnt).
+template <typename T>
+__host__ __device__ __forceinline__ int region_bytes(int n, int k) {
+  const int chunks = (n + 31) / 32;
+  return r16((long long)n * row_elems<T>(k) * (int)sizeof(T)) + 2 * r16(4LL * n) + 2 * r16(4LL * chunks);
+}
 
 template <typename T>
-struct Shared {
-  float yty[KMAX][KMAX];
-  T ys[TILE][KMAX];
-  float c1s[TILE];
-  float ws[TILE];
-  float ts[TILE];
-  float x[KMAX], r[KMAX], z[KMAX], p[KMAX], ap[KMAX], diag[KMAX], b[KMAX];
-  float red;
-  int end;
-  int count;
+struct Region {
+  T* ys;
+  float *c1, *w;
+  int *nl, *cnt;
+  __device__ Region(unsigned char* base, int n, int k) {
+    const int chunks = (n + 31) / 32;
+    ys = reinterpret_cast<T*>(base);
+    base += r16((long long)n * row_elems<T>(k) * (int)sizeof(T));
+    c1 = reinterpret_cast<float*>(base);
+    base += r16(4LL * n);
+    w = reinterpret_cast<float*>(base);
+    base += r16(4LL * n);
+    nl = reinterpret_cast<int*>(base);
+    base += r16(4LL * chunks);
+    cnt = reinterpret_cast<int*>(base);
+  }
 };
 
-// Load entries [l0, l0 + TILE) of the row into the shared tile; entries that
-// are masked out (or past `end`) load as zero rows with zero weights.
+// Shared bytes of YtY staged with rows of 64 floats (lane l reads columns l
+// and l + 32).
+__host__ __device__ __forceinline__ int yty_bytes(int k) { return r16(4LL * k * 64); }
+
+// Shared bytes of a launch: warp mode (mode 0) PW regions of `slice` slots,
+// each with its p vector; cluster mode (mode 1) one resident region of
+// `slice` slots or two streamed windows, YtY, p, the warps' partials and the
+// two exchanged partials.
 template <typename T>
-__device__ void load_tile(Shared<T>& s, const T* __restrict__ source,
-                          const int* __restrict__ idx,
-                          const float* __restrict__ val,
-                          const unsigned char* __restrict__ mask,
-                          long long base, int l0, int k, float alpha) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < TILE * k; e += THREADS) {
-    const int l = e / k;
-    const int c = e - l * k;
-    const int gl = l0 + l;
-    T y = Rows<T>::zero();
-    if (gl < s.end && mask[base + gl])
-      y = source[(long long)idx[base + gl] * k + c];
-    s.ys[l][c] = y;
-  }
-  if (tid < TILE) {
-    const int gl = l0 + tid;
-    float c1 = 0.f, w = 0.f;
-    if (gl < s.end && mask[base + gl]) {
-      c1 = alpha * val[base + gl];
-      w = 1.f + c1;
-    }
-    s.c1s[tid] = c1;
-    s.ws[tid] = w;
-  }
+__host__ __device__ __forceinline__ int narrow_smem(int mode, int slice, int resident, int k) {
+  if (mode == 0) return yty_bytes(k) + PW * (region_bytes<T>(slice, k) + 256);
+  return (resident ? region_bytes<T>(slice, k) : 2 * region_bytes<T>(WIN, k)) + yty_bytes(k) + 256 +
+         4 * CW * 128 + 4 * 2 * CPART;
 }
 
-// sum_i a[i] * b[i] over k entries, returned to every thread.
-template <typename T>
-__device__ float block_dot(Shared<T>& s, const float* a, const float* b, int k) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int i = 0; i < k; ++i) acc += a[i] * b[i];
-    s.red = acc;
-  }
-  __syncthreads();
-  return s.red;
+struct Args {
+  const float* yty;
+  const int* idx;
+  const float* val;
+  const unsigned char* mask;
+  const float* x0;
+  float* x;
+  int B, L, k;
+  float reg, alpha;
+  int steps;
+  int c, slice, resident;  // the plan (cluster mode; warp mode: slice = a warp's slots)
+  int kp, kf;              // staged row stride (elements), YtY row stride (floats, 64)
+  int wb, words;           // bytes of a cp.async word of a gathered row (8, 4; 0: plain loads), words a row
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 4 : 0));
 }
 
-// out = A v (see the header), for the whole CTA.
-template <typename T>
-__device__ void matvec(Shared<T>& s, const float* v, float* out,
-                       const T* __restrict__ source,
-                       const int* __restrict__ idx,
-                       const float* __restrict__ val,
-                       const unsigned char* __restrict__ mask, long long base,
-                       int k, float alpha, float rn) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float acc = 0.f;
-  for (int l0 = 0; l0 < s.end; l0 += TILE) {
-    __syncthreads();
-    load_tile(s, source, idx, val, mask, base, l0, k, alpha);
-    __syncthreads();
-    const int nl = min(TILE, s.end - l0);
-    for (int l = warp; l < nl; l += WARPS) {
-      float d = 0.f;
-      for (int c = lane; c < k; c += 32) d += Rows<T>::widen(s.ys[l][c]) * Rows<T>::round(v[c]);
-      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (lane == 0) s.ts[l] = Rows<T>::round(s.c1s[l] * d);
-    }
-    __syncthreads();
-    if (tid < k)
-      for (int l = 0; l < nl; ++l) acc += Rows<T>::widen(s.ys[l][tid]) * s.ts[l];
-  }
-  __syncthreads();
-  if (tid < k) {
-    float yp = 0.f;
-    for (int i = 0; i < k; ++i) yp += v[i] * s.yty[i][tid];
-    out[tid] = yp + acc + rn * v[tid];
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 8 : 0));
 }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Stage slots [s0, s0 + n) of the row at `rowoff` into region rg, chunk q
+// of 32 slots by warp q % G of the group (gw its warp index). A masked-out
+// slot gets c1 = w = 0 and, below its chunk's last masked-in slot, a zero
+// row (cp.async zero-fill); slots past that are not copied. One commit
+// group per thread.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) bucket_cg_kernel(
-    const T* __restrict__ source, const float* __restrict__ yty,
-    const int* __restrict__ idx, const float* __restrict__ val,
-    const unsigned char* __restrict__ mask, const float* __restrict__ x0,
-    float* __restrict__ xout, int L, int k, float reg, float alpha,
-    int cg_steps) {
-  __shared__ Shared<T> s;
-  const int tid = threadIdx.x;
-  const long long row = blockIdx.x;
-  const long long base = row * L;
-
-  if (tid == 0) {
-    s.end = 0;
-    s.count = 0;
-  }
-  for (int p = tid; p < k * k; p += THREADS) s.yty[p / k][p % k] = yty[p];
-  __syncthreads();
-  int my_end = 0, my_count = 0;
-  for (int l = tid; l < L; l += THREADS)
-    if (mask[base + l]) {
-      my_end = l + 1;
-      ++my_count;
+__device__ void stage(const Region<T>& rg, const T* __restrict__ source, const Args& a, long long rowoff,
+                      int s0, int n, int gw, int G, int lane) {
+  const int k = a.k, kp = a.kp, wb = a.wb;
+  const int width = wb == 0 ? k : a.words;  // items a slot: columns (plain loads) or words
+  for (int q = gw; q * 32 < n; q += G) {
+    const int l = q * 32 + lane;
+    const bool in = l < n;
+    const long long o = rowoff + s0 + l;
+    const bool m = in && a.mask[o] != 0;
+    const int id = m ? a.idx[o] : 0;
+    const float c1 = m ? a.alpha * a.val[o] : 0.f;
+    if (in) {
+      rg.c1[l] = c1;
+      rg.w[l] = m ? 1.f + c1 : 0.f;
     }
-  if (my_end) {
-    atomicMax(&s.end, my_end);
-    atomicAdd(&s.count, my_count);
-  }
-  __syncthreads();
-  const float rn = reg * (float)s.count;
-
-  // b-vector and the Jacobi diagonal in one pass over the entries.
-  float bacc = 0.f, dacc = 0.f;
-  for (int l0 = 0; l0 < s.end; l0 += TILE) {
-    __syncthreads();
-    load_tile(s, source, idx, val, mask, base, l0, k, alpha);
-    __syncthreads();
-    const int nl = min(TILE, s.end - l0);
-    if (tid < k)
-      for (int l = 0; l < nl; ++l) {
-        const float y = Rows<T>::widen(s.ys[l][tid]);
-        bacc += s.ws[l] * y;
-        dacc += Rows<T>::round(y * y) * Rows<T>::round(s.c1s[l]);
+    const unsigned bal = __ballot_sync(FULL, m);
+    const int nq = 32 - __clz(bal);
+    if (lane == 0) {
+      rg.nl[q] = nq;
+      rg.cnt[q] = __popc(bal);
+    }
+    T* dst = rg.ys + (long long)q * 32 * kp;
+    // (slot, item) pairs of the chunk's first nq slots over the lanes.
+    int sl = lane / width, c = lane - sl * width;
+    const int dsl = 32 / width, dc = 32 - dsl * width;
+    for (int e0 = 0; e0 < nq * width; e0 += 32) {
+      const int from = sl < 32 ? sl : 31;
+      const int ids = __shfl_sync(FULL, id, from);
+      const bool ms = __shfl_sync(FULL, (int)m, from) != 0;
+      if (e0 + lane < nq * width) {
+        if (wb == 0) {
+          dst[sl * kp + c] = ms ? source[(long long)ids * k + c] : Rows<T>::zero();
+        } else {
+          char* d = reinterpret_cast<char*>(dst + sl * kp) + c * wb;
+          const char* s = reinterpret_cast<const char*>(source + (long long)ids * k) + c * wb;
+          if (wb == 8) cp_async8(d, s, ms);
+          else cp_async4(d, s, ms);
+        }
       }
+      sl += dsl;
+      c += dc;
+      if (c >= width) {
+        c -= width;
+        ++sl;
+      }
+    }
   }
-  if (tid < k) {
-    s.b[tid] = bacc;
-    s.diag[tid] = fmaxf(s.yty[tid][tid] + dacc + rn, 1e-12f);
-    s.x[tid] = x0[row * k + tid];
+  cp_async_commit();
+}
+
+// Columns lane and lane + 32 of staged entry e, 0 beyond k.
+template <typename T>
+__device__ __forceinline__ float2 entry_cols(const Region<T>& rg, int e, int kp, int k, int lane) {
+  const T* y = rg.ys + (long long)e * kp;
+  return make_float2(lane < k ? Rows<T>::widen(y[lane]) : 0.f, lane + 32 < k ? Rows<T>::widen(y[lane + 32]) : 0.f);
+}
+
+// Calls fn(e) for the entries of warp gw's contiguous block of the region's
+// n slots (G blocks of ceil(n / G)), in slot order, skipping each chunk's
+// slots past its last masked-in one.
+template <typename F>
+__device__ __forceinline__ void for_block(const int* nl, int n, int gw, int G, F&& fn) {
+  const int per = (n + G - 1) / G;
+  const int lo = gw * per, hi = min(n, lo + per);
+  for (int q = lo >> 5; q * 32 < hi; ++q) {
+    const int end = min(hi, q * 32 + nl[q]);
+#pragma unroll 4
+    for (int e = max(lo, q * 32); e < end; ++e) fn(e);
+  }
+}
+
+// This warp's share of the matvec's gathered term sum_e y_e round(c1_e
+// (y_e . pr)), added to acc.
+template <typename T>
+__device__ __forceinline__ void matvec_entries(const Region<T>& rg, int n, float2 pr, int kp, int k, int gw, int G,
+                                               int lane, float2& acc) {
+  for_block(rg.nl, n, gw, G, [&](int e) {
+    const float2 y = entry_cols(rg, e, kp, k, lane);
+    const float d = warp_sum(fmaf(y.y, pr.y, y.x * pr.x));
+    const float t = Rows<T>::round(rg.c1[e] * d);
+    acc.x = fmaf(y.x, t, acc.x);
+    acc.y = fmaf(y.y, t, acc.y);
+  });
+}
+
+// This warp's share of b = sum_e w_e y_e and of diag's sum_e round(y_e^2) round(c1_e).
+template <typename T>
+__device__ __forceinline__ void bdiag_entries(const Region<T>& rg, int n, int kp, int k, int gw, int G, int lane,
+                                              float2& b, float2& dg) {
+  for_block(rg.nl, n, gw, G, [&](int e) {
+    const float2 y = entry_cols(rg, e, kp, k, lane);
+    const float w = rg.w[e], c = Rows<T>::round(rg.c1[e]);
+    b.x = fmaf(w, y.x, b.x);
+    b.y = fmaf(w, y.y, b.y);
+    dg.x = fmaf(Rows<T>::round(y.x * y.x), c, dg.x);
+    dg.y = fmaf(Rows<T>::round(y.y * y.y), c, dg.y);
+  });
+}
+
+__device__ __forceinline__ int chunk_count(const int* cnt, int chunks) {
+  int s = 0;
+  for (int q = 0; q < chunks; ++q) s += cnt[q];
+  return s;
+}
+
+// Load YtY (k x k) into shared memory with rows of kf floats (64), zero-padded.
+__device__ void load_yty(float* ys, const float* __restrict__ yty, int k, int kf) {
+  for (int i = threadIdx.x / 32; i < k; i += blockDim.x / 32)
+    for (int c = threadIdx.x & 31; c < kf; c += 32) ys[i * kf + c] = c < k ? yty[i * k + c] : 0.f;
+}
+
+// (YtY p) over the lane's columns, p read whole from pv (i ascending, as
+// the JAX program's p @ YtY is formed).
+__device__ __forceinline__ float2 yty_p(const float* ys, const float* pv, int k, int kf, int lane) {
+  float2 s = make_float2(0.f, 0.f);
+  for (int i = 0; i < k; ++i) {
+    const float pi = pv[i];
+    s.x = fmaf(pi, ys[i * kf + lane], s.x);
+    s.y = fmaf(pi, ys[i * kf + lane + 32], s.y);
+  }
+  return s;
+}
+
+// The k-length CG state of one row, lane l holding columns l and l + 32
+// (zeros beyond k, diag 1 there).
+struct CgState {
+  float2 x, r, z, p, diag, b;
+  float rz, rn;
+};
+
+__device__ __forceinline__ float dot2(float2 a, float2 b) { return warp_sum(fmaf(a.y, b.y, a.x * b.x)); }
+
+// A p = (YtY p + the gathered term) + reg n p.
+__device__ __forceinline__ float2 apply(float2 yp, float2 s, float2 p, float rn) {
+  return make_float2(yp.x + s.x + rn * p.x, yp.y + s.y + rn * p.y);
+}
+
+// After the first matvec (A x0): r = b - A x0, z = r / diag, p = z.
+__device__ __forceinline__ void cg_start(CgState& st, float2 ap) {
+  st.r = make_float2(st.b.x - ap.x, st.b.y - ap.y);
+  st.z = make_float2(st.r.x / st.diag.x, st.r.y / st.diag.y);
+  st.p = st.z;
+  st.rz = dot2(st.r, st.z);
+}
+
+// One CG step given A p.
+__device__ __forceinline__ void cg_step(CgState& st, float2 ap) {
+  const float tiny = 1e-30f;
+  const float step = st.rz / (dot2(st.p, ap) + tiny);
+  st.x = make_float2(fmaf(step, st.p.x, st.x.x), fmaf(step, st.p.y, st.x.y));
+  st.r = make_float2(fmaf(-step, ap.x, st.r.x), fmaf(-step, ap.y, st.r.y));
+  st.z = make_float2(st.r.x / st.diag.x, st.r.y / st.diag.y);
+  const float rz_new = dot2(st.r, st.z);
+  const float beta = rz_new / (st.rz + tiny);
+  st.p = make_float2(fmaf(beta, st.p.x, st.z.x), fmaf(beta, st.p.y, st.z.y));
+  st.rz = rz_new;
+}
+
+// b, diag and rn from the row's sums; x from x0.
+__device__ __forceinline__ void cg_init(CgState& st, const float* ys, const float* __restrict__ x0, float2 b,
+                                        float2 dg, int count, const Args& a, int kf, int lane) {
+  const int k = a.k;
+  const int c0 = lane, c1 = lane + 32;
+  st.rn = a.reg * (float)count;
+  st.b = make_float2(c0 < k ? b.x : 0.f, c1 < k ? b.y : 0.f);
+  st.diag = make_float2(c0 < k ? fmaxf(ys[c0 * kf + c0] + dg.x + st.rn, 1e-12f) : 1.f,
+                        c1 < k ? fmaxf(ys[c1 * kf + c1] + dg.y + st.rn, 1e-12f) : 1.f);
+  st.x = make_float2(c0 < k ? x0[c0] : 0.f, c1 < k ? x0[c1] : 0.f);
+}
+
+__device__ __forceinline__ void put_p(float* pv, float2 p, int lane) {
+  pv[lane] = p.x;
+  pv[lane + 32] = p.y;
+}
+
+template <typename T>
+__device__ __forceinline__ float2 rounded(const float* pv, int lane) {
+  return make_float2(Rows<T>::round(pv[lane]), Rows<T>::round(pv[lane + 32]));
+}
+
+// Warp mode: warp w of CTA g solves row g * PW + w, its slots staged in its
+// own region of a.slice slots.
+template <typename T>
+__global__ void __launch_bounds__(PW * 32) cg_warp_kernel(const T* __restrict__ source, Args a) {
+  extern __shared__ __align__(16) unsigned char shm[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = a.k, kf = a.kf;
+  float* ys = reinterpret_cast<float*>(shm);
+  load_yty(ys, a.yty, k, kf);
+  __syncthreads();  // YtY is in place: the only CTA barrier, before any row
+  const int row = blockIdx.x * PW + warp;
+  if (row >= a.B) return;
+  unsigned char* base = shm + yty_bytes(k) + warp * (region_bytes<T>(a.slice, k) + 256);
+  const Region<T> rg(base, a.slice, k);
+  float* pv = reinterpret_cast<float*>(base + region_bytes<T>(a.slice, k));
+  const int chunks = (a.L + 31) / 32;
+
+  stage(rg, source, a, (long long)row * a.L, 0, a.L, 0, 1, lane);
+  cp_async_wait0();
+  __syncwarp();
+  float2 b = make_float2(0.f, 0.f), dg = make_float2(0.f, 0.f);
+  bdiag_entries(rg, a.L, a.kp, k, 0, 1, lane, b, dg);
+  CgState st;
+  cg_init(st, ys, a.x0 + (long long)row * k, b, dg, chunk_count(rg.cnt, chunks), a, kf, lane);
+
+  put_p(pv, st.x, lane);
+  for (int it = -1; it < a.steps; ++it) {  // it = -1: the matvec of x0
+    __syncwarp();                         // pv holds the vector to multiply
+    const float2 v = it < 0 ? st.x : st.p;
+    const float2 yp = yty_p(ys, pv, k, kf, lane);
+    float2 s = make_float2(0.f, 0.f);
+    matvec_entries(rg, a.L, rounded<T>(pv, lane), a.kp, k, 0, 1, lane, s);
+    const float2 ap = apply(yp, s, v, st.rn);
+    if (it < 0) cg_start(st, ap);
+    else cg_step(st, ap);
+    __syncwarp();  // every lane is done reading pv
+    put_p(pv, st.p, lane);
+  }
+  float* xs = a.x + (long long)row * k;
+  if (lane < k) xs[lane] = st.x.x;
+  if (lane + 32 < k) xs[lane + 32] = st.x.y;
+}
+
+// One exchange of a cluster-mode pass, called by every thread of every CTA
+// of the cluster: warp 0 adds the warps' partials (wpart, 128 floats a warp:
+// columns 2l, 2l + 1 at 2l, and with `both` the diag sums at 64 + 2l) in
+// warp order into this CTA's cpart (with `both`, its count at 128), then
+// adds the c CTAs' cpart in rank order into out (warp 0 only): out[0..1]
+// the lane's columns, with `both` out[2..3] the diag columns and out[4] the
+// count. No warp leaves before warp 0 has read wpart: the next pass's
+// partials overwrite it, with no barrier in between when the slice is
+// resident.
+__device__ __forceinline__ void exchange(const float* wpart, float* cpart, bool both, int count, int c,
+                                         int warp, int lane, float* out) {
+  __syncthreads();  // every warp's partial is in wpart
+  if (warp == 0) {
+    for (int h = 0; h < (both ? 2 : 1); ++h)
+      for (int j = 64 * h + lane; j < 64 * h + 64; j += 32) {
+        float s = 0.f;
+        for (int w = 0; w < CW; ++w) s += wpart[w * 128 + j];
+        cpart[j] = s;
+      }
+    if (both && lane == 0) cpart[128] = (float)count;
+  }
+  if (c > 1) cg::this_cluster().sync();  // also a barrier of this CTA's threads
+  else __syncthreads();
+  if (warp == 0) {
+    for (int j = 0; j < 5; ++j) out[j] = 0.f;
+    for (int r = 0; r < c; ++r) {
+      const float* peer = c > 1 ? cg::this_cluster().map_shared_rank(cpart, r) : cpart;
+      out[0] += peer[lane];
+      out[1] += peer[lane + 32];
+      if (both) {
+        out[2] += peer[64 + lane];
+        out[3] += peer[64 + lane + 32];
+        out[4] += peer[128];
+      }
+    }
+  }
+}
+
+// Cluster mode: CTA g is rank g % c of row g / c's cluster and holds slots
+// [rank slice, (rank + 1) slice) of the row.
+template <typename T>
+__global__ void __launch_bounds__(CW * 32) cg_cluster_kernel(const T* __restrict__ source, Args a) {
+  extern __shared__ __align__(16) unsigned char shm[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = a.k, kf = a.kf, kp = a.kp, c = a.c;
+  const int row = blockIdx.x / c;
+  const int rank = blockIdx.x - row * c;  // a 1-D cluster's rank
+  const int s0 = rank * a.slice;
+  const int n = max(0, min(a.L, s0 + a.slice) - s0);
+  const long long rowoff = (long long)row * a.L;
+
+  unsigned char* p = shm;
+  const int rb = region_bytes<T>(a.resident ? a.slice : WIN, k);
+  const Region<T> r0(p, a.resident ? a.slice : WIN, k);
+  const Region<T> r1(p + (a.resident ? 0 : rb), WIN, k);  // the ring's second slot (streamed)
+  p += a.resident ? rb : 2 * rb;
+  float* ys = reinterpret_cast<float*>(p);
+  p += yty_bytes(k);
+  float* pv = reinterpret_cast<float*>(p);
+  p += 256;
+  float* wpart = reinterpret_cast<float*>(p);
+  p += 4 * CW * 128;
+  float* cpart = reinterpret_cast<float*>(p);  // two buffers of CPART floats
+
+  load_yty(ys, a.yty, k, kf);
+  const float* x0 = a.x0 + (long long)row * k;
+  if (warp == 0) put_p(pv, make_float2(lane < k ? x0[lane] : 0.f, lane + 32 < k ? x0[lane + 32] : 0.f), lane);
+  const int nw = (n + WIN - 1) / WIN;  // streamed windows
+  if (a.resident) {
+    stage(r0, source, a, rowoff, s0, n, warp, CW, lane);
+    cp_async_wait0();
   }
   __syncthreads();
 
-  const float tiny = 1e-30f;
-  matvec(s, s.x, s.ap, source, idx, val, mask, base, k, alpha, rn);
-  if (tid < k) {
-    s.r[tid] = s.b[tid] - s.ap[tid];
-    s.z[tid] = s.r[tid] / s.diag[tid];
-    s.p[tid] = s.z[tid];
-  }
-  float rz = block_dot(s, s.r, s.z, k);
-  for (int it = 0; it < cg_steps; ++it) {
-    matvec(s, s.p, s.ap, source, idx, val, mask, base, k, alpha, rn);
-    const float pap = block_dot(s, s.p, s.ap, k);
-    const float step = rz / (pap + tiny);
-    if (tid < k) {
-      s.x[tid] += step * s.p[tid];
-      s.r[tid] -= step * s.ap[tid];
-      s.z[tid] = s.r[tid] / s.diag[tid];
+  // One pass over the slice: fn(region, slots) on every warp, over the
+  // resident slice, or window by window through the two-slot ring (the next
+  // window's copies in flight while this one is processed).
+  auto pass = [&](auto&& fn) {
+    if (a.resident) {
+      fn(r0, n);
+      return;
     }
-    const float rz_new = block_dot(s, s.r, s.z, k);
-    const float beta = rz_new / (rz + tiny);
-    if (tid < k) s.p[tid] = s.z[tid] + beta * s.p[tid];
-    rz = rz_new;
-    __syncthreads();
+    if (nw > 0) stage(r0, source, a, rowoff, s0, min(WIN, n), warp, CW, lane);
+    for (int j = 0; j < nw; ++j) {
+      const Region<T>& cur = (j & 1) ? r1 : r0;
+      if (j + 1 < nw) {
+        stage((j & 1) ? r0 : r1, source, a, rowoff, s0 + (j + 1) * WIN, min(WIN, n - (j + 1) * WIN), warp,
+              CW, lane);
+        cp_async_wait1();
+      } else {
+        cp_async_wait0();
+      }
+      __syncthreads();  // window j has landed for every thread
+      fn(cur, min(WIN, n - j * WIN));
+      __syncthreads();  // every warp is done with window j's slot
+    }
+  };
+
+  // b, diag and the count.
+  float2 b = make_float2(0.f, 0.f), dg = make_float2(0.f, 0.f);
+  int count = 0;
+  pass([&](const Region<T>& rg, int slots) {
+    bdiag_entries(rg, slots, kp, k, warp, CW, lane, b, dg);
+    if (warp == 0) count += chunk_count(rg.cnt, (slots + 31) / 32);
+  });
+  float* wp = wpart + warp * 128;
+  wp[lane] = b.x;
+  wp[lane + 32] = b.y;
+  wp[64 + lane] = dg.x;
+  wp[64 + lane + 32] = dg.y;
+  float sums[5];
+  exchange(wpart, cpart, true, count, c, warp, lane, sums);
+  CgState st;
+  if (warp == 0) cg_init(st, ys, x0, make_float2(sums[0], sums[1]), make_float2(sums[2], sums[3]), (int)sums[4], a, kf, lane);
+
+  int buf = 1;
+  for (int it = -1; it < a.steps; ++it) {  // it = -1: the matvec of x0; pv holds the vector
+    const float2 pr = rounded<T>(pv, lane);
+    float2 yp = make_float2(0.f, 0.f);
+    if (warp == 0) yp = yty_p(ys, pv, k, kf, lane);
+    float2 acc = make_float2(0.f, 0.f);
+    pass([&](const Region<T>& rg, int slots) { matvec_entries(rg, slots, pr, kp, k, warp, CW, lane, acc); });
+    wp[lane] = acc.x;
+    wp[lane + 32] = acc.y;
+    exchange(wpart, cpart + buf * CPART, false, 0, c, warp, lane, sums);
+    buf ^= 1;
+    if (warp == 0) {
+      const float2 v = it < 0 ? st.x : st.p;
+      const float2 ap = apply(yp, make_float2(sums[0], sums[1]), v, st.rn);
+      if (it < 0) cg_start(st, ap);
+      else cg_step(st, ap);
+      put_p(pv, st.p, lane);
+    }
+    __syncthreads();  // the new p is in pv; warp 0 is done with wpart
   }
-  if (tid < k) xout[row * k + tid] = s.x[tid];
+  if (rank == 0 && warp == 0) {
+    float* xs = a.x + (long long)row * k;
+    if (lane < k) xs[lane] = st.x.x;
+    if (lane + 32 < k) xs[lane + 32] = st.x.y;
+  }
+  if (c > 1) cg::this_cluster().sync();  // no CTA leaves while a peer may still read its partials
 }
 
 // The wide path's per-CTA region (shared or global): the entry tile (TILE x
@@ -427,48 +770,185 @@ __global__ void __launch_bounds__(THREADS) bucket_cg_wide_kernel(
   for (int c = tid; c < k; c += THREADS) xout[row * k + c] = w.x[c];
 }
 
+
+// The launch path's per-device caches hold up to MAX_DEVICES devices, each
+// filled under its lock on the device's first launch.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= MAX_DEVICES)) return cudaErrorInvalidDevice;
+  return err;
+}
+
+// Both narrow kernels may opt into all of a block's shared memory, and
+// cluster mode into clusters of 16 (non-portable); set once a device.
 template <typename T>
-int launch(const T* source, const float* yty, const int* idx, const float* val,
-           const unsigned char* mask, const float* x0, float* x, int B, int L, int k,
-           float reg, float alpha, int cg_steps, float* ws, cudaStream_t stream) {
-  if (B > 0 && k <= KMAX) {
-    bucket_cg_kernel<T><<<B, THREADS, 0, stream>>>(
-        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps);
-  } else if (B > 0) {
-    const size_t smem =
-        ws == nullptr ? ((size_t)(TILE + 7) * k + 3 * TILE) * sizeof(float) : 0;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          bucket_cg_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    bucket_cg_wide_kernel<T><<<B, THREADS, smem, stream>>>(
-        source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps, ws);
+cudaError_t narrow_attrs(int dev) {
+  static std::mutex lock;
+  static bool done[MAX_DEVICES];
+  const std::lock_guard<std::mutex> hold(lock);
+  if (done[dev]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(cg_warp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cg_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cg_cluster_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+// A cluster-mode launch of c CTAs a cluster, each with smem bytes.
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int clusters, int c, int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * c);
+  cfg.blockDim = dim3(CW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of c CTAs (smem bytes each) the current device holds at once,
+// cached per device and cluster size for the last shared-memory size asked.
+template <typename T>
+cudaError_t max_clusters(int c, int smem, int* out) {
+  static std::mutex lock;
+  static int occ_smem[MAX_DEVICES][7], occ_n[MAX_DEVICES][7];
+  int lg = 0;
+  while ((1 << lg) < c) ++lg;
+  if (lg > 6) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(lock);
+  if (occ_smem[dev][lg] != smem) {
+    err = narrow_attrs<T>(dev);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(attr, 1, c, smem, 0);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, cg_cluster_kernel<T>, &cfg);
+    if (err != cudaSuccess) return err;
+    occ_n[dev][lg] = n;
+    occ_smem[dev][lg] = smem;
   }
+  *out = occ_n[dev][lg];
+  return cudaSuccess;
+}
+
+// The narrow design's launch: the plan checked (it must cover every row's
+// slots once and fit shared memory), then warp mode, one CTA a row (c = 1),
+// or a cluster launch of c CTAs a row. A cluster the card cannot hold
+// (cudaOccupancyMaxActiveClusters gives 0) is refused, never shrunk.
+template <typename T>
+int launch_narrow(const T* source, Args a, int mode, cudaStream_t stream) {
+  const int k = a.k;
+  a.kp = row_elems<T>(k);
+  a.kf = 64;
+  // Words of 8 bytes where every row starts 8-byte aligned, else 4 (bf16:
+  // 4-byte aligned rows, else plain loads), as in als_partials.cu.
+  const unsigned long long base = reinterpret_cast<unsigned long long>(source);
+  const bool even = (k & 1) == 0;
+  a.wb = sizeof(T) == 4 ? (even && base % 8 == 0 ? 8 : 4) : (even && base % 4 == 0 ? 4 : 0);
+  a.words = a.wb ? k * (int)sizeof(T) / a.wb : k;
+  if (mode == 0) {
+    if (a.L > PACK_MAX || a.slice < a.L || a.slice % 4 != 0 || a.slice < 4) return (int)cudaErrorInvalidValue;
+  } else if (mode == 1) {
+    if (a.c < 1 || a.c > 64 || (a.c & (a.c - 1)) || a.slice < 32 || a.slice % 32 != 0 ||
+        (long long)a.slice * a.c < a.L || (long long)a.B * a.c > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = narrow_smem<T>(mode, a.slice, a.resident, k);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return (int)cudaGetLastError();
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err == cudaSuccess) err = narrow_attrs<T>(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (mode == 0) {
+    cg_warp_kernel<T><<<(a.B + PW - 1) / PW, PW * 32, smem, stream>>>(source, a);
+    return (int)cudaGetLastError();
+  }
+  if (a.c == 1) {
+    cg_cluster_kernel<T><<<a.B, CW * 32, smem, stream>>>(source, a);
+    return (int)cudaGetLastError();
+  }
+  int clusters = 0;
+  err = max_clusters<T>(a.c, smem, &clusters);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, a.B, a.c, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, cg_cluster_kernel<T>, source, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const T* source, const float* yty, const int* idx, const float* val, const unsigned char* mask,
+           const float* x0, float* x, int B, int L, int k, float reg, float alpha, int cg_steps, int mode, int c,
+           int slice, int resident, float* ws, cudaStream_t stream) {
+  if (k < 1 || B < 0 || L < 0 || cg_steps < 0) return (int)cudaErrorInvalidValue;
+  if (k <= KMAX) {
+    Args a{yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, c, slice, resident, 0, 0, 0, 0};
+    return launch_narrow<T>(source, a, mode, stream);
+  }
+  if (B == 0) return (int)cudaGetLastError();
+  const size_t smem = ws == nullptr ? ((size_t)(TILE + 7) * k + 3 * TILE) * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bucket_cg_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bucket_cg_wide_kernel<T><<<B, THREADS, smem, stream>>>(
+      source, yty, idx, val, mask, x0, x, L, k, reg, alpha, cg_steps, ws);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // source (n, k) f32; yty (k, k); idx, val, mask (B, L); x0, x (B, k); any k >= 1.
-// ws is null (k <= 64, or the wide region fits shared memory) or a workspace
-// of B x ((TILE + 7) k + 3 TILE) floats. Returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int bucket_cg_launch(const float* source, const float* yty,
-                                const int* idx, const float* val,
-                                const unsigned char* mask, const float* x0,
-                                float* x, int B, int L, int k, float reg,
-                                float alpha, int cg_steps, float* ws, void* stream) {
-  return launch<float>(source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, ws,
-                       (cudaStream_t)stream);
+// The plan of k <= 64 (ops/als.py _k3_plan; ignored above 64): mode 0, warp
+// mode (L <= 128, slice = a warp's slots, a multiple of 4 not below L), or
+// mode 1, cluster mode (c CTAs a row, c a power of two; slice slots a CTA, a
+// multiple of 32, c slice >= L; resident 1 to hold the slice in shared
+// memory, 0 to stream it). ws is null (k <= 64, or the wide region fits
+// shared memory) or a workspace of B x ((TILE + 7) k + 3 TILE) floats.
+// Returns cudaGetLastError() after the launch (0 = launched;
+// cudaErrorInvalidValue for a plan that does not cover the rows or does not
+// fit shared memory; cudaErrorInvalidConfiguration, or the runtime's own
+// error, for a cluster the card refuses).
+extern "C" int bucket_cg_launch(const float* source, const float* yty, const int* idx, const float* val,
+                                const unsigned char* mask, const float* x0, float* x, int B, int L, int k,
+                                float reg, float alpha, int cg_steps, int mode, int c, int slice, int resident,
+                                float* ws, void* stream) {
+  return launch<float>(source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, mode, c, slice,
+                       resident, ws, (cudaStream_t)stream);
+}
+
+// Clusters of c CTAs of cluster mode, each with smem bytes of dynamic shared
+// memory, that the card holds at once (cudaOccupancyMaxActiveClusters; bf16
+// 1 for K3-bf16's kernel), or minus the runtime's error. The wrapper plans
+// clusters of 16 only where this is at least 1.
+extern "C" int bucket_cg_clusters(int bf16, int c, int smem) {
+  int n = 0;
+  const cudaError_t err = bf16 ? max_clusters<__nv_bfloat16>(c, smem, &n) : max_clusters<float>(c, smem, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // K3-bf16: as bucket_cg_launch, with source (n, k) bf16.
-extern "C" int bucket_cg_bf16_launch(const void* source, const float* yty,
-                                     const int* idx, const float* val,
-                                     const unsigned char* mask, const float* x0,
-                                     float* x, int B, int L, int k, float reg,
-                                     float alpha, int cg_steps, float* ws, void* stream) {
-  return launch<__nv_bfloat16>((const __nv_bfloat16*)source, yty, idx, val, mask, x0, x, B, L, k,
-                               reg, alpha, cg_steps, ws, (cudaStream_t)stream);
+extern "C" int bucket_cg_bf16_launch(const void* source, const float* yty, const int* idx, const float* val,
+                                     const unsigned char* mask, const float* x0, float* x, int B, int L, int k,
+                                     float reg, float alpha, int cg_steps, int mode, int c, int slice,
+                                     int resident, float* ws, void* stream) {
+  return launch<__nv_bfloat16>((const __nv_bfloat16*)source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha,
+                               cg_steps, mode, c, slice, resident, ws, (cudaStream_t)stream);
 }

@@ -39,8 +39,9 @@ float32. The bf16 entries of the kernels (``als_partials_bf16``,
 Each has a plain PyTorch version beside it (``*_reference``). A wrapper runs
 the plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
-each kernel's narrow path (a row's system in registers or static shared
-memory), wider ranks its wide path (K1 tiles the correction over CTAs; K2
+each kernel's narrow path (K1 and K3 split long rows across CTAs by a plan
+computed here, :func:`_k1_plan` and :func:`_k3_plan`; K2 solves a system a
+warp), wider ranks its wide path (K1 tiles the correction over CTAs; K2
 and K3 keep their system in dynamic shared memory while it fits, else in a
 global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
 solved rows through the precomputed landing permutation, as the JAX sweep
@@ -63,7 +64,7 @@ KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wid
 # Dynamic shared memory a block may opt into (227 KB), less a margin for the
 # wide kernels' static variables.
 SMEM_MAX = 232448 - 1024
-TILE = 32  # entries per shared-memory tile of K3 (bucket_cg.cu)
+TILE = 32  # entries per shared-memory tile of K3's wide path (bucket_cg.cu)
 WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
 # K1's split plan (csrc/als_partials.cu, ranks up to KMAX; :func:`_k1_plan`).
 K1_TILE = 32          # entries a staged tile; a chunk is whole tiles
@@ -73,6 +74,16 @@ K1_CTAS_PER_SM = 16   # CTAs an unsplit group's grid aims for, per SM: two waves
                       # (27 KB of shared memory each); both measured by als_partials_bench variants
 _K1_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
 _K1_WORKSPACE_LOCK = threading.Lock()
+# K3's plan (csrc/bucket_cg.cu, ranks up to KMAX; :func:`_k3_plan`). The
+# first four mirror the source's PW, CW, WIN and CPART.
+K3_PACK_WARPS = 4     # rows (warps) of a warp-mode CTA
+K3_CTA_WARPS = 8      # warps of a cluster-mode CTA
+K3_WINDOW = 64        # slots of a streamed window
+K3_CPART = 144        # floats of one exchanged partial
+K3_PACK_L = 64        # rows of at most this many slots take warp mode (the source takes up to 128)
+K3_CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes a plan picks; 16 only where the card holds such a cluster
+K3_SMEM = 232448      # dynamic shared memory a block may opt into (227 KB)
+_K3_CLUSTER16: dict[tuple, bool] = {}
 
 
 GATHER_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
@@ -425,6 +436,105 @@ def bucket_cg_reference(
     return x
 
 
+# ------------------------------------------------------------ K3's plan
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def k3_region_bytes(n: int, k: int, bf16: bool) -> int:
+    """Shared bytes of a K3 region of ``n`` slots (``bucket_cg.cu
+    region_bytes``): the gathered rows, stride k rounded up to whole
+    16-byte words, then c1 and w, then each 32-slot chunk's end and count."""
+    size = 2 if bf16 else 4
+    q = 16 // size
+    kp = -(-k // q) * q
+    chunks = -(-n // 32)
+    return _r16(n * kp * size) + 2 * _r16(4 * n) + 2 * _r16(4 * chunks)
+
+
+def k3_smem(plan: tuple[int, int, int, int], k: int, bf16: bool) -> int:
+    """Dynamic shared bytes of a K3 launch under ``plan`` (``bucket_cg.cu
+    narrow_smem``): warp mode K3_PACK_WARPS regions of ``slice`` slots and
+    their p vectors; cluster mode one resident region of ``slice`` slots or
+    two streamed windows, beside YtY, p, the warps' partials and the two
+    exchanged partials."""
+    mode, _, slice_, resident = plan
+    yty = _r16(4 * k * 64)  # rows of 64 floats: lane l reads columns l and l + 32
+    if mode == 0:
+        return yty + K3_PACK_WARPS * (k3_region_bytes(slice_, k, bf16) + 256)
+    region = k3_region_bytes(slice_, k, bf16) if resident else 2 * k3_region_bytes(K3_WINDOW, k, bf16)
+    return region + yty + 256 + 4 * K3_CTA_WARPS * 128 + 4 * 2 * K3_CPART
+
+
+def _k3_plan(b: int, length: int, k: int, bf16: bool, n_sm: int, c_max: int = 16) -> tuple[int, int, int, int]:
+    """(mode, c, slice, resident) of a K3 launch at rank <= KMAX
+    (``csrc/bucket_cg.cu``). Rows of at most K3_PACK_L slots take warp mode
+    (mode 0: one warp a row, its ``slice`` = the length rounded up to 4
+    slots, resident). Longer rows take cluster mode (mode 1): the row's slots
+    cut into ``c`` slices of ``slice`` slots (whole 32-slot chunks), one CTA
+    each, a cluster a row; ``c`` doubles from 1 while the group has fewer
+    CTAs than the card has SMs or a slice does not fit shared memory, up to
+    ``c_max`` (16 only where the card holds such a cluster, else 8).
+    ``resident`` is 1 when the slice fits K3_SMEM, else the slice is
+    streamed through windows of K3_WINDOW slots."""
+    if length <= K3_PACK_L:
+        return 0, 1, max(4, -(-length // 4) * 4), 1
+
+    def plan_at(c: int) -> tuple[int, int, int, int]:
+        slice_ = -(-(-(-length // c)) // 32) * 32
+        return 1, c, slice_, int(k3_smem((1, c, slice_, 1), k, bf16) <= K3_SMEM)
+
+    c = 1
+    while c < c_max and (b * c < n_sm or not plan_at(c)[3]):
+        c *= 2
+    return plan_at(c)
+
+
+def k3_units(b: int, length: int, plan: tuple[int, int, int, int]) -> list[tuple[int, int, int, int, int]]:
+    """Every unit of a K3 plan as the kernels walk it: (CTA, row, rank,
+    first slot, one past the last slot). Warp mode: row r is warp r % 4 of
+    CTA r // 4, rank 0, all its slots. Cluster mode: CTA g is rank g % c of
+    row g // c and holds slots [rank slice, (rank + 1) slice) cut at the row's
+    end (possibly none); a row's partials are added in rank order."""
+    mode, c, slice_, _ = plan
+    if mode == 0:
+        return [(r // K3_PACK_WARPS, r, 0, 0, length) for r in range(b)]
+    return [(g, g // c, g % c, min(length, (g % c) * slice_), min(length, (g % c + 1) * slice_))
+            for g in range(b * c)]
+
+
+def _k3_cluster16(dev: torch.device, bf16: bool, smem: int) -> bool:
+    """Whether the card holds a cluster of 16 cluster-mode CTAs of ``smem``
+    bytes each (``bucket_cg.cu bucket_cg_clusters``), cached per size."""
+    key = (dev.index, bf16, smem)
+    if key not in _K3_CLUSTER16:
+        import ctypes
+
+        from albedo_tpu_torch.kernels import build
+
+        fn = build.library("bucket_cg").bucket_cg_clusters
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        with torch.cuda.device(dev):
+            n = fn(int(bf16), 16, smem)
+        if n < 0:
+            raise RuntimeError(f"bucket_cg: the cluster occupancy query failed: cudaError {-n}")
+        _K3_CLUSTER16[key] = n > 0
+    return _K3_CLUSTER16[key]
+
+
+def k3_plan_for(b: int, length: int, k: int, gather_dtype: str | None, dev: torch.device) -> tuple[int, int, int, int]:
+    """The plan K3 launches a (b, length) group with on ``dev``: clusters of
+    16 where the card holds them, else at most 8."""
+    bf16 = gather_dtype is not None
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = _k3_plan(b, length, k, bf16, n_sm)
+    if plan[1] == 16 and not _k3_cluster16(dev, bf16, k3_smem(plan, k, bf16)):
+        plan = _k3_plan(b, length, k, bf16, n_sm, c_max=8)
+    return plan
+
+
 def bucket_cg_body(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor,
     val: torch.Tensor, mask: torch.Tensor, x0: torch.Tensor,
@@ -434,7 +544,8 @@ def bucket_cg_body(
     """K3: matrix-free warm-started Jacobi-PCG on the implicit normal
     equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``, or
     ``bucket_cg_bf16`` reading the bf16 table), into ``out`` (B, k) when
-    given."""
+    given. Up to rank KMAX one call is one launch under :func:`k3_plan_for`'s
+    plan; a plan the kernel or the card refuses raises."""
     if on_cpu("bucket_cg", source, yty, idx, val, mask, x0, *([] if out is None else [out])):
         return _solved_into(out, bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps,
                                                      gather_dtype))
@@ -451,6 +562,7 @@ def bucket_cg_body(
     check_operand(kernel, "mask", mask, torch.bool, (b, length), dev)
     check_operand(kernel, "x0", x0, torch.float32, (b, k), dev)
     x = _output(kernel, out, b, k, dev)
+    plan = k3_plan_for(b, length, k, gather_dtype, dev) if k <= KMAX else (0, 1, 4, 1)  # ignored above KMAX
     chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
     for r0, rows, ws in chunks:
         call(
@@ -458,7 +570,7 @@ def bucket_cg_body(
             idx.data_ptr() + 4 * r0 * length, val.data_ptr() + 4 * r0 * length,
             mask.data_ptr() + r0 * length, x0.data_ptr() + 4 * r0 * k,
             x.data_ptr() + 4 * r0 * k, rows, length, k, float(reg), float(alpha),
-            int(cg_steps), None if ws is None else ws.data_ptr(),
+            int(cg_steps), *plan, None if ws is None else ws.data_ptr(),
             count=_path(kernel, k),
         )
     return x

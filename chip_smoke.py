@@ -105,7 +105,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    call at the shapes of that fit, and computes each kernel's bound, with
    K1-K3's kernel time group by group (``torch.profiler`` sums: the five
    slowest groups and ``narrow_share``, the share in groups with fewer rows
-   than the card has SMs; K1-bf16's likewise in ``bench_bf16``); and
+   than the card has SMs; K1-bf16's and K3-bf16's likewise in
+   ``bench_bf16``), K2, K3 and K3-bf16 held group by group (``held``: each
+   group's rel error over its rows that are not padding, the same bits on
+   a second call, non-finite values in padding rows only); and
    K11 (one block of 256 users through both CFs) and K10 (B = 8192) on that
    train split.
 
@@ -2145,6 +2148,31 @@ def _hold_sweeps(calls, names) -> dict:
     return out
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit where finite, NaN where NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _hold_groups(calls, run, plain) -> dict:
+    """A solve kernel (K2, K3, K3-bf16) over every bucket group of ``calls``:
+    ``run()`` twice and ``plain()`` once, each a list of (B, k) results.
+    Each group's (max abs, max rel) error over its rows that are not padding
+    (the landing drops those), whether the two runs gave the same bits, and
+    whether every non-finite value lies in a padding row (K2 gives NaN there
+    where YtY is not positive definite; at the bench it is, so none)."""
+    got, again, want = run(), run(), plain()
+    per = [rel_err(g[c[6]], w[c[6]]) for c, g, w in zip(calls, got, want)]
+    return {"max_abs_err": max(e[0] for e in per), "rel_err": max(e[1] for e in per),
+            "rel_by_group": [e[1] for e in per],
+            "same_bits": all(_same_bits(a, b) for a, b in zip(got, again)),
+            "nan_only_padding": all(not (~g.isfinite()).any(dim=1)[c[6]].any() for c, g in zip(calls, got)),
+            "nonfinite_rows": sum(int((~g.isfinite()).any(dim=1).sum()) for g in got)}
+
+
+def _held_ok(h: dict, tol: float) -> bool:
+    return h["rel_err"] <= tol and h["same_bits"] and h["nan_only_padding"]
+
+
 def _exact(got, want) -> tuple[float, float]:
     """A top-k kernel's (scores, indices) against its plain version's: (max
     abs score error, 0.0 when indices and scores are all equal, ties and
@@ -2327,7 +2355,15 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     uf, vf = model.user_table, model.item_table
     k = uf.shape[1]
     calls = _sweep_calls(est, train, model)
-    errs = _hold_sweeps(calls, ("als_partials", "solve_corrected", "bucket_cg"))
+    errs = _hold_sweeps(calls, ("als_partials",))
+    partials = _k1(ops_als.bucket_partial_terms_reference, calls)
+    held = {
+        "solve_corrected": _hold_groups(calls, lambda: _k2(ops_als.solve_corrected, calls, partials),
+                                        lambda: _k2(ops_als.solve_corrected_reference, calls, partials)),
+        "bucket_cg": _hold_groups(calls, lambda: _k3(ops_als.bucket_cg_body, calls),
+                                  lambda: _k3(ops_als.bucket_cg_reference, calls)),
+    }
+    errs.update({name: (h["max_abs_err"], h["rel_err"]) for name, h in held.items()})
 
     def k1_library(src, idx, val, mask, a):
         gathered = src[idx.long()]
@@ -2335,8 +2371,6 @@ def _time_kernels(est, model, train, users, excl) -> dict:
         corr = torch.bmm((gathered * c1[..., None]).transpose(1, 2), gathered)
         w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
         return corr, torch.bmm(w[:, None, :], gathered)[:, 0]
-
-    partials = _k1(ops_als.bucket_partial_terms_reference, calls)
 
     groups_ms = {
         "als_partials": _per_group(calls, [
@@ -2385,8 +2419,10 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     # Least time for the same work: each input byte read once, each output
     # written once, over HBM bandwidth; the operations these inputs need
     # over FP32 peak. K1 counts the symmetric k(k+1) + 2k FLOP per
-    # masked-in entry; K2 k^3/3 + 2k^2 per system; K3 its b/diag pass and
-    # steps + 1 matvecs over the masked-in entries plus the YtY products.
+    # masked-in entry; K2 k^3/3 + 2k^2 per system on one triangle of its
+    # symmetric correction and of YtY (the factorization reads no other);
+    # K3 its b/diag pass and steps + 1 matvecs over the masked-in entries
+    # plus the YtY products.
     slots = sum(c[2].numel() for c in calls)
     entries = sum(int(c[4].sum()) for c in calls)
     rows = sum(c[2].shape[0] for c in calls)
@@ -2395,7 +2431,7 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     work = {
         "als_partials": (slot_bytes + table_bytes + 4 * rows * (k * k + k),
                          entries * (k * (k + 1) + 2 * k)),
-        "solve_corrected": (4 * rows * (k * k + 2 * k + 1) + 4 * k * k * 2,
+        "solve_corrected": (4 * rows * (k * (k + 1) // 2 + 2 * k + 1) + 4 * k * (k + 1) // 2,
                             rows * (k ** 3 / 3 + 2 * k * k)),
         "bucket_cg": (slot_bytes + table_bytes + 4 * rows * 2 * k + 4 * k * k * 2,
                       entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k)),
@@ -2407,12 +2443,14 @@ def _time_kernels(est, model, train, users, excl) -> dict:
                           bytes=work[name][0], flops=work[name][1], no_fma=name == "topk_scores"))
         for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items()
     }
-    ok = _within_tol({name: (v["max_abs_err"], v["rel_err"]) for name, v in out.items()})
+    ok = (_within_tol({name: (v["max_abs_err"], v["rel_err"]) for name, v in out.items()})
+          and all(_held_ok(h, REL_TOL) for h in held.values()))
     emit({"phase": "bench_kernels", "ok": ok, "groups": len(calls), "slots": slots,
-          "per_group": groups_ms,
+          "per_group": groups_ms, "held": held,
           "entries": entries, "rows": rows, "timed": out})
     if not ok:
-        raise SystemExit("chip_smoke: a kernel disagrees with its plain version at the bench shapes")
+        raise SystemExit("chip_smoke: a kernel disagrees with its plain version at the bench shapes, changes "
+                         "its bits between calls or leaves NaN outside the padding rows")
     return out
 
 
@@ -4123,6 +4161,7 @@ def phase_bench_bf16(bench: dict) -> dict:
     def k3_plain(fn):
         return [fn(*c[:6], REG, ALPHA, CG_STEPS, "bfloat16") for c in calls]
 
+    held = _hold_groups(calls, lambda: k3(ops_als.bucket_cg_body), lambda: k3_plain(ops_als.bucket_cg_reference))
     res = {
         "als_partials_bf16": _worst(calls, k1(ops_als.bucket_partial_terms),
                                     k1(ops_als.bucket_partial_terms_reference)) + (
@@ -4130,7 +4169,7 @@ def phase_bench_bf16(bench: dict) -> dict:
             cuda_ms(lambda: k1(ops_als.bucket_partial_terms_reference)),
             cuda_ms(lambda: [_k1_bf16_library(c[0], c[2], c[3], c[4], ALPHA) for c in calls]),
         ),
-        "bucket_cg_bf16": _worst(calls, k3(ops_als.bucket_cg_body), k3_plain(ops_als.bucket_cg_reference)) + (
+        "bucket_cg_bf16": (held["max_abs_err"], held["rel_err"]) + (
             cuda_ms(lambda: k3(ops_als.bucket_cg_body)),
             cuda_ms(lambda: k3_plain(ops_als.bucket_cg_reference)),
             None,
@@ -4152,13 +4191,19 @@ def phase_bench_bf16(bench: dict) -> dict:
                           bytes=work[name][0], flops=work[name][1]))
         for name, (abs_err, rel, ms, plain_ms, lib_ms) in res.items()
     }
-    ok = all(v["rel_err"] <= BF16_REL[name] for name, v in out.items())
-    per_group = {"als_partials_bf16": _per_group(calls, [
-        (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA, "bfloat16")) for c in calls])}
+    ok = all(v["rel_err"] <= BF16_REL[name] for name, v in out.items()) and _held_ok(held, BF16_REL["bucket_cg_bf16"])
+    per_group = {
+        "als_partials_bf16": _per_group(calls, [
+            (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA, "bfloat16")) for c in calls]),
+        "bucket_cg_bf16": _per_group(calls, [
+            (lambda c=c: ops_als.bucket_cg_body(*c[:6], REG, ALPHA, CG_STEPS, gather_dtype="bfloat16"))
+            for c in calls]),
+    }
     emit({"phase": "bench_bf16_kernels", "ok": ok, "rel_tol": BF16_REL, "groups": len(calls), "entries": entries, "rows": rows,
-          "per_group": per_group, "timed": out})
+          "per_group": per_group, "held": {"bucket_cg_bf16": held}, "timed": out})
     if not ok:
-        raise SystemExit("chip_smoke: K1-bf16 or K3-bf16 disagrees with its plain version at the bench shapes")
+        raise SystemExit("chip_smoke: K1-bf16 or K3-bf16 disagrees with its plain version at the bench shapes, or "
+                         "K3-bf16 changes its bits between calls or leaves NaN outside the padding rows")
     launches = {"als_partials_bf16": fits["cholesky"][2].get("als_partials_bf16", 0),
                 "bucket_cg_bf16": fits["cg"][2].get("bucket_cg_bf16", 0)}
     return {"timed": out, "launches": launches}

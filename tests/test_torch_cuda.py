@@ -1097,3 +1097,190 @@ def test_k6_k7_streaming_body_above_the_48kb_default(dev, k):
     ui = torch.as_tensor(rng.integers(0, 300, size=16).astype(np.int32), device=dev)
     got = ops_topk.gather_topk(uf, items, ui, k, exclude_table=table)
     assert topk_bench.same(torch, got, ops_topk.gather_topk_reference(uf, items, ui, k, exclude_table=table))
+
+
+# ---- K2's warp design, K3's split design ---------------------------------
+
+
+def _k2_inputs(dev, k, b, seed=0, n_pad=None):
+    """A (b, k) system batch from a bucket's plain K1 terms (symmetric up to
+    round-off, as K1's own output is exactly), the Gramian of a table of
+    2k + 40 rows (positive definite) and the rows' counts; the last rows are
+    padding slots (n_b = 0) when the batch has more than one."""
+    n_pad = (0 if b == 1 else min(5, b - 1)) if n_pad is None else n_pad
+    src, idx, val, mask, _ = _bucket(dev, k, b=b, length=37, n_source=2 * k + 40, n_pad=n_pad, seed=seed)
+    corr, b_vec = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0)
+    corr = (corr + corr.transpose(1, 2)) / 2
+    return ops_als.gramian(src), corr.contiguous(), b_vec, mask.sum(dim=1, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("b", [1, 37])
+@pytest.mark.parametrize("k", [1, 7, 8, 16, 31, 32, 33, 50, 63, 64])
+def test_k2_warp_design_matches_plain(dev, k, b):
+    """One warp a system at every rank class (16, 32, 64) and its edges,
+    one system and a batch that is not a multiple of a CTA's 4 warps: rel
+    1e-4 of the plain version, the same bits on a second call, one count a
+    call."""
+    yty, corr, b_vec, n_b = _k2_inputs(dev, k, b, seed=k)
+    kernels.reset_launches()
+    x = ops_als.solve_corrected(yty, corr, b_vec, n_b, 0.5)
+    assert kernels.LAUNCHES["solve_corrected"] == 1
+    again = ops_als.solve_corrected(yty, corr, b_vec, n_b, 0.5)
+    torch.cuda.synchronize()
+    _close(x, ops_als.solve_corrected_reference(yty, corr, b_vec, n_b, 0.5))
+    assert torch.equal(x, again)
+
+
+@pytest.mark.parametrize("k", [8, 50, 64])
+def test_k2_padding_rows_are_nan_only_there(dev, k):
+    """With a YtY that is not positive definite (here -1e-3 I), a padding
+    slot (n_b = 0) factors A = YtY and every value of its row is NaN; the
+    live rows, positive definite through reg n_b, stay finite and within
+    rel 1e-4 of the plain version."""
+    _, corr, b_vec, n_b = _k2_inputs(dev, k, 37, seed=3)
+    yty = -1e-3 * torch.eye(k, device=dev)
+    x = ops_als.solve_corrected(yty, corr, b_vec, n_b, 0.5)
+    torch.cuda.synchronize()
+    pad = n_b == 0
+    assert pad.sum() == 5
+    assert x[pad].isnan().all() and x[~pad].isfinite().all()
+    _close(x[~pad], ops_als.solve_corrected_reference(yty, corr, b_vec, n_b, 0.5)[~pad])
+
+
+def _force_k3_plan(monkeypatch, plan):
+    """Make every K3 launch take ``plan`` (mode, c, slice, resident) in place
+    of the one ``ops_als.k3_plan_for`` would pick."""
+    monkeypatch.setattr(ops_als, "k3_plan_for", lambda *args: plan)
+
+
+def _hold_k3(dev, src, idx, val, mask, x0, gather_dtype, steps=3):
+    """K3 (or K3-bf16) under the plan ``ops_als.k3_plan_for`` gives against
+    the plain version: rel 1e-4 (bf16 5e-4), the same bits on a second call,
+    one count."""
+    yty = ops_als.gramian(src)
+    entry = ops_als._entry("bucket_cg", gather_dtype)
+    kernels.reset_launches()
+    x = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype=gather_dtype)
+    assert kernels.LAUNCHES[entry] == 1
+    again = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype=gather_dtype)
+    torch.cuda.synchronize()
+    want = ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype)
+    _close(x, want, REL if gather_dtype is None else K3_BF16_REL)
+    assert torch.equal(x, again)
+
+
+def _k3_bucket(dev, b, length, k, n_source=500, gaps=False, empty_row=False, seed=0):
+    src, idx, val, mask = _bench_bucket(dev, b, length, k, n_source=n_source, gaps=gaps, seed=seed)
+    if empty_row:
+        mask[0] = False
+        idx[0] = 0
+        val[0] = 0.0
+    x0 = torch.as_tensor((np.random.default_rng(seed).standard_normal((b, k)) * 0.1).astype(np.float32), device=dev)
+    return src, idx, val, mask, x0
+
+
+def _slice(length, c):
+    return max(32, -(-(-(-length // c)) // 32) * 32)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [1, 16, 49, 50, 64])
+@pytest.mark.parametrize("case", ["warp", "warp-L1", "warp-L0", "cta", "c2", "c4", "c8", "c16", "streamed-c1",
+                                  "streamed-c4", "masked-gaps", "all-masked-row"])
+def test_k3_modes_match_plain(dev, monkeypatch, case, k, gather_dtype):
+    """Each mode of K3's split design under a forced plan: warp mode (one
+    warp a row), one CTA a row, clusters of 2, 4, 8 and 16 (each size the
+    plan can pick), the streamed path (windows of 64 slots through a ring)
+    at c = 1 and 4, rows with masked gaps and a row with no entry at all."""
+    b, length, plan, gaps, empty = {
+        "warp": (37, 64, (0, 1, 64, 1), False, False),
+        "warp-L1": (9, 1, (0, 1, 4, 1), False, False),
+        "warp-L0": (3, 0, (0, 1, 4, 1), False, False),
+        "cta": (5, 300, (1, 1, _slice(300, 1), 1), False, False),
+        "c2": (3, 700, (1, 2, _slice(700, 2), 1), False, False),
+        "c4": (3, 700, (1, 4, _slice(700, 4), 1), False, False),
+        "c8": (3, 700, (1, 8, _slice(700, 8), 1), False, False),
+        "c16": (2, 1500, (1, 16, _slice(1500, 16), 1), False, False),
+        "streamed-c1": (3, 300, (1, 1, _slice(300, 1), 0), False, False),
+        "streamed-c4": (3, 700, (1, 4, _slice(700, 4), 0), False, False),
+        "masked-gaps": (6, 700, None, True, False),
+        "all-masked-row": (6, 300, None, False, True),
+    }[case]
+    if plan is not None:
+        _force_k3_plan(monkeypatch, plan)
+    _hold_k3(dev, *_k3_bucket(dev, b, length, k, gaps=gaps, empty_row=empty, seed=k + length), gather_dtype)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("length, c", [(31, 0), (32, 0), (33, 0), (63, 0), (64, 0), (65, 1), (96, 1), (97, 1),
+                                       (128, 4), (129, 4), (191, 2), (192, 2), (193, 2), (257, 8)])
+def test_k3_tile_and_slice_edges(dev, monkeypatch, length, c, gather_dtype):
+    """Slot counts at the 32-slot chunk edges and at slice edges (a last
+    slice of one slot, empty last ranks): warp mode for c = 0, else clusters
+    of c with the shortest slices that cover the row."""
+    _force_k3_plan(monkeypatch, (0, 1, -(-length // 4) * 4, 1) if c == 0 else (1, c, _slice(length, c), 1))
+    _hold_k3(dev, *_k3_bucket(dev, 7, length, 50, seed=length), gather_dtype)
+
+
+@pytest.mark.parametrize("b, length", BENCH_GROUPS)
+def test_k3_split_design_at_the_bench_groups(dev, b, length):
+    """K3 under its default plan at every bench group shape, rank 50. In
+    float32 only: at rows of hundreds to thousands of entries a float32
+    round-off in another summation order flips bf16 roundings of p and t,
+    and the plain bf16 version alone moves past 5e-4 when each row's entries
+    are merely reversed (``tests/test_torch_ops_als.py::
+    test_k3_bf16_long_rows_flip_under_reordering``), so
+    K3-bf16's rounding sites are held on shorter rows
+    (:func:`test_k3_modes_match_plain`, :func:`test_k3_tile_and_slice_edges`)
+    and at the bench by ``chip_smoke.py``."""
+    _hold_k3(dev, *_k3_bucket(dev, b, length, 50, n_source=20000, seed=b + length), None)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+def test_k3_streams_a_slice_longer_than_shared_memory(dev, gather_dtype):
+    """A 30 000-slot row at rank 64 does not fit shared memory even in a
+    cluster of 16, so its default plan streams it."""
+    plan = ops_als.k3_plan_for(1, 30000, 64, gather_dtype, dev)
+    assert plan[0] == 1 and plan[3] == 0
+    _hold_k3(dev, *_k3_bucket(dev, 1, 30000, 64, n_source=20000, seed=5), gather_dtype)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+def test_k3_one_cta_rows_repeat_the_same_bits(dev, gather_dtype):
+    """Rows of one CTA a row (c = 1, the plan of every group with at least
+    an SM's worth of rows) whose 8 warps each hold one to three live entries
+    at the head of their 64-slot block and padding after them, so a warp
+    reaches the first matvec's partial within a few entries of the b / diag
+    exchange: 200 calls give the same bits and the plain result (a warp
+    that stored its matvec partial before warp 0 had added its b partial
+    would change both)."""
+    b, length, k = 264, 512, 50
+    rng = np.random.default_rng(7)
+    src = torch.as_tensor((rng.standard_normal((20000, k)) / np.sqrt(k)).astype(np.float32), device=dev)
+    live = np.arange(length)[None, :] % 64 < rng.integers(1, 4, size=(b, 8)).repeat(64, axis=1)
+    live[rng.random(b) < 0.1] = False
+    idx = torch.as_tensor(np.where(live, rng.integers(0, 20000, size=(b, length)), 0).astype(np.int32), device=dev)
+    val = torch.as_tensor(np.where(live, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32),
+                          device=dev)
+    mask = torch.as_tensor(live, device=dev)
+    x0 = torch.as_tensor((rng.standard_normal((b, k)) * 0.1).astype(np.float32), device=dev)
+    assert ops_als.k3_plan_for(b, length, k, gather_dtype, dev) == (1, 1, length, 1)
+    yty = ops_als.gramian(src)
+    first = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype=gather_dtype)
+    for _ in range(200):
+        again = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype=gather_dtype)
+        assert torch.equal(first, again)
+    want = ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype)
+    _close(first, want, REL if gather_dtype is None else K3_BF16_REL)
+
+
+def test_k3_refused_plans_raise(dev, monkeypatch):
+    """A cluster the card cannot hold (32 CTAs) and a plan that does not
+    cover the row are refused by the launch, and the wrapper raises: no
+    smaller plan, no plain version."""
+    src, idx, val, mask, x0 = _k3_bucket(dev, 2, 700, 50)
+    yty = ops_als.gramian(src)
+    for plan in ((1, 32, 32, 1), (1, 4, 96, 1), (0, 1, 4, 1), (1, 1, 7000, 1)):
+        _force_k3_plan(monkeypatch, plan)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)

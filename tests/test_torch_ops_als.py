@@ -178,6 +178,36 @@ def test_k3_bf16_tolerance_separates_round_off_from_a_missing_site(monkeypatch):
         monkeypatch.setattr(tals, "_round", rounding)
 
 
+def test_k3_bf16_long_rows_flip_under_reordering():
+    """Why the card holds K3-bf16 to its plain version at every bench group
+    shape only in float32 (``tests/test_torch_cuda.py::
+    test_k3_split_design_at_the_bench_groups``): on that test's bucket of 16
+    rows of up to 2152 entries at rank 50, merely reversing each row's
+    entries moves the plain bf16 result past 5e-4 (a float32 round-off flips
+    bf16 roundings of p and t), while float32 moves under 1e-5."""
+    rng = np.random.default_rng(16 + 2152)
+    b, length, k, n_source = 16, 2152, 50, 20000
+    src = torch.as_tensor((rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32))
+    lens = rng.integers(length // 2, length + 1, size=b)
+    lens[rng.random(b) < 0.25] = 0
+    mask = np.arange(length)[None, :] < lens[:, None]
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32)
+    x0 = torch.as_tensor((np.random.default_rng(16 + 2152).standard_normal((b, k)) * 0.1).astype(np.float32))
+    rev_idx, rev_val = idx.copy(), val.copy()
+    for r, n in enumerate(lens):
+        rev_idx[r, :n], rev_val[r, :n] = idx[r, :n][::-1], val[r, :n][::-1]
+    yty = tals.gramian(src)
+
+    def moved(gather_dtype):
+        a, c = (tals.bucket_cg_reference(src, yty, torch.as_tensor(i), torch.as_tensor(v), torch.as_tensor(mask), x0,
+                                         REG, ALPHA, 3, gather_dtype) for i, v in ((idx, val), (rev_idx, rev_val)))
+        return float((a - c).abs().max() / a.abs().max())
+
+    assert moved(None) < 1e-5
+    assert moved("bfloat16") > 5e-4
+
+
 @pytest.mark.parametrize("gather_dtype", GATHER_DTYPES)
 @pytest.mark.parametrize("solver", ["cholesky", "cg"])
 def test_half_sweep_with_landing(solver, gather_dtype):
@@ -434,3 +464,149 @@ def test_k1_split_model_on_a_fits_groups():
             _close_to_scale(corr.numpy(), want[0].numpy())
             _close_to_scale(bvec.numpy(), want[1].numpy())
     assert split > 0
+
+
+# --------------------------------------------------- K3's split design (plan)
+#
+# The card's K3 (csrc/bucket_cg.cu) packs short rows one warp a row and cuts
+# longer rows into slices across the CTAs of a thread-block cluster
+# (``ops.als._k3_plan``), each CTA holding its slice in shared memory (or
+# streaming it when it does not fit) and the cluster adding each pass's
+# partial k-vectors in rank order. The plan and its shared memory are
+# mirrored in Python; these tests hold the mirror (every slot covered once,
+# cluster sizes, shared bytes, the resident-or-streamed choice) and a model
+# of the kernel's summation order built on it (against JAX).
+
+K3_EDGES = [(1, 0), (4, 1), (5, 31), (5, 32), (5, 33), (3, 64), (3, 65), (2, 129), (1, 7624), (7, 2000),
+            (131, 700), (1, 20000)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b, length", BENCH_GROUPS + K3_EDGES)
+def test_k3_plan_covers_each_live_slot_once(b, length, bf16):
+    plan = tals._k3_plan(b, length, 50, bf16, N_SM)
+    mode, c, slice_, resident = plan
+    units = tals.k3_units(b, length, plan)
+    cover = np.zeros((b, length), dtype=np.int64)
+    ranks: dict[int, list] = {}
+    for cta, row, rank, start, end in units:
+        assert 0 <= start <= end <= length
+        cover[row, start:end] += 1
+        ranks.setdefault(row, []).append((rank, start, end))
+        assert cta == (row // tals.K3_PACK_WARPS if mode == 0 else row * c + rank)
+    assert (cover == 1).all()
+    for row in range(b):
+        got = ranks[row]
+        assert [r for r, _, _ in got] == list(range(c if mode == 1 else 1))  # added in rank order
+        assert all(a[2] == z[1] for a, z in zip(got, got[1:]))              # contiguous slices
+    if mode == 0:
+        assert length <= tals.K3_PACK_L and slice_ >= length and slice_ % 4 == 0 and resident
+    else:
+        assert length > tals.K3_PACK_L and slice_ % 32 == 0 and -(-length // c) <= slice_ < -(-length // c) + 32
+
+
+@pytest.mark.parametrize("c_max", [8, 16])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [8, 16, 50, 64])
+def test_k3_cluster_sizes_and_shared_bytes(k, bf16, c_max):
+    """Cluster sizes are powers of two up to the portable 8, or 16 where the
+    card holds such clusters (``c_max``); every plan's shared bytes a CTA
+    stay under the 227 KB a block may opt into; a group of few rows is
+    spread until it has a CTA an SM or the widest cluster is reached."""
+    for b, length in BENCH_GROUPS + K3_EDGES:
+        plan = tals._k3_plan(b, length, k, bf16, N_SM, c_max)
+        mode, c, _, resident = plan
+        assert c in tals.K3_CLUSTERS and c <= c_max
+        assert tals.k3_smem(plan, k, bf16) <= tals.K3_SMEM < 227 * 1024 + 1
+        if mode == 1 and c < c_max:
+            assert b * c >= N_SM and resident
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k3_resident_or_streamed_at_the_bench_groups(bf16):
+    """From the shapes alone: at rank 50 every bench group's slice stays in
+    shared memory, with clusters of 16 and with the portable 8 alike (the
+    7624-slot row at c = 8 is 960 slots, 225 920 bytes in float32); the
+    choice is resident exactly when the resident slice fits; and a slice too
+    long even at the widest cluster is streamed in small windows."""
+    for c_max in (8, 16):
+        for b, length in BENCH_GROUPS:
+            plan = tals._k3_plan(b, length, 50, bf16, N_SM, c_max)
+            assert plan[3] == 1
+            assert plan[0] == (0 if length <= tals.K3_PACK_L else 1)
+            if plan[0] == 1:
+                assert tals.k3_smem(plan, 50, bf16) <= tals.K3_SMEM
+    assert tals.k3_smem(tals._k3_plan(1, 7624, 50, False, N_SM, 8), 50, False) == 225920
+    for length in (30000, 40000):
+        plan = tals._k3_plan(1, length, 64, bf16, N_SM)
+        resident_plan = (1, plan[1], plan[2], 1)
+        assert plan[3] == 0 and tals.k3_smem(resident_plan, 64, bf16) > tals.K3_SMEM
+        assert tals.k3_smem(plan, 64, bf16) < 64 * 1024
+
+
+def _k3_cluster_model(src, yty, idx, val, mask, x0, plan, cg_steps, gather_dtype=None):
+    """K3 as the split design sums it, on the CPU: each unit's partial of
+    b, of the diagonal's sum and of every matvec's gathered term over its
+    slots, a row's partials added in the plan's rank order, then the k-length
+    CG update (JAX's order)."""
+    def rnd(x):
+        return tals._round(x, gather_dtype)
+
+    b, length = idx.shape
+    table = tals.gather_table(src, gather_dtype)
+    rows: dict[int, list] = {}
+    for _, row, _, start, end in tals.k3_units(b, length, plan):
+        g = table[idx[row, start:end].long()].float()
+        c1 = ALPHA * val[row, start:end]
+        w = torch.where(mask[row, start:end], 1.0 + c1, torch.zeros_like(c1))
+        rows.setdefault(row, []).append((g, c1, w, int(mask[row, start:end].sum())))
+    out = torch.empty_like(x0)
+    for row, units in rows.items():
+        def ranked(part):
+            acc = torch.zeros(src.shape[1])
+            for u in units:
+                acc = acc + part(*u)
+            return acc
+
+        rn = REG * float(sum(u[3] for u in units))
+        b_vec = ranked(lambda g, c1, w, n: w @ g)
+        diag = torch.clamp(torch.diagonal(yty) + ranked(lambda g, c1, w, n: rnd(c1) @ rnd(g * g)) + rn, min=1e-12)
+
+        def matvec(p):
+            s = ranked(lambda g, c1, w, n: rnd(c1 * (g @ rnd(p))) @ g)
+            return p @ yty + s + rn * p
+
+        tiny = 1e-30
+        x = x0[row]
+        r = b_vec - matvec(x)
+        z = r / diag
+        p = z
+        rz = torch.sum(r * z)
+        for _ in range(cg_steps):
+            ap = matvec(p)
+            step = rz / (torch.sum(p * ap) + tiny)
+            x = x + step * p
+            r = r - step * ap
+            z = r / diag
+            rz_new = torch.sum(r * z)
+            beta = rz_new / (rz + tiny)
+            p = z + beta * p
+            rz = rz_new
+        out[row] = x
+    return out
+
+
+@pytest.mark.parametrize("cg_steps", [0, 1, 3])
+@pytest.mark.parametrize("b, length", [(1, 700), (2, 300), (8, 96)], ids=["1x700", "2x300", "8x96"])
+def test_k3_cluster_model_matches_jax(b, length, cg_steps):
+    """Scaled-down narrow groups at rank 16, split as the card splits them
+    (clusters of 16: slices of 64, 32 and 32 slots), summed unit by unit in
+    rank order: within the tolerance of the JAX function."""
+    src, idx, val, mask = _k1_bucket(16, b, length, n_source=300, n_pad=0, seed=length)
+    x0 = (np.random.default_rng(length).standard_normal((b, 16)) * 0.1).astype(np.float32)
+    yty = src.T @ src
+    plan = tals._k3_plan(b, length, 16, False, N_SM)
+    assert plan[0] == 1 and plan[1] == 16
+    got = _k3_cluster_model(*_t(src, yty, idx, val, mask, x0), plan, cg_steps)
+    want = _jax_cg(src, yty, idx, val, mask, x0, cg_steps, None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
