@@ -19,7 +19,9 @@ beside the library yardstick (the gather, then two batched matrix
 products). K2 (``solve_corrected``, on each group's plain K1 terms, the live
 rows held) and K3 / K3-bf16 (``bucket_cg_body``, 3 steps from the other
 table's rows) are held and timed the same way (K2's yardstick, its plain
-version, is ``cholesky_ex`` + ``cholesky_solve``; K3 has none). With
+version, is ``cholesky_ex`` + ``cholesky_solve``; K3 has none; K3-bf16
+also row by row against F9's limits, ``over_limit`` the worst row's share
+of its ``ops.als.bucket_cg_bf16_limits``). With
 ``--against ROOT`` the groups, tables and the train split
 are saved under ``build/bench/`` and each tree times them, and the bench
 fit's device seconds (Cholesky, CG-3, and both at bf16 gathers, 26
@@ -36,7 +38,9 @@ the groups through copies of its source with other tuning constants
 lengths of the rows warp mode takes (``K3_PACK_VARIANTS``) and other
 widest clusters (``K3_CLUSTER_VARIANTS``). ``ranks``: K2
 alone at ranks 8 to 64 on random systems (``K2_RANKS``). Needs a GPU; the
-CPU has nothing to measure here.
+CPU has nothing to measure here, but ``orders``: how well F9's reorderings
+cover the roundings a further order flips at the bench's long groups
+(``time_orders``; the plain version only, so also on the CPU).
 """
 
 from __future__ import annotations
@@ -117,7 +121,7 @@ def bench_data(torch, dev) -> dict:
     s = np.float32(1 / np.sqrt(RANK))
     u0 = (rng.standard_normal((train.n_users, RANK)) * s).astype(np.float32)
     v0 = (rng.standard_normal((train.n_items, RANK)) * s).astype(np.float32)
-    ug, ig, _, _ = ImplicitALS(rank=RANK, device="cuda").device_groups(train)
+    ug, ig, _, _ = ImplicitALS(rank=RANK, device=str(dev)).device_groups(train)
     calls = []
     for side, groups in (("users", ig), ("items", ug)):  # the fixed side each half-sweep gathers
         for g in groups:
@@ -273,11 +277,18 @@ def time_groups(torch, data: dict) -> dict:
         tables = {side: ops_als.gather_table(data[side], dtype) for side in ("users", "items")}  # cast once
         k3 = [(tables[side], yty[side], idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous())
               for side, idx, val, mask, rows in data["calls"]]
-        worst = max(_rel(ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype),
-                         ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)) for c in k3)
+        worst, over = 0.0, 0.0
+        for c in k3:
+            got = ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)
+            want = ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)
+            worst = max(worst, _rel(got, want))
+            if dtype is not None and hasattr(ops_als, "bucket_cg_bf16_limits"):  # F9's row check (not in older trees)
+                limits = ops_als.bucket_cg_bf16_limits(*c, REG, ALPHA, CG_STEPS, want=want)
+                over = max(over, float(ops_als.bucket_cg_bf16_over(got, want, limits).max()))
         fns = [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)) for c in k3]
         out["bucket_cg" if dtype is None else "bucket_cg_bf16"] = {
-            "max_rel_err": worst, **_timed_groups(torch, shapes, fns, n_sm), "library_ms": None}
+            "max_rel_err": worst, **({"over_limit": over} if dtype else {}),
+            **_timed_groups(torch, shapes, fns, n_sm), "library_ms": None}
     return out
 
 
@@ -445,6 +456,43 @@ def time_k2_ranks(torch) -> dict:
     return out
 
 
+def time_orders(torch, data: dict, n_orders=(2, 8, 16), proxies: int = 8) -> dict:
+    """F9's spread (``ops.als.bucket_cg_bf16_limits``) checked at the bench
+    groups' K3-bf16 calls of 300 slots and more, where the roundings flip:
+    for the first n of its reorderings, how far ``proxies`` further random
+    orders of each group (another seed) reach past the limits they give
+    (the worst row's share of its limit, the rows over 1, the row trials).
+    Runs the plain version only: on the card or the CPU."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    other = {"users": "items", "items": "users"}
+    worst, over, trials = dict.fromkeys(n_orders, 0.0), dict.fromkeys(n_orders, 0), 0
+    for side, idx, val, mask, rows in data["calls"]:
+        if idx.shape[1] < 300:
+            continue
+        src = data[side]
+        call = (src, ops_als.gramian(src), idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous(),
+                REG, ALPHA, CG_STEPS)
+        live = rows >= 0
+        want = ops_als.bucket_cg_bf16_reordered(*call)
+        scale = float(want[live].abs().max())
+
+        def moved(orders):
+            return [(ops_als.bucket_cg_bf16_reordered(*call, *o) - want).abs().amax(dim=1)[live] for o in orders]
+
+        spreads = moved(ops_als._k3_reorders(mask, src.shape[1], torch.Generator().manual_seed(idx.shape[1]),
+                                             max(n_orders)))
+        further = moved(list(ops_als._k3_reorders(mask, src.shape[1], torch.Generator().manual_seed(
+            1 + idx.shape[1]), proxies + 2))[2:])  # shuffles only
+        for n in n_orders:
+            limit = ops_als.bucket_cg_bf16_limit(torch.stack(spreads[:n]).amax(dim=0), scale)
+            for m in further:
+                worst[n] = max(worst[n], float((m / limit).max()))
+                over[n] += int((m > limit).sum())
+        trials += proxies * int(live.sum())
+    return {"orders": {str(n): {"worst": worst[n], "rows_over": over[n]} for n in n_orders}, "row_trials": trials}
+
+
 def _card() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -456,11 +504,16 @@ def _card() -> str:
 def main(argv: list[str]) -> int:
     import torch
 
+    if argv[:1] == ["orders"]:  # the plain version only: on the card, else the CPU
+        dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+        print(json.dumps({"mode": "orders", "device": str(dev), **time_orders(torch, bench_data(torch, dev))}))
+        return 0
     if not torch.cuda.is_available():
         print("als_partials_bench: needs a GPU", file=sys.stderr)
         return 1
     if not argv or argv[0] not in ("groups", "time", "variants", "ranks"):
-        print("usage: als_partials_bench groups [--against ROOT] | variants [k2|k3] | ranks", file=sys.stderr)
+        print("usage: als_partials_bench groups [--against ROOT] | variants [k2|k3] | ranks | orders",
+              file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     if argv[0] == "ranks":

@@ -61,12 +61,13 @@ SIGNATURES: dict[str, list] = {
     "segment_dot_grid": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # in, out, centers, contexts, negs, grad_in, grad_out, loss_acc, B, d, K, stream
     "sgns_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # in, out, centers, contexts, pool, grad_in, grad_out, loss_acc, g, B, d, K, neg_scale, stream
-    "sgns_shared": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # in, out, centers, contexts, pool, grad_in, grad_out, loss_acc, keys, perm, ws, ws_numel, B, V, d, K,
+    # neg_scale, stream
+    "sgns_shared": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
     # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
     "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    # x, indptr, idx, val, out, S, B, stream
-    "spmm_rows": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # x, indptr, idx, val, out, units, n_units, long_rows, n_long, ws, S, B, stream
+    "spmm_rows": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P],
     # scores, sb, si, starred, norm, out_s, out_i, B, n, k, L, Lpad, stream
     "masked_topk": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # scores, sb, si, starred, norm, out_s, out_i, row0, B, n, k, L, scratch, sortbuf, sort_pad, stream
@@ -216,7 +217,7 @@ def build(verbose: bool = False) -> dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of entry point ``name`` (building every kernel on
     first use), for a query function its source exports beside the launch
-    functions (``bucket_cg_clusters``)."""
+    functions (``bucket_cg_clusters``, ``sgns_shared_plan``)."""
     if name not in _libs:
         build()
     return _libs[name]

@@ -35,7 +35,7 @@ import torch
 
 from albedo_tpu_torch.datasets.ragged import segment_positions
 from albedo_tpu_torch.features.pipeline import Transformer, memo_map
-from albedo_tpu_torch.ops.sgns import adam_dense, sgns_shared_step, sgns_step
+from albedo_tpu_torch.ops.sgns import adam_dense, sgns_shared_step, sgns_shared_workspace, sgns_step
 from albedo_tpu_torch.utils.device import resolve_device
 
 
@@ -245,8 +245,8 @@ class Word2Vec:
         loss_acc = torch.zeros(1, dtype=torch.float32, device=dev)
         shared = self.shared_negatives
         neg_shape = (shared,) if shared else (bs, self.negatives)
-        # K9s's (B, K) logit gradients between its passes, allocated once.
-        workspace = torch.empty(bs * shared, dtype=torch.float32, device=dev) if shared else None
+        # K9s's workspace (logit gradients, pair rows, partials), allocated once.
+        workspace = sgns_shared_workspace(bs, dim, shared, dev) if shared else None
         count = 0
         epoch_loss = []
         for _ in range(self.max_iter):

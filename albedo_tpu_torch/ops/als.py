@@ -436,6 +436,101 @@ def bucket_cg_reference(
     return x
 
 
+# K3-bf16 against its plain version: rel 5e-4 of max |x| of a group, or twice
+# the row's own spread under reordering where that is more (below), the
+# spread taken over K3_BF16_ORDERS reorderings of the sums.
+K3_BF16_REL = 5e-4
+K3_BF16_ORDERS = 16
+
+
+def bucket_cg_bf16_limits(
+    source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
+    x0: torch.Tensor, reg: float, alpha: float, cg_steps: int, want: torch.Tensor | None = None,
+    rows: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Each row's limit on ``|K3-bf16 - plain|`` (max over the row), (B,).
+
+    K3-bf16 rounds the iterate p and t = c1 q to bf16 at every matvec, and
+    a float32 sum in another order can put such a value on the other side
+    of a bf16 rounding: one step of 2^-8, which the later CG steps carry. So
+    the distance between the kernel and its plain version depends on the
+    summation order, which no fixed limit bounds (F9: 7.6e-4 of max |x| on
+    long rows, where merely reversing a row's entries moves the plain
+    version past 5e-4). The limit is taken from the plain version itself,
+    run in ``K3_BF16_ORDERS`` other orders of its sums: each row's live
+    entries reversed, the rank's columns reversed (the order of every
+    k-term dot product), then each row's entries and the columns shuffled
+    together (fixed seeds); a row's spread is the most any of them moves it.
+    A row is held to ``K3_BF16_REL`` (5e-4) of the group's max |x| (over ``rows``,
+    the rows held), or to twice its spread where that is more: the kernel
+    sums in yet another order. A row whose roundings no reordering flips
+    keeps the fixed limit, and a wrong site (a rounding left out, an entry
+    dropped) moves rows that no reordering moves (``tests/
+    test_torch_ops_als.py::test_k3_bf16_row_limits_refuse_a_wrong_site``).
+    The check stays a sample of orders: at the bench's groups of 300 slots
+    and more, 2 of 23 040 row trials of a further random order went past
+    these limits (to 1.77 of them), rare flips no order of the 16 made
+    (``kernels/als_partials_bench.py orders``, on the CPU)."""
+    call = (source, yty, idx, val, mask, x0, reg, alpha, cg_steps)
+    if want is None:
+        want = bucket_cg_bf16_reordered(*call)
+    spread = torch.zeros(want.shape[0], dtype=want.dtype, device=want.device)
+    for src_pos, cols in _k3_reorders(mask, source.shape[1], torch.Generator().manual_seed(idx.shape[1])):
+        spread = torch.maximum(spread, (bucket_cg_bf16_reordered(*call, src_pos, cols) - want).abs().amax(dim=1))
+    held = want if rows is None else want[rows]
+    return bucket_cg_bf16_limit(spread, float(held.abs().max()) if held.numel() else 0.0)
+
+
+def bucket_cg_bf16_limit(spread: torch.Tensor, scale: float) -> torch.Tensor:
+    """The rows' limits from their spread under reordering and the group's
+    max |x|: twice the spread, at least ``K3_BF16_REL`` of the scale."""
+    return torch.clamp_min(2.0 * spread, K3_BF16_REL * scale)
+
+
+def bucket_cg_bf16_reordered(
+    source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
+    x0: torch.Tensor, reg: float, alpha: float, cg_steps: int, src_pos: torch.Tensor | None = None,
+    cols: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K3-bf16's plain version with its sums in another order: the slots
+    gathered at ``src_pos`` (B, L) and the rank's columns permuted by
+    ``cols`` (k,), the result's columns put back (one of
+    :func:`_k3_reorders`; both None: the plain version itself)."""
+    i, v = (idx, val) if src_pos is None else (idx.gather(1, src_pos), val.gather(1, src_pos))
+    s, y, x = (source, yty, x0) if cols is None else (source[:, cols], yty[cols][:, cols], x0[:, cols])
+    out = bucket_cg_reference(s, y, i, v, mask, x, reg, alpha, cg_steps, "bfloat16")
+    return out if cols is None else out[:, torch.argsort(cols)]
+
+
+def _k3_reorders(mask: torch.Tensor, k: int, gen: torch.Generator, n: int = K3_BF16_ORDERS):
+    """``n`` reorderings of a K3 call's sums, as (source positions of the
+    slots (B, L) or None, a permutation of the k columns or None): the live
+    entries reversed, the columns reversed, then both shuffled. Each keeps
+    every slot's liveness: a row's live entries move among its live slots
+    and the padding stays where it is, so only the order of the sums
+    changes."""
+    n_live = mask.sum(dim=1, keepdim=True)
+    rank = torch.arange(mask.shape[1], device=mask.device).expand_as(mask)
+    live_pos = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)  # live slots in order, then padding
+
+    def gather(order):  # the slot live_pos[i] takes the entry at order[i]
+        return torch.empty_like(order).scatter_(1, live_pos, order)
+
+    yield gather(torch.where(rank < n_live, live_pos.gather(1, (n_live - 1 - rank).clamp_min(0)), live_pos)), None
+    yield None, torch.arange(k - 1, -1, -1, device=mask.device)
+    for _ in range(n - 2):
+        keys = torch.rand(mask.shape, generator=gen).to(mask.device).masked_fill(~mask, 2.0)
+        yield (gather(torch.where(rank < n_live, torch.argsort(keys, dim=1), live_pos)),
+               torch.randperm(k, generator=gen).to(mask.device))
+
+
+def bucket_cg_bf16_over(got: torch.Tensor, want: torch.Tensor, limits: torch.Tensor) -> torch.Tensor:
+    """Each row's max ``|got - want|`` over its limit (the check holds where
+    it is at most 1; a row of limit 0 must match exactly)."""
+    err = (got - want).abs().amax(dim=1)
+    return torch.where(limits > 0, err / torch.clamp_min(limits, 1e-30), torch.where(err > 0, torch.inf, 0.0))
+
+
 # ------------------------------------------------------------ K3's plan
 
 

@@ -11,7 +11,10 @@ Port of the device half of ``albedo_tpu/recommenders/cf.py``:
   dense (n, B) block. ``x @ W^T`` is ``spmm_rows(W, x^T)`` and ``m @ W`` is
   the same kernel on ``W``'s transpose (:meth:`CSR.transpose`, built on the
   host), so the scatter of the JAX program becomes a gather with no atomics;
-  ``W @ 1`` and ``W^T t`` are the B = 1 cases.
+  ``W @ 1`` and ``W^T t`` are the B = 1 cases. A warp walks each unit of
+  :func:`spmm_plan` (a row, or a chunk of a long row whose partials a
+  second kernel adds in chunk order), built on the host once per matrix and
+  cached on it.
 - :func:`masked_topk` runs the CUDA kernel ``masked_topk``: divide each
   column of a (B, n) block by an optional norm, mask each row's starred
   columns, keep the top k in ``lax.top_k``'s order. Above k = 128, or with
@@ -51,6 +54,7 @@ class CSR:
     idx: torch.Tensor
     val: torch.Tensor | None
     n_cols: int
+    plan: "SpmmPlan | None" = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -76,6 +80,63 @@ class CSR:
         t_indptr = np.concatenate([[0], np.cumsum(np.bincount(cols, minlength=self.n_cols))])
         val = None if self.val is None else self.val.cpu().numpy()[order]
         return CSR.from_host(t_indptr, rows[order], val, self.n_rows, self.indptr.device)
+
+
+# Entries of a unit of spmm_rows (csrc/spmm_rows.cu): a row of at most this
+# many entries is one unit, a longer row is cut into units of this many.
+SPMM_CHUNK = 128
+
+
+@dataclasses.dataclass
+class SpmmPlan:
+    """``spmm_rows``' work list for one matrix, on its device: ``units``
+    (n_units, 4) int32 rows ``(row, lo, hi, slot)``, entries [lo, hi) of
+    ``row`` (slot -1: the whole row, written to the output; else the chunk's
+    float64 partial goes to workspace row ``slot``), and ``long_rows``
+    (n_long, 3) int32 rows ``(row, first slot, slots)``, the rows cut into
+    chunks, whose ``n_slots`` partials are added in chunk order."""
+
+    units: torch.Tensor
+    long_rows: torch.Tensor
+    n_units: int
+    n_long: int
+    n_slots: int
+
+
+def spmm_units(indptr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The host half of :func:`spmm_plan`: ``(units, long_rows)`` as int32
+    arrays for a CSR row pointer and units of ``SPMM_CHUNK`` entries. Every
+    row, empty ones included, is one unit or the consecutive chunks of one
+    long row; chunks of a row take consecutive slots in entry order."""
+    chunk = SPMM_CHUNK
+    indptr = np.asarray(indptr, dtype=np.int64)
+    lens = np.diff(indptr)
+    n_units = np.where(lens > chunk, -(-lens // chunk), 1)
+    rows = np.repeat(np.arange(len(lens), dtype=np.int64), n_units)
+    first_unit = np.concatenate([[0], np.cumsum(n_units)])[:-1]
+    within = np.arange(len(rows), dtype=np.int64) - np.repeat(first_unit, n_units)
+    lo = indptr[rows] + within * chunk
+    hi = np.minimum(lo + chunk, indptr[rows + 1])
+    split = lens[rows] > chunk
+    slot = np.full(len(rows), -1, dtype=np.int64)
+    slot[split] = np.arange(int(split.sum()))
+    long = np.flatnonzero(lens > chunk)
+    first_slot = np.concatenate([[0], np.cumsum(n_units[long])])[:-1]
+    units = np.stack([rows, lo, hi, slot], axis=1).astype(np.int32)
+    long_rows = np.stack([long, first_slot, n_units[long]], axis=1).astype(np.int32).reshape(-1, 3)
+    return units, long_rows
+
+
+def spmm_plan(w: CSR) -> SpmmPlan:
+    """:func:`spmm_units` of ``w``'s row pointer on ``w``'s device, built
+    once and cached on ``w`` (the matrix is fixed once a recommender is
+    built)."""
+    if w.plan is None:
+        units, long_rows = spmm_units(w.indptr.cpu().numpy())
+        dev = w.indptr.device
+        w.plan = SpmmPlan(torch.as_tensor(units).to(dev), torch.as_tensor(long_rows).to(dev), len(units),
+                          len(long_rows), int(long_rows[:, 2].sum()))
+    return w.plan
 
 
 def spmm_rows_reference(w: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -105,7 +166,8 @@ def spmm_rows_mass(w: CSR, x: torch.Tensor) -> torch.Tensor:
 def spmm_rows(w: CSR, x: torch.Tensor) -> torch.Tensor:
     """K11's sparse pass: ``W @ x``, (n_rows, B) f32, for a CSR ``W``
     (n_rows, n_cols) and a dense ``x`` (n_cols, B) (CUDA kernel
-    ``spmm_rows``)."""
+    ``spmm_rows``, on the plan cached on ``W``). The same inputs give the
+    same bits."""
     operands = [w.indptr, w.idx, x] + ([] if w.val is None else [w.val])
     if on_cpu("spmm_rows", *operands):
         return spmm_rows_reference(w, x)
@@ -117,9 +179,13 @@ def spmm_rows(w: CSR, x: torch.Tensor) -> torch.Tensor:
     check_operand("spmm_rows", "idx", w.idx, torch.int32, (nnz,), dev)
     if w.val is not None:
         check_operand("spmm_rows", "val", w.val, torch.float32, (nnz,), dev)
+    plan = spmm_plan(w)
     out = torch.empty((w.n_rows, n_b), dtype=torch.float32, device=dev)
+    # the chunks' float64 partials; B = 1 and a plan with no long row need none
+    ws = torch.empty((plan.n_slots, n_b), dtype=torch.float64, device=dev) if n_b > 1 and plan.n_slots else None
     call("spmm_rows", dev, x.data_ptr(), w.indptr.data_ptr(), w.idx.data_ptr(),
-         None if w.val is None else w.val.data_ptr(), out.data_ptr(), w.n_rows, n_b)
+         None if w.val is None else w.val.data_ptr(), out.data_ptr(), plan.units.data_ptr(), plan.n_units,
+         plan.long_rows.data_ptr(), plan.n_long, None if ws is None else ws.data_ptr(), w.n_rows, n_b)
     return out
 
 

@@ -33,10 +33,17 @@ K8c-g (K8 and K8c over a leading grid axis): each row equal to K8 or K8c on
 that row bit for bit (G = 1 included), and to the plain version as K8 and
 K8c are. K4's land_rows and scatter_rows move rows: exact. K1-bf16 (bf16
 gathers) is held as K1 (rel 1e-4: its products are exact in float32, the
-order of the sums differs), K3-bf16 to rel 5e-4 (a float32 round-off in
-another order can flip one rounding of its bf16 iterate; see
-``chip_smoke.BF16_REL``); K9s (the shared negative pool) as K9, to 5e-5 of
-``ops.sgns.sgns_shared_grad_mass`` and of |loss| at its batch of 4096.
+order of the sums differs), K3-bf16 row by row to rel 5e-4 of max |x|, or
+to twice the plain version's own spread over 16 reorderings where that is more
+(a float32 round-off in another order can flip one rounding of its bf16
+iterate; ``ops.als.bucket_cg_bf16_limits``, F9); K9s (the shared negative
+pool) as K9, to 5e-5 of ``ops.sgns.sgns_shared_grad_mass`` and of |loss| at
+its batch of 4096, and against its plain version in float64, element by
+element, to ten standard deviations of the round-off of its own summation
+order and logits (``ops.sgns.sgns_shared_limits``, never above 5e-5 x
+max(1, B / 4096) of the mass), the same bits on every call, and faults
+planted at the refscale batch refused (F8);
+K11's spmm_rows at its plan's edges the same bits twice.
 K1's split design (rows cut into chunks across CTAs) at every bucket group
 shape of the bench fit, both gather dtypes: rel 1e-4, exactly symmetric,
 the same bits on a second call, one count a call. K6, K7, the select path
@@ -62,7 +69,6 @@ from albedo_tpu_torch.ops import topk as ops_topk
 
 pytestmark = pytest.mark.cuda
 REL = 1e-4
-K3_BF16_REL = 5e-4  # a float32 round-off can flip one of K3-bf16's bf16 roundings (chip_smoke.BF16_REL)
 K9_MASS, ADAM_REL = 5e-5, 1e-6
 
 
@@ -88,6 +94,12 @@ def _bucket(dev, k, b=40, length=37, n_source=200, n_pad=5, seed=0):
 def _close(got, want, rel=REL):
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= rel * max(scale, 1e-30)
+
+
+def _hold_bf16(got, want, src, idx, val, mask, x0, steps=3):
+    """K3-bf16 row by row against ``ops.als.bucket_cg_bf16_limits`` (F9)."""
+    limits = ops_als.bucket_cg_bf16_limits(src, ops_als.gramian(src), idx, val, mask, x0, 0.5, 40.0, steps, want=want)
+    assert float(ops_als.bucket_cg_bf16_over(got, want, limits).max()) <= 1.0
 
 
 @pytest.mark.parametrize("k", [16, 50])
@@ -565,8 +577,9 @@ def test_k1_k3_bf16_match_plain(dev, k):
     corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0, "bfloat16")
     _close(corr, corr_p)
     _close(b_vec, b_p)
-    _close(ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype="bfloat16"),
-           ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, "bfloat16"), K3_BF16_REL)
+    _hold_bf16(ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype="bfloat16"),
+               ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, "bfloat16"),
+               src, idx, val, mask, x0)
     torch.cuda.synchronize()
     path = "" if k <= 64 else "_wide"
     assert kernels.LAUNCHES[f"als_partials_bf16{path}"] == 1
@@ -1165,7 +1178,10 @@ def _hold_k3(dev, src, idx, val, mask, x0, gather_dtype, steps=3):
     again = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype=gather_dtype)
     torch.cuda.synchronize()
     want = ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype)
-    _close(x, want, REL if gather_dtype is None else K3_BF16_REL)
+    if gather_dtype is None:
+        _close(x, want)
+    else:
+        _hold_bf16(x, want, src, idx, val, mask, x0, steps)
     assert torch.equal(x, again)
 
 
@@ -1271,7 +1287,10 @@ def test_k3_one_cta_rows_repeat_the_same_bits(dev, gather_dtype):
         again = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype=gather_dtype)
         assert torch.equal(first, again)
     want = ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, gather_dtype)
-    _close(first, want, REL if gather_dtype is None else K3_BF16_REL)
+    if gather_dtype is None:
+        _close(first, want)
+    else:
+        _hold_bf16(first, want, src, idx, val, mask, x0)
 
 
 def test_k3_refused_plans_raise(dev, monkeypatch):
@@ -1284,3 +1303,164 @@ def test_k3_refused_plans_raise(dev, monkeypatch):
         _force_k3_plan(monkeypatch, plan)
         with pytest.raises(RuntimeError, match="failed to launch"):
             ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)
+
+
+# ---- F9, F8 and the redesigned K11 spmm_rows and K9s ----------------------
+
+
+@pytest.mark.parametrize("b, length", [(1, 7624), (2, 5760), (4, 3288), (16, 2152), (64, 1224), (256, 600)])
+def test_f9_k3_bf16_at_the_bench_groups(dev, b, length):
+    """K3-bf16 under its default plan at the bench's longest groups, rank
+    50, row by row against F9's limits (``ops.als.bucket_cg_bf16_limits``),
+    the same bits on a second call."""
+    _hold_k3(dev, *_k3_bucket(dev, b, length, 50, n_source=20000, seed=b + length), "bfloat16")
+
+
+def _plan_edge_csr(dev, with_val, n_cols=2936, seed=0):
+    """Rows at the edges of spmm_rows' plan: empty rows, one of a chunk and
+    one of a chunk and an entry, the bench's 6690-entry head row, one row
+    that spans every column, short rows."""
+    rng = np.random.default_rng(seed)
+    chunk = ops_spmm.SPMM_CHUNK
+    counts = rng.integers(0, 30, size=400)
+    counts[::7] = 0
+    counts[[3, 4, 5]] = (chunk, chunk + 1, 6690)
+    counts[-1] = 0
+    idx = [rng.integers(0, n_cols, size=n) for n in counts]
+    idx[9] = rng.permutation(n_cols)
+    counts[9] = n_cols
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    flat = np.concatenate(idx).astype(np.int32)
+    val = rng.uniform(0.1, 1.0, size=flat.size).astype(np.float32) if with_val else None
+    return ops_spmm.CSR.from_host(indptr, flat, val, n_cols, dev)
+
+
+@pytest.mark.parametrize("b", [1, 7, 256, 300])
+@pytest.mark.parametrize("with_val", [True, False])
+def test_k11_spmm_rows_plan_edges_same_bits(dev, b, with_val):
+    """spmm_rows at its plan's edges, at B = 1 (a lane an entry), 7 (no
+    16-byte loads), 256 (one pass) and 300 (two): 1e-6 of each element's
+    L1 mass, one count a call, the same bits twice, empty rows exactly 0."""
+    w = _plan_edge_csr(dev, with_val, seed=b)
+    x = torch.as_tensor(np.random.default_rng(b).uniform(size=(2936, b)).astype(np.float32), device=dev)
+    kernels.reset_launches()
+    got = ops_spmm.spmm_rows(w, x)
+    assert kernels.LAUNCHES["spmm_rows"] == 1
+    again = ops_spmm.spmm_rows(w, x)
+    torch.cuda.synchronize()
+    want, mass = ops_spmm.spmm_rows_reference(w, x), ops_spmm.spmm_rows_mass(w, x)
+    assert bool(((got - want).abs() <= 1e-6 * mass).all())
+    assert torch.equal(got, again)
+    assert float(got[0].abs().max()) == 0.0 and float(got[-1].abs().max()) == 0.0
+
+
+def _k9s_inputs(dev, b, d, k, v, case, seed=0):
+    rng = np.random.default_rng(seed)
+    in_t = rng.uniform(-0.5 / d, 0.5 / d, size=(v, d)).astype(np.float32)
+    out_t = rng.normal(scale=0.1, size=(v, d)).astype(np.float32)
+    c = rng.integers(0, v, size=b).astype(np.int32)
+    o = rng.integers(0, v, size=b).astype(np.int32)
+    pool = rng.integers(0, v, size=k).astype(np.int32)
+    if case == "one-word-pool":
+        pool[:] = 5
+    elif case == "one-center":
+        c[:] = 2                       # a center that fills the whole batch
+    elif case == "context-in-pool":
+        pool[::2] = o[0]               # a word that is both a context and a pool slot
+        o[: b // 2] = o[0]
+    return [torch.as_tensor(a, device=dev) for a in (in_t, out_t, c, o, pool)]
+
+
+def _hold_k9s_f64(in_t, out_t, c, o, pool, scale, calls):
+    """K9s ``calls`` times against its plain version in float64 to
+    ``ops.sgns.sgns_shared_limits`` (ten standard deviations of the
+    round-off of its own order and logits, capped at 5e-5 x max(1, B /
+    4096) of each element's mass), every call the same bits, one count a
+    call. Returns the first call's result, the plain version's, the limits
+    and the plan."""
+    runs = []
+    kernels.reset_launches()
+    for _ in range(calls):
+        g = (torch.zeros_like(in_t), torch.zeros_like(out_t), torch.zeros(1, device=in_t.device))
+        ops_sgns.sgns_shared_step(in_t, out_t, c, o, pool, *g, scale)
+        runs.append(g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sgns_shared"] == calls
+    for r in runs[1:]:
+        assert all(torch.equal(a, e) for a, e in zip(runs[0], r))
+    dd = [t.double() for t in (in_t, out_t)]
+    want = (torch.zeros_like(dd[0]), torch.zeros_like(dd[1]), torch.zeros(1, dtype=torch.float64, device=in_t.device))
+    ops_sgns.sgns_shared_step_reference(*dd, c, o, pool, *want, scale)
+    plan = ops_sgns.k9s_plan(c.shape[0], in_t.shape[1], pool.shape[0])
+    limits = ops_sgns.sgns_shared_limits(in_t, out_t, c, o, pool, scale, plan)
+    assert ops_sgns.sgns_shared_over(runs[0], want, limits) <= 1.0
+    return runs[0], want, limits, plan
+
+
+@pytest.mark.parametrize("k", [1, 32, 512])
+@pytest.mark.parametrize("d", [8, 200])
+@pytest.mark.parametrize("case", ["plain", "one-word-pool", "one-center", "context-in-pool"])
+def test_k9s_fixed_order_cases(dev, case, d, k):
+    """K9s at B = 1000 (a multiple of no tile), d 8 and 200, K 1, 32 and
+    512: a pool of one repeated word, a center that fills the whole batch, a
+    word that is both a context and pool slots; against float64 to the
+    round-off bound of its own order, the same bits over 20 calls."""
+    args = _k9s_inputs(dev, 1000, d, k, 997, case, seed=d + k)
+    _hold_k9s_f64(*args, 5 / k, calls=20)
+
+
+def test_f8_k9s_at_the_refscale_batch(dev):
+    """F8: K9s at a refscale-shaped step (B 65 536, K 512, d 200, Zipf
+    centers and pool, ``kernels.spmm_sgns_bench.refscale_batch``) against
+    its plain version in float64, ten calls the same bits."""
+    from albedo_tpu_torch.kernels.spmm_sgns_bench import refscale_batch
+
+    _hold_k9s_f64(*refscale_batch(torch, dev), 5 / 512, calls=10)
+
+
+@pytest.mark.parametrize("centers", ["zipf", "a third one word"])
+def test_f8_check_refuses_faults_at_the_refscale_batch(dev, centers):
+    """F8's check at the refscale batch (``refscale_batch``; or with a
+    third of the centers one word, a run of 21 845 pairs) refuses faults
+    planted in the kernel's result (``spmm_sgns_bench.k9s_faults``): the
+    first pair of the most frequent center dropped, G^T Vc's first split
+    left out, the tables rounded to TF32."""
+    from albedo_tpu_torch.kernels.spmm_sgns_bench import k9s_faults, refscale_batch
+
+    in_t, out_t, c, o, pool = refscale_batch(torch, dev)
+    if centers != "zipf":
+        c = c.clone()
+        c[: c.shape[0] // 3] = 1
+    got, want, limits, plan = _hold_k9s_f64(in_t, out_t, c, o, pool, 5 / 512, calls=2)
+    faults = k9s_faults(in_t, out_t, c, o, pool, 5 / 512, got, want, limits, plan)
+    for name in ("dropped pair", "split left out", "tf32 operands"):
+        assert faults[name] > 1.0, (name, faults)
+
+
+@pytest.mark.parametrize("b, d, k", [(1, 8, 1), (300, 8, 16), (1000, 200, 512), (65536, 200, 512)])
+def test_k9s_plan_fits_the_batch(dev, b, d, k):
+    """K9s's plan as its library reports it (``sgns_shared_plan``): G^T
+    Vc's split covers the batch in chunks of whole 8-pair slices, its
+    workspace holds every region, the CPU tests' copies of two plans
+    (``test_torch_ops_plans.K9S_PLANS``) are the library's, and the launch
+    refuses a workspace one float short."""
+    import ast
+    from pathlib import Path
+
+    cpu_tests = ast.parse((Path(__file__).parent / "test_torch_ops_plans.py").read_text())  # it imports JAX
+    K9S_PLANS = next(ast.literal_eval(n.value) for n in cpu_tests.body
+                     if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", "") == "K9S_PLANS")
+    plan = ops_sgns.k9s_plan(b, d, k)
+    assert plan["chunk"] % 8 == 0 and plan["splits"] == -(-b // plan["chunk"])
+    assert plan["ranges"] * ops_sgns.K9S_RANGE >= 2 * b
+    sizes = [b * k, b, b * d, plan["ranges"] * 2 * d, plan["splits"] * k * d, plan["n_pos"] + plan["n_neg"]]
+    assert plan["numel"] == sum(sizes)
+    if (b, d, k) in K9S_PLANS:
+        assert {key: plan[key] for key in K9S_PLANS[(b, d, k)]} == K9S_PLANS[(b, d, k)]
+    rng = np.random.default_rng(b)
+    t = [torch.as_tensor(rng.normal(scale=0.1, size=(50, d)).astype(np.float32), device=dev) for _ in range(2)]
+    ids = [torch.as_tensor(rng.integers(0, 50, size=n).astype(np.int32), device=dev) for n in (b, b, k)]
+    g = (torch.zeros_like(t[0]), torch.zeros_like(t[1]), torch.zeros(1, device=dev))
+    short = torch.empty(plan["numel"] - 1, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ops_sgns.sgns_shared_step(*t, *ids, *g, 5 / max(k, 1), short)

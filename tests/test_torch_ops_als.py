@@ -610,3 +610,95 @@ def test_k3_cluster_model_matches_jax(b, length, cg_steps):
     got = _k3_cluster_model(*_t(src, yty, idx, val, mask, x0), plan, cg_steps)
     want = _jax_cg(src, yty, idx, val, mask, x0, cg_steps, None)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+
+def _f9_bucket(case: str):
+    """The two buckets the K3-bf16 tolerance tests above use: "16x2152"
+    (rank 50, where reversing a row's entries flips a bf16 rounding and
+    moves the plain version past 5e-4) and "48x400" (a bench-shaped bucket
+    of rows of 1 to 400 entries)."""
+    if case == "16x2152":
+        rng = np.random.default_rng(16 + 2152)
+        b, length, n_source, k = 16, 2152, 20000, 50
+        src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+        lens = rng.integers(length // 2, length + 1, size=b)
+        lens[rng.random(b) < 0.25] = 0
+        hi = 3.0
+        x0 = (np.random.default_rng(16 + 2152).standard_normal((b, k)) * 0.1).astype(np.float32)
+    else:
+        rng = np.random.default_rng(31)
+        b, length, n_source, k = 48, 400, 19991, 50
+        src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+        lens = rng.integers(1, length + 1, size=b)
+        lens[-4:] = 0
+        lens[0] = length
+        hi = 1.5
+    mask = np.arange(length)[None, :] < lens[:, None]
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, hi, size=(b, length)), 0).astype(np.float32)
+    if case != "16x2152":
+        x0 = (rng.standard_normal((b, k)) * 0.1).astype(np.float32)
+    return torch.as_tensor(src), idx, val, mask, lens, torch.as_tensor(x0)
+
+
+@pytest.mark.parametrize("case", ["16x2152", "48x400"])
+def test_k3_bf16_row_limits_refuse_a_wrong_site(case, monkeypatch):
+    """F9's check (``ops.als.bucket_cg_bf16_limits``): each row of K3-bf16
+    is held to 5e-4 of the group's max |x|, or to twice the plain version's
+    own spread over 16 reorderings of its entries and columns. The plain
+    version summed in another order (each row's entries rotated by half)
+    passes it, on the long rows where it is more than 5e-4 away; a variant
+    with one bf16 rounding site left out, and one with a single entry
+    dropped from its shortest row, are refused."""
+    src, idx, val, mask, lens, x0 = _f9_bucket(case)
+    (b, length), k = idx.shape, src.shape[1]
+    yty = tals.gramian(src)
+    rows = torch.as_tensor(lens > 0)
+
+    def solve(i, v, m=mask):
+        return tals.bucket_cg_reference(src, yty, torch.as_tensor(i), torch.as_tensor(v), torch.as_tensor(m), x0,
+                                        REG, ALPHA, 3, "bfloat16")
+
+    want = solve(idx, val)
+    limits = tals.bucket_cg_bf16_limits(src, yty, *_t(idx, val, mask), x0, REG, ALPHA, 3, want=want, rows=rows)
+
+    def worst(got):
+        return float(tals.bucket_cg_bf16_over(got[rows], want[rows], limits[rows]).max())
+
+    rot_idx, rot_val = idx.copy(), val.copy()
+    for r, n in enumerate(lens):
+        rot_idx[r, :n], rot_val[r, :n] = np.roll(idx[r, :n], n // 2), np.roll(val[r, :n], n // 2)
+    rotated = solve(rot_idx, rot_val)
+    assert worst(rotated) <= 1.0
+    if case == "16x2152":
+        assert float((rotated - want)[rows].abs().max()) > 5e-4 * float(want[rows].abs().max())
+    rounding = tals._round
+    for site in ("y*y", "c1 of the diagonal", "p", "t"):
+        monkeypatch.setattr(tals, "_round", _omitting(site, b, length, k))
+        assert worst(solve(idx, val)) > 1.0, site
+        monkeypatch.setattr(tals, "_round", rounding)
+    short = int(np.argmin(np.where(lens > 0, lens, length + 1)))
+    dropped = mask.copy()
+    dropped[short, lens[short] - 1] = False
+    assert worst(solve(idx, val, dropped)) > 1.0
+
+
+def test_k3_bf16_reorders_keep_the_padding():
+    """The reorderings of F9's check permute each row's live entries among
+    its live slots (reversed, then shuffled) and leave the padding where it
+    is, gaps included, or permute the rank's columns."""
+    mask = torch.tensor([[True, True, True, False], [True, False, True, True], [False] * 4])
+    orders = list(tals._k3_reorders(mask, 5, torch.Generator().manual_seed(0), n=6))
+    assert len(orders) == 6
+    assert orders[0][0].tolist() == [[2, 1, 0, 3], [3, 1, 2, 0], [0, 1, 2, 3]] and orders[0][1] is None
+    assert orders[1][0] is None and orders[1][1].tolist() == [4, 3, 2, 1, 0]
+    for src_pos, cols in orders:
+        if cols is not None:
+            assert sorted(cols.tolist()) == list(range(5))
+        if src_pos is None:
+            continue
+        for r in range(3):
+            live = mask[r].nonzero().flatten().tolist()
+            assert sorted(src_pos[r, live].tolist()) == live
+            assert src_pos[r, ~mask[r]].tolist() == (~mask[r]).nonzero().flatten().tolist()
