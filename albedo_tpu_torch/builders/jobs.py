@@ -70,6 +70,20 @@ from albedo_tpu_torch.utils.watchdog import guarded_fit
 TOP_K = 30
 ALS_REG = ImplicitALS.reg_param
 ALS_ALPHA = ImplicitALS.alpha
+# The grid the JAX cv_als job takes with ``--tables`` (13 iterations, 2
+# folds). ``cv_als_job`` has no table sources yet; ``chip_smoke.py`` and
+# ``kernels/als_partials_bench.py wide`` run it on the train_als tables.
+CV_ALS_TABLES_GRID = {"rank": [50, 100], "reg_param": [0.01, 0.5], "alpha": [0.01, 40.0]}
+
+
+def shared_als_init(n_users: int, n_items: int, rank: int, seed: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """ALS factors of the shared numpy init (``jax_reference_ndcg.py
+    --shared``), users' then items': ``default_rng(seed)`` Gaussians scaled
+    by 1 / sqrt(rank), so both packages' fits start from the same values."""
+    rng = np.random.default_rng(seed)
+    s = np.float32(1 / np.sqrt(rank))
+    return ((rng.standard_normal((n_users, rank)) * s).astype(np.float32),
+            (rng.standard_normal((n_items, rank)) * s).astype(np.float32))
 
 
 class JobContext:

@@ -4,6 +4,8 @@ of one iteration of the bench ALS fit, group by group.
     python -m albedo_tpu_torch.kernels.als_partials_bench groups
     python -m albedo_tpu_torch.kernels.als_partials_bench groups --against /path/to/other/root
     python -m albedo_tpu_torch.kernels.als_partials_bench variants
+    python -m albedo_tpu_torch.kernels.als_partials_bench wide --against /path/to/other/root
+    python -m albedo_tpu_torch.kernels.als_partials_bench orders --seed 2
 
 ``groups``: the bench split (``synthetic_stars(30000, 20000, rank=24,
 mean_stars=60, seed=42)``, 10% of each user's stars held out, seed 42), its
@@ -34,12 +36,19 @@ SM, the shortest chunk, CTAs an SM for packed rows) and through copies of
 its source with a part cut out (``SOURCE_VARIANTS``). Prints one JSON line
 (``--against``: each tree's, then the comparison). ``variants k2``: K2 over
 the groups through copies of its source with other tuning constants
-(``K2_SOURCE_VARIANTS``); ``variants k3``: K3 and K3-bf16 with other
+(``K2_SOURCE_VARIANTS``); ``variants k1w`` and ``variants k2w``: the same
+for K1's and K2's wide paths over the rank-100 fit's groups (K1's plans and
+sources; ``K2_WIDE_VARIANTS``); ``variants k3``: K3 and K3-bf16 with other
 lengths of the rows warp mode takes (``K3_PACK_VARIANTS``) and other
 widest clusters (``K3_CLUSTER_VARIANTS``). ``ranks``: K2
-alone at ranks 8 to 64 on random systems (``K2_RANKS``). Needs a GPU; the
-CPU has nothing to measure here, but ``orders``: how well F9's reorderings
-cover the roundings a further order flips at the bench's long groups
+alone at ranks 8 to 64 on random systems (``K2_RANKS``). ``wide [--against
+ROOT]``: K1 wide, K1-bf16 wide and K2 wide over the rank-100 fit's 54
+groups (``WIDE_GROUPS``; ``time_wide``), held and timed as ``groups``
+does, then the rank-100 fit's device seconds and the real cv_als grid's
+wall seconds (``time_wide_fits``), each tree in its own process with
+``--against``. Needs a GPU; the
+CPU has nothing to measure here, but ``orders [--seed N]``: F9's row limits
+against further random orders of the sums at the bench's long groups
 (``time_orders``; the plain version only, so also on the CPU).
 """
 
@@ -48,6 +57,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -67,6 +77,20 @@ BENCH_GROUPS = [
     (2048, 152), (3072, 16), (3072, 24), (3072, 32), (3072, 40), (3072, 48), (3072, 80),
     (3072, 96),
 ]
+# The rank-100 fit's bucket groups (rows B, slots L), items' half-sweep then
+# users': ``ImplicitALS(rank=100).device_groups`` of the ``train_als`` job's
+# tables, the fit ``chip_smoke.py``'s ``wide_rank`` phase and ``cv_als``'s
+# rank-100 grid points run through K1's and K2's wide paths. The CPU plan
+# tests take their shapes from here; ``wide_data`` builds the groups
+# themselves, and tests/test_torch_ops_als.py holds this list to them.
+WIDE_GROUPS = [
+    (1, 1224), (2, 1064), (4, 600), (4, 696), (4, 800), (16, 384), (16, 448), (16, 520), (32, 240), (32, 280),
+    (32, 328), (64, 128), (64, 176), (64, 208), (128, 1), (128, 2), (128, 56), (128, 64), (128, 96), (128, 112),
+    (128, 152), (256, 4), (256, 32), (256, 40), (256, 48), (256, 80), (512, 8), (512, 16), (512, 24),
+    (1, 448), (1, 600), (1, 696), (2, 384), (8, 280), (8, 328), (16, 240), (32, 1), (32, 176), (32, 208), (64, 2),
+    (64, 112), (64, 128), (64, 152), (128, 96), (256, 4), (256, 56), (256, 64), (256, 80), (512, 40), (512, 48),
+    (1024, 8), (1024, 24), (1024, 32), (2048, 16),
+]
 ALPHA, RANK, REPS, REG, CG_STEPS = 40.0, 50, 5, 0.5, 3
 # name -> (K1_UNITS_PER_SM, K1_MIN_CHUNK, K1_CTAS_PER_SM) of ops/als.py.
 # Source variants of csrc/als_partials.cu (text replaced, built beside the
@@ -75,7 +99,8 @@ ALPHA, RANK, REPS, REG, CG_STEPS = 40.0, 50, 5, 0.5, 3
 # copy" skips the coalesced copy of each unsplit row's output from shared
 # memory to the card's memory.
 SOURCE_VARIANTS = {
-    "no products": [("    if (active) {\n      const float* yb", "    if (active && nl < 0) {\n      const float* yb")],
+    "no products": [("      if (!active[q]) continue;\n      const float* yb",
+                     "      if (!active[q] || nl >= 0) continue;\n      const float* yb")],
     "no row copy": [("e < k * k / 4; e += blockDim.x)", "e < 0; e += blockDim.x)"),
                     ("e < k * k; e += blockDim.x) out[e] = so[e];", "e < 0; e += blockDim.x) out[e] = so[e];")],
 }
@@ -97,6 +122,21 @@ K2_SOURCE_VARIANTS = {
     "no staging": [("    if (s + step < B) stage_upper(", "    if (false) stage_upper(")],
     "builtin shuffles": [("        const float v = shfl_in_order(j < 32 ? A0(p) : A1(p), j & 31);",
                           "        const float v = __shfl_sync(FULL, j < 32 ? A0(p) : A1(p), j & 31);")],
+}
+# Source variants of K2's wide path (csrc/solve_corrected.cu): the next
+# system staged or not, 8-warp CTAs for every group, and copies with a phase
+# cut out (their answers are not K2's).
+K2_WIDE_VARIANTS = {
+    "default": [],
+    "unstaged": [("constexpr int WIDE_STAGE_MAX = 113 * 1024;", "constexpr int WIDE_STAGE_MAX = 0;")],
+    "8 warps only": [("  if (busy > per_sm * n_sm && per_sm_half >= 2 * per_sm) {", "  if (false) {")],
+    "no diagonal blocks": [("      if (warp == 0) factor_diagonal(A, dinv, p0, nb, w, lane);", "")],
+    "no trailing update": [("        trailing_update(A, Lt, nb, r0, w);", "")],
+    "no back substitution": [("    for (int p0 = (k - 1) / NB * NB; p0 >= 0; p0 -= NB) {",
+                              "    for (int p0 = -1; p0 >= 0; p0 -= NB) {")],
+    "no panel rows": [("      for (int i = r0 + threadIdx.x; i <= k; i += THREADS) panel_row(",
+                       "      for (int i = k + 1; i <= k; i += THREADS) panel_row(")],
+    "no staging": [("      if (s + step < B)\n        stage_system<true>", "      if (false)\n        stage_system<true>")],
 }
 # K3's plan variants: the longest row warp mode takes (ops/als.py K3_PACK_L).
 K3_PACK_VARIANTS = (32, 64, 128)
@@ -283,7 +323,7 @@ def time_groups(torch, data: dict) -> dict:
             want = ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)
             worst = max(worst, _rel(got, want))
             if dtype is not None and hasattr(ops_als, "bucket_cg_bf16_limits"):  # F9's row check (not in older trees)
-                limits = ops_als.bucket_cg_bf16_limits(*c, REG, ALPHA, CG_STEPS, want=want)
+                limits = ops_als.bucket_cg_bf16_limits(*c, REG, ALPHA, CG_STEPS)
                 over = max(over, float(ops_als.bucket_cg_bf16_over(got, want, limits).max()))
         fns = [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)) for c in k3]
         out["bucket_cg" if dtype is None else "bucket_cg_bf16"] = {
@@ -390,6 +430,35 @@ def time_k2_variants(torch, data: dict) -> dict:
     return out
 
 
+def time_k2_wide_variants(torch, data: dict) -> dict:
+    """K2's wide path over the rank-100 fit's groups (each group's plain K1
+    terms) under each source of K2_WIDE_VARIANTS: kernel ms, narrow share,
+    the slowest groups and the error against the plain version."""
+    from albedo_tpu_torch.kernels import build
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
+    calls = []
+    for side, idx, val, mask, _ in data["calls"]:
+        corr, b_vec = ops_als.bucket_partial_terms_reference(data[side], idx, val, mask, ALPHA)
+        calls.append((yty[side], corr, b_vec, mask.sum(dim=1, dtype=torch.float32)))
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
+    want = [ops_als.solve_corrected_reference(*c, REG) for c in calls]
+    build.build()
+    default = build._libs["solve_corrected"]
+    out = {}
+    try:
+        for name, lib in _build_variants("solve_corrected", K2_WIDE_VARIANTS).items():
+            build._libs["solve_corrected"] = lib
+            err = max(_rel(ops_als.solve_corrected(*c, REG), w, c[3] > 0) for c, w in zip(calls, want))
+            ms = kernel_ms_each(torch, [(lambda c=c: ops_als.solve_corrected(*c, REG)) for c in calls])
+            out[name] = {"max_rel_err": err, **summarize(shapes, ms, n_sm)}
+    finally:
+        build._libs["solve_corrected"] = default
+    return out
+
+
 def time_k3_variants(torch, data: dict) -> dict:
     """K3 and K3-bf16 over the bench groups under each K3_PACK_VARIANTS
     value of ops/als.py K3_PACK_L, then under plans whose widest cluster is
@@ -456,17 +525,18 @@ def time_k2_ranks(torch) -> dict:
     return out
 
 
-def time_orders(torch, data: dict, n_orders=(2, 8, 16), proxies: int = 8) -> dict:
-    """F9's spread (``ops.als.bucket_cg_bf16_limits``) checked at the bench
-    groups' K3-bf16 calls of 300 slots and more, where the roundings flip:
-    for the first n of its reorderings, how far ``proxies`` further random
-    orders of each group (another seed) reach past the limits they give
-    (the worst row's share of its limit, the rows over 1, the row trials).
-    Runs the plain version only: on the card or the CPU."""
+def time_orders(torch, data: dict, proxies: int = 8, seed: int = 1) -> dict:
+    """F9's row limits (``ops.als.bucket_cg_bf16_limits``) against further
+    orders of the sums at the bench groups' K3-bf16 calls of 300 slots and
+    more, where the roundings flip: ``proxies`` random orders of each
+    group's entries and columns (``ops.als._k3_reorders``, seeded ``seed`` +
+    L), each row's max |reordered - plain| over its limit: the worst share,
+    the rows over 1 and the row trials, and the largest limit as a share of
+    its group's max |x|. Runs the plain version only: on the card or the CPU."""
     from albedo_tpu_torch.ops import als as ops_als
 
     other = {"users": "items", "items": "users"}
-    worst, over, trials = dict.fromkeys(n_orders, 0.0), dict.fromkeys(n_orders, 0), 0
+    worst, over, trials, widest = 0.0, 0, 0, 0.0
     for side, idx, val, mask, rows in data["calls"]:
         if idx.shape[1] < 300:
             continue
@@ -475,22 +545,120 @@ def time_orders(torch, data: dict, n_orders=(2, 8, 16), proxies: int = 8) -> dic
                 REG, ALPHA, CG_STEPS)
         live = rows >= 0
         want = ops_als.bucket_cg_bf16_reordered(*call)
-        scale = float(want[live].abs().max())
-
-        def moved(orders):
-            return [(ops_als.bucket_cg_bf16_reordered(*call, *o) - want).abs().amax(dim=1)[live] for o in orders]
-
-        spreads = moved(ops_als._k3_reorders(mask, src.shape[1], torch.Generator().manual_seed(idx.shape[1]),
-                                             max(n_orders)))
-        further = moved(list(ops_als._k3_reorders(mask, src.shape[1], torch.Generator().manual_seed(
-            1 + idx.shape[1]), proxies + 2))[2:])  # shuffles only
-        for n in n_orders:
-            limit = ops_als.bucket_cg_bf16_limit(torch.stack(spreads[:n]).amax(dim=0), scale)
-            for m in further:
-                worst[n] = max(worst[n], float((m / limit).max()))
-                over[n] += int((m > limit).sum())
+        limit = ops_als.bucket_cg_bf16_limits(*call, rows=live)[live]
+        widest = max(widest, float(limit.max()) / float(want[live].abs().max()))
+        orders = list(ops_als._k3_reorders(mask, src.shape[1], torch.Generator().manual_seed(seed + idx.shape[1]),
+                                           proxies + 2))[2:]  # shuffles only
+        for src_pos, cols in orders:
+            moved = (ops_als.bucket_cg_bf16_reordered(*call, src_pos, cols) - want).abs().amax(dim=1)[live]
+            worst = max(worst, float((moved / limit).max()))
+            over += int((moved > limit).sum())
         trials += proxies * int(live.sum())
-    return {"orders": {str(n): {"worst": worst[n], "rows_over": over[n]} for n in n_orders}, "row_trials": trials}
+    return {"seed": seed, "worst": worst, "rows_over": over, "row_trials": trials,
+            "widest_limit_share": widest}
+
+
+WIDE_DATA = Path("build") / "bench" / "als_wide_groups.pt"
+WIDE_RANK, WIDE_SEED = 100, 1  # chip_smoke.py's wide_rank phase: rank 100 from its shared numpy init
+
+
+def wide_data(torch, dev) -> dict:
+    """The rank-100 fit's groups (``ImplicitALS(rank=100).device_groups``
+    of the ``train_als`` job's tables, the shapes of ``WIDE_GROUPS``)
+    flattened to (N B, L), and tables from the shared numpy init at rank 100
+    (``builders.jobs.shared_als_init``, seed 1, as chip_smoke.py's), on
+    ``dev``."""
+    from albedo_tpu_torch import cli
+    from albedo_tpu_torch.builders.jobs import JobContext, shared_als_init
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    matrix = JobContext(cli.parse_args(["train_als", "--device", "cpu"])).matrix()
+    u0, v0 = shared_als_init(matrix.n_users, matrix.n_items, WIDE_RANK, WIDE_SEED)
+    ug, ig, _, _ = ImplicitALS(rank=WIDE_RANK, device=str(dev)).device_groups(matrix)
+    calls = []
+    for side, groups in (("users", ig), ("items", ug)):
+        for g in groups:
+            n, b, length = g.idx.shape
+            calls.append((side, *(t.reshape(n * b, length).contiguous() for t in (g.idx, g.val, g.mask)),
+                          g.row_ids.reshape(-1).contiguous()))
+    job = [torch.as_tensor(a) for a in (matrix.user_ids, matrix.item_ids, matrix.rows, matrix.cols, matrix.vals)]
+    return {"users": torch.as_tensor(u0, device=dev), "items": torch.as_tensor(v0, device=dev), "calls": calls,
+            "job": job}
+
+
+def time_wide_fits(torch, data: dict) -> dict:
+    """The rank-100 fit's device seconds (26 iterations from the shared
+    init, Cholesky, as chip_smoke.py's ``wide_rank`` fits it; the second of
+    two fits) and the wall seconds of the real cv_als grid (13 iterations, 2
+    folds, every fit from the shared numpy init of its rank, as
+    chip_smoke.py's ``cv`` phase runs it; the second of two runs)."""
+    from albedo_tpu_torch.builders.jobs import CV_ALS_TABLES_GRID, cv_als_evaluate, shared_als_init
+    from albedo_tpu_torch.cv import cross_validate, param_grid
+    from albedo_tpu_torch.datasets.star_matrix import StarMatrix
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    matrix = StarMatrix(*(t.cpu().numpy() for t in data["job"]))
+    init = (data["users"].cpu().numpy(), data["items"].cpu().numpy())
+    fits = []
+    for _ in range(2):
+        est = ImplicitALS(rank=WIDE_RANK, max_iter=26, init_factors=init, device="cuda")
+        est.fit(matrix)
+        fits.append(est.last_fit_report["device_s"])
+
+    def fit(params, train):
+        return ImplicitALS(max_iter=13, init_factors=shared_als_init(train.n_users, train.n_items, params["rank"],
+                                                                     WIDE_SEED),
+                           device="cuda", **params).fit(train)
+
+    grids = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_TABLES_GRID), n_folds=2)
+        torch.cuda.synchronize()
+        grids.append(time.perf_counter() - t0)
+    return {"fit_s": fits, "grid_s": grids}
+
+
+def time_wide(torch, data: dict) -> dict:
+    """K1 wide, K1-bf16 wide and K2 wide over the rank-100 fit's groups:
+    each held against its plain version (max rel error over the rows that
+    are not padding, the same bits on a second call), each group's kernel
+    ms (profiler sums), the iteration's kernel ms, ``narrow_share``, the
+    five slowest groups and CUDA-event ms of the iteration's calls."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
+    out = {}
+    for dtype in (None, "bfloat16"):
+        tables = {side: ops_als.gather_table(data[side], dtype) for side in ("users", "items")}
+        calls = [(tables[side], idx, val, mask) for side, idx, val, mask, _ in data["calls"]]
+        worst, same = 0.0, True
+        for src, idx, val, mask in calls:
+            got = ops_als.bucket_partial_terms(src, idx, val, mask, ALPHA, dtype)
+            again = ops_als.bucket_partial_terms(src, idx, val, mask, ALPHA, dtype)
+            want = ops_als.bucket_partial_terms_reference(src, idx, val, mask, ALPHA, dtype)
+            worst = max([worst] + [_rel(a, b) for a, b in zip(got, want)])
+            same &= all(torch.equal(a, b) for a, b in zip(got, again))
+        fns = [(lambda c=c: ops_als.bucket_partial_terms(*c, ALPHA, dtype)) for c in calls]
+        out["als_partials_wide" if dtype is None else "als_partials_bf16_wide"] = {
+            "max_rel_err": worst, "same_bits": same, **_timed_groups(torch, shapes, fns, n_sm)}
+    yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
+    k2 = []
+    for side, idx, val, mask, _ in data["calls"]:
+        corr, b_vec = ops_als.bucket_partial_terms_reference(data[side], idx, val, mask, ALPHA)
+        k2.append((yty[side], corr, b_vec, mask.sum(dim=1, dtype=torch.float32)))
+    worst, same = 0.0, True
+    for c in k2:
+        got = ops_als.solve_corrected(*c, REG)
+        same &= torch.equal(got, ops_als.solve_corrected(*c, REG))
+        worst = max(worst, _rel(got, ops_als.solve_corrected_reference(*c, REG), c[3] > 0))
+    out["solve_corrected_wide"] = {
+        "max_rel_err": worst, "same_bits": same,
+        **_timed_groups(torch, shapes, [(lambda c=c: ops_als.solve_corrected(*c, REG)) for c in k2], n_sm),
+        "library_ms": _events_ms(torch, lambda: [ops_als.solve_corrected_reference(*c, REG) for c in k2])}
+    return out
 
 
 def _card() -> str:
@@ -506,16 +674,19 @@ def main(argv: list[str]) -> int:
 
     if argv[:1] == ["orders"]:  # the plain version only: on the card, else the CPU
         dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-        print(json.dumps({"mode": "orders", "device": str(dev), **time_orders(torch, bench_data(torch, dev))}))
+        seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv else 1
+        print(json.dumps({"mode": "orders", "device": str(dev), **time_orders(torch, bench_data(torch, dev), seed=seed)}))
         return 0
     if not torch.cuda.is_available():
         print("als_partials_bench: needs a GPU", file=sys.stderr)
         return 1
-    if not argv or argv[0] not in ("groups", "time", "variants", "ranks"):
-        print("usage: als_partials_bench groups [--against ROOT] | variants [k2|k3] | ranks | orders",
-              file=sys.stderr)
+    if not argv or argv[0] not in ("groups", "time", "variants", "ranks", "wide", "time_wide"):
+        print("usage: als_partials_bench groups [--against ROOT] | wide [--against ROOT] | variants [k2|k3|k1w|k2w] | "
+              "ranks | orders [--seed N]", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if argv[0] in ("wide", "time_wide"):
+        return main_wide(torch, dev, argv)
     if argv[0] == "ranks":
         print(json.dumps({"mode": "ranks", "card": _card(), **time_k2_ranks(torch)}), flush=True)
         return 0
@@ -525,12 +696,14 @@ def main(argv: list[str]) -> int:
         data = torch.load(path, map_location=dev)
         print(json.dumps({"root": root, **time_groups(torch, data), "fit_s": time_fits(data)}), flush=True)
         return 0
-    data = bench_data(torch, dev)
     if argv[0] == "variants":
         which = argv[1] if len(argv) > 1 else "k1"
-        timed = {"k1": time_variants, "k2": time_k2_variants, "k3": time_k3_variants}[which](torch, data)
+        data = wide_data(torch, dev) if which in ("k1w", "k2w") else bench_data(torch, dev)
+        timed = {"k1": time_variants, "k2": time_k2_variants, "k3": time_k3_variants, "k1w": time_variants,
+                 "k2w": time_k2_wide_variants}[which](torch, data)
         print(json.dumps({"mode": f"variants {which}", "card": _card(), **timed}), flush=True)
         return 0
+    data = bench_data(torch, dev)
     if "--against" not in argv:
         print(json.dumps({"mode": "groups", "card": _card(), **time_groups(torch, data)}), flush=True)
         return 0
@@ -554,6 +727,40 @@ def main(argv: list[str]) -> int:
     }
     summary["fit_s"] = {name: [r["fit_s"][name] for r in runs] for name in runs[0]["fit_s"]}
     print(json.dumps({"mode": "groups", "card": _card(), "order": [other, here, here, other], **summary}), flush=True)
+    return 0
+
+
+def main_wide(torch, dev, argv: list[str]) -> int:
+    """``wide [--against ROOT]`` and its child ``time_wide ROOT DATA``."""
+    if argv[0] == "time_wide":  # a child of --against, importing ROOT's package
+        root, path = argv[1], argv[2]
+        sys.path.insert(0, root)
+        data = torch.load(path, map_location=dev)
+        print(json.dumps({"root": root, **time_wide(torch, data), **time_wide_fits(torch, data)}), flush=True)
+        return 0
+    data = wide_data(torch, dev)
+    if "--against" not in argv:
+        print(json.dumps({"mode": "wide", "card": _card(), **time_wide(torch, data), **time_wide_fits(torch, data)}),
+              flush=True)
+        return 0
+    other = str(Path(argv[argv.index("--against") + 1]).resolve())
+    here = str(Path(__file__).resolve().parents[2])
+    WIDE_DATA.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(data, WIDE_DATA)
+    runs = []
+    for root in (other, here, here, other):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "time_wide", root,
+                               str(WIDE_DATA.resolve())], cwd=root, capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    summary = {name: {key: [r[name].get(key) for r in runs]
+                      for key in ("kernel_ms", "narrow_share", "events_ms", "max_rel_err", "same_bits")}
+               for name in ("als_partials_wide", "als_partials_bf16_wide", "solve_corrected_wide")}
+    summary.update({key: [r[key][1] for r in runs] for key in ("fit_s", "grid_s")})
+    print(json.dumps({"mode": "wide", "card": _card(), "order": [other, here, here, other], **summary}), flush=True)
     return 0
 
 

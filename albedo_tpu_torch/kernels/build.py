@@ -44,7 +44,7 @@ SIGNATURES: dict[str, list] = {
     # the same, with source bf16
     "als_partials_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P],
     # yty, corr, bvec, n_b, reg, x, B, k, ws, stream
-    "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _P],
+    "solve_corrected": [_P, _P, _P, _P, _F, _P, _I, _I, _P, _I, _P],
     # source, yty, idx, val, mask, x0, x, B, L, k, reg, alpha, cg_steps, mode, c, slice, resident, ws, stream
     "bucket_cg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P, _P],
     # the same, with source bf16
@@ -111,8 +111,8 @@ def source_of(name: str) -> str:
 
 
 # Second code paths of a kernel, counted apart from the first: count name ->
-# library. K1-K3's wide paths (rank > 64) are other __global__ functions
-# behind the same launch function; K5 at rank > 64 (the content sources,
+# library. K1-K3's wide paths (rank > 64) and K1's tiled path (rank > 512)
+# are other __global__ functions behind the same launch function; K5 at rank > 64 (the content sources,
 # K14) runs K5's kernels and is counted apart as K14; the select path of
 # K5-K7 (k > 512; for K6 and K7 also exclusion rows their streaming body
 # cannot sort) is its own library, counted per caller, and K11's masked_topk
@@ -125,6 +125,8 @@ PATHS = {
     "solve_corrected_wide": "solve_corrected",
     "bucket_cg_wide": "bucket_cg",
     "als_partials_bf16_wide": "als_partials",
+    "als_partials_tiled": "als_partials",
+    "als_partials_bf16_tiled": "als_partials",
     "bucket_cg_bf16_wide": "bucket_cg",
     "topk_scores_select": "topk_select",
     "gather_topk_select": "topk_select",

@@ -59,15 +59,35 @@
 // under bf16 gathers, where c1 y is exact), against (L - 1) 2^-24 for one
 // sequential sum.
 //
-// Ranks above 64 take the wide path (als_partials_wide_kernel): the
-// correction is cut into 64 x 64 output tiles and CTA (b, t) computes tile t
-// of row b, streaming the row's entries through shared memory twice as wide
-// (the tile's 64 row columns and 64 column columns of each gathered row).
-// Every tile re-reads the row's entries (T^2 times for T = ceil(k / 64)
-// tiles a side), from L2; the bytes bound is unchanged. Tile (i, j) and tile
-// (j, i) form each product from the commuted pair c1 * (y_i * y_j) in the
-// same entry order, so the result stays exactly symmetric. The b-vector is
-// written by the CTAs of tile column 0.
+// Ranks 65 to 512 take the same design in a wide kernel (als_split_wide_
+// kernel, counted als_partials_wide). The first wide design gave
+// CTA (row, tile) one 64 x 64 tile of the correction, re-gathered the row's
+// entries for every tile with scalar loads of each entry's mask and idx, no
+// copy in flight beside the products, three shared loads an FMA, both
+// triangles and the 128^2 padding at k = 100 (16 384 products an entry
+// against the 5 150 needed), and never split a row. Now the staged row is
+// k + 1 floats rounded up to 4 (dynamic shared memory, 3 E (k + 4) floats:
+// 40 KB at k = 100), thread t owns block t of the upper triangle (350
+// threads at k = 100, two CTAs an SM), two blocks a thread above 384
+// blocks (k above 107), and CTA (x, y)
+// holds the y-th run of up to 1024 blocks where a rank has more (k >= 176:
+// the run's CTAs each stream the units' entries). Rows are split under the
+// same plan and closed by the same kernel. An unsplit row's (k, k) output
+// does not fit the consumed slabs, so each block is written from
+// registers, mirrored: 16-byte stores of (i, 4J..4J + 3) and of its mirror
+// (4J + b, 4I..4I + 3) where k % 4 == 0 and the block is off the diagonal,
+// else element by element.
+//
+// Ranks above SPLIT_KMAX = 512 take the tiled kernel (counted
+// als_partials_tiled), where a staged tile of k + 1 floats an entry would
+// not fit shared memory: CTA (b, t) computes 64 x 64 tile t of row b,
+// streaming the row's entries through shared memory twice as wide (the
+// tile's 64 row columns and 64 column columns of each gathered row); every
+// tile re-reads the row's entries (T^2 times for T = ceil(k / 64) tiles a
+// side), from L2. Tile (i, j) and tile (j, i) form each product from the
+// commuted pair c1 * (y_i * y_j) in the same entry order, so the result
+// stays exactly symmetric. The b-vector is written by the CTAs of tile
+// column 0.
 //
 // K1-bf16 (entry als_partials_bf16): the same kernels reading a bf16 copy of
 // the table, as albedo_tpu/ops/als.py bucket_partial_terms does under
@@ -81,6 +101,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -107,8 +129,8 @@ struct Rows<__nv_bfloat16> {
 };
 
 constexpr int KMAX = 64;
-constexpr int THREADS = 256;  // wide path
-constexpr int TILE = 32;      // wide path: entries per shared-memory tile
+constexpr int THREADS = 256;  // tiled path
+constexpr int TILE = 32;      // tiled path: entries per shared-memory tile
 
 // ------------------------------------------------------------ split design
 
@@ -117,6 +139,16 @@ constexpr int KP = 68;          // staged row stride: k columns and the w column
 constexpr int SLAB = E * KP;    // floats of one staged tile
 constexpr int NT_MAX = 160;     // threads of a CTA at k = 64 (152 blocks)
 constexpr int CLOSE_THREADS = 256;
+// Ranks up to SPLIT_KMAX take the split design, the wide kernel above
+// KMAX: a staged tile of E rows of k + 1 floats (3 E (k + 4) floats of
+// shared memory, WIDE_SMEM_MAX at 512), BPT = 1 block a thread up to
+// WIDE_THREADS1 blocks (two CTAs an SM, at most 85 registers a thread),
+// else 2 blocks a thread on up to WIDE_THREADS threads. Wider ranks take
+// the tiled kernel.
+constexpr int SPLIT_KMAX = 512;
+constexpr int WIDE_SMEM_MAX = 3 * E * ((SPLIT_KMAX + 4) & ~3) * (int)sizeof(float);
+constexpr int WIDE_THREADS1 = 384;
+constexpr int WIDE_THREADS = 512;
 
 struct Plan {
   int B, L, k;
@@ -208,46 +240,46 @@ struct SlotMeta {
   int nl[2];       // one past the tile's last masked-in entry
 };
 
-// T = float: [raw slot 0 | cys | raw slot 1], each SLAB floats; the rows are
-// read from their raw slot. T = bf16: [raw slots 0, 1 (bf16) | ysf | cys];
-// the rows are widened into ysf. A row's output (k * k <= 4096 floats) is
-// staged in two consumed SLABs: raw slot s and cys (float), ysf and cys
-// (bf16).
+// T = float: [raw slot 0 | cys | raw slot 1], each `slab` floats (a tile of
+// E rows of `kp` floats); the rows are read from their raw slot. T = bf16:
+// [raw slots 0, 1 (bf16) | ysf | cys]; the rows are widened into ysf. The
+// narrow kernel stages a row's output (k * k <= 4096 floats) in two
+// consumed slabs: raw slot s and cys (float), ysf and cys (bf16).
 template <typename T>
 struct Smem;
 
 template <>
 struct Smem<float> {
-  static __device__ __forceinline__ float* raw(float* sm, int s) { return sm + (s ? 2 * SLAB : 0); }
-  static __device__ __forceinline__ float* rows(float* sm, int s) { return raw(sm, s); }
-  static __device__ __forceinline__ float* cys(float* sm) { return sm + SLAB; }
+  static __device__ __forceinline__ float* raw(float* sm, int s, int slab) { return sm + (s ? 2 * slab : 0); }
+  static __device__ __forceinline__ float* rows(float* sm, int s, int slab) { return raw(sm, s, slab); }
+  static __device__ __forceinline__ float* cys(float* sm, int slab) { return sm + slab; }
   static __device__ __forceinline__ float* out(float* sm, int s) { return sm + (s ? SLAB : 0); }
 };
 
 template <>
 struct Smem<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16* raw(float* sm, int s) {
-    return reinterpret_cast<__nv_bfloat16*>(sm) + s * SLAB;
+  static __device__ __forceinline__ __nv_bfloat16* raw(float* sm, int s, int slab) {
+    return reinterpret_cast<__nv_bfloat16*>(sm) + s * slab;
   }
-  static __device__ __forceinline__ float* rows(float* sm, int) { return sm + SLAB; }
-  static __device__ __forceinline__ float* cys(float* sm) { return sm + 2 * SLAB; }
+  static __device__ __forceinline__ float* rows(float* sm, int, int slab) { return sm + slab; }
+  static __device__ __forceinline__ float* cys(float* sm, int slab) { return sm + 2 * slab; }
   static __device__ __forceinline__ float* out(float* sm, int) { return sm + SLAB; }
 };
 
-// Issue the copies of slot s's gathered rows: entries below the tile's last
-// masked-in one, a masked-out entry zero-filled. Rows are copied in p.wb-byte
-// words: 8 (float rows of even k), 4 (float rows of odd k, bf16 rows of even
-// k), or 0: bf16 rows of odd k (not 4-byte aligned) by plain loads.
+// Issue the copies of slot s's gathered rows (stride kp in the slot):
+// entries below the tile's last masked-in one, a masked-out entry
+// zero-filled. Rows are copied in p.wb-byte words: 8 (float rows of even k),
+// 4 (float rows of odd k, bf16 rows of even k), or 0: bf16 rows of odd k
+// (not 4-byte aligned) by plain loads.
 template <typename T>
-__device__ __forceinline__ void issue_rows(const Plan& p, const T* __restrict__ source, float* sm,
+__device__ __forceinline__ void issue_rows(const Plan& p, const T* __restrict__ source, T* raw, int kp,
                                            const SlotMeta& sd, int s) {
   const int nl = sd.nl[s];
-  T* raw = Smem<T>::raw(sm, s);
   const int k = p.k;
   if (p.wb == 0) {
     for (Stride it(k); it.l < nl; it.next()) {
       const int l = it.l, c = it.c;
-      raw[l * KP + c] = sd.m[s][l] ? source[(long long)sd.idx[s][l] * k + c] : Rows<T>::zero();
+      raw[l * kp + c] = sd.m[s][l] ? source[(long long)sd.idx[s][l] * k + c] : Rows<T>::zero();
     }
     return;
   }
@@ -257,40 +289,55 @@ __device__ __forceinline__ void issue_rows(const Plan& p, const T* __restrict__ 
     const int l = it.l, c = it.c;
     const bool m = sd.m[s][l];
     const char* src = reinterpret_cast<const char*>(source + (long long)(m ? sd.idx[s][l] : 0) * k) + c * wb;
-    char* dst = reinterpret_cast<char*>(raw + l * KP) + c * wb;
+    char* dst = reinterpret_cast<char*>(raw + l * kp) + c * wb;
     if (wb == 8) cp_async8(dst, src, m);
     else cp_async4(dst, src, m);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT_MAX) als_split_kernel(
-    Plan p, const T* __restrict__ source, const int* __restrict__ idx,
-    const float* __restrict__ val, const unsigned char* __restrict__ mask,
-    float* __restrict__ corr, float* __restrict__ bvec, float* __restrict__ ws, float alpha) {
-  __shared__ __align__(16) float sm[3 * SLAB];
-  __shared__ SlotMeta sd;
+// Thread t's 4 x 4 block (I, J), I <= J, of [corr | b], row-major over the
+// upper triangle (kbj 4-blocks of columns, b's column included).
+__device__ __forceinline__ void block_of(const Plan& p, int t, int& I, int& J) {
+  I = 0;
+  while (t >= p.kbj - I) {
+    t -= p.kbj - I;
+    ++I;
+  }
+  J = I + t;
+}
 
+// The split design's walk, shared by the narrow kernel (WIDE false: static
+// shared memory, rows of KP floats, one block a thread, an unsplit row's
+// output staged through the consumed slabs and written coalesced) and the
+// wide one (WIDE true: dynamic shared memory, rows of kp floats, BPT blocks a
+// thread, CTA (x, y) holding blocks [y G, (y + 1) G) of the triangle for G =
+// BPT blockDim.x, each output block written from registers, mirrored).
+template <typename T, int BPT, bool WIDE>
+__device__ __forceinline__ void split_body(const Plan& p, float* sm, SlotMeta& sd, int kp,
+                                           const T* __restrict__ source, const int* __restrict__ idx,
+                                           const float* __restrict__ val, const unsigned char* __restrict__ mask,
+                                           float* __restrict__ corr, float* __restrict__ bvec,
+                                           float* __restrict__ ws, float alpha) {
   const int tid = threadIdx.x;
   const int u_end = min(p.B * p.n_chunks, ((int)blockIdx.x + 1) * p.per_cta);
   const int k = p.k;
+  const int slab = E * kp;
 
-  // This thread's 4 x 4 block (I, J) of [corr | b], row-major over I <= J.
-  const bool active = tid < p.n_blocks;
-  int I = 0, J = 0;
-  if (active) {
-    int t = tid;
-    while (t >= p.kbj - I) {
-      t -= p.kbj - I;
-      ++I;
-    }
-    J = I + t;
+  // This thread's 4 x 4 blocks (I, J) of [corr | b], row-major over I <= J.
+  int bt[BPT], I[BPT], J[BPT];
+  bool active[BPT];
+  float acc[BPT][4][4];
+#pragma unroll
+  for (int q = 0; q < BPT; ++q) {
+    bt[q] = (int)blockIdx.y * BPT * (int)blockDim.x + q * (int)blockDim.x + tid;
+    active[q] = bt[q] < p.n_blocks;
+    I[q] = J[q] = 0;
+    if (active[q]) block_of(p, bt[q], I[q], J[q]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[q][a][b] = 0.f;
   }
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 
   auto stage_meta = [&](int s, const Meta& r) {
     if (tid < E) {
@@ -312,7 +359,7 @@ __global__ void __launch_bounds__(NT_MAX) als_split_kernel(
   Meta reg = tid < E ? load_meta(p, pc, idx, val, mask) : Meta{0, 0.f, false};
   stage_meta(0, reg);
   __syncthreads();
-  issue_rows<T>(p, source, sm, sd, 0);
+  issue_rows<T>(p, source, Smem<T>::raw(sm, 0, slab), kp, sd, 0);
   cp_async_commit();
   if (tid < E && pn.u < u_end) reg = load_meta(p, pn, idx, val, mask);
 
@@ -320,7 +367,7 @@ __global__ void __launch_bounds__(NT_MAX) als_split_kernel(
     const bool has_next = pn.u < u_end;
     if (has_next) stage_meta(s ^ 1, reg);
     __syncthreads();  // slot s ^ 1's metadata is staged; the last tile's reads are done
-    if (has_next) issue_rows<T>(p, source, sm, sd, s ^ 1);
+    if (has_next) issue_rows<T>(p, source, Smem<T>::raw(sm, s ^ 1, slab), kp, sd, s ^ 1);
     cp_async_commit();
     if (tid < E && pm.u < u_end) reg = load_meta(p, pm, idx, val, mask);
     cp_async_wait1();
@@ -328,54 +375,84 @@ __global__ void __launch_bounds__(NT_MAX) als_split_kernel(
 
     // c1 * y once per staged entry, w in column k (bf16: the rows widened).
     const int nl = sd.nl[s];
-    float* rows = Smem<T>::rows(sm, s);
-    float* cys = Smem<T>::cys(sm);
+    float* rows = Smem<T>::rows(sm, s, slab);
+    float* cys = Smem<T>::cys(sm, slab);
     {
-      const T* raw = Smem<T>::raw(sm, s);
+      const T* raw = Smem<T>::raw(sm, s, slab);
       for (Stride it(k + 1); it.l < nl; it.next()) {
         const int l = it.l, c = it.c;
         if (c < k) {
-          const float y = Rows<T>::widen(raw[l * KP + c]);
-          if (sizeof(T) == 2) rows[l * KP + c] = y;
-          cys[l * KP + c] = sd.c1[s][l] * y;
+          const float y = Rows<T>::widen(raw[l * kp + c]);
+          if (sizeof(T) == 2) rows[l * kp + c] = y;
+          cys[l * kp + c] = sd.c1[s][l] * y;
         } else {
-          cys[l * KP + k] = sd.w[s][l];
+          cys[l * kp + k] = sd.w[s][l];
         }
       }
     }
     __syncthreads();
 
-    if (active) {
-      const float* yb = rows + 4 * I;
-      const float* cb = cys + 4 * J;
+#pragma unroll
+    for (int q = 0; q < BPT; ++q) {
+      if (!active[q]) continue;
+      const float* yb = rows + 4 * I[q];
+      const float* cb = cys + 4 * J[q];
 #pragma unroll 4
       for (int l = 0; l < nl; ++l) {
-        const float4 y = *reinterpret_cast<const float4*>(yb + l * KP);
-        const float4 c = *reinterpret_cast<const float4*>(cb + l * KP);
+        const float4 y = *reinterpret_cast<const float4*>(yb + l * kp);
+        const float4 c = *reinterpret_cast<const float4*>(cb + l * kp);
         const float ya[4] = {y.x, y.y, y.z, y.w};
         const float ca[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ya[a], ca[b], acc[a][b]);
+          for (int b = 0; b < 4; ++b) acc[q][a][b] = fmaf(ya[a], ca[b], acc[q][a][b]);
       }
     }
 
     if (pc.j == unit_tiles(p, pc.u) - 1) {  // the unit's last tile: write it out
       const int row = pc.u / p.n_chunks;
-      if (p.n_chunks == 1) {
-        float* so = Smem<T>::out(sm, s);
-        __syncthreads();  // every thread is done with the consumed slabs
-        if (active) {
+      if (p.n_chunks == 1 && WIDE) {
+        float* out = corr + (long long)row * k * k;
+#pragma unroll
+        for (int q = 0; q < BPT; ++q) {
+          if (!active[q]) continue;
+          if ((k & 3) == 0 && I[q] != J[q] && 4 * J[q] + 3 < k) {  // rows 16-byte aligned: (i, 4J..) and (4J + b, 4I..)
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+              *reinterpret_cast<float4*>(out + (4 * I[q] + a) * k + 4 * J[q]) =
+                  make_float4(acc[q][a][0], acc[q][a][1], acc[q][a][2], acc[q][a][3]);
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              *reinterpret_cast<float4*>(out + (4 * J[q] + b) * k + 4 * I[q]) =
+                  make_float4(acc[q][0][b], acc[q][1][b], acc[q][2][b], acc[q][3][b]);
+            continue;
+          }
 #pragma unroll
           for (int a = 0; a < 4; ++a) {
-            const int i = 4 * I + a;
+            const int i = 4 * I[q] + a;
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
-              const int j = 4 * J + b;
-              if (i >= k || (I == J && a > b)) continue;
-              if (j == k) bvec[(long long)row * k + i] = acc[a][b];
-              else if (j < k) so[i * k + j] = so[j * k + i] = acc[a][b];
+              const int j = 4 * J[q] + b;
+              if (i >= k || (I[q] == J[q] && a > b)) continue;
+              if (j == k) bvec[(long long)row * k + i] = acc[q][a][b];
+              else if (j < k) out[i * k + j] = out[j * k + i] = acc[q][a][b];
+            }
+          }
+        }
+      } else if (p.n_chunks == 1) {
+        float* so = Smem<T>::out(sm, s);
+        __syncthreads();  // every thread is done with the consumed slabs
+        if (active[0]) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int i = 4 * I[0] + a;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int j = 4 * J[0] + b;
+              if (i >= k || (I[0] == J[0] && a > b)) continue;
+              if (j == k) bvec[(long long)row * k + i] = acc[0][a][b];
+              else if (j < k) so[i * k + j] = so[j * k + i] = acc[0][a][b];
             }
           }
         }
@@ -387,21 +464,49 @@ __global__ void __launch_bounds__(NT_MAX) als_split_kernel(
         } else {
           for (int e = tid; e < k * k; e += blockDim.x) out[e] = so[e];
         }
-      } else if (active) {
-        float4* out = reinterpret_cast<float4*>(ws + ((long long)pc.u * p.n_blocks + tid) * 16);
+      } else {
 #pragma unroll
-        for (int a = 0; a < 4; ++a) out[a] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        for (int q = 0; q < BPT; ++q) {
+          if (!active[q]) continue;
+          float4* out = reinterpret_cast<float4*>(ws + ((long long)pc.u * p.n_blocks + bt[q]) * 16);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) out[a] = make_float4(acc[q][a][0], acc[q][a][1], acc[q][a][2], acc[q][a][3]);
+        }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int q = 0; q < BPT; ++q)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[q][a][b] = 0.f;
     }
     if (!has_next) break;
     pc = pn;
     pn = pm;
     pm = advance(p, pm);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT_MAX) als_split_kernel(
+    Plan p, const T* __restrict__ source, const int* __restrict__ idx,
+    const float* __restrict__ val, const unsigned char* __restrict__ mask,
+    float* __restrict__ corr, float* __restrict__ bvec, float* __restrict__ ws, float alpha) {
+  __shared__ __align__(16) float sm[3 * SLAB];
+  __shared__ SlotMeta sd;
+  split_body<T, 1, false>(p, sm, sd, KP, source, idx, val, mask, corr, bvec, ws, alpha);
+}
+
+// Ranks above 64: rows of kp = k + 1 rounded up to 4 floats in dynamic
+// shared memory (3 E kp floats), threads of BPT blocks.
+template <typename T, int BPT>
+__global__ void __launch_bounds__(BPT == 1 ? WIDE_THREADS1 : WIDE_THREADS, BPT == 1 ? 2 : 1) als_split_wide_kernel(
+    Plan p, int kp, const T* __restrict__ source, const int* __restrict__ idx,
+    const float* __restrict__ val, const unsigned char* __restrict__ mask,
+    float* __restrict__ corr, float* __restrict__ bvec, float* __restrict__ ws, float alpha) {
+  extern __shared__ __align__(16) float dsm[];
+  __shared__ SlotMeta sd;
+  split_body<T, BPT, true>(p, dsm, sd, kp, source, idx, val, mask, corr, bvec, ws, alpha);
 }
 
 // Close the split rows: element e of row b's [corr | b] is the sum of its
@@ -438,13 +543,13 @@ __global__ void __launch_bounds__(CLOSE_THREADS) als_close_kernel(Plan p, const 
   else bvec[row * k + i] = s;
 }
 
-// ------------------------------------------------------------- wide path
+// ------------------------------------------------- tiled path (k > 512)
 
-constexpr int WT = 64;  // output tile side, wide path
+constexpr int WT = 64;  // output tile side, tiled path
 constexpr int W_PER_THREAD = WT * WT / THREADS;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
+__global__ void __launch_bounds__(THREADS) als_partials_tiled_kernel(
     const T* __restrict__ source, const int* __restrict__ idx,
     const float* __restrict__ val, const unsigned char* __restrict__ mask,
     float* __restrict__ corr, float* __restrict__ bvec, int L, int k,
@@ -534,16 +639,39 @@ __global__ void __launch_bounds__(THREADS) als_partials_wide_kernel(
   }
 }
 
+// The wide kernels' opt-in to the shared memory the widest rank takes, once
+// per device (up to MAX_DEVICES).
+constexpr int MAX_DEVICES = 64;
+
+template <typename T>
+cudaError_t wide_attributes() {
+  static std::mutex lock;
+  static bool done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  const std::lock_guard<std::mutex> hold(lock);
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(als_split_wide_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WIDE_SMEM_MAX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(als_split_wide_kernel<T, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WIDE_SMEM_MAX);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
 template <typename T>
 int launch(const T* source, const int* idx, const float* val, const unsigned char* mask,
            float* corr, float* bvec, int B, int L, int k, float alpha, int chunk, int n_chunks,
            int per_cta, float* ws, cudaStream_t stream) {
   if (k < 1 || B < 0 || L < 0) return (int)cudaErrorInvalidValue;
-  if (k > KMAX) {
+  if (k > SPLIT_KMAX) {
     if (B > 0) {
       const int tiles = (k + WT - 1) / WT;
-      als_partials_wide_kernel<T><<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0,
-                                     stream>>>(source, idx, val, mask, corr, bvec, L, k, alpha);
+      als_partials_tiled_kernel<T><<<dim3(B, tiles * tiles < 65535 ? tiles * tiles : 65535), THREADS, 0,
+                                      stream>>>(source, idx, val, mask, corr, bvec, L, k, alpha);
     }
     return (int)cudaGetLastError();
   }
@@ -561,10 +689,28 @@ int launch(const T* source, const int* idx, const float* val, const unsigned cha
   const int wb = sizeof(T) == 4 ? (even && base % 8 == 0 ? 8 : 4) : (even && base % 4 == 0 ? 4 : 0);
   Plan p{B, L, k, chunk, n_chunks, per_cta, (k + 3) / 4, (k + 4) / 4, 0, wb};
   p.n_blocks = p.kbi * p.kbj - p.kbi * (p.kbi - 1) / 2;
-  const int threads = (p.n_blocks + 31) / 32 * 32;
   const int units = B * n_chunks;
-  als_split_kernel<T><<<(units + per_cta - 1) / per_cta, threads, 0, stream>>>(p, source, idx, val, mask, corr,
-                                                                              bvec, ws, alpha);
+  const int grid = (units + per_cta - 1) / per_cta;
+  if (k <= KMAX) {
+    als_split_kernel<T><<<grid, (p.n_blocks + 31) / 32 * 32, 0, stream>>>(p, source, idx, val, mask, corr, bvec,
+                                                                          ws, alpha);
+  } else {
+    // BPT blocks a thread, groups of BPT x threads blocks along the grid's y.
+    const int kp = (k + 4) & ~3;
+    const int smem = 3 * E * kp * (int)sizeof(float);
+    const int bpt = p.n_blocks <= WIDE_THREADS1 ? 1 : 2;
+    const int per = (p.n_blocks + bpt - 1) / bpt;
+    const int threads = per < WIDE_THREADS ? (per + 31) / 32 * 32 : WIDE_THREADS;
+    const dim3 grid2(grid, (p.n_blocks + bpt * threads - 1) / (bpt * threads));
+    const cudaError_t err = wide_attributes<T>();
+    if (err != cudaSuccess) return (int)err;
+    if (bpt == 1)
+      als_split_wide_kernel<T, 1><<<grid2, threads, smem, stream>>>(p, kp, source, idx, val, mask, corr, bvec, ws,
+                                                                    alpha);
+    else
+      als_split_wide_kernel<T, 2><<<grid2, threads, smem, stream>>>(p, kp, source, idx, val, mask, corr, bvec, ws,
+                                                                    alpha);
+  }
   if (n_chunks > 1)
     als_close_kernel<<<dim3(B, (k * k + k + CLOSE_THREADS - 1) / CLOSE_THREADS), CLOSE_THREADS, 0, stream>>>(
         p, ws, corr, bvec);
@@ -574,8 +720,8 @@ int launch(const T* source, const int* idx, const float* val, const unsigned cha
 }  // namespace
 
 // source (n, k) f32; idx, val, mask (B, L); corr (B, k, k), bvec (B, k) f32;
-// any k >= 1 (k > 64 takes the wide path, which ignores the plan). The plan
-// of k <= 64: chunk slots a unit (a multiple of 32), n_chunks = ceil(L /
+// any k >= 1 (k > 512 takes the tiled path, which ignores the plan). The
+// plan of k <= 512: chunk slots a unit (a multiple of 32), n_chunks = ceil(L /
 // chunk) units a row (1 when L == 0), per_cta units a CTA (1 when n_chunks >
 // 1), and ws, B * n_chunks * 16 * blocks floats (blocks = the 4 x 4 blocks
 // of [corr | b]: ops/als.py k1_blocks), when n_chunks > 1.

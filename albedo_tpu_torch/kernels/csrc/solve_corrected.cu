@@ -54,12 +54,41 @@
 // system without a trap or a branch (and no other system: each is its own
 // warp's), as the JAX program's does; the landing drops those rows.
 //
-// Ranks above KMAX = 64 take the wide path (solve_corrected_wide_kernel),
-// a right-looking factorization by one CTA a system, held in dynamic shared
-// memory while it fits the 227 KB a block may opt into (k(k + 1) + k floats:
-// k up to 240), and beyond that in a global-memory workspace of the same
-// layout, one slice per CTA, which the wrapper allocates (the block's
-// barriers order its global writes as they do its shared ones).
+// Ranks above KMAX = 64 take the wide path (solve_corrected_wide_kernel): a
+// blocked Cholesky, one CTA of 8 warps a system (4 warps in a group of more
+// systems than the card holds 8-warp CTAs at once), looping over systems as
+// the narrow path's persistent grid does. The first design (a right-looking
+// factorization, three CTA barriers a column with thread 0 alone taking each
+// square root, two a column in each triangular solve, an integer / and % at
+// each of the n^2 positions of the trailing update, both triangles read:
+// ~500 barriers a system at k = 100) ran at 0.85% of its bound. Now:
+//   - The system is the bordered matrix [[A, b], [b^T, .]] (b in row k), so
+//     factoring it leaves L^-1 b in row k: the forward solve costs one more
+//     row of each panel, no pass of its own.
+//   - Panels of NB = 32 columns. Warp 0 factors the diagonal block in
+//     registers by the narrow path's rank-32 chain (one reciprocal square
+//     root a pivot, broadcast); the rows below it (b's included) are solved
+//     against L11^T a row a thread in registers and written to A and,
+//     transposed, to Lt; the trailing update A22 -= L21 L21^T runs over the
+//     lower triangle only, a 4 x 4 register block a thread, two 16-byte
+//     loads of Lt for 16 FMAs. Three barriers a panel.
+//   - L^T x = y by the same panels from the last: warp 0 solves the block
+//     (x_j broadcast from lane j), every thread takes a row above it off the
+//     block's x. Two barriers a panel: ~20 a system at k = 100.
+//   - Only the upper triangle of each correction is read (A is symmetric by
+//     contract, as above), and YtY from L2 as each system is assembled. Where
+//     two 8-warp CTAs an SM fit with the next system beside the current one
+//     (k up to 110), that system is staged by cp.async while the current
+//     one is factored; 4-warp CTAs and wider systems load a system when its
+//     turn comes, and a system too wide for shared memory (k above 223)
+//     lives in a global workspace the wrapper allocates, a slice a CTA (the
+//     barriers order its global writes as they do shared ones): the grid is
+//     then no larger than the workspace's slices, one launch whatever B.
+//   - Padding slots: a pivot that is not positive gives a NaN reciprocal
+//     square root, which reaches every value of that system and no other.
+// Measured (als_partials_bench.py variants k2w): latency-bound, ~47 us a
+// system at k = 100 on 8 warps; the diagonal blocks' chain takes a quarter
+// of it, the panel rows and the back substitution a sixth each.
 
 #include <cuda_runtime.h>
 
@@ -225,61 +254,265 @@ __global__ void __launch_bounds__(SW * 32, MIN_CTAS) solve_warp_kernel(
   }
 }
 
-constexpr int WTHREADS = 256;
+// ---------------------------------------------------------------- wide path
 
-// ws: null to hold each system in dynamic shared memory, else a workspace of
-// B x (k (k + 1) + k) floats, one slice per CTA.
-__global__ void __launch_bounds__(WTHREADS) solve_corrected_wide_kernel(
-    const float* __restrict__ yty, const float* __restrict__ corr,
-    const float* __restrict__ bvec, const float* __restrict__ n_b, float reg,
-    float* __restrict__ x, int k, float* ws) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const long long row = blockIdx.x;
-  const int lda = k + 1;
-  float* A = ws == nullptr ? smem : ws + row * ((long long)k * lda + k);
-  float* v = A + (long long)k * lda;
-  const float* C = corr + row * k * k;
-  const float rn = reg * n_b[row];
+constexpr int NB = 32;         // panel width of the wide path: one warp's diagonal block
+constexpr int WTHREADS = 256;  // threads of a wide CTA; WTHREADS / 2 for groups of many systems (launch_wide)
+// Dynamic shared memory a wide CTA may take with the next system staged
+// beside the current one: two CTAs an SM (228 KB, less 1 KB a block).
+constexpr int WIDE_STAGE_MAX = 113 * 1024;
 
-  for (int p = tid; p < k * k; p += WTHREADS) {
-    const int i = p / k;
-    const int j = p - i * k;
-    const float a = yty[p] + C[p];
-    A[i * lda + j] = (i == j) ? a + rn : a;
-  }
-  for (int i = tid; i < k; i += WTHREADS) v[i] = bvec[row * k + i];
-  __syncthreads();
+// The wide path's layout of one system, in floats: A's lower triangle in
+// rows 0..k-1 of stride lda (odd: a column read across rows is free of bank
+// conflicts), b in row k (the bordered matrix [[A, b], [b^T, .]]: factoring
+// it leaves L^-1 b in row k); the panel below the diagonal block transposed
+// (Lt, NB rows of ldt floats: 16-byte loads of 4 consecutive rows); the
+// reciprocals of the pivots.
+struct WideLayout {
+  int k, lda, ldt, a, lt, dv;
+  __host__ __device__ explicit WideLayout(int k_)
+      : k(k_), lda((k_ + 1) | 1), ldt((k_ + 4) & ~3), a((((k_ + 1) * ((k_ + 1) | 1)) + 3) & ~3),
+        lt(NB * ((k_ + 4) & ~3)), dv((k_ + 3) & ~3) {}
+  __host__ __device__ int floats(bool staged) const { return (staged ? 2 * a : a) + lt + dv; }
+};
 
-  for (int j = 0; j < k; ++j) {
-    if (tid == 0) A[j * lda + j] = sqrtf(A[j * lda + j]);
-    __syncthreads();
-    const float d = A[j * lda + j];
-    for (int i = j + 1 + tid; i < k; i += WTHREADS) A[i * lda + j] /= d;
-    __syncthreads();
-    const int n = k - j - 1;
-    for (int p = tid; p < n * n; p += WTHREADS) {
-      const int ii = j + 1 + p / n;
-      const int mm = j + 1 + p % n;
-      if (mm <= ii) A[ii * lda + mm] -= A[ii * lda + j] * A[mm * lda + j];
+// Walks a thread's share of the upper triangle (j, i), i >= j, of a k x k
+// correction row by row, elements tid, tid + blockDim.x, ..., as (j, i)
+// pairs without a division per step; then b's k elements as (k, i).
+struct TriWalk {
+  int j, i, k;
+  __device__ __forceinline__ explicit TriWalk(int k_) : j(0), i(threadIdx.x), k(k_) { settle(); }
+  __device__ __forceinline__ void settle() {
+    while (j < k && i >= k) {
+      i -= j + 1 < k ? k - j - 1 : k;  // row j + 1 starts at column j + 1, b's row at 0
+      ++j;
     }
-    __syncthreads();
   }
-  for (int j = 0; j < k; ++j) {
-    if (tid == 0) v[j] /= A[j * lda + j];
-    __syncthreads();
-    const float vj = v[j];
-    for (int i = j + 1 + tid; i < k; i += WTHREADS) v[i] -= A[i * lda + j] * vj;
-    __syncthreads();
+  __device__ __forceinline__ bool more() const { return j < k || i < k; }
+  __device__ __forceinline__ void next() {
+    i += blockDim.x;
+    settle();
   }
-  for (int j = k - 1; j >= 0; --j) {
-    if (tid == 0) v[j] /= A[j * lda + j];
-    __syncthreads();
-    const float vj = v[j];
-    for (int i = tid; i < j; i += WTHREADS) v[i] -= A[j * lda + i] * vj;
-    __syncthreads();
+};
+
+// Stage system s into A: element (i, j) of its lower triangle from the upper
+// triangle's (j, i) of the correction (A is symmetric by contract, as in the
+// narrow path), b into row k. Staged: cp.async, completed by
+// assemble_system; else plain loads, summed with YtY and reg n_b at once.
+template <bool ASYNC>
+__device__ __forceinline__ void stage_system(float* A, const float* __restrict__ yty, const float* __restrict__ c,
+                                             const float* __restrict__ bs, float rn, const WideLayout& w) {
+  for (TriWalk t(w.k); t.more(); t.next()) {
+    const bool b_row = t.j == w.k;
+    const float* src = b_row ? bs + t.i : c + t.j * w.k + t.i;
+    float* dst = b_row ? A + w.k * w.lda + t.i : A + t.i * w.lda + t.j;
+    if (ASYNC) {
+      cp_async4(dst, src);
+    } else {
+      float v = *src;
+      if (!b_row) {
+        v += yty[t.j * w.k + t.i];
+        if (t.i == t.j) v += rn;
+      }
+      *dst = v;
+    }
   }
-  for (int i = tid; i < k; i += WTHREADS) x[row * k + i] = v[i];
+  if (ASYNC) cp_async_commit();
+}
+
+// The staged elements a thread copied: add YtY and reg n_b (its own copies
+// are visible to it once its cp.async groups completed).
+__device__ __forceinline__ void assemble_system(float* A, const float* __restrict__ yty, float rn,
+                                                const WideLayout& w) {
+  for (TriWalk t(w.k); t.j < w.k; t.next()) {
+    float& v = A[t.i * w.lda + t.j];
+    v += yty[t.j * w.k + t.i];
+    if (t.i == t.j) v += rn;
+  }
+}
+
+// The diagonal block at (p0, p0), nb <= NB rows, factored by one warp in
+// registers as the narrow path's rank-32 class does: lane i holds row p0 + i,
+// column j is A[i][j] - sum_{p<j} L[i][p] L[j][p] with L[j][p] broadcast from
+// lane j (the sum in two partial sums over even and odd p), and lane j
+// takes the pivot's reciprocal square root once. The
+// strictly lower part of L11 goes back to A, 1 / L[j][j] to dinv.
+__device__ __forceinline__ void factor_diagonal(float* A, float* dinv, int p0, int nb, const WideLayout& w,
+                                                int lane) {
+  float a[NB];
+  float* row = A + (p0 + lane) * w.lda + p0;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) a[c] = (c <= lane && lane < nb) ? row[c] : 0.f;
+  float dv = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j >= nb) break;
+    float s0 = a[j], s1 = 0.f;  // two partial sums: half the dependent chain of FMAs
+#pragma unroll
+    for (int p = 0; p < j; ++p) {
+      const float v = shfl_in_order(a[p], j);
+      if (p & 1) s1 = fmaf(-a[p], v, s1);
+      else s0 = fmaf(-a[p], v, s0);
+    }
+    a[j] = s0 + s1;
+    const float piv = a[j];
+    float r = rsqrtf(piv);
+    r = r * fmaf(-0.5f * piv * r, r, 1.5f);
+    const float inv = __shfl_sync(FULL, r, j);
+    if (lane > j) a[j] *= inv;
+    if (lane == j) dv = inv;
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    if (c < lane && lane < nb) row[c] = a[c];
+  if (lane < nb) dinv[p0 + lane] = dv;
+}
+
+// Row i below the diagonal block: L21[i] = A21[i] L11^-T, a row a thread in
+// registers (L11 read as broadcasts), into A and, transposed, into Lt.
+__device__ __forceinline__ void panel_row(float* A, float* Lt, const float* dinv, int i, int p0, int nb,
+                                          int r0, const WideLayout& w) {
+  float r[NB];
+  float* row = A + i * w.lda + p0;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) r[c] = c < nb ? row[c] : 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j >= nb) break;
+    const float* lj = A + (p0 + j) * w.lda + p0;
+    float s0 = r[j], s1 = 0.f;  // two partial sums, as in factor_diagonal
+#pragma unroll
+    for (int p = 0; p < j; ++p) {
+      if (p & 1) s1 = fmaf(-r[p], lj[p], s1);
+      else s0 = fmaf(-r[p], lj[p], s0);
+    }
+    r[j] = (s0 + s1) * dinv[p0 + j];
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    if (c >= nb) break;
+    row[c] = r[c];
+    Lt[c * w.ldt + i - r0] = r[c];
+  }
+}
+
+// The trailing update A22 -= L21 L21^T over the lower triangle of rows
+// r0..k (b's row included), a 4 x 4 block (I, M), M <= I, a thread: two
+// 16-byte loads of Lt for 16 FMAs a panel column.
+__device__ __forceinline__ void trailing_update(float* A, const float* Lt, int nb, int r0, const WideLayout& w) {
+  const int n2 = w.k + 1 - r0;
+  const int nbk = (n2 + 3) >> 2;
+  const int blocks = nbk * (nbk + 1) / 2;
+  for (int t = threadIdx.x; t < blocks; t += blockDim.x) {
+    int I = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+    while (I * (I + 1) / 2 > t) --I;
+    while ((I + 1) * (I + 2) / 2 <= t) ++I;
+    const int M = t - I * (I + 1) / 2;
+    float acc[4][4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < nb; ++j) {
+      const float4 a = *reinterpret_cast<const float4*>(Lt + j * w.ldt + 4 * I);
+      const float4 m = *reinterpret_cast<const float4*>(Lt + j * w.ldt + 4 * M);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float mv[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], mv[y], acc[x][y]);
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = r0 + 4 * I + x;
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int m = r0 + 4 * M + y;
+        if (i <= w.k && m <= i && m < w.k) A[i * w.lda + m] -= acc[x][y];
+      }
+    }
+  }
+}
+
+// ws: null to hold each CTA's systems in dynamic shared memory (the next
+// one staged beside the current one when `staged`), else a workspace of
+// gridDim.x slices of WideLayout(k).floats(false) floats.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == WTHREADS ? 2 : 4) solve_corrected_wide_kernel(
+    const float* __restrict__ yty, const float* __restrict__ corr, const float* __restrict__ bvec,
+    const float* __restrict__ n_b, float reg, float* __restrict__ x, int B, int k, float* ws, int staged) {
+  extern __shared__ __align__(16) float smem[];
+  const WideLayout w(k);
+  float* base = ws == nullptr ? smem : ws + (long long)blockIdx.x * w.floats(false);
+  float* Lt = base + (staged ? 2 * w.a : w.a);
+  float* dinv = Lt + w.lt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int step = gridDim.x;
+  int s = blockIdx.x;
+  if (staged && s < B) stage_system<true>(base, yty, corr + (long long)s * k * k, bvec + (long long)s * k, 0.f, w);
+
+  for (int n = 0; s < B; s += step, ++n) {
+    float* A = base + (staged ? (n & 1) * w.a : 0);
+    const float rn = reg * n_b[s];
+    if (staged) {
+      cp_async_wait_all();
+      assemble_system(A, yty, rn, w);
+      __syncthreads();  // system s in place; every thread is done with the other buffer
+      if (s + step < B)
+        stage_system<true>(base + ((n + 1) & 1) * w.a, yty, corr + (long long)(s + step) * k * k,
+                           bvec + (long long)(s + step) * k, 0.f, w);
+    } else {
+      __syncthreads();  // every thread is done with the last system
+      stage_system<false>(A, yty, corr + (long long)s * k * k, bvec + (long long)s * k, rn, w);
+      __syncthreads();
+    }
+    float* y = A + k * w.lda;  // b, then L^-1 b, then x
+
+    // Blocked right-looking Cholesky of the bordered matrix, panels of NB
+    // columns: three barriers a panel.
+    for (int p0 = 0; p0 < k; p0 += NB) {
+      const int nb = min(NB, k - p0);
+      const int r0 = p0 + nb;
+      if (warp == 0) factor_diagonal(A, dinv, p0, nb, w, lane);
+      __syncthreads();
+      for (int i = r0 + threadIdx.x; i <= k; i += THREADS) panel_row(A, Lt, dinv, i, p0, nb, r0, w);
+      __syncthreads();
+      if (r0 < k) {
+        trailing_update(A, Lt, nb, r0, w);
+        __syncthreads();
+      }
+    }
+    // L^T x = y by panels from the last: one warp solves the diagonal
+    // block (x_j broadcast from lane j), then every thread takes a row above
+    // it off the block's x: two barriers a panel.
+    for (int p0 = (k - 1) / NB * NB; p0 >= 0; p0 -= NB) {
+      const int nb = min(NB, k - p0);
+      if (warp == 0) {
+        float v = lane < nb ? y[p0 + lane] : 0.f;
+        const float dv = lane < nb ? dinv[p0 + lane] : 0.f;
+        float xv = 0.f;
+#pragma unroll
+        for (int j = NB - 1; j >= 0; --j) {
+          if (j >= nb) continue;
+          const float xj = __shfl_sync(FULL, v * dv, j);
+          if (lane == j) xv = xj;
+          else if (lane < j) v = fmaf(-A[(p0 + j) * w.lda + p0 + lane], xj, v);
+        }
+        if (lane < nb) y[p0 + lane] = xv;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < p0; i += THREADS) {
+        float v = y[i];
+        for (int j = 0; j < nb; ++j) v = fmaf(-A[(p0 + j) * w.lda + i], y[p0 + j], v);
+        y[i] = v;
+      }
+      __syncthreads();
+    }
+    float* xs = x + (long long)s * k;
+    for (int i = threadIdx.x; i < k; i += THREADS) xs[i] = y[i];
+  }
 }
 
 // The launch path's per-device cache holds up to MAX_DEVICES devices.
@@ -328,28 +561,84 @@ int launch_warps(const float* yty, const float* corr, const float* bvec, const f
   return (int)cudaGetLastError();
 }
 
+
+// The wide path: 8-warp CTAs, the next system staged beside the current one
+// where two such CTAs fit an SM, else one system in shared memory at a time,
+// else (ws) in a global workspace of a slice a CTA. A group with more systems
+// than the card holds such CTAs at once takes 4-warp CTAs, one system each
+// in shared memory, where twice as many of them fit an SM: the systems'
+// dependent chains overlap across more CTAs, where a few systems finish
+// sooner on 8 warps (als_partials_bench.py variants k2w). A persistent grid
+// of the CTAs the card holds at once, and no more than the workspace's
+// ws_slices slices when there is one.
+int launch_wide(const float* yty, const float* corr, const float* bvec, const float* n_b, float reg, float* x,
+                int B, int k, float* ws, int ws_slices, cudaStream_t stream) {
+  const WideLayout w(k);
+  const bool staged = ws == nullptr && w.floats(true) * (int)sizeof(float) <= WIDE_STAGE_MAX;
+  const int smem = ws != nullptr ? 0 : w.floats(staged) * (int)sizeof(float);
+  const int smem_half = ws != nullptr ? 0 : w.floats(false) * (int)sizeof(float);
+  static std::mutex lock;
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int per_sm = 0, per_sm_half = 0, n_sm = 0;
+  {
+    const std::lock_guard<std::mutex> hold(lock);
+    if (!sms[dev]) {
+      int most = 0, n = 0;
+      err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(solve_corrected_wide_kernel<WTHREADS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(solve_corrected_wide_kernel<WTHREADS / 2>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return (int)err;
+      sms[dev] = n;
+    }
+    n_sm = sms[dev];
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solve_corrected_wide_kernel<WTHREADS>, WTHREADS,
+                                                      smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_half, solve_corrected_wide_kernel<WTHREADS / 2>,
+                                                        WTHREADS / 2, smem_half);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;  // a system too wide for shared memory needs ws
+  if (ws != nullptr && ws_slices < 1) return (int)cudaErrorInvalidValue;
+  const int busy = ws != nullptr && ws_slices < B ? ws_slices : B;  // systems in flight at most
+  if (busy > per_sm * n_sm && per_sm_half >= 2 * per_sm) {
+    const int cap = per_sm_half * n_sm;
+    solve_corrected_wide_kernel<WTHREADS / 2><<<busy < cap ? busy : cap, WTHREADS / 2, smem_half, stream>>>(
+        yty, corr, bvec, n_b, reg, x, B, k, ws, 0);
+  } else {
+    const int cap = per_sm * n_sm;
+    solve_corrected_wide_kernel<WTHREADS><<<busy < cap ? busy : cap, WTHREADS, smem, stream>>>(
+        yty, corr, bvec, n_b, reg, x, B, k, ws, (int)staged);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // yty (k, k); corr (B, k, k); bvec (B, k); n_b (B,); x (B, k); all f32; any
 // k >= 1. ws is null (k <= 64, or the system fits shared memory) or a
-// workspace of B x (k (k + 1) + k) floats. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// workspace of ws_slices >= 1 slices of WideLayout(k).floats(false) floats
+// (ops/als.py k2_wide_floats), whatever B. Returns cudaGetLastError() after
+// the launch (0 = launched), cudaErrorInvalidValue for a system too wide
+// for shared memory without a workspace.
 extern "C" int solve_corrected_launch(const float* yty, const float* corr,
                                       const float* bvec, const float* n_b,
                                       float reg, float* x, int B, int k,
-                                      float* ws, void* stream) {
+                                      float* ws, int ws_slices, void* stream) {
   if (k < 1 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (k <= 16) return launch_warps<16>(yty, corr, bvec, n_b, reg, x, B, k, st);
   if (k <= 32) return launch_warps<32>(yty, corr, bvec, n_b, reg, x, B, k, st);
   if (k <= KMAX) return launch_warps<64>(yty, corr, bvec, n_b, reg, x, B, k, st);
-  const size_t smem = ws == nullptr ? ((size_t)k * (k + 1) + k) * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        solve_corrected_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  solve_corrected_wide_kernel<<<B, WTHREADS, smem, st>>>(yty, corr, bvec, n_b, reg, x, k, ws);
-  return (int)cudaGetLastError();
+  return launch_wide(yty, corr, bvec, n_b, reg, x, B, k, ws, ws_slices, st);
 }

@@ -41,9 +41,10 @@ the plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
 each kernel's narrow path (K1 and K3 split long rows across CTAs by a plan
 computed here, :func:`_k1_plan` and :func:`_k3_plan`; K2 solves a system a
-warp), wider ranks its wide path (K1 tiles the correction over CTAs; K2
-and K3 keep their system in dynamic shared memory while it fits, else in a
-global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
+warp), wider ranks its wide path (K1 the split design's wide kernel, tiles
+of the correction over CTAs above rank 512; K2 a blocked Cholesky a CTA;
+K2 and K3 keep their system in dynamic shared memory while it fits, else
+in a global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
 solved rows through the precomputed landing permutation, as the JAX sweep
 does: K2/K3 write each group's block into one solved pool and K4 reads the
 pool and the old table where they lie (no concatenated copy). K4 is a kernel of its own rather than an epilogue of K2
@@ -66,12 +67,14 @@ KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wid
 SMEM_MAX = 232448 - 1024
 TILE = 32  # entries per shared-memory tile of K3's wide path (bucket_cg.cu)
 WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
-# K1's split plan (csrc/als_partials.cu, ranks up to KMAX; :func:`_k1_plan`).
+_U32 = 2.0**-24  # float32's unit round-off (F9's round-off model, bucket_cg_bf16_limits)
+# K1's split plan (csrc/als_partials.cu, ranks up to K1_SPLIT_KMAX; :func:`_k1_plan`).
 K1_TILE = 32          # entries a staged tile; a chunk is whole tiles
 K1_MIN_CHUNK = 64     # the shortest chunk a row is cut into
 K1_UNITS_PER_SM = 8   # units a split group aims for, per SM
 K1_CTAS_PER_SM = 16   # CTAs an unsplit group's grid aims for, per SM: two waves of the 8 an SM holds
                       # (27 KB of shared memory each); both measured by als_partials_bench variants
+K1_SPLIT_KMAX = 512   # the widest rank of K1's split design (narrow up to KMAX, then wide); tiled above
 _K1_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
 _K1_WORKSPACE_LOCK = threading.Lock()
 # K3's plan (csrc/bucket_cg.cu, ranks up to KMAX; :func:`_k3_plan`). The
@@ -187,8 +190,11 @@ def _check_rank(kernel: str, k: int) -> None:
 
 
 def _path(kernel: str, k: int) -> str:
-    """The launch-count key of the path rank ``k`` takes."""
-    return kernel if k <= KMAX else f"{kernel}_wide"
+    """The launch-count key of the path rank ``k`` takes (K1 above
+    K1_SPLIT_KMAX: its tiled kernel)."""
+    if k <= KMAX:
+        return kernel
+    return f"{kernel}_tiled" if kernel.startswith("als_partials") and k > K1_SPLIT_KMAX else f"{kernel}_wide"
 
 
 def _workspace_chunks(per_row: int, b: int, dev):
@@ -238,19 +244,23 @@ def k1_blocks(k: int) -> int:
     return kbi * kbj - kbi * (kbi - 1) // 2
 
 
-def _k1_plan(b: int, length: int, n_sm: int) -> tuple[int, int, int]:
-    """(chunk, n_chunks, per_cta) of a K1 launch at rank <= KMAX
+def _k1_plan(b: int, length: int, n_sm: int, unit_floats: int = 0) -> tuple[int, int, int]:
+    """(chunk, n_chunks, per_cta) of a K1 launch at rank <= K1_SPLIT_KMAX
     (``csrc/als_partials.cu``): each of the ``b`` rows' ``length`` slots cut
     into ``n_chunks`` chunks of ``chunk`` slots (whole 32-entry tiles), a
     unit being one (row, chunk), and ``per_cta`` units a CTA. A group with
     fewer rows than half of K1_UNITS_PER_SM x ``n_sm`` has its rows split,
-    chunks no shorter than K1_MIN_CHUNK, toward that many units, one a CTA;
-    other groups keep one chunk a row and give each CTA enough rows that the
-    grid has about K1_CTAS_PER_SM CTAs an SM."""
+    chunks no shorter than K1_MIN_CHUNK, toward that many units, one a CTA,
+    as far as the split units' partials (``unit_floats`` floats each) fit in
+    WORKSPACE_MAX bytes; other groups keep one chunk a row and give each CTA
+    enough rows that the grid has about K1_CTAS_PER_SM CTAs an SM."""
     want = n_sm * K1_UNITS_PER_SM
     n_chunks = 1
     if 2 * b < want and length > K1_MIN_CHUNK:
         n_chunks = min(-(-want // max(b, 1)), -(-length // K1_MIN_CHUNK))
+        if unit_floats:
+            n_chunks = min(n_chunks, WORKSPACE_MAX // (4 * unit_floats * max(b, 1)))
+        n_chunks = max(1, n_chunks)
     chunk = max(K1_TILE, -(-(-(-length // n_chunks)) // K1_TILE) * K1_TILE)
     n_chunks = max(1, -(-length // chunk))
     per_cta = 1 if n_chunks > 1 else max(1, -(-b // (n_sm * K1_CTAS_PER_SM)))
@@ -277,7 +287,8 @@ def _k1_workspace(n: int, dev: torch.device) -> torch.Tensor:
         with _K1_WORKSPACE_LOCK:
             ws = _K1_WORKSPACE.get(key)
             if ws is None or ws.numel() < n:
-                ws = torch.empty(max(n, 2 * (0 if ws is None else ws.numel())), dtype=torch.float32, device=dev)
+                grown = min(2 * (0 if ws is None else ws.numel()), WORKSPACE_MAX // 4)
+                ws = torch.empty(max(n, grown), dtype=torch.float32, device=dev)
                 _K1_WORKSPACE[key] = ws
     return ws
 
@@ -289,8 +300,10 @@ def bucket_partial_terms(
     """K1: the Gramian correction and b-vector of a padded bucket, with the
     row gather fused in (CUDA kernel ``als_partials``, or ``als_partials_bf16``
     reading the bf16 table; the (B, L, k) block is never materialized). Up
-    to rank KMAX one call is one launch of the split design (:func:`_k1_plan`;
-    a split row's partials are closed by a second kernel of the launch)."""
+    to rank K1_SPLIT_KMAX one call is one launch of the split design
+    (:func:`_k1_plan`; a split row's partials are closed by a second kernel
+    of the launch), its wide kernel above KMAX; wider ranks take the tiled
+    kernel."""
     if on_cpu("als_partials", source, idx, val, mask):
         return bucket_partial_terms_reference(source, idx, val, mask, alpha, gather_dtype)
     table = gather_table(source, gather_dtype)
@@ -307,10 +320,11 @@ def bucket_partial_terms(
     b_vec = torch.empty((b, k), dtype=torch.float32, device=dev)
     chunk, n_chunks, per_cta = K1_TILE, 1, 1
     ws = None
-    if k <= KMAX:
-        chunk, n_chunks, per_cta = _k1_plan(b, length, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if k <= K1_SPLIT_KMAX:
+        unit = 16 * k1_blocks(k)
+        chunk, n_chunks, per_cta = _k1_plan(b, length, torch.cuda.get_device_properties(dev).multi_processor_count, unit)
         if n_chunks > 1:
-            ws = _k1_workspace(b * n_chunks * 16 * k1_blocks(k), dev).data_ptr()
+            ws = _k1_workspace(b * n_chunks * unit, dev).data_ptr()
     call(
         kernel, dev, table.data_ptr(), idx.data_ptr(), val.data_ptr(),
         mask.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), b, length, k,
@@ -339,13 +353,26 @@ def solve_corrected_reference(
     return torch.cholesky_solve(b_vec[..., None], chol)[..., 0]
 
 
+def k2_wide_floats(k: int) -> int:
+    """Floats of one system of K2's wide path (``csrc/solve_corrected.cu
+    WideLayout``): the bordered matrix's rows (k + 1 rows of an odd stride
+    of at least k + 1), the transposed panel (32 rows of k + 1 rounded up to
+    4) and the pivots' reciprocals, each part rounded up to 4 floats."""
+    lda = (k + 1) | 1
+    return -(-(k + 1) * lda // 4) * 4 + 32 * ((k + 4) & ~3) + -(-k // 4) * 4
+
+
 def solve_corrected(
     yty: torch.Tensor, corr: torch.Tensor, b_vec: torch.Tensor,
     n_b: torch.Tensor, reg: float, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K2: one k x k Cholesky solve per bucket row (CUDA kernel
     ``solve_corrected``), into ``out`` (B, k) when given (a half-sweep's
-    slice of its solved pool)."""
+    slice of its solved pool). Above rank KMAX a blocked Cholesky a CTA
+    (``solve_corrected_wide``), in shared memory while a system of
+    :func:`k2_wide_floats` fits, else in a global workspace a slice a CTA
+    (at most WORKSPACE_MAX bytes of slices; the persistent grid runs no more
+    CTAs than there are slices). One launch a call."""
     if on_cpu("solve_corrected", yty, corr, b_vec, n_b, *([] if out is None else [out])):
         return _solved_into(out, solve_corrected_reference(yty, corr, b_vec, n_b, reg))
     k = yty.shape[0]
@@ -357,14 +384,15 @@ def solve_corrected(
     check_operand("solve_corrected", "b_vec", b_vec, torch.float32, (b, k), dev)
     check_operand("solve_corrected", "n_b", n_b, torch.float32, (b,), dev)
     x = _output("solve_corrected", out, b, k, dev)
-    chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks(k * (k + 1) + k, b, dev)
-    for r0, rows, ws in chunks:
-        call(
-            "solve_corrected", dev, yty.data_ptr(), corr.data_ptr() + 4 * r0 * k * k,
-            b_vec.data_ptr() + 4 * r0 * k, n_b.data_ptr() + 4 * r0, float(reg),
-            x.data_ptr() + 4 * r0 * k, rows, k, None if ws is None else ws.data_ptr(),
-            count=_path("solve_corrected", k),
-        )
+    per_system = k2_wide_floats(k)
+    ws, slices = None, 0
+    if k > KMAX and 4 * per_system > SMEM_MAX:
+        slices = max(1, min(b, WORKSPACE_MAX // (4 * per_system)))
+        ws = torch.empty(slices * per_system, dtype=torch.float32, device=dev)
+    call(
+        "solve_corrected", dev, yty.data_ptr(), corr.data_ptr(), b_vec.data_ptr(), n_b.data_ptr(), float(reg),
+        x.data_ptr(), b, k, None if ws is None else ws.data_ptr(), slices, count=_path("solve_corrected", k),
+    )
     return x
 
 
@@ -395,96 +423,165 @@ def bucket_cg_reference(
     alpha: float,
     cg_steps: int,
     gather_dtype: str | None = None,
+    *, sites: dict | None = None, pinned: dict | None = None, deltas: dict | None = None,
+    noise: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Plain version of K3, line for line the JAX ``bucket_cg_body``, with
-    its bf16 rounding sites (``_round``) under bf16 gathers."""
+    its bf16 rounding sites (``_round``) under bf16 gathers.
+
+    The keywords open those sites for F9's limits
+    (:func:`bucket_cg_bf16_limits`): matvec m (0 forms the first residual
+    from x0, m = 1..cg_steps the steps) rounds p (B, k) at (m, "p") and t =
+    c1 q (B, L) at (m, "t"). ``sites`` receives the value each site rounds;
+    ``pinned`` gives the rounded values to use in place of rounding;
+    ``deltas`` adds to a site's rounded values (a rounding taken the other
+    way); ``noise`` perturbs every float32 sum and update by a draw of its
+    round-off. Without them the function is the plain version itself."""
     def rnd(x):
         return _round(x, gather_dtype)
 
+    def draw(v, sd):
+        return v if noise is None else v + sd * torch.randn(v.shape, generator=noise, device=v.device)
+
+    def summed(eq, a, b, n):
+        s = torch.einsum(eq, a, b)
+        if noise is None:
+            return s
+        return draw(s, _U32 * torch.sqrt(2 * n * (s * s / 3 + torch.einsum(eq, a * a, b * b) / 6)))
+
+    def upd(v):
+        return draw(v, _U32 * v.abs())
+
+    def site(m, kind, v):
+        if sites is not None:
+            sites[(m, kind)] = v
+        out = rnd(v) if pinned is None else pinned[(m, kind)]
+        return out + deltas[(m, kind)] if deltas is not None and (m, kind) in deltas else out
+
     gathered = gather_table(source, gather_dtype)[idx.long()].float()
+    _, length, k = gathered.shape
     c1 = alpha * val
     w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
     n_b = mask.sum(dim=1, dtype=torch.float32)
-    b_vec = torch.einsum("blk,bl->bk", gathered, w)
+    b_vec = summed("blk,bl->bk", gathered, w, length)
     diag = (
         torch.diagonal(yty)[None]
-        + torch.einsum("blk,bl->bk", rnd(gathered * gathered), rnd(c1))
+        + summed("blk,bl->bk", rnd(gathered * gathered), rnd(c1), length)
         + (reg * n_b)[:, None]
     )
-    diag = torch.clamp(diag, min=1e-12)
+    diag = torch.clamp(upd(diag), min=1e-12)
 
-    def matvec(p):
-        t = c1 * torch.einsum("blk,bk->bl", gathered, rnd(p))
-        return p @ yty + torch.einsum("blk,bl->bk", gathered, rnd(t)) + (reg * n_b)[:, None] * p
+    def matvec(p, m):
+        t = c1 * summed("blk,bk->bl", gathered, site(m, "p", p), k)
+        py = p @ yty
+        if noise is not None:
+            py = draw(py, _U32 * torch.sqrt(2 * k * (py * py / 3 + (p * p) @ (yty * yty) / 6)))
+        return upd(py + summed("blk,bl->bk", gathered, site(m, "t", upd(t)), length) + (reg * n_b)[:, None] * p)
 
     tiny = 1e-30
     x = x0
-    r = b_vec - matvec(x)
-    z = r / diag
+    r = upd(b_vec - matvec(x, 0))
+    z = upd(r / diag)
     p = z
-    rz = torch.sum(r * z, dim=1)
-    for _ in range(cg_steps):
-        ap = matvec(p)
-        step = rz / (torch.sum(p * ap, dim=1) + tiny)
-        x = x + step[:, None] * p
-        r = r - step[:, None] * ap
-        z = r / diag
-        rz_new = torch.sum(r * z, dim=1)
-        beta = rz_new / (rz + tiny)
-        p = z + beta[:, None] * p
+    rz = upd(torch.sum(r * z, dim=1))
+    for m in range(1, cg_steps + 1):
+        ap = matvec(p, m)
+        step = upd(rz / (upd(torch.sum(p * ap, dim=1)) + tiny))
+        x = upd(x + step[:, None] * p)
+        r = upd(r - step[:, None] * ap)
+        z = upd(r / diag)
+        rz_new = upd(torch.sum(r * z, dim=1))
+        beta = upd(rz_new / (rz + tiny))
+        p = upd(z + beta[:, None] * p)
         rz = rz_new
     return x
 
 
-# K3-bf16 against its plain version: rel 5e-4 of max |x| of a group, or twice
-# the row's own spread under reordering where that is more (below), the
-# spread taken over K3_BF16_ORDERS reorderings of the sums.
+# K3-bf16 against its plain version (F9): each row to the effects of the bf16
+# roundings its float32 round-off could flip plus that round-off itself, at
+# least rel 5e-4 of max |x| of its group (below).
 K3_BF16_REL = 5e-4
-K3_BF16_ORDERS = 16
+K3_BF16_LAMBDA = 10.0  # standard deviations of the round-off model a site's window spans
+K3_BF16_DRAWS = 16     # draws of the round-off model that measure each site's standard deviation
 
 
 def bucket_cg_bf16_limits(
     source: torch.Tensor, yty: torch.Tensor, idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
-    x0: torch.Tensor, reg: float, alpha: float, cg_steps: int, want: torch.Tensor | None = None,
-    rows: torch.Tensor | None = None,
+    x0: torch.Tensor, reg: float, alpha: float, cg_steps: int, rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Each row's limit on ``|K3-bf16 - plain|`` (max over the row), (B,).
 
-    K3-bf16 rounds the iterate p and t = c1 q to bf16 at every matvec, and
-    a float32 sum in another order can put such a value on the other side
-    of a bf16 rounding: one step of 2^-8, which the later CG steps carry. So
-    the distance between the kernel and its plain version depends on the
-    summation order, which no fixed limit bounds (F9: 7.6e-4 of max |x| on
-    long rows, where merely reversing a row's entries moves the plain
-    version past 5e-4). The limit is taken from the plain version itself,
-    run in ``K3_BF16_ORDERS`` other orders of its sums: each row's live
-    entries reversed, the rank's columns reversed (the order of every
-    k-term dot product), then each row's entries and the columns shuffled
-    together (fixed seeds); a row's spread is the most any of them moves it.
-    A row is held to ``K3_BF16_REL`` (5e-4) of the group's max |x| (over ``rows``,
-    the rows held), or to twice its spread where that is more: the kernel
-    sums in yet another order. A row whose roundings no reordering flips
-    keeps the fixed limit, and a wrong site (a rounding left out, an entry
-    dropped) moves rows that no reordering moves (``tests/
-    test_torch_ops_als.py::test_k3_bf16_row_limits_refuse_a_wrong_site``).
-    The check stays a sample of orders: at the bench's groups of 300 slots
-    and more, 2 of 23 040 row trials of a further random order went past
-    these limits (to 1.77 of them), rare flips no order of the 16 made
-    (``kernels/als_partials_bench.py orders``, on the CPU)."""
-    call = (source, yty, idx, val, mask, x0, reg, alpha, cg_steps)
-    if want is None:
-        want = bucket_cg_bf16_reordered(*call)
-    spread = torch.zeros(want.shape[0], dtype=want.dtype, device=want.device)
-    for src_pos, cols in _k3_reorders(mask, source.shape[1], torch.Generator().manual_seed(idx.shape[1])):
-        spread = torch.maximum(spread, (bucket_cg_bf16_reordered(*call, src_pos, cols) - want).abs().amax(dim=1))
-    held = want if rows is None else want[rows]
-    return bucket_cg_bf16_limit(spread, float(held.abs().max()) if held.numel() else 0.0)
+    K3-bf16 differs from its plain version only in the order of its float32
+    sums, but it rounds the iterate p and t = c1 q to bf16 at every matvec,
+    and a value that lies near a bf16 rounding boundary can land on its
+    other side: one step of 2^-8, which the later CG steps carry (F9). So
+    the limit bounds what a flip can do, site by site, in three steps on
+    the plain version (:func:`bucket_cg_reference` with its sites open):
+
+    - the round-off: every float32 sum and update of the plain version is
+      perturbed by a draw of its own round-off, each sum of n terms a_l with
+      sum S by the standard deviation of the difference of two summation
+      orders that do not follow the terms' values, u sqrt(2 n (S^2 / 3 +
+      sum a_l^2 / 6)) (the mean square of a random order's partial sums),
+      each update by u |v|, with every bf16 rounding kept at the plain
+      version's value; ``K3_BF16_DRAWS`` draws give each rounding site's
+      standard deviation before it rounds, and that of x;
+    - the sites: a site whose value lies within ``K3_BF16_LAMBDA`` (10)
+      standard deviations (and 2 ulp) of a bf16 rounding boundary could
+      flip; its flip is the rounding at the far end of that window;
+    - the effects: the plain version re-run with one flip a row (rows are
+      independent, so one run takes a site of every row), the row's max
+      |x - plain| being that flip's effect.
+
+    A row is held to the sum of its sites' effects plus ten standard
+    deviations of its x, at least ``K3_BF16_REL`` (5e-4) of the group's max
+    |x| (over ``rows``, the rows held). No order of the sums is sampled: a
+    flip that no reordering of a sample made is bounded all the same (on
+    the CPU, ``kernels/als_partials_bench.py orders``: no row over these
+    limits in 23 040 row trials of further random orders, two seeds), and a
+    wrong site (a rounding left out, an entry dropped) still moves rows
+    past them (``tests/test_torch_ops_als.py::
+    test_k3_bf16_row_limits_refuse_a_wrong_site``)."""
+    call = (source, yty, idx, val, mask, x0, reg, alpha, cg_steps, "bfloat16")
+    values: dict = {}
+    x = bucket_cg_reference(*call, sites=values)
+    pinned = {key: _round(v, "bfloat16") for key, v in values.items()}
+    gen = torch.Generator(device=x.device).manual_seed(idx.shape[1])
+    var = {key: torch.zeros_like(v) for key, v in values.items()}
+    var_x = torch.zeros_like(x)
+    for _ in range(K3_BF16_DRAWS):
+        drawn: dict = {}
+        var_x += (bucket_cg_reference(*call, noise=gen, pinned=pinned, sites=drawn) - x) ** 2
+        for key in var:
+            var[key] += (drawn[key] - values[key]) ** 2
+    flips = {}
+    for key, v in values.items():
+        if key == (0, "p"):
+            continue  # the warm start x0, an input
+        window = K3_BF16_LAMBDA * torch.sqrt(var[key] / K3_BF16_DRAWS) + 2 * _U32 * v.abs()
+        lo, hi = (_round(v + s * window, "bfloat16") - pinned[key] for s in (-1, 1))
+        flips[key] = torch.where(lo.abs() >= hi.abs(), lo, hi)
+    # Each row's sites in a fixed order; run j flips the j-th site of every row that has one.
+    keys = list(flips)
+    near = torch.cat([flips[key] != 0 for key in keys], dim=1)
+    rank = torch.where(near, torch.cumsum(near, dim=1) - 1, -1)
+    effects = torch.zeros_like(x[:, 0])
+    for j in range(int(rank.max()) + 1 if rank.numel() else 0):
+        at, deltas, col = rank == j, {}, 0
+        for key in keys:
+            width = flips[key].shape[1]
+            deltas[key] = torch.where(at[:, col:col + width], flips[key], 0.0)
+            col += width
+        effects += (bucket_cg_reference(*call, deltas=deltas) - x).abs().amax(dim=1)
+    bound = effects + K3_BF16_LAMBDA * torch.sqrt(var_x / K3_BF16_DRAWS).amax(dim=1)
+    held = x if rows is None else x[rows]
+    return bucket_cg_bf16_limit(bound, float(held.abs().max()) if held.numel() else 0.0)
 
 
-def bucket_cg_bf16_limit(spread: torch.Tensor, scale: float) -> torch.Tensor:
-    """The rows' limits from their spread under reordering and the group's
-    max |x|: twice the spread, at least ``K3_BF16_REL`` of the scale."""
-    return torch.clamp_min(2.0 * spread, K3_BF16_REL * scale)
+def bucket_cg_bf16_limit(bound: torch.Tensor, scale: float) -> torch.Tensor:
+    """The rows' limits from their bound (flip effects plus round-off) and
+    the group's max |x|: the bound, at least ``K3_BF16_REL`` of the scale."""
+    return torch.clamp_min(bound, K3_BF16_REL * scale)
 
 
 def bucket_cg_bf16_reordered(
@@ -502,10 +599,12 @@ def bucket_cg_bf16_reordered(
     return out if cols is None else out[:, torch.argsort(cols)]
 
 
-def _k3_reorders(mask: torch.Tensor, k: int, gen: torch.Generator, n: int = K3_BF16_ORDERS):
+def _k3_reorders(mask: torch.Tensor, k: int, gen: torch.Generator, n: int):
     """``n`` reorderings of a K3 call's sums, as (source positions of the
     slots (B, L) or None, a permutation of the k columns or None): the live
-    entries reversed, the columns reversed, then both shuffled. Each keeps
+    entries reversed, the columns reversed, then both shuffled (the further
+    orders ``kernels/als_partials_bench.py orders`` holds F9's limits
+    against). Each keeps
     every slot's liveness: a row's live entries move among its live slots
     and the padding stays where it is, so only the order of the sums
     changes."""

@@ -47,8 +47,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    129 and 200 and side width 33 (their wide paths), to 5e-5 of each
    gradient element's mass.
    Then the any-size paths: K1-K3 at ranks 65, 100, 128 and 256 on
-   bench-shaped buckets with a power-law row (7624 entries) and K3 at rank
-   1500 (their wide paths, the global workspaces included), rel 1e-4; K5 at
+   bench-shaped buckets with a power-law row (7624 entries), K3 at rank
+   1500 and K1 at rank 600 (their wide paths, the global workspaces and
+   K1's tiled path included), rel 1e-4, K1's tiled path also timed; K5 at
    k = 513, 600, 2048 and the whole catalogue, fewer admissible items than k,
    the wide rank (the select path), an exclusion row of 40 000 (K5's own
    path since its bitmask takes any width), and 500 rows in 16 passes of 32
@@ -136,7 +137,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``train_als`` tables from the shared numpy init (26 iterations, Cholesky;
    then 2 with CG) and the test users' top 600 with seen items excluded: the
    NDCG@30 in the JAX band, every wide and select path launched, each held
-   at this run's inputs and timed.
+   at this run's inputs and timed; K1 wide and K2 wide also group by group
+   (each of the 54 groups at rel 1e-4 over its rows that are not padding,
+   the same bits on a second call, K1's corrections exactly symmetric) with
+   each group's kernel ms (profiler sums) beside the events ms.
 10. two_stage — ``serve --two-stage`` at full width on the shared inputs of
    ``ranker --shared``: with the counts set to 0 before the fits (ALS, the
    in-process ranker) and read after the drive, 256 concurrent requests
@@ -173,10 +177,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and K3-bf16 (the bf16 gathers) at ranks 8, 50, 64, 65, 100 and 256 on
    bench-shaped buckets with all-padding slots and the 7624-entry power-law
    row, K1-bf16 at rel 1e-4 (its products are exact in float32, only the
-   sums' order differs) and K3-bf16 row by row at rel 5e-4 or twice the
-   plain version's own spread over 16 reorderings (its rounded iterates can
-   flip one bf16 rounding between two summation orders: ``bf16_rel``,
-   ``ops.als.bucket_cg_bf16_limits``), and K9s (the shared negative pool)
+   sums' order differs) and K3-bf16 row by row to the effects of the bf16
+   roundings its float32 round-off could flip plus that round-off, at least
+   rel 5e-4 (its rounded iterates can flip one bf16 rounding between two
+   summation orders: ``bf16_rel``, ``ops.als.bucket_cg_bf16_limits``), and
+   K9s (the shared negative pool)
    at B 1, 7, 65536 x K 1, 32, 512 x d 8, 200 and on pools of one word,
    with repeated centers and a pool word that is also a context, against
    its plain version in float64, element by element, to ten standard
@@ -1029,7 +1034,7 @@ def _als_case(rng, k: int, n_source: int, b: int, length: int, n_pad: int, dev,
         if gather_dtype is None:
             out["bucket_cg"] = rel_err(y, want)[1]
         else:  # F9: each row against its limit, reported as a share of it times the base 5e-4
-            lim = ops_als.bucket_cg_bf16_limits(src, yty, idx, val, mask, x0, 0.5, 40.0, 3, want=want)
+            lim = ops_als.bucket_cg_bf16_limits(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)
             out["bucket_cg"] = bf16_rel()["bucket_cg_bf16"] * float(ops_als.bucket_cg_bf16_over(y, want, lim).max())
     torch.cuda.synchronize()
     return out
@@ -1060,9 +1065,11 @@ def phase_any_size_kernels() -> dict:
         for b, length, n_pad in ((64, 37, 8), (48, 400, 4), (3, 7624, 0)):
             for name, e in _als_case(rng, k, 19991, b, length, n_pad, dev).items():
                 note(name, f"rank {k}, B {b}, L {length}", e)
-    # K3 above the shared-memory limit (rank 1500: its global workspace).
+    # K3 above the shared-memory limit (rank 1500: its global workspace), K1
+    # above its split design (rank 600: the tiled kernel, also timed).
     for name, e in _als_case(rng, 1500, 3000, 8, 64, 1, dev, names=("bucket_cg",)).items():
         note(name, "rank 1500, B 8, L 64", e)
+    tiled = _time_k1_tiled(rng, dev)
     als_counts = launch_counts()
 
     def t(a):
@@ -1178,16 +1185,40 @@ def phase_any_size_kernels() -> dict:
                   ops_topk.bank_query(table_d, k, q_idx=t(q)), ops_topk.bank_query_reference(table_d, k, q_idx=t(q)))
     torch.cuda.synchronize()
     counts = {n: c for n, c in launch_counts().items() if c}
-    paths = ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide", "topk_scores_select",
-             "gather_topk_select", "bank_query_select")
+    paths = ("als_partials_wide", "als_partials_tiled", "solve_corrected_wide", "bucket_cg_wide",
+             "topk_scores_select", "gather_topk_select", "bank_query_select")
     ok = (all(worst[n] <= REL_TOL for n in ("als_partials", "solve_corrected", "bucket_cg"))
+          and tiled["rel_err"] <= REL_TOL
           and all(worst[n] == 0.0 for n in ("topk_scores", "gather_topk", "bank_query"))
           and all(counts.get(p, 0) > 0 for p in paths))
     emit({"phase": "any_size_kernels", "ok": ok, "rel_tol": REL_TOL, "worst": worst,
-          "als_launches": {n: c for n, c in als_counts.items() if c}, "launches": counts, "cases": cases})
+          "als_launches": {n: c for n, c in als_counts.items() if c}, "launches": counts, "cases": cases,
+          "timed": {"als_partials_tiled": tiled}})
     if not ok:
         raise SystemExit("chip_smoke: a wide or select path disagrees with its plain version (or never ran)")
     return worst
+
+
+def _time_k1_tiled(rng, dev) -> dict:
+    """K1's tiled path (rank 600, above its split design) on a bucket of 64
+    rows of up to 400 entries: held against its plain version and timed
+    with it, the library yardstick and its bound."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    k, n_source = 600, 19991
+    src = torch.as_tensor((rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32), device=dev)
+    idx, val, mask = _bucket(rng, n_source, 64, 400, 4, dev)
+    got = ops_als.bucket_partial_terms(src, idx, val, mask, ALPHA)
+    want = ops_als.bucket_partial_terms_reference(src, idx, val, mask, ALPHA)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    rows, entries = idx.shape[0], int(mask.sum())
+    return _timed(dict(
+        err=(max(e[0] for e in errs), max(e[1] for e in errs)),
+        ms=cuda_ms(lambda: ops_als.bucket_partial_terms(src, idx, val, mask, ALPHA)),
+        plain_ms=cuda_ms(lambda: ops_als.bucket_partial_terms_reference(src, idx, val, mask, ALPHA)),
+        library_ms=cuda_ms(lambda: _k1_library(src, idx, val, mask, ALPHA)),
+        bytes=9 * idx.numel() + 4 * k * int(torch.unique(idx[mask]).numel()) + 4 * rows * (k * k + k),
+        flops=entries * (k * (k + 1) + 2 * k), shape=[rows, idx.shape[1], k]))
 
 
 def _gather_sum_err(base, tables, idxs, got, want) -> tuple[float, float]:
@@ -1429,10 +1460,7 @@ def _shared_weights():
     als_fit, fit_corpus = als_mod.ImplicitALS.fit, w2v_mod.Word2Vec.fit_corpus
 
     def shared_als_fit(self, matrix, *a, **k):
-        rng = np.random.default_rng(SHARED_SEED)
-        s = np.float32(1 / np.sqrt(self.rank))
-        self.init_factors = ((rng.standard_normal((matrix.n_users, self.rank)) * s).astype(np.float32),
-                             (rng.standard_normal((matrix.n_items, self.rank)) * s).astype(np.float32))
+        self.init_factors = _shared_init(matrix.n_users, matrix.n_items, self.rank)
         return als_fit(self, matrix, *a, **k)
 
     def shared_fit_corpus(self, sentences):
@@ -2186,10 +2214,10 @@ def _hold_groups(calls, run, plain, limits=None) -> dict:
     (the landing drops those), whether the two runs gave the same bits, and
     whether every non-finite value lies in a padding row (K2 gives NaN there
     where YtY is not positive definite; at the bench it is, so none). With
-    ``limits(call, want)`` (K3-bf16: ``ops.als.bucket_cg_bf16_limits``, each
-    row's limit), also the worst row's error over its limit
-    (``over_limit``) and the rows whose limit its spread under reordering
-    raised past rel 5e-4 (``raised_rows``)."""
+    ``limits(call)`` (K3-bf16: ``ops.als.bucket_cg_bf16_limits``, each row's
+    limit), also the worst row's error over its limit
+    (``over_limit``) and the rows whose limit the flips its round-off could
+    make raised past rel 5e-4 (``raised_rows``)."""
     from albedo_tpu_torch.ops import als as ops_als
 
     got, again, want = run(), run(), plain()
@@ -2202,7 +2230,7 @@ def _hold_groups(calls, run, plain, limits=None) -> dict:
     if limits is not None:
         over, raised = [], 0
         for c, g, w in zip(calls, got, want):
-            lim = limits(c, w)[c[6]]
+            lim = limits(c)[c[6]]
             over.append(float(ops_als.bucket_cg_bf16_over(g[c[6]], w[c[6]], lim).max()) if lim.numel() else 0.0)
             raised += int((lim > bf16_rel()["bucket_cg_bf16"] * float(w[c[6]].abs().max())).sum()) if lim.numel() else 0
         out.update(over_limit=max(over), over_by_group=over, raised_rows=raised)
@@ -2211,9 +2239,28 @@ def _hold_groups(calls, run, plain, limits=None) -> dict:
 
 def _held_ok(h: dict, tol: float) -> bool:
     """The held groups within ``tol`` (or within each row's limit, where
-    :func:`_hold_groups` had limits), the same bits, NaN only in padding."""
+    :func:`_hold_groups` had limits), the same bits, NaN only in padding
+    (K1: none at all, and every correction symmetric)."""
     within = h["over_limit"] <= 1.0 if "over_limit" in h else h["rel_err"] <= tol
-    return within and h["same_bits"] and h["nan_only_padding"]
+    return within and h["same_bits"] and h["nan_only_padding"] and h.get("symmetric", True)
+
+
+def _hold_k1_groups(calls) -> dict:
+    """K1 over every bucket group of ``calls`` as :func:`_hold_groups` holds
+    a solve kernel: each group's (max abs, max rel) error of its correction
+    and b-vector over the rows that are not padding, whether a second call
+    gave the same bits, and whether every correction is exactly symmetric."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    got, again = _k1(ops_als.bucket_partial_terms, calls), _k1(ops_als.bucket_partial_terms, calls)
+    want = _k1(ops_als.bucket_partial_terms_reference, calls)
+    per = [max((rel_err(a[c[6]], b[c[6]]) for a, b in zip(g, w)), key=lambda e: e[1])
+           for c, g, w in zip(calls, got, want)]
+    return {"max_abs_err": max(e[0] for e in per), "rel_err": max(e[1] for e in per),
+            "rel_by_group": [e[1] for e in per],
+            "same_bits": all(torch.equal(a, b) for g, h in zip(got, again) for a, b in zip(g, h)),
+            "symmetric": all(torch.equal(g[0], g[0].transpose(1, 2)) for g in got),
+            "nan_only_padding": all(bool(g[0].isfinite().all() and g[1].isfinite().all()) for g in got)}
 
 
 def _exact(got, want) -> tuple[float, float]:
@@ -2551,10 +2598,7 @@ def _shared_als_init():
     als_fit = als_mod.ImplicitALS.fit
 
     def shared_als_fit(self, matrix, *a, **k):
-        rng = np.random.default_rng(SHARED_SEED)
-        s = np.float32(1 / np.sqrt(self.rank))
-        self.init_factors = ((rng.standard_normal((matrix.n_users, self.rank)) * s).astype(np.float32),
-                             (rng.standard_normal((matrix.n_items, self.rank)) * s).astype(np.float32))
+        self.init_factors = _shared_init(matrix.n_users, matrix.n_items, self.rank)
         return als_fit(self, matrix, *a, **k)
 
     als_mod.ImplicitALS.fit = shared_als_fit
@@ -3007,10 +3051,9 @@ WIDE_RANK, SELECT_K = 100, 600
 
 
 def _shared_init(n_users: int, n_items: int, rank: int):
-    rng = np.random.default_rng(SHARED_SEED)
-    s = np.float32(1 / np.sqrt(rank))
-    return ((rng.standard_normal((n_users, rank)) * s).astype(np.float32),
-            (rng.standard_normal((n_items, rank)) * s).astype(np.float32))
+    from albedo_tpu_torch.builders.jobs import shared_als_init
+
+    return shared_als_init(n_users, n_items, rank, SHARED_SEED)
 
 
 def _k1_library(src, idx, val, mask, a):
@@ -3068,11 +3111,20 @@ def phase_wide_rank() -> dict:
 
     calls = _sweep_calls(est, matrix, model)
     errs = _hold_sweeps(calls, ("als_partials", "solve_corrected", "bucket_cg"))
+    partials = _k1(ops_als.bucket_partial_terms_reference, calls)
+    held = {"als_partials_wide": _hold_k1_groups(calls),
+            "solve_corrected_wide": _hold_groups(calls, lambda: _k2(ops_als.solve_corrected, calls, partials),
+                                                 lambda: _k2(ops_als.solve_corrected_reference, calls, partials))}
+    per_group = {
+        "als_partials_wide": _per_group(calls, [
+            (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA)) for c in calls]),
+        "solve_corrected_wide": _per_group(calls, [
+            (lambda c=c, p=p: ops_als.solve_corrected(c[1], p[0], p[1], c[7], REG)) for c, p in zip(calls, partials)]),
+    }
     uf, vf = model.user_table, model.item_table
     q = uf[torch.as_tensor(dense, dtype=torch.int64, device=uf.device)].contiguous()
     ex = torch.as_tensor(excl, device=uf.device)
     select_err = _hold_topk(q, vf, SELECT_K, ex)
-    partials = _k1(ops_als.bucket_partial_terms_reference, calls)
     k2_plain_ms = cuda_ms(lambda: _k2(ops_als.solve_corrected_reference, calls, partials))
     k = WIDE_RANK
     slots = sum(c[2].numel() for c in calls)
@@ -3088,7 +3140,8 @@ def phase_wide_rank() -> dict:
         "solve_corrected_wide": _timed(dict(
             err=errs["solve_corrected"], ms=cuda_ms(lambda: _k2(ops_als.solve_corrected, calls, partials)),
             plain_ms=k2_plain_ms, library_ms=k2_plain_ms,
-            bytes=4 * rows * (k * k + 2 * k + 1) + 4 * k * k * 2, flops=rows * (k ** 3 / 3 + 2 * k * k))),
+            bytes=4 * rows * (k * (k + 1) // 2 + 2 * k + 1) + 4 * k * (k + 1) // 2,
+            flops=rows * (k ** 3 / 3 + 2 * k * k))),
         "bucket_cg_wide": _timed(dict(
             err=errs["bucket_cg"], ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_body, calls)),
             plain_ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_reference, calls)), library_ms=None,
@@ -3105,13 +3158,14 @@ def phase_wide_rank() -> dict:
     needed = ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide", "topk_select")
     ok = (abs(ndcg - JAX_WIDE_RANK_NDCG) <= WIDE_RANK_TOL and all(launches.get(n, 0) > 0 for n in needed)
           and _within_tol({n: errs[n] for n in errs}) and select_err[1] == 0.0
+          and all(_held_ok(h, REL_TOL) for h in held.values())
           and bool(torch.isfinite(uf).all()) and tuple(idx.shape) == (len(dense), SELECT_K))
     emit({"phase": "wide_rank", "ok": ok, "rank": WIDE_RANK, "fit_s": fit_s, "ndcg": ndcg,
           "jax_ndcg": JAX_WIDE_RANK_NDCG, "tol": WIDE_RANK_TOL, "select_k": SELECT_K,
-          "launches": launches, "groups": len(calls), "timed": timed})
+          "launches": launches, "groups": len(calls), "held": held, "per_group": per_group, "timed": timed})
     if not ok:
-        raise SystemExit("chip_smoke: the rank-100 fit or the k = 600 top-k failed (band, launches or "
-                         "a kernel against its plain version)")
+        raise SystemExit("chip_smoke: the rank-100 fit or the k = 600 top-k failed (band, launches, or "
+                         "a kernel against its plain version, group by group)")
     return {"timed": timed, "launches": {n: launches[n] for n in needed}}
 
 
@@ -3450,8 +3504,8 @@ CV_ALS_TOL = 0.025
 # iterations, 2 folds) through cross_validate on the train_als tables, every
 # fit from the numpy init of ``--shared`` (``jax_reference_ndcg.py cv_als
 # --shared``): per-fold NDCG@30 of the JAX package on the CPU, held at 1e-3
-# (a near-tie in a top-30 list may swap two items), best params equal.
-CV_ALS_REAL_GRID = {"rank": [50, 100], "reg_param": [0.01, 0.5], "alpha": [0.01, 40.0]}
+# (a near-tie in a top-30 list may swap two items), best params equal. The
+# grid is ``builders.jobs.CV_ALS_TABLES_GRID``.
 JAX_CV_ALS_FULL = {
     "{'rank': 100, 'reg_param': 0.5, 'alpha': 0.01}": [0.310787171125412, 0.33668819069862366],
     "{'rank': 50, 'reg_param': 0.5, 'alpha': 40.0}": [0.2542586624622345, 0.27342769503593445],
@@ -3745,7 +3799,7 @@ def _cv_als_real_grid() -> dict:
     every fit from the shared numpy init, each fold scored as the job
     scores it; counts set to 0 before and read after."""
     from albedo_tpu_torch import cli, kernels
-    from albedo_tpu_torch.builders.jobs import JobContext, cv_als_evaluate
+    from albedo_tpu_torch.builders.jobs import CV_ALS_TABLES_GRID, JobContext, cv_als_evaluate
     from albedo_tpu_torch.cv import cross_validate, param_grid
     from albedo_tpu_torch.models.als import ImplicitALS
 
@@ -3757,7 +3811,7 @@ def _cv_als_real_grid() -> dict:
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    results = cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_REAL_GRID), n_folds=2)
+    results = cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_TABLES_GRID), n_folds=2)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -4036,9 +4090,9 @@ BF16_ENTRIES = {"cholesky": ("als_partials_bf16",), "cg": ("bucket_cg_bf16",)}
 # rounding site moves it by 8.4e-4 to 1.4e-3 (tests/test_torch_ops_als.py
 # ``test_k3_bf16_tolerance_separates_round_off_from_a_missing_site``). On
 # long rows a reordering alone moves the plain version past 5e-4 (7.6e-4 on
-# als_partials_bench's tables), so each row of K3-bf16 is held to rel 5e-4
-# of its group's max |x| or to twice the plain version's own spread over
-# 16 reorderings of its sums, where that is more
+# als_partials_bench's tables), so each row of K3-bf16 is held to the
+# effects of the roundings its float32 round-off could flip plus that
+# round-off, at least rel 5e-4 of its group's max |x|
 # (``ops.als.bucket_cg_bf16_limits``).
 def bf16_rel() -> dict:
     """K1-bf16's rel limit, and K3-bf16's floor of the row limits
@@ -4233,8 +4287,7 @@ def phase_bench_bf16(bench: dict) -> dict:
         return [fn(*c[:6], REG, ALPHA, CG_STEPS, "bfloat16") for c in calls]
 
     held = _hold_groups(calls, lambda: k3(ops_als.bucket_cg_body), lambda: k3_plain(ops_als.bucket_cg_reference),
-                        limits=lambda c, want: ops_als.bucket_cg_bf16_limits(*c[:6], REG, ALPHA, CG_STEPS, want=want,
-                                                                              rows=c[6]))
+                        limits=lambda c: ops_als.bucket_cg_bf16_limits(*c[:6], REG, ALPHA, CG_STEPS, rows=c[6]))
     res = {
         "als_partials_bf16": _worst(calls, k1(ops_als.bucket_partial_terms),
                                     k1(ops_als.bucket_partial_terms_reference)) + (

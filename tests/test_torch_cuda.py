@@ -23,7 +23,9 @@ bank_query are exact, ties and (-inf, -1) slots included (K5's arithmetic),
 and a K6 row equals K5 on that user alone. K5's split design is exact too,
 NaN scores included (``lax.top_k``'s order, which the plain version follows:
 +NaN first, -NaN never). K1-K3's wide paths
-(ranks above 64) are held as the narrow ones (rel 1e-4); K5-K7's select path
+(ranks above 64: K1's split design in its wide kernel, K2's blocked
+Cholesky, the tiled K1 above 512) are held as the narrow ones (rel 1e-4), K1
+and K2 also for the same bits over ten calls; K5-K7's select path
 (k above 512, exclusion rows longer than the streaming body sorts) exactly.
 K8c's forward exactly (the plain version's order) and its gradients to 1e-5
 of each entry's mass (K8 sums in another order than the plain autograd);
@@ -33,10 +35,10 @@ K8c-g (K8 and K8c over a leading grid axis): each row equal to K8 or K8c on
 that row bit for bit (G = 1 included), and to the plain version as K8 and
 K8c are. K4's land_rows and scatter_rows move rows: exact. K1-bf16 (bf16
 gathers) is held as K1 (rel 1e-4: its products are exact in float32, the
-order of the sums differs), K3-bf16 row by row to rel 5e-4 of max |x|, or
-to twice the plain version's own spread over 16 reorderings where that is more
-(a float32 round-off in another order can flip one rounding of its bf16
-iterate; ``ops.als.bucket_cg_bf16_limits``, F9); K9s (the shared negative
+order of the sums differs), K3-bf16 row by row to the effects of the bf16
+roundings its float32 round-off could flip plus that round-off, at least
+rel 5e-4 of max |x| (a float32 round-off in another order can flip one
+rounding of its bf16 iterate; ``ops.als.bucket_cg_bf16_limits``, F9); K9s (the shared negative
 pool) as K9, to 5e-5 of ``ops.sgns.sgns_shared_grad_mass`` and of |loss| at
 its batch of 4096, and against its plain version in float64, element by
 element, to ten standard deviations of the round-off of its own summation
@@ -98,7 +100,7 @@ def _close(got, want, rel=REL):
 
 def _hold_bf16(got, want, src, idx, val, mask, x0, steps=3):
     """K3-bf16 row by row against ``ops.als.bucket_cg_bf16_limits`` (F9)."""
-    limits = ops_als.bucket_cg_bf16_limits(src, ops_als.gramian(src), idx, val, mask, x0, 0.5, 40.0, steps, want=want)
+    limits = ops_als.bucket_cg_bf16_limits(src, ops_als.gramian(src), idx, val, mask, x0, 0.5, 40.0, steps)
     assert float(ops_als.bucket_cg_bf16_over(got, want, limits).max()) <= 1.0
 
 
@@ -544,26 +546,84 @@ def test_k7_bank_query_matches_plain_exactly(dev, d):
 # ---- K1-K3 wide paths, the K5-K7 select path, K8c, K12 ------------------
 
 
-@pytest.mark.parametrize("k", [65, 100, 256])
-def test_k1_k2_k3_wide_paths_match_plain(dev, k):
-    """Ranks above 64: K1 tiles the correction over CTAs, K2/K3 keep the
-    system in dynamic shared memory (k 65, 100) or a global workspace (K2 at
-    256); rel 1e-4 as the narrow paths."""
-    src, idx, val, mask, x0 = _bucket(dev, k, length=300)
+def _wide_bucket(dev, k, b, length, seed=0):
+    """A bucket for the wide paths: rows of 0 to ``length`` entries (the
+    first full, the last all padding when there are several), from a table
+    of 2k + 40 rows (a padding slot's YtY stays positive definite)."""
+    rng = np.random.default_rng(seed)
+    n_source = 2 * k + 40
+    src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+    lens = rng.integers(0, length + 1, size=b)
+    lens[0] = length
+    if b > 1:
+        lens[-1] = 0
+    mask = np.arange(length)[None, :] < lens[:, None]
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32)
+    x0 = (rng.standard_normal((b, k)) * 0.1).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (src, idx, val, mask, x0)]
+
+
+@pytest.mark.parametrize("b, length", [(1, 7624), (40, 300), (2048, 16)], ids=["one-row-7624", "padding-slots", "B2048"])
+@pytest.mark.parametrize("k", [65, 96, 100, 128, 129, 200, 256])
+def test_k1_k2_k3_wide_paths_match_plain(dev, k, b, length):
+    """Ranks above 64: K1 and K1-bf16 in the split design's wide kernel
+    (the one-row group split across CTAs), K2's blocked Cholesky (the next
+    system staged up to k 110, one system in shared memory up to 223, a
+    global workspace at 256, one launch whatever B), K3's wide path; rel
+    1e-4 as the narrow paths (K2 over the rows that are not padding); ten
+    calls of K1 and of K2 give the same bits; one count a call of each."""
+    src, idx, val, mask, x0 = _wide_bucket(dev, k, b, length, seed=k + b)
     yty = ops_als.gramian(src)
-    kernels.reset_launches()
-    corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0)
+    for dtype in (None, "bfloat16"):
+        kernels.reset_launches()
+        got = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, dtype)
+        assert kernels.LAUNCHES[ops_als._path(ops_als._entry("als_partials", dtype), k)] == 1
+        corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0, dtype)
+        _close(got[0], corr_p)
+        _close(got[1], b_p)
+        assert torch.equal(got[0], got[0].transpose(1, 2))
+        for _ in range(10):
+            again = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, dtype)
+            assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     corr_p, b_p = ops_als.bucket_partial_terms_reference(src, idx, val, mask, 40.0)
-    _close(corr, corr_p)
-    _close(b_vec, b_p)
     n_b = mask.sum(dim=1, dtype=torch.float32)
     live = n_b > 0
-    _close(ops_als.solve_corrected(yty, corr_p, b_p, n_b, 0.5)[live],
-           ops_als.solve_corrected_reference(yty, corr_p, b_p, n_b, 0.5)[live])
+    kernels.reset_launches()
+    x = ops_als.solve_corrected(yty, corr_p, b_p, n_b, 0.5)
+    assert kernels.LAUNCHES["solve_corrected_wide"] == 1
+    assert x[live].isfinite().all()
+    _close(x[live], ops_als.solve_corrected_reference(yty, corr_p, b_p, n_b, 0.5)[live])
+    for _ in range(10):
+        assert torch.equal(x, ops_als.solve_corrected(yty, corr_p, b_p, n_b, 0.5))
+    kernels.reset_launches()
     _close(ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3),
            ops_als.bucket_cg_reference(src, yty, idx, val, mask, x0, 0.5, 40.0, 3))
-    for name in ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide"):
-        assert kernels.LAUNCHES[name] >= 1
+    assert kernels.LAUNCHES["bucket_cg_wide"] == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+def test_k1_split_workspace_is_capped_at_512(dev, gather_dtype):
+    """At rank 512, the widest of K1's split design, a narrow tall group
+    (131 rows of 700 entries) splits no further than its partials fit in
+    WORKSPACE_MAX bytes, and is held as every K1 path (rel 1e-4, exactly
+    symmetric, the same bits)."""
+    ops_als._K1_WORKSPACE.clear()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    unit = 16 * ops_als.k1_blocks(512)
+    _, n_chunks, _ = ops_als._k1_plan(131, 700, n_sm, unit)
+    assert n_chunks > 1 and 4 * 131 * n_chunks * unit <= ops_als.WORKSPACE_MAX
+    _hold_k1(dev, *_bench_bucket(dev, 131, 700, 512, n_source=2000, seed=512), gather_dtype)
+    assert all(4 * w.numel() <= ops_als.WORKSPACE_MAX for w in ops_als._K1_WORKSPACE.values())
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [513, 600])
+def test_k1_tiled_path_above_512(dev, k, gather_dtype):
+    """Above rank 512 K1 takes its tiled kernel (counted
+    ``als_partials_tiled``): rel 1e-4, exactly symmetric, the same bits."""
+    _hold_k1(dev, *_bench_bucket(dev, 5, 300, k, n_source=2000, seed=k), gather_dtype)
 
 
 @pytest.mark.parametrize("k", [8, 50, 65, 256])
@@ -946,7 +1006,7 @@ def _bench_bucket(dev, b, length, k, n_source=20000, gaps=False, seed=0):
 
 
 def _hold_k1(dev, src, idx, val, mask, gather_dtype):
-    entry = ops_als._entry("als_partials", gather_dtype) + ("" if src.shape[1] <= ops_als.KMAX else "_wide")
+    entry = ops_als._path(ops_als._entry("als_partials", gather_dtype), src.shape[1])
     kernels.reset_launches()
     corr, b_vec = ops_als.bucket_partial_terms(src, idx, val, mask, 40.0, gather_dtype)
     assert kernels.LAUNCHES[entry] == 1
@@ -1144,7 +1204,7 @@ def test_k2_warp_design_matches_plain(dev, k, b):
     assert torch.equal(x, again)
 
 
-@pytest.mark.parametrize("k", [8, 50, 64])
+@pytest.mark.parametrize("k", [8, 50, 64, 65, 100, 200])
 def test_k2_padding_rows_are_nan_only_there(dev, k):
     """With a YtY that is not positive definite (here -1e-3 I), a padding
     slot (n_b = 0) factors A = YtY and every value of its row is NaN; the

@@ -18,7 +18,7 @@ from albedo_tpu.datasets.synthetic import synthetic_stars
 from albedo_tpu.models.als import _landing_perm
 from albedo_tpu.ops import als as jals
 from albedo_tpu_torch.datasets.ragged import Bucket, to_device
-from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS
+from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS, WIDE_GROUPS
 from albedo_tpu_torch.ops import als as tals
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -328,7 +328,7 @@ N_SM = 132  # an H100's SMs
 K1_EDGES = [(1, 1), (4, 1), (1, 7624), (3, 0), (5, 31), (5, 33), (2, 64), (2, 65), (7, 2000), (131, 700)]
 
 
-@pytest.mark.parametrize("b, length", BENCH_GROUPS + K1_EDGES)
+@pytest.mark.parametrize("b, length", BENCH_GROUPS + WIDE_GROUPS + K1_EDGES)
 def test_k1_plan_covers_each_slot_once_in_order(b, length):
     plan = tals._k1_plan(b, length, N_SM)
     chunk, n_chunks, per_cta = plan
@@ -355,6 +355,40 @@ def test_k1_plan_covers_each_slot_once_in_order(b, length):
     if 2 * b < tals.K1_UNITS_PER_SM * N_SM and length > tals.K1_MIN_CHUNK:
         want = tals.K1_UNITS_PER_SM * N_SM // 2
         assert len(units) >= min(want, b * (length // tals.K1_MIN_CHUNK))
+
+
+@pytest.mark.parametrize("k", [65, 100, 256, 512])
+@pytest.mark.parametrize("b, length", [(1, 7624), (4, 800), (131, 700), (512, 300)])
+def test_k1_plan_keeps_split_partials_within_the_workspace(b, length, k):
+    """With a unit's partial of 16 k1_blocks(k) floats, a split plan's
+    partials fit in WORKSPACE_MAX bytes (at rank 512 the 131 x 700 group is
+    cut into fewer chunks than the card's SMs ask for, and still split), and
+    the plan still covers every slot once."""
+    unit = 16 * tals.k1_blocks(k)
+    plan = tals._k1_plan(b, length, N_SM, unit)
+    chunk, n_chunks, _ = plan
+    assert n_chunks == 1 or 4 * b * n_chunks * unit <= tals.WORKSPACE_MAX
+    assert n_chunks <= tals._k1_plan(b, length, N_SM)[1]
+    if (b, length, k) == (131, 700, 512):
+        assert 1 < n_chunks < tals._k1_plan(b, length, N_SM)[1]
+    cover = np.zeros((b, length), dtype=np.int64)
+    for _, row, _, start, end in tals.k1_units(b, length, plan):
+        cover[row, start:end] += 1
+    assert (cover == 1).all()
+
+
+def test_wide_groups_are_the_rank_100_fits():
+    """``WIDE_GROUPS`` (the CPU plan tests' shapes of the rank-100 fit) are
+    ``ImplicitALS(rank=100).device_groups`` of the ``train_als`` job's
+    tables, items' half-sweep then users', as the bench and ``chip_smoke.py``
+    build them."""
+    from albedo_tpu_torch import cli
+    from albedo_tpu_torch.builders.jobs import JobContext
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    matrix = JobContext(cli.parse_args(["train_als", "--device", "cpu"])).matrix()
+    ug, ig, _, _ = ImplicitALS(rank=100, device="cpu").device_groups(matrix)
+    assert [(g.idx.shape[0] * g.idx.shape[1], g.idx.shape[2]) for g in ig + ug] == WIDE_GROUPS
 
 
 def _kernel_blocks(k):
@@ -421,7 +455,7 @@ def _k1_bucket(k, b, length, n_source=300, n_pad=1, gaps=False, seed=0):
 
 
 @pytest.mark.parametrize("gather_dtype", GATHER_DTYPES)
-@pytest.mark.parametrize("k", [1, 50, 64])
+@pytest.mark.parametrize("k", [1, 50, 64, 65, 100, 129])
 @pytest.mark.parametrize("b, length, n_pad, gaps", [
     (4, 1, 1, False), (1, 7624, 0, False), (6, 300, 3, False), (5, 700, 1, True),
 ], ids=["L1", "one-row-7624", "all-padding-slots", "masked-gaps"])
@@ -464,6 +498,61 @@ def test_k1_split_model_on_a_fits_groups():
             _close_to_scale(corr.numpy(), want[0].numpy())
             _close_to_scale(bvec.numpy(), want[1].numpy())
     assert split > 0
+
+
+# ------------------------------------------------- K2's wide path (blocked)
+#
+# Above rank 64 the card's K2 (csrc/solve_corrected.cu) factors the bordered
+# matrix [[A, b], [b^T, .]] by panels of 32 columns: the diagonal block
+# column by column, the rows below it (b's row included) against L11^T,
+# then the trailing lower triangle less the panel's products summed over
+# the panel; L^T x = y by the same panels from the last. A model of that
+# order in float32 against the JAX ``solve_corrected``: rtol 1e-5, atol
+# 1e-6 as the other K1-K3 parity tests (the order is the only difference).
+
+
+def _k2_wide_model(yty, corr, b_vec, n_b, reg, nb=32):
+    """K2's wide path in its blocked order (float32, every system at once):
+    A's lower triangle from the upper triangle of YtY + corr (the kernel
+    reads that triangle), reg n_b on the diagonal, b in row k."""
+    n, k = b_vec.shape
+    m = torch.zeros((n, k + 1, k + 1))
+    m[:, :k, :k] = torch.tril((yty[None] + corr).transpose(1, 2)) + (reg * n_b)[:, None, None] * torch.eye(k)
+    m[:, k, :k] = b_vec
+    dinv = torch.zeros((n, k))
+    for p0 in range(0, k, nb):
+        r0 = min(k, p0 + nb)
+        for j in range(p0, r0):  # the diagonal block and the rows below it, column by column
+            for p in range(p0, j):
+                m[:, j:, j] -= m[:, j:, p] * m[:, j:j + 1, p]
+            dinv[:, j] = torch.rsqrt(m[:, j, j])
+            m[:, j + 1:, j] *= dinv[:, j:j + 1]
+        if r0 < k:
+            panel = m[:, r0:, p0:r0]
+            m[:, r0:, r0:k] -= torch.tril(panel @ panel.transpose(1, 2))[:, :, :k - r0]
+    y = m[:, k, :k].clone()
+    for p0 in range((k - 1) // nb * nb, -1, -nb):
+        r0 = min(k, p0 + nb)
+        for j in range(r0 - 1, p0 - 1, -1):
+            y[:, j] *= dinv[:, j]
+            y[:, p0:j] -= m[:, j, p0:j] * y[:, j:j + 1]
+        y[:, :p0] -= torch.einsum("bji,bj->bi", m[:, p0:r0, :p0], y[:, p0:r0])
+    return y
+
+
+@pytest.mark.parametrize("k", [65, 100, 129])
+def test_k2_wide_model_matches_jax(k):
+    """K2's blocked order at ranks 65 (a panel of one column), 100 and 129
+    (a last panel of one column), a bucket with padding rows (n_b = 0, A =
+    YtY, positive definite here): within rtol 1e-5, atol 1e-6 of JAX."""
+    src, idx, val, mask, _ = _bucket(k, seed=k, n_source=2 * k + 40)
+    jc, jb = _jax_partials(src, idx, val, mask)
+    yty = src.T @ src
+    n_b = mask.sum(1).astype(np.float32)
+    assert (n_b == 0).sum() == 3
+    want = jals.solve_corrected(jnp.asarray(yty), jc, jb, jnp.asarray(n_b), jnp.float32(REG))
+    got = _k2_wide_model(*_t(yty, np.array(jc), np.array(jb), n_b), REG)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 # --------------------------------------------------- K3's split design (plan)
@@ -645,12 +734,12 @@ def _f9_bucket(case: str):
 @pytest.mark.parametrize("case", ["16x2152", "48x400"])
 def test_k3_bf16_row_limits_refuse_a_wrong_site(case, monkeypatch):
     """F9's check (``ops.als.bucket_cg_bf16_limits``): each row of K3-bf16
-    is held to 5e-4 of the group's max |x|, or to twice the plain version's
-    own spread over 16 reorderings of its entries and columns. The plain
-    version summed in another order (each row's entries rotated by half)
-    passes it, on the long rows where it is more than 5e-4 away; a variant
-    with one bf16 rounding site left out, and one with a single entry
-    dropped from its shortest row, are refused."""
+    is held to the effects of the bf16 roundings its float32 round-off could
+    flip plus that round-off, at least 5e-4 of the group's max |x|. The
+    plain version summed in another order (each row's entries rotated by
+    half) passes it, on the long rows where it is more than 5e-4 away; a
+    variant with one bf16 rounding site left out, and one with a single
+    entry dropped from its shortest row, are refused."""
     src, idx, val, mask, lens, x0 = _f9_bucket(case)
     (b, length), k = idx.shape, src.shape[1]
     yty = tals.gramian(src)
@@ -661,7 +750,7 @@ def test_k3_bf16_row_limits_refuse_a_wrong_site(case, monkeypatch):
                                         REG, ALPHA, 3, "bfloat16")
 
     want = solve(idx, val)
-    limits = tals.bucket_cg_bf16_limits(src, yty, *_t(idx, val, mask), x0, REG, ALPHA, 3, want=want, rows=rows)
+    limits = tals.bucket_cg_bf16_limits(src, yty, *_t(idx, val, mask), x0, REG, ALPHA, 3, rows=rows)
 
     def worst(got):
         return float(tals.bucket_cg_bf16_over(got[rows], want[rows], limits[rows]).max())
@@ -682,6 +771,59 @@ def test_k3_bf16_row_limits_refuse_a_wrong_site(case, monkeypatch):
     dropped = mask.copy()
     dropped[short, lens[short] - 1] = False
     assert worst(solve(idx, val, dropped)) > 1.0
+
+
+def test_k3_plain_version_opens_its_rounding_sites():
+    """The keywords F9's limits use (``bucket_cg_reference(sites=, pinned=,
+    deltas=)``) leave the plain version's bits as they are, hand out each
+    rounding site's value (p and t at every matvec), and a delta at one
+    site changes that rounding alone: pinned to the plain roundings it
+    gives the same bits, and one t of one row taken a bf16 step the other
+    way moves that row only."""
+    src, idx, val, mask, lens, x0 = _f9_bucket("48x400")
+    yty = tals.gramian(src)
+    call = (src, yty, *_t(idx, val, mask), x0, REG, ALPHA, 3, "bfloat16")
+    want = tals.bucket_cg_reference(*call)
+    sites = {}
+    assert torch.equal(tals.bucket_cg_reference(*call, sites=sites), want)
+    b, length = idx.shape
+    assert sorted(sites) == [(m, kind) for m in range(4) for kind in ("p", "t")]
+    assert all(tuple(v.shape) == ((b, src.shape[1]) if kind == "p" else (b, length)) for (m, kind), v in sites.items())
+    pinned = {key: tals._round(v, "bfloat16") for key, v in sites.items()}
+    assert torch.equal(tals.bucket_cg_reference(*call, pinned=pinned), want)
+    delta = torch.zeros((b, length))
+    delta[0, 5] = float(pinned[(2, "t")][0, 5]) * 2.0**-7
+    moved = (tals.bucket_cg_reference(*call, deltas={(2, "t"): delta}) - want).abs().amax(dim=1)
+    assert float(moved[0]) > 0 and not moved[1:].any()
+
+
+def test_k3_bf16_limits_pass_every_further_order_and_refuse_faults(monkeypatch):
+    """F9's limits on a small long-row bucket (rank 16, 6 rows of 300 to
+    1500 entries): every one of 48 further random orders of the entries and
+    columns (``ops.als._k3_reorders``, shuffles) stays within each row's
+    limit, and a left-out rounding of t and a dropped entry are refused."""
+    rng = np.random.default_rng(7)
+    b, length, k, n_source = 6, 1500, 16, 4000
+    src = torch.as_tensor((rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32))
+    lens = rng.integers(300, length + 1, size=b)
+    mask = np.arange(length)[None, :] < lens[:, None]
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32)
+    x0 = torch.as_tensor((rng.standard_normal((b, k)) * 0.1).astype(np.float32))
+    call = (src, tals.gramian(src), *_t(idx, val, mask), x0, REG, ALPHA, 3)
+    want = tals.bucket_cg_bf16_reordered(*call)
+    limits = tals.bucket_cg_bf16_limits(*call)
+    orders = list(tals._k3_reorders(call[4], k, torch.Generator().manual_seed(3), 50))[2:]
+    worst = max(float(tals.bucket_cg_bf16_over(tals.bucket_cg_bf16_reordered(*call, *o), want, limits).max())
+                for o in orders)
+    assert worst <= 1.0
+    monkeypatch.setattr(tals, "_round", _omitting("t", b, length, k))
+    assert float(tals.bucket_cg_bf16_over(tals.bucket_cg_reference(*call, "bfloat16"), want, limits).max()) > 1.0
+    monkeypatch.undo()
+    dropped = mask.copy()
+    dropped[0, lens[0] - 1] = False
+    got = tals.bucket_cg_reference(*call[:4], torch.as_tensor(dropped), *call[5:], "bfloat16")
+    assert float(tals.bucket_cg_bf16_over(got, want, limits).max()) > 1.0
 
 
 def test_k3_bf16_reorders_keep_the_padding():
