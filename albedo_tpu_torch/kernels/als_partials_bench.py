@@ -5,6 +5,7 @@ of one iteration of the bench ALS fit, group by group.
     python -m albedo_tpu_torch.kernels.als_partials_bench groups --against /path/to/other/root
     python -m albedo_tpu_torch.kernels.als_partials_bench variants
     python -m albedo_tpu_torch.kernels.als_partials_bench wide --against /path/to/other/root
+    python -m albedo_tpu_torch.kernels.als_partials_bench variants k3w
     python -m albedo_tpu_torch.kernels.als_partials_bench orders --seed 2
 
 ``groups``: the bench split (``synthetic_stars(30000, 20000, rank=24,
@@ -39,14 +40,20 @@ the groups through copies of its source with other tuning constants
 (``K2_SOURCE_VARIANTS``); ``variants k1w`` and ``variants k2w``: the same
 for K1's and K2's wide paths over the rank-100 fit's groups (K1's plans and
 sources; ``K2_WIDE_VARIANTS``); ``variants k3``: K3 and K3-bf16 with other
-lengths of the rows warp mode takes (``K3_PACK_VARIANTS``) and other
-widest clusters (``K3_CLUSTER_VARIANTS``). ``ranks``: K2
+lengths of the rows warp mode takes (``K3_PACK_VARIANTS``), other
+widest clusters (``K3_CLUSTER_VARIANTS``) and widest spreads of few-row
+groups (``K3_SPREAD_VARIANTS``). ``ranks``: K2
 alone at ranks 8 to 64 on random systems (``K2_RANKS``). ``wide [--against
 ROOT]``: K1 wide, K1-bf16 wide and K2 wide over the rank-100 fit's 54
 groups (``WIDE_GROUPS``; ``time_wide``), held and timed as ``groups``
 does, then the rank-100 fit's device seconds and the real cv_als grid's
 wall seconds (``time_wide_fits``), each tree in its own process with
-``--against``. Needs a GPU; the
+``--against``; also K3 wide and K3-bf16 wide over the same groups
+(``time_wide_k3``: K3-bf16 also row by row to F9's limits,
+``over_limit``) and the 26-iteration rank-100 CG fit and the real grid by
+CG. ``variants k3w``: K3 and K3-bf16 wide over those groups under other
+warp-mode lengths (``K3W_PACK_VARIANTS``) and widest spreads
+(``K3W_SPREAD_VARIANTS``). Needs a GPU; the
 CPU has nothing to measure here, but ``orders [--seed N]``: F9's row limits
 against further random orders of the sums at the bench's long groups
 (``time_orders``; the plain version only, so also on the CPU).
@@ -141,6 +148,7 @@ K2_WIDE_VARIANTS = {
 # K3's plan variants: the longest row warp mode takes (ops/als.py K3_PACK_L).
 K3_PACK_VARIANTS = (32, 64, 128)
 K3_CLUSTER_VARIANTS = (8, 16)  # the widest cluster a K3 plan may take (c_max of ops/als.py _k3_plan)
+K3_SPREAD_VARIANTS = (4, 8, 16)  # the widest cluster a group of few rows is spread over (K3_SPREAD)
 PLAN_VARIANTS = {"default": (8, 64, 16), "units 4, ctas 8": (4, 64, 8), "units 2, ctas 8": (2, 64, 8),
                  "units 4, ctas 16": (4, 64, 16), "units 8, ctas 8": (8, 64, 8), "chunk 128": (8, 128, 16),
                  "chunk 32": (8, 32, 16), "ctas 4": (8, 64, 4)}
@@ -462,15 +470,16 @@ def time_k2_wide_variants(torch, data: dict) -> dict:
 def time_k3_variants(torch, data: dict) -> dict:
     """K3 and K3-bf16 over the bench groups under each K3_PACK_VARIANTS
     value of ops/als.py K3_PACK_L, then under plans whose widest cluster is
-    each of K3_CLUSTER_VARIANTS: kernel ms, narrow share, the slowest groups
-    and the error against the plain version."""
+    each of K3_CLUSTER_VARIANTS, then each K3_SPREAD_VARIANTS value of
+    K3_SPREAD: kernel ms, narrow share, the slowest groups and the error
+    against the plain version."""
     from albedo_tpu_torch.ops import als as ops_als
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     other = {"users": "items", "items": "users"}
     yty = {side: ops_als.gramian(data[side]) for side in ("users", "items")}
     shapes = [tuple(c[1].shape) for c in data["calls"]]
-    saved = ops_als.K3_PACK_L, ops_als.k3_plan_for
+    saved = ops_als.K3_PACK_L, ops_als.k3_plan_for, ops_als.K3_SPREAD
     out = {}
 
     def timed(calls, want, dtype):
@@ -495,8 +504,56 @@ def time_k3_variants(torch, data: dict) -> dict:
                                        ops_als._k3_plan(b, length, k, g is not None, n_sm, c_max))
                 out[f"{dtype or 'float32'} clusters up to {c_max}"] = timed(calls, want, dtype)
             ops_als.k3_plan_for = saved[1]
+            for spread in K3_SPREAD_VARIANTS:
+                ops_als.K3_SPREAD = spread
+                out[f"{dtype or 'float32'} spread over up to {spread}"] = timed(calls, want, dtype)
+            ops_als.K3_SPREAD = saved[2]
     finally:
-        ops_als.K3_PACK_L, ops_als.k3_plan_for = saved
+        ops_als.K3_PACK_L, ops_als.k3_plan_for, ops_als.K3_SPREAD = saved
+    return out
+
+
+# K3's wide plan variants (ranks 65-512): the shared bytes a warp-mode CTA
+# may take (ops/als.py K3_WIDE_PACK_SMEM: three, two or one CTA an SM; 0
+# leaves warp mode only rows of at most 4 slots) and the widest cluster a
+# group of few rows is spread over (K3_WIDE_SPREAD).
+K3W_PACK_VARIANTS = (0, 76 * 1024, 113 * 1024, 227 * 1024)
+K3W_SPREAD_VARIANTS = (2, 4, 8, 16)
+
+
+def time_k3_wide_variants(torch, data: dict) -> dict:
+    """K3 and K3-bf16 over the rank-100 fit's groups under each
+    K3W_PACK_VARIANTS value of ops/als.py K3_WIDE_PACK_SMEM, then each
+    K3W_SPREAD_VARIANTS value of K3_WIDE_SPREAD: kernel ms, narrow share,
+    the slowest groups and the error against the plain version."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
+    saved = ops_als.K3_WIDE_PACK_SMEM, ops_als.K3_WIDE_SPREAD
+    out = {}
+
+    def timed(calls, want, dtype):
+        err = max(_rel(ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype), w)
+                  for c, w in zip(calls, want))
+        ms = kernel_ms_each(torch, [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS,
+                                                                         gather_dtype=dtype)) for c in calls])
+        return {"max_rel_err": err, **summarize(shapes, ms, n_sm)}
+
+    try:
+        for dtype in (None, "bfloat16"):
+            calls = _wide_k3_calls(torch, data, dtype)
+            want = [ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype) for c in calls]
+            for pack in K3W_PACK_VARIANTS:
+                ops_als.K3_WIDE_PACK_SMEM = pack
+                out[f"{dtype or 'float32'} warp-mode CTA up to {pack} bytes"] = timed(calls, want, dtype)
+            ops_als.K3_WIDE_PACK_SMEM = saved[0]
+            for spread in K3W_SPREAD_VARIANTS:
+                ops_als.K3_WIDE_SPREAD = spread
+                out[f"{dtype or 'float32'} spread over up to {spread}"] = timed(calls, want, dtype)
+            ops_als.K3_WIDE_SPREAD = saved[1]
+    finally:
+        ops_als.K3_WIDE_PACK_SMEM, ops_als.K3_WIDE_SPREAD = saved
     return out
 
 
@@ -588,10 +645,11 @@ def wide_data(torch, dev) -> dict:
 
 def time_wide_fits(torch, data: dict) -> dict:
     """The rank-100 fit's device seconds (26 iterations from the shared
-    init, Cholesky, as chip_smoke.py's ``wide_rank`` fits it; the second of
-    two fits) and the wall seconds of the real cv_als grid (13 iterations, 2
-    folds, every fit from the shared numpy init of its rank, as
-    chip_smoke.py's ``cv`` phase runs it; the second of two runs)."""
+    init, as chip_smoke.py's ``wide_rank`` fits it: ``fit_s`` by Cholesky,
+    ``cg_fit_s`` by 3-step CG; two fits each) and the wall seconds of the
+    real cv_als grid (13 iterations, 2 folds, every fit from the shared
+    numpy init of its rank, as chip_smoke.py's ``cv`` phase runs it:
+    ``grid_s`` by Cholesky, ``cg_grid_s`` by CG; two runs each)."""
     from albedo_tpu_torch.builders.jobs import CV_ALS_TABLES_GRID, cv_als_evaluate, shared_als_init
     from albedo_tpu_torch.cv import cross_validate, param_grid
     from albedo_tpu_torch.datasets.star_matrix import StarMatrix
@@ -599,25 +657,82 @@ def time_wide_fits(torch, data: dict) -> dict:
 
     matrix = StarMatrix(*(t.cpu().numpy() for t in data["job"]))
     init = (data["users"].cpu().numpy(), data["items"].cpu().numpy())
-    fits = []
-    for _ in range(2):
-        est = ImplicitALS(rank=WIDE_RANK, max_iter=26, init_factors=init, device="cuda")
-        est.fit(matrix)
-        fits.append(est.last_fit_report["device_s"])
+    out = {}
+    for solver, fit_key, grid_key in (("cholesky", "fit_s", "grid_s"), ("cg", "cg_fit_s", "cg_grid_s")):
+        fits = []
+        for _ in range(2):
+            est = ImplicitALS(rank=WIDE_RANK, max_iter=26, init_factors=init, solver=solver, device="cuda")
+            est.fit(matrix)
+            fits.append(est.last_fit_report["device_s"])
 
-    def fit(params, train):
-        return ImplicitALS(max_iter=13, init_factors=shared_als_init(train.n_users, train.n_items, params["rank"],
-                                                                     WIDE_SEED),
-                           device="cuda", **params).fit(train)
+        def fit(params, train, solver=solver):
+            return ImplicitALS(max_iter=13, init_factors=shared_als_init(train.n_users, train.n_items,
+                                                                         params["rank"], WIDE_SEED),
+                               solver=solver, device="cuda", **params).fit(train)
 
-    grids = []
-    for _ in range(2):
-        torch.cuda.synchronize()
+        grids = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_TABLES_GRID), n_folds=2)
+            torch.cuda.synchronize()
+            grids.append(time.perf_counter() - t0)
+        out.update({fit_key: fits, grid_key: grids})
+    return out
+
+
+def _wide_k3_calls(torch, data: dict, dtype) -> list[tuple]:
+    """K3's calls over the rank-100 fit's groups: (fixed side's table as
+    gathered, its YtY, idx, val, mask, x0 from the other side's rows)."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    other = {"users": "items", "items": "users"}
+    yty = {side: ops_als.gramian(data[side]) for side in other}
+    tables = {side: ops_als.gather_table(data[side], dtype) for side in other}
+    return [(tables[side], yty[side], idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous())
+            for side, idx, val, mask, rows in data["calls"]]
+
+
+def time_wide_k3(torch, data: dict) -> dict:
+    """K3 wide and K3-bf16 wide over the rank-100 fit's groups (3 steps, the
+    bench's reg and alpha): each held against its plain version (max rel
+    error over the rows that are not padding; K3-bf16 also row by row to
+    F9's limits, ``over_limit`` the worst row's share of its limit), the
+    same bits on a second call, and timed as ``time_wide`` times K1 and K2
+    (the plain version's events ms as ``plain_ms``; K3 has no library
+    call); ``plan_us`` is the host's microseconds to make a group's plan
+    (``ops.als.k3_plan_for``), the mean over 20 passes of the groups."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [tuple(c[1].shape) for c in data["calls"]]
+    out = {}
+    for dtype in (None, "bfloat16"):
+        calls = _wide_k3_calls(torch, data, dtype)
+        worst, over, same = 0.0, 0.0, True
+        for c, (_, _, _, _, rows) in zip(calls, data["calls"]):
+            got = ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)
+            same &= torch.equal(got, ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype))
+            want = ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)
+            live = rows >= 0
+            worst = max(worst, _rel(got, want, live))
+            if dtype is not None:
+                limits = ops_als.bucket_cg_bf16_limits(*c, REG, ALPHA, CG_STEPS, rows=live)
+                over = max(over, float(ops_als.bucket_cg_bf16_over(got[live], want[live], limits[live]).max()))
+        fns = [(lambda c=c: ops_als.bucket_cg_body(*c, REG, ALPHA, CG_STEPS, gather_dtype=dtype)) for c in calls]
+        dev, k = calls[0][0].device, calls[0][0].shape[1]
         t0 = time.perf_counter()
-        cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_TABLES_GRID), n_folds=2)
-        torch.cuda.synchronize()
-        grids.append(time.perf_counter() - t0)
-    return {"fit_s": fits, "grid_s": grids}
+        for _ in range(20):
+            for shape in shapes:
+                ops_als.k3_plan_for(*shape, k, dtype, dev)
+        plan_us = (time.perf_counter() - t0) / (20 * len(shapes)) * 1e6
+        out["bucket_cg_wide" if dtype is None else "bucket_cg_bf16_wide"] = {
+            "max_rel_err": worst, "same_bits": same, **({"over_limit": over} if dtype else {}), "plan_us": plan_us,
+            **_timed_groups(torch, shapes, fns, n_sm),
+            "plain_ms": _events_ms(torch, lambda: [ops_als.bucket_cg_reference(*c, REG, ALPHA, CG_STEPS, dtype)
+                                                   for c in calls]),
+            "library_ms": None}
+    return out
 
 
 def time_wide(torch, data: dict) -> dict:
@@ -681,7 +796,7 @@ def main(argv: list[str]) -> int:
         print("als_partials_bench: needs a GPU", file=sys.stderr)
         return 1
     if not argv or argv[0] not in ("groups", "time", "variants", "ranks", "wide", "time_wide"):
-        print("usage: als_partials_bench groups [--against ROOT] | wide [--against ROOT] | variants [k2|k3|k1w|k2w] | "
+        print("usage: als_partials_bench groups [--against ROOT] | wide [--against ROOT] | variants [k2|k3|k1w|k2w|k3w] | "
               "ranks | orders [--seed N]", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
@@ -698,9 +813,9 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[0] == "variants":
         which = argv[1] if len(argv) > 1 else "k1"
-        data = wide_data(torch, dev) if which in ("k1w", "k2w") else bench_data(torch, dev)
+        data = wide_data(torch, dev) if which in ("k1w", "k2w", "k3w") else bench_data(torch, dev)
         timed = {"k1": time_variants, "k2": time_k2_variants, "k3": time_k3_variants, "k1w": time_variants,
-                 "k2w": time_k2_wide_variants}[which](torch, data)
+                 "k2w": time_k2_wide_variants, "k3w": time_k3_wide_variants}[which](torch, data)
         print(json.dumps({"mode": f"variants {which}", "card": _card(), **timed}), flush=True)
         return 0
     data = bench_data(torch, dev)
@@ -736,12 +851,13 @@ def main_wide(torch, dev, argv: list[str]) -> int:
         root, path = argv[1], argv[2]
         sys.path.insert(0, root)
         data = torch.load(path, map_location=dev)
-        print(json.dumps({"root": root, **time_wide(torch, data), **time_wide_fits(torch, data)}), flush=True)
+        print(json.dumps({"root": root, **time_wide(torch, data), **time_wide_k3(torch, data),
+                          **time_wide_fits(torch, data)}), flush=True)
         return 0
     data = wide_data(torch, dev)
     if "--against" not in argv:
-        print(json.dumps({"mode": "wide", "card": _card(), **time_wide(torch, data), **time_wide_fits(torch, data)}),
-              flush=True)
+        print(json.dumps({"mode": "wide", "card": _card(), **time_wide(torch, data), **time_wide_k3(torch, data),
+                          **time_wide_fits(torch, data)}), flush=True)
         return 0
     other = str(Path(argv[argv.index("--against") + 1]).resolve())
     here = str(Path(__file__).resolve().parents[2])
@@ -757,9 +873,11 @@ def main_wide(torch, dev, argv: list[str]) -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     summary = {name: {key: [r[name].get(key) for r in runs]
-                      for key in ("kernel_ms", "narrow_share", "events_ms", "max_rel_err", "same_bits")}
-               for name in ("als_partials_wide", "als_partials_bf16_wide", "solve_corrected_wide")}
-    summary.update({key: [r[key][1] for r in runs] for key in ("fit_s", "grid_s")})
+                      for key in ("kernel_ms", "narrow_share", "events_ms", "max_rel_err", "same_bits", "over_limit",
+                                  "plain_ms")}
+               for name in ("als_partials_wide", "als_partials_bf16_wide", "solve_corrected_wide", "bucket_cg_wide",
+                            "bucket_cg_bf16_wide")}
+    summary.update({key: [r[key][1] for r in runs] for key in ("fit_s", "grid_s", "cg_fit_s", "cg_grid_s")})
     print(json.dumps({"mode": "wide", "card": _card(), "order": [other, here, here, other], **summary}), flush=True)
     return 0
 

@@ -111,7 +111,7 @@ def source_of(name: str) -> str:
 
 
 # Second code paths of a kernel, counted apart from the first: count name ->
-# library. K1-K3's wide paths (rank > 64) and K1's tiled path (rank > 512)
+# library. K1-K3's wide paths (rank > 64) and K1's and K3's tiled paths (rank > 512)
 # are other __global__ functions behind the same launch function; K5 at rank > 64 (the content sources,
 # K14) runs K5's kernels and is counted apart as K14; the select path of
 # K5-K7 (k > 512; for K6 and K7 also exclusion rows their streaming body
@@ -128,6 +128,8 @@ PATHS = {
     "als_partials_tiled": "als_partials",
     "als_partials_bf16_tiled": "als_partials",
     "bucket_cg_bf16_wide": "bucket_cg",
+    "bucket_cg_tiled": "bucket_cg",
+    "bucket_cg_bf16_tiled": "bucket_cg",
     "topk_scores_select": "topk_select",
     "gather_topk_select": "topk_select",
     "bank_query_select": "topk_select",
@@ -219,7 +221,7 @@ def build(verbose: bool = False) -> dict[str, float]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of entry point ``name`` (building every kernel on
     first use), for a query function its source exports beside the launch
-    functions (``bucket_cg_clusters``, ``sgns_shared_plan``)."""
+    functions (``bucket_cg_clusters``, ``bucket_cg_smem``, ``sgns_shared_plan``)."""
     if name not in _libs:
         build()
     return _libs[name]

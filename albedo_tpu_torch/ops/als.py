@@ -41,10 +41,10 @@ the plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises. Every rank runs on the card: ranks up to ``KMAX`` take
 each kernel's narrow path (K1 and K3 split long rows across CTAs by a plan
 computed here, :func:`_k1_plan` and :func:`_k3_plan`; K2 solves a system a
-warp), wider ranks its wide path (K1 the split design's wide kernel, tiles
-of the correction over CTAs above rank 512; K2 a blocked Cholesky a CTA;
-K2 and K3 keep their system in dynamic shared memory while it fits, else
-in a global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
+warp), wider ranks its wide path (K1 and K3 the split design widened to
+rank 512, their old tiled kernels above; K2 a blocked Cholesky a CTA; K2
+and K3's tiled kernel keep their system in dynamic shared memory while it
+fits, else in a global-memory workspace the wrapper allocates). :func:`half_sweep` lands the
 solved rows through the precomputed landing permutation, as the JAX sweep
 does: K2/K3 write each group's block into one solved pool and K4 reads the
 pool and the old table where they lie (no concatenated copy). K4 is a kernel of its own rather than an epilogue of K2
@@ -54,6 +54,7 @@ the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -65,7 +66,7 @@ KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wid
 # Dynamic shared memory a block may opt into (227 KB), less a margin for the
 # wide kernels' static variables.
 SMEM_MAX = 232448 - 1024
-TILE = 32  # entries per shared-memory tile of K3's wide path (bucket_cg.cu)
+TILE = 32  # entries per shared-memory tile of K3's tiled path (bucket_cg.cu, ranks above K3_SPLIT_KMAX)
 WORKSPACE_MAX = 256 << 20  # bytes of global workspace per launch (rows are chunked to fit)
 _U32 = 2.0**-24  # float32's unit round-off (F9's round-off model, bucket_cg_bf16_limits)
 # K1's split plan (csrc/als_partials.cu, ranks up to K1_SPLIT_KMAX; :func:`_k1_plan`).
@@ -77,15 +78,22 @@ K1_CTAS_PER_SM = 16   # CTAs an unsplit group's grid aims for, per SM: two waves
 K1_SPLIT_KMAX = 512   # the widest rank of K1's split design (narrow up to KMAX, then wide); tiled above
 _K1_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
 _K1_WORKSPACE_LOCK = threading.Lock()
-# K3's plan (csrc/bucket_cg.cu, ranks up to KMAX; :func:`_k3_plan`). The
-# first four mirror the source's PW, CW, WIN and CPART.
+# K3's plan (csrc/bucket_cg.cu, ranks up to K3_SPLIT_KMAX; :func:`_k3_plan`).
+# The first two mirror the source's PW and CW; :func:`k3_cols`,
+# :func:`k3_window` and :func:`k3_cpart` its column classes, windows and
+# exchanged partials.
 K3_PACK_WARPS = 4     # rows (warps) of a warp-mode CTA
 K3_CTA_WARPS = 8      # warps of a cluster-mode CTA
-K3_WINDOW = 64        # slots of a streamed window
-K3_CPART = 144        # floats of one exchanged partial
-K3_PACK_L = 64        # rows of at most this many slots take warp mode (the source takes up to 128)
+K3_PACK_L = 64        # up to rank KMAX, rows of at most this many slots take warp mode (the source takes up to 128)
+K3_WIDE_PACK_SMEM = 113 * 1024  # above KMAX, warp mode takes rows whose float32 warp-mode CTA fits this
 K3_CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes a plan picks; 16 only where the card holds such a cluster
+K3_SPREAD = 16        # up to KMAX, a group of few rows is spread over clusters of at most this many CTAs
+K3_WIDE_SPREAD = 4    # above KMAX, the same (both wider only for a slice to fit); measured by
+                      # als_partials_bench variants k3 and k3w, as K3_PACK_L and K3_WIDE_PACK_SMEM
 K3_SMEM = 232448      # dynamic shared memory a block may opt into (227 KB)
+K3_SPLIT_KMAX = 512   # the widest rank of K3's split design; the tiled kernel above
+K3_YTY_COLS = 4       # YtY staged in shared memory up to 32 x this rank (128), read from L2 above
+K3_REG_COLS = 8       # a row's CG vectors in registers up to 32 x this rank (256), in shared memory above
 _K3_CLUSTER16: dict[tuple, bool] = {}
 
 
@@ -190,11 +198,13 @@ def _check_rank(kernel: str, k: int) -> None:
 
 
 def _path(kernel: str, k: int) -> str:
-    """The launch-count key of the path rank ``k`` takes (K1 above
-    K1_SPLIT_KMAX: its tiled kernel)."""
+    """The launch-count key of the path rank ``k`` takes: the narrow path up
+    to KMAX, the wide one above, and K1's and K3's tiled kernels above
+    their split designs (K1_SPLIT_KMAX, K3_SPLIT_KMAX)."""
     if k <= KMAX:
         return kernel
-    return f"{kernel}_tiled" if kernel.startswith("als_partials") and k > K1_SPLIT_KMAX else f"{kernel}_wide"
+    tiled_above = {"als_partials": K1_SPLIT_KMAX, "bucket_cg": K3_SPLIT_KMAX}.get(kernel.removesuffix("_bf16"))
+    return f"{kernel}_tiled" if tiled_above is not None and k > tiled_above else f"{kernel}_wide"
 
 
 def _workspace_chunks(per_row: int, b: int, dev):
@@ -648,40 +658,102 @@ def k3_region_bytes(n: int, k: int, bf16: bool) -> int:
     return _r16(n * kp * size) + 2 * _r16(4 * n) + 2 * _r16(4 * chunks)
 
 
+def k3_cols(k: int) -> int:
+    """Columns a lane owns at rank ``k`` (``bucket_cg.cu cols_of``: lane l
+    the columns l + 32 j, j < this): 2 up to rank 64, then 4, 8, 16."""
+    return 2 if k <= 64 else 4 if k <= 128 else 8 if k <= 256 else 16
+
+
+def k3_window(k: int) -> int:
+    """Slots of a streamed window (``bucket_cg.cu win_slots``)."""
+    return 64 if k3_cols(k) <= 8 else 32
+
+
+def k3_cpart(k: int) -> int:
+    """Floats of one exchanged partial, b | diag | count (``bucket_cg.cu
+    cpart_floats``)."""
+    return 64 * k3_cols(k) + 16
+
+
 def k3_smem(plan: tuple[int, int, int, int], k: int, bf16: bool) -> int:
     """Dynamic shared bytes of a K3 launch under ``plan`` (``bucket_cg.cu
-    narrow_smem``): warp mode K3_PACK_WARPS regions of ``slice`` slots and
-    their p vectors; cluster mode one resident region of ``slice`` slots or
-    two streamed windows, beside YtY, p, the warps' partials and the two
-    exchanged partials."""
+    split_smem``): YtY with rows of 32 NC floats up to K3_YTY_COLS columns
+    a lane (none above, it is read from L2); warp mode K3_PACK_WARPS regions
+    of ``slice`` slots, each with its p vector (and its CG vectors above
+    K3_REG_COLS); cluster mode one resident region of ``slice`` slots or two
+    streamed windows, beside YtY, p (and the CG vectors), the warps'
+    partials and the two exchanged partials."""
     mode, _, slice_, resident = plan
-    yty = _r16(4 * k * 64)  # rows of 64 floats: lane l reads columns l and l + 32
+    nc = k3_cols(k)
+    yty = _r16(4 * k * 32 * nc) if nc <= K3_YTY_COLS else 0
+    vec = 4 * 32 * nc * (1 if nc <= K3_REG_COLS else 7)
     if mode == 0:
-        return yty + K3_PACK_WARPS * (k3_region_bytes(slice_, k, bf16) + 256)
-    region = k3_region_bytes(slice_, k, bf16) if resident else 2 * k3_region_bytes(K3_WINDOW, k, bf16)
-    return region + yty + 256 + 4 * K3_CTA_WARPS * 128 + 4 * 2 * K3_CPART
+        return yty + K3_PACK_WARPS * (k3_region_bytes(slice_, k, bf16) + vec)
+    region = k3_region_bytes(slice_, k, bf16) if resident else 2 * k3_region_bytes(k3_window(k), k, bf16)
+    return region + yty + vec + 4 * K3_CTA_WARPS * 64 * nc + 4 * 2 * k3_cpart(k)
 
 
-def _k3_plan(b: int, length: int, k: int, bf16: bool, n_sm: int, c_max: int = 16) -> tuple[int, int, int, int]:
-    """(mode, c, slice, resident) of a K3 launch at rank <= KMAX
-    (``csrc/bucket_cg.cu``). Rows of at most K3_PACK_L slots take warp mode
-    (mode 0: one warp a row, its ``slice`` = the length rounded up to 4
-    slots, resident). Longer rows take cluster mode (mode 1): the row's slots
-    cut into ``c`` slices of ``slice`` slots (whole 32-slot chunks), one CTA
-    each, a cluster a row; ``c`` doubles from 1 while the group has fewer
-    CTAs than the card has SMs or a slice does not fit shared memory, up to
-    ``c_max`` (16 only where the card holds such a cluster, else 8).
-    ``resident`` is 1 when the slice fits K3_SMEM, else the slice is
-    streamed through windows of K3_WINDOW slots."""
-    if length <= K3_PACK_L:
+def k3_smem_card(plan: tuple[int, int, int, int], k: int, bf16: bool) -> int:
+    """:func:`k3_smem` as the kernel's library counts it (``bucket_cg.cu
+    bucket_cg_smem``; on a card only). The plans the wrapper launches are
+    made with this, so the launch never disagrees with its plan; the CPU
+    mirror :func:`k3_smem` is held to it by a card test."""
+    import ctypes
+
+    from albedo_tpu_torch.kernels import build
+
+    fn = build.library("bucket_cg").bucket_cg_smem
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    mode, _, slice_, resident = plan
+    n = fn(int(bf16), k, mode, slice_, resident)
+    if n < 0:
+        raise ValueError(f"bucket_cg: no split-design plan {plan} at rank {k}")
+    return n
+
+
+def k3_pack_l(k: int, smem=k3_smem) -> int:
+    """The longest row K3's warp mode takes at rank ``k``: K3_PACK_L up to
+    KMAX; above, the longest (a multiple of 4, at most the source's 128)
+    whose warp-mode CTA of float32 rows fits K3_WIDE_PACK_SMEM bytes by
+    ``smem``, at least 4 (bf16 rows take the same lengths: in half the
+    bytes, measured faster than twice the slots, ``als_partials_bench
+    variants k3w``)."""
+    return K3_PACK_L if k <= KMAX else _k3_pack_l(k, K3_WIDE_PACK_SMEM, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_pack_l(k: int, budget: int, smem) -> int:
+    pack = 128
+    while pack > 4 and smem((0, 1, pack, 1), k, False) > budget:
+        pack -= 4
+    return pack
+
+
+def _k3_plan(b: int, length: int, k: int, bf16: bool, n_sm: int, c_max: int = 16,
+             smem=k3_smem) -> tuple[int, int, int, int]:
+    """(mode, c, slice, resident) of a K3 launch at rank <= K3_SPLIT_KMAX
+    (``csrc/bucket_cg.cu``), shared bytes counted by ``smem``. Rows of at
+    most :func:`k3_pack_l` slots take warp mode (mode 0: one warp a row,
+    its ``slice`` = the length rounded up to 4 slots, resident). Longer rows
+    take cluster mode (mode 1): the row's slots cut into ``c`` slices of
+    ``slice`` slots (whole 32-slot chunks), one CTA each, a cluster a row;
+    ``c`` doubles from 1 while the group has fewer CTAs than the card has
+    SMs and ``c`` is below K3_SPREAD (K3_WIDE_SPREAD above KMAX), or while a
+    slice does not fit shared memory, up to ``c_max`` (16 only where the
+    card holds such a cluster, else 8). ``resident`` is 1 when the slice
+    fits K3_SMEM, else the slice is streamed through windows of
+    :func:`k3_window` slots."""
+    if length <= k3_pack_l(k, smem):
         return 0, 1, max(4, -(-length // 4) * 4), 1
 
     def plan_at(c: int) -> tuple[int, int, int, int]:
         slice_ = -(-(-(-length // c)) // 32) * 32
-        return 1, c, slice_, int(k3_smem((1, c, slice_, 1), k, bf16) <= K3_SMEM)
+        return 1, c, slice_, int(smem((1, c, slice_, 1), k, bf16) <= K3_SMEM)
 
+    spread = min(c_max, K3_SPREAD if k <= KMAX else K3_WIDE_SPREAD)
     c = 1
-    while c < c_max and (b * c < n_sm or not plan_at(c)[3]):
+    while c < c_max and ((b * c < n_sm and c < spread) or not plan_at(c)[3]):
         c *= 2
     return plan_at(c)
 
@@ -699,19 +771,20 @@ def k3_units(b: int, length: int, plan: tuple[int, int, int, int]) -> list[tuple
             for g in range(b * c)]
 
 
-def _k3_cluster16(dev: torch.device, bf16: bool, smem: int) -> bool:
+def _k3_cluster16(dev: torch.device, bf16: bool, k: int, smem: int) -> bool:
     """Whether the card holds a cluster of 16 cluster-mode CTAs of ``smem``
-    bytes each (``bucket_cg.cu bucket_cg_clusters``), cached per size."""
-    key = (dev.index, bf16, smem)
+    bytes each at rank ``k`` (``bucket_cg.cu bucket_cg_clusters``), cached
+    per column class and size."""
+    key = (dev.index, bf16, k3_cols(k), smem)
     if key not in _K3_CLUSTER16:
         import ctypes
 
         from albedo_tpu_torch.kernels import build
 
         fn = build.library("bucket_cg").bucket_cg_clusters
-        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
         with torch.cuda.device(dev):
-            n = fn(int(bf16), 16, smem)
+            n = fn(int(bf16), k, 16, smem)
         if n < 0:
             raise RuntimeError(f"bucket_cg: the cluster occupancy query failed: cudaError {-n}")
         _K3_CLUSTER16[key] = n > 0
@@ -720,12 +793,13 @@ def _k3_cluster16(dev: torch.device, bf16: bool, smem: int) -> bool:
 
 def k3_plan_for(b: int, length: int, k: int, gather_dtype: str | None, dev: torch.device) -> tuple[int, int, int, int]:
     """The plan K3 launches a (b, length) group with on ``dev``: clusters of
-    16 where the card holds them, else at most 8."""
+    16 where the card holds them, else at most 8; shared bytes as the
+    kernel's library counts them (:func:`k3_smem_card`)."""
     bf16 = gather_dtype is not None
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = _k3_plan(b, length, k, bf16, n_sm)
-    if plan[1] == 16 and not _k3_cluster16(dev, bf16, k3_smem(plan, k, bf16)):
-        plan = _k3_plan(b, length, k, bf16, n_sm, c_max=8)
+    plan = _k3_plan(b, length, k, bf16, n_sm, smem=k3_smem_card)
+    if plan[1] == 16 and not _k3_cluster16(dev, bf16, k, k3_smem_card(plan, k, bf16)):
+        plan = _k3_plan(b, length, k, bf16, n_sm, c_max=8, smem=k3_smem_card)
     return plan
 
 
@@ -738,8 +812,11 @@ def bucket_cg_body(
     """K3: matrix-free warm-started Jacobi-PCG on the implicit normal
     equations, ``cg_steps`` steps (CUDA kernel ``bucket_cg``, or
     ``bucket_cg_bf16`` reading the bf16 table), into ``out`` (B, k) when
-    given. Up to rank KMAX one call is one launch under :func:`k3_plan_for`'s
-    plan; a plan the kernel or the card refuses raises."""
+    given. Up to rank K3_SPLIT_KMAX one call is one launch of the split
+    design under :func:`k3_plan_for`'s plan (counted ``bucket_cg`` up to
+    KMAX, ``bucket_cg_wide`` above); a plan the kernel or the card refuses
+    raises. Wider ranks take the tiled kernel (``bucket_cg_tiled``), in
+    row chunks when its global workspace is needed."""
     if on_cpu("bucket_cg", source, yty, idx, val, mask, x0, *([] if out is None else [out])):
         return _solved_into(out, bucket_cg_reference(source, yty, idx, val, mask, x0, reg, alpha, cg_steps,
                                                      gather_dtype))
@@ -756,8 +833,10 @@ def bucket_cg_body(
     check_operand(kernel, "mask", mask, torch.bool, (b, length), dev)
     check_operand(kernel, "x0", x0, torch.float32, (b, k), dev)
     x = _output(kernel, out, b, k, dev)
-    plan = k3_plan_for(b, length, k, gather_dtype, dev) if k <= KMAX else (0, 1, 4, 1)  # ignored above KMAX
-    chunks = [(0, b, None)] if k <= KMAX else _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
+    if k <= K3_SPLIT_KMAX:
+        plan, chunks = k3_plan_for(b, length, k, gather_dtype, dev), [(0, b, None)]
+    else:  # the plan is ignored above K3_SPLIT_KMAX
+        plan, chunks = (0, 1, 4, 1), _workspace_chunks((TILE + 7) * k + 3 * TILE, b, dev)
     for r0, rows, ws in chunks:
         call(
             kernel, dev, table.data_ptr(), yty.data_ptr(),
@@ -803,6 +882,8 @@ def half_sweep(
     table = gather_table(source, gather_dtype)
     pool = torch.empty((sum(g.row_ids.numel() for g in groups), target.shape[1]),
                        dtype=torch.float32, device=target.device)
+    if solver == "cg" and groups:  # every group's warm starts in one gather (padding slots read row 0)
+        x0_pool = target[torch.cat([g.row_ids.reshape(-1) for g in groups]).clamp(min=0).long()]
     off = 0
     for g in groups:
         n, b, length = g.idx.shape
@@ -811,9 +892,7 @@ def half_sweep(
         mask = g.mask.reshape(n * b, length)
         out = pool[off:off + n * b]
         if solver == "cg":
-            rows = g.row_ids.reshape(-1).clamp(min=0).long()
-            x0 = target[rows]
-            bucket_cg_body(table, yty, idx, val, mask, x0, reg, alpha, cg_steps, out=out,
+            bucket_cg_body(table, yty, idx, val, mask, x0_pool[off:off + n * b], reg, alpha, cg_steps, out=out,
                            gather_dtype=gather_dtype)
         else:
             bucket_solve_body(table, yty, idx, val, mask, reg, alpha, out=out, gather_dtype=gather_dtype)

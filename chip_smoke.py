@@ -48,8 +48,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gradient element's mass.
    Then the any-size paths: K1-K3 at ranks 65, 100, 128 and 256 on
    bench-shaped buckets with a power-law row (7624 entries), K3 at rank
-   1500 and K1 at rank 600 (their wide paths, the global workspaces and
-   K1's tiled path included), rel 1e-4, K1's tiled path also timed; K5 at
+   1500 and K1 at rank 600 (their tiled paths above rank 512, the global
+   workspaces included), rel 1e-4, K1's and K3's tiled paths also timed at
+   rank 600 (K3's in the kernels line as ``bucket_cg_tiled``); K5 at
    k = 513, 600, 2048 and the whole catalogue, fewer admissible items than k,
    the wide rank (the select path), an exclusion row of 40 000 (K5's own
    path since its bitmask takes any width), and 500 rows in 16 passes of 32
@@ -135,12 +136,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    listen backlog of 5), with the card's busy share.
 9. wide_rank — with the counts set to 0, ``ImplicitALS(rank=100)`` on the
    ``train_als`` tables from the shared numpy init (26 iterations, Cholesky;
-   then 2 with CG) and the test users' top 600 with seen items excluded: the
-   NDCG@30 in the JAX band, every wide and select path launched, each held
-   at this run's inputs and timed; K1 wide and K2 wide also group by group
-   (each of the 54 groups at rel 1e-4 over its rows that are not padding,
-   the same bits on a second call, K1's corrections exactly symmetric) with
-   each group's kernel ms (profiler sums) beside the events ms.
+   then 26 with 3-step CG) and the test users' top 600 with seen items
+   excluded: each fit's NDCG@30 in its JAX band, every wide and select path
+   launched, each held at this run's inputs and timed; K1 wide, K2 wide
+   (at the Cholesky fit's tables) and K3 wide (at the CG fit's) also group
+   by group (each of the 54 groups at rel 1e-4 over its rows that are not
+   padding, the same bits on a second call, K1's corrections exactly
+   symmetric) with each group's kernel ms (profiler sums) beside the events
+   ms.
 10. two_stage — ``serve --two-stage`` at full width on the shared inputs of
    ``ranker --shared``: with the counts set to 0 before the fits (ALS, the
    in-process ranker) and read after the drive, 256 concurrent requests
@@ -164,8 +167,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and rows in no bucket. Then, each with the counts
    set to 0 before and read after: ``cv_als`` as the CLI runs it (each grid
    point's mean NDCG@30 in the JAX seed band), the real grid (rank 50/100)
-   through ``cross_validate`` from the shared numpy inits (per-fold
-   NDCG@30 within 1e-3 of JAX, the same best params), ``cv_lr --w2v-full``
+   through ``cross_validate`` from the shared numpy inits, by Cholesky and
+   again by 3-step CG (per-fold NDCG@30 within 1e-3 of JAX, the same best
+   params; the CG grid must launch K3's wide path), ``cv_lr --w2v-full``
    seeded (AUC per column in the JAX seed band) and on the shared weights
    (AUC per column within 1e-4 of JAX, in JAX's order), with the L-BFGS
    steps per grid row. Then ``fit_many`` against five sequential fits and
@@ -181,6 +185,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    roundings its float32 round-off could flip plus that round-off, at least
    rel 5e-4 (its rounded iterates can flip one bf16 rounding between two
    summation orders: ``bf16_rel``, ``ops.als.bucket_cg_bf16_limits``), and
+   K3-bf16's wide path group by group at the rank-100 fit's 54 groups
+   (F9's row limits, the same bits; timed with its plain version and
+   bound for the kernels line as ``bucket_cg_bf16_wide``), and
    K9s (the shared negative pool)
    at B 1, 7, 65536 x K 1, 32, 512 x d 8, 200 and on pools of one word,
    with repeated centers and a pool word that is also a context, against
@@ -341,6 +348,8 @@ KERNELS = {
     "masked_topk_select": ("albedo_tpu_torch/kernels/csrc/topk_select.cu", "albedo_tpu/recommenders/cf.py:218"),
     "sgns_step_wide": ("albedo_tpu_torch/kernels/csrc/sgns_step.cu", "albedo_tpu/models/word2vec.py:241"),
     "bpr_step_wide": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
+    "bucket_cg_bf16_wide": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
+    "bucket_cg_tiled": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
 }
 
 
@@ -1070,6 +1079,7 @@ def phase_any_size_kernels() -> dict:
     for name, e in _als_case(rng, 1500, 3000, 8, 64, 1, dev, names=("bucket_cg",)).items():
         note(name, "rank 1500, B 8, L 64", e)
     tiled = _time_k1_tiled(rng, dev)
+    k3_tiled = _time_k3_tiled(rng, dev)
     als_counts = launch_counts()
 
     def t(a):
@@ -1185,18 +1195,18 @@ def phase_any_size_kernels() -> dict:
                   ops_topk.bank_query(table_d, k, q_idx=t(q)), ops_topk.bank_query_reference(table_d, k, q_idx=t(q)))
     torch.cuda.synchronize()
     counts = {n: c for n, c in launch_counts().items() if c}
-    paths = ("als_partials_wide", "als_partials_tiled", "solve_corrected_wide", "bucket_cg_wide",
+    paths = ("als_partials_wide", "als_partials_tiled", "solve_corrected_wide", "bucket_cg_wide", "bucket_cg_tiled",
              "topk_scores_select", "gather_topk_select", "bank_query_select")
     ok = (all(worst[n] <= REL_TOL for n in ("als_partials", "solve_corrected", "bucket_cg"))
-          and tiled["rel_err"] <= REL_TOL
+          and tiled["rel_err"] <= REL_TOL and k3_tiled["rel_err"] <= REL_TOL and k3_tiled["same_bits"]
           and all(worst[n] == 0.0 for n in ("topk_scores", "gather_topk", "bank_query"))
           and all(counts.get(p, 0) > 0 for p in paths))
     emit({"phase": "any_size_kernels", "ok": ok, "rel_tol": REL_TOL, "worst": worst,
           "als_launches": {n: c for n, c in als_counts.items() if c}, "launches": counts, "cases": cases,
-          "timed": {"als_partials_tiled": tiled}})
+          "timed": {"als_partials_tiled": tiled, "bucket_cg_tiled": k3_tiled}})
     if not ok:
         raise SystemExit("chip_smoke: a wide or select path disagrees with its plain version (or never ran)")
-    return worst
+    return {"bucket_cg_tiled": k3_tiled}
 
 
 def _time_k1_tiled(rng, dev) -> dict:
@@ -1219,6 +1229,26 @@ def _time_k1_tiled(rng, dev) -> dict:
         library_ms=cuda_ms(lambda: _k1_library(src, idx, val, mask, ALPHA)),
         bytes=9 * idx.numel() + 4 * k * int(torch.unique(idx[mask]).numel()) + 4 * rows * (k * k + k),
         flops=entries * (k * (k + 1) + 2 * k), shape=[rows, idx.shape[1], k]))
+
+
+def _time_k3_tiled(rng, dev) -> dict:
+    """K3's tiled path (rank 600, above its split design) on a bucket of 64
+    rows of up to 400 entries: held against its plain version (rel error,
+    the same bits on a second call) and timed with it and its bound (the
+    table's bytes: the rows the bucket gathers, as K1's tiled path)."""
+    from albedo_tpu_torch.ops import als as ops_als
+
+    k, n_source, b = 600, 19991, 64
+    src = torch.as_tensor((rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32), device=dev)
+    idx, val, mask = _bucket(rng, n_source, b, 400, 4, dev)
+    x0 = torch.as_tensor((rng.standard_normal((b, k)) * 0.1).astype(np.float32), device=dev)
+    call = (src, ops_als.gramian(src), idx, val, mask, x0, mask.any(dim=1), mask.sum(dim=1, dtype=torch.float32))
+    got, again = (ops_als.bucket_cg_body(*call[:6], REG, ALPHA, CG_STEPS) for _ in range(2))
+    want = ops_als.bucket_cg_reference(*call[:6], REG, ALPHA, CG_STEPS)
+    return _timed(dict(
+        err=rel_err(got, want), ms=cuda_ms(lambda: ops_als.bucket_cg_body(*call[:6], REG, ALPHA, CG_STEPS)),
+        plain_ms=cuda_ms(lambda: ops_als.bucket_cg_reference(*call[:6], REG, ALPHA, CG_STEPS)), library_ms=None,
+        same_bits=_same_bits(got, again), shape=[b, idx.shape[1], k], **_k3_work([call], distinct=True)))
 
 
 def _gather_sum_err(base, tables, idxs, got, want) -> tuple[float, float]:
@@ -1699,10 +1729,10 @@ def _timed(r: dict) -> dict:
     """A kernel's record for the kernels line: its errors and times, and
     its bound from the bytes and operations of the work."""
     t_bytes, t_ops = r["bytes"] / PEAK_BYTES * 1e3, r["flops"] / PEAK_FP32 * 1e3
+    bound_ms, bound_by = _bound_ms(r)
     out = {
         "max_abs_err": r["err"][0], "rel_err": r["err"][1], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "library_ms": r["library_ms"], "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": r["library_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": r["bytes"], "flops": r["flops"], "shape": r.get("shape"),
         "library_rel_err": r.get("library_rel_err"),
     }
@@ -2516,15 +2546,11 @@ def _time_kernels(est, model, train, users, excl) -> dict:
     slots = sum(c[2].numel() for c in calls)
     entries = sum(int(c[4].sum()) for c in calls)
     rows = sum(c[2].shape[0] for c in calls)
-    table_bytes = 4 * (uf.numel() + vf.numel())
-    slot_bytes = 9 * slots  # idx 4 + val 4 + mask 1
     work = {
-        "als_partials": (slot_bytes + table_bytes + 4 * rows * (k * k + k),
-                         entries * (k * (k + 1) + 2 * k)),
+        "als_partials": tuple(_k1_work(calls).values()),
         "solve_corrected": (4 * rows * (k * (k + 1) // 2 + 2 * k + 1) + 4 * k * (k + 1) // 2,
                             rows * (k ** 3 / 3 + 2 * k * k)),
-        "bucket_cg": (slot_bytes + table_bytes + 4 * rows * 2 * k + 4 * k * k * 2,
-                      entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k)),
+        "bucket_cg": tuple(_k3_work(calls).values()),
         "topk_scores": (4 * (q.numel() + vf.numel() + ex.numel()) + 8 * q.shape[0] * 30,
                         2 * q.shape[0] * vf.shape[0] * k),
     }
@@ -3047,6 +3073,14 @@ def phase_serving_timing(serve_state: dict, bank_state: dict, bench_model, bench
 # Cholesky band, 2e-3 at NDCG 0.29).
 JAX_WIDE_RANK_NDCG = 0.7735341787338257
 WIDE_RANK_TOL = 1e-3
+# The same fit with 3-step CG (``jax_reference_ndcg.py wide_rank --solver
+# cg``; K3's wide path). The port on the CPU gives 0.7740768, and with the
+# live entries of every row of every bucket group permuted (``--port
+# --permute-seeds 1,2,3,4``: only the float32 summation order changes)
+# 0.7740742, 0.7740034, 0.7740048 and 0.7739874: 7.8e-5 from JAX at the
+# widest. The band is twice that, at least 1e-3.
+JAX_WIDE_RANK_CG_NDCG = 0.773999035358429
+WIDE_RANK_CG_TOL = 1e-3
 WIDE_RANK, SELECT_K = 100, 600
 
 
@@ -3074,14 +3108,57 @@ def _topk_library(q, items, k, ex):
     return torch.topk(scores.masked_fill(hit[:, :-1], float("-inf")), k, dim=1)
 
 
+def _sweep_counts(calls, distinct: bool = False) -> tuple[int, int, int, int, int, int]:
+    """(k, fixed-side tables, slots, masked-in entries, rows, the tables'
+    bytes as they are read: float32 or bf16) of ``calls`` (``_sweep_calls``,
+    or ``_bf16_calls``): every row of each table, or with ``distinct`` only
+    the rows that the masked-in entries gather (a single bucket's work)."""
+    tables = {id(c[0]): c[0] for c in calls}
+    if distinct:
+        gathered = {t: torch.unique(torch.cat([c[2][c[4]] for c in calls if id(c[0]) == t])).numel() for t in tables}
+        table_bytes = sum(int(n) * tables[t].shape[1] * tables[t].element_size() for t, n in gathered.items())
+    else:
+        table_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    return (calls[0][1].shape[0], len(tables), sum(c[2].numel() for c in calls), sum(int(c[4].sum()) for c in calls),
+            sum(c[2].shape[0] for c in calls), table_bytes)
+
+
+def _k1_work(calls) -> dict:
+    """K1's bytes and operations over ``calls``: each slot's index, value
+    and mask, the tables, each row's correction and b-vector written; the
+    symmetric k(k + 1) + 2k FLOP of each masked-in entry."""
+    k, _, slots, entries, rows, table_bytes = _sweep_counts(calls)
+    return {"bytes": 9 * slots + table_bytes + 4 * rows * (k * k + k), "flops": entries * (k * (k + 1) + 2 * k)}
+
+
+def _bound_ms(work: dict) -> tuple[float, str]:
+    """The least time for ``work`` (bytes over the HBM rate, FLOP over the
+    FP32 peak, the larger) and which of the two bounds it."""
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES * 1e3, work["flops"] / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _k3_work(calls, distinct: bool = False) -> dict:
+    """K3's bytes and operations over ``calls``: each slot's index, value
+    and mask, the tables (with ``distinct``, only their gathered rows), x0
+    and x, each table's YtY; an entry's 4 k FLOP in the b/diag pass and in
+    each of the cg_steps + 1 matvecs, each row's YtY products and its CG
+    updates."""
+    k, n_tables, slots, entries, rows, table_bytes = _sweep_counts(calls, distinct)
+    return {"bytes": 9 * slots + table_bytes + 4 * rows * 2 * k + 4 * k * k * n_tables,
+            "flops": entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k)}
+
+
 def phase_wide_rank() -> dict:
     """K1-K3's wide paths and K5's select path on a main path: with the
     launch counts set to 0, ``ImplicitALS(rank=100)`` fitted on the
-    ``train_als`` job's tables (26 iterations, Cholesky; then 2 with CG), its
-    NDCG@30 held to the JAX value, and the 250 test users' top 600 with their
-    seen items excluded; every wide and select path must have launched. Then
-    each is held against its plain version at this run's inputs and timed
-    with its plain version, a library yardstick and its bound."""
+    ``train_als`` job's tables (26 iterations, Cholesky; then 26 with 3-step
+    CG), each NDCG@30 held to its JAX value, and the 250 test users' top 600
+    with their seen items excluded; every wide and select path must have
+    launched. Then each is held against its plain version at this run's
+    inputs (K1 and K2 wide at the Cholesky fit's tables, K3 wide at the CG
+    fit's, each also group by group) and timed with its plain version, a
+    library yardstick and its bound."""
     from albedo_tpu_torch import cli, kernels
     from albedo_tpu_torch.builders.jobs import ALS_ALPHA, ALS_REG, TOP_K, JobContext
     from albedo_tpu_torch.datasets.ragged import padded_rows
@@ -3104,22 +3181,32 @@ def phase_wide_rank() -> dict:
     fit_s = time.perf_counter() - t0
     ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=TOP_K).recommend_for_users(matrix.user_ids[dense]))
     vals, idx = model.recommend(dense, k=SELECT_K, exclude_idx=excl)
-    ImplicitALS(rank=WIDE_RANK, reg_param=ALS_REG, alpha=ALS_ALPHA, max_iter=2, solver="cg",
-                init_factors=init, device=ctx.device).fit(matrix)
+    cg_est = ImplicitALS(rank=WIDE_RANK, reg_param=ALS_REG, alpha=ALS_ALPHA, max_iter=26, solver="cg",
+                         init_factors=init, device=ctx.device)
+    t0 = time.perf_counter()
+    cg_model = cg_est.fit(matrix)
+    cg_fit_s = time.perf_counter() - t0
+    cg_ndcg = ctx.evaluate_topk(ALSRecommender(cg_model, matrix, top_k=TOP_K).recommend_for_users(
+        matrix.user_ids[dense]))
     torch.cuda.synchronize()
     launches = {n: c for n, c in kernels.launch_counts().items() if c}
 
     calls = _sweep_calls(est, matrix, model)
-    errs = _hold_sweeps(calls, ("als_partials", "solve_corrected", "bucket_cg"))
+    cg_calls = _sweep_calls(cg_est, matrix, cg_model)
+    errs = dict(_hold_sweeps(calls, ("als_partials", "solve_corrected")), **_hold_sweeps(cg_calls, ("bucket_cg",)))
     partials = _k1(ops_als.bucket_partial_terms_reference, calls)
     held = {"als_partials_wide": _hold_k1_groups(calls),
             "solve_corrected_wide": _hold_groups(calls, lambda: _k2(ops_als.solve_corrected, calls, partials),
-                                                 lambda: _k2(ops_als.solve_corrected_reference, calls, partials))}
+                                                 lambda: _k2(ops_als.solve_corrected_reference, calls, partials)),
+            "bucket_cg_wide": _hold_groups(cg_calls, lambda: _k3(ops_als.bucket_cg_body, cg_calls),
+                                           lambda: _k3(ops_als.bucket_cg_reference, cg_calls))}
     per_group = {
         "als_partials_wide": _per_group(calls, [
             (lambda c=c: ops_als.bucket_partial_terms(c[0], c[2], c[3], c[4], ALPHA)) for c in calls]),
         "solve_corrected_wide": _per_group(calls, [
             (lambda c=c, p=p: ops_als.solve_corrected(c[1], p[0], p[1], c[7], REG)) for c, p in zip(calls, partials)]),
+        "bucket_cg_wide": _per_group(cg_calls, [
+            (lambda c=c: ops_als.bucket_cg_body(*c[:6], REG, ALPHA, CG_STEPS)) for c in cg_calls]),
     }
     uf, vf = model.user_table, model.item_table
     q = uf[torch.as_tensor(dense, dtype=torch.int64, device=uf.device)].contiguous()
@@ -3127,26 +3214,22 @@ def phase_wide_rank() -> dict:
     select_err = _hold_topk(q, vf, SELECT_K, ex)
     k2_plain_ms = cuda_ms(lambda: _k2(ops_als.solve_corrected_reference, calls, partials))
     k = WIDE_RANK
-    slots = sum(c[2].numel() for c in calls)
-    entries = sum(int(c[4].sum()) for c in calls)
     rows = sum(c[2].shape[0] for c in calls)
-    table_bytes, slot_bytes = 4 * (uf.numel() + vf.numel()), 9 * slots
     timed = {
         "als_partials_wide": _timed(dict(
             err=errs["als_partials"], ms=cuda_ms(lambda: _k1(ops_als.bucket_partial_terms, calls)),
             plain_ms=cuda_ms(lambda: _k1(ops_als.bucket_partial_terms_reference, calls)),
             library_ms=cuda_ms(lambda: _k1(_k1_library, calls)),
-            bytes=slot_bytes + table_bytes + 4 * rows * (k * k + k), flops=entries * (k * (k + 1) + 2 * k))),
+            **_k1_work(calls))),
         "solve_corrected_wide": _timed(dict(
             err=errs["solve_corrected"], ms=cuda_ms(lambda: _k2(ops_als.solve_corrected, calls, partials)),
             plain_ms=k2_plain_ms, library_ms=k2_plain_ms,
             bytes=4 * rows * (k * (k + 1) // 2 + 2 * k + 1) + 4 * k * (k + 1) // 2,
             flops=rows * (k ** 3 / 3 + 2 * k * k))),
         "bucket_cg_wide": _timed(dict(
-            err=errs["bucket_cg"], ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_body, calls)),
-            plain_ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_reference, calls)), library_ms=None,
-            bytes=slot_bytes + table_bytes + 4 * rows * 2 * k + 4 * k * k * 2,
-            flops=entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k))),
+            err=errs["bucket_cg"], ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_body, cg_calls)),
+            plain_ms=cuda_ms(lambda: _k3(ops_als.bucket_cg_reference, cg_calls)), library_ms=None,
+            **_k3_work(cg_calls))),
         "topk_select": _timed(dict(
             err=select_err, ms=cuda_ms(lambda: ops_topk.topk_scores(q, vf, SELECT_K, ex)),
             plain_ms=cuda_ms(lambda: ops_topk.topk_scores_reference(q, vf, SELECT_K, ex)),
@@ -3156,15 +3239,18 @@ def phase_wide_rank() -> dict:
     }
     launches["topk_select"] = sum(launches.get(f"{n}_select", 0) for n in ("topk_scores", "gather_topk", "bank_query"))
     needed = ("als_partials_wide", "solve_corrected_wide", "bucket_cg_wide", "topk_select")
-    ok = (abs(ndcg - JAX_WIDE_RANK_NDCG) <= WIDE_RANK_TOL and all(launches.get(n, 0) > 0 for n in needed)
+    ok = (abs(ndcg - JAX_WIDE_RANK_NDCG) <= WIDE_RANK_TOL and abs(cg_ndcg - JAX_WIDE_RANK_CG_NDCG) <= WIDE_RANK_CG_TOL
+          and all(launches.get(n, 0) > 0 for n in needed)
           and _within_tol({n: errs[n] for n in errs}) and select_err[1] == 0.0
           and all(_held_ok(h, REL_TOL) for h in held.values())
           and bool(torch.isfinite(uf).all()) and tuple(idx.shape) == (len(dense), SELECT_K))
     emit({"phase": "wide_rank", "ok": ok, "rank": WIDE_RANK, "fit_s": fit_s, "ndcg": ndcg,
-          "jax_ndcg": JAX_WIDE_RANK_NDCG, "tol": WIDE_RANK_TOL, "select_k": SELECT_K,
+          "jax_ndcg": JAX_WIDE_RANK_NDCG, "tol": WIDE_RANK_TOL, "cg_fit_s": cg_fit_s,
+          "cg_device_s": cg_est.last_fit_report["device_s"], "cg_ndcg": cg_ndcg, "cg_jax_ndcg": JAX_WIDE_RANK_CG_NDCG,
+          "cg_tol": WIDE_RANK_CG_TOL, "select_k": SELECT_K,
           "launches": launches, "groups": len(calls), "held": held, "per_group": per_group, "timed": timed})
     if not ok:
-        raise SystemExit("chip_smoke: the rank-100 fit or the k = 600 top-k failed (band, launches, or "
+        raise SystemExit("chip_smoke: a rank-100 fit or the k = 600 top-k failed (band, launches, or "
                          "a kernel against its plain version, group by group)")
     return {"timed": timed, "launches": {n: launches[n] for n in needed}}
 
@@ -3518,6 +3604,20 @@ JAX_CV_ALS_FULL = {
 }
 JAX_CV_ALS_FULL_BEST = {'rank': 100, 'reg_param': 0.5, 'alpha': 0.01}
 CV_ALS_FULL_TOL = 1e-3
+# The same grid with every fit by 3-step CG, as ``cv_als --solver cg`` fits
+# it (``jax_reference_ndcg.py cv_als --shared --solver cg``; its rank-100
+# points run K3's wide path), held as the Cholesky grid.
+JAX_CV_ALS_FULL_CG = {
+    "{'rank': 100, 'reg_param': 0.5, 'alpha': 0.01}": [0.310800701379776, 0.33632412552833557],
+    "{'rank': 50, 'reg_param': 0.5, 'alpha': 40.0}": [0.2556176781654358, 0.2719286382198334],
+    "{'rank': 50, 'reg_param': 0.01, 'alpha': 40.0}": [0.24500547349452972, 0.2639934718608856],
+    "{'rank': 50, 'reg_param': 0.5, 'alpha': 0.01}": [0.24662651121616364, 0.24842219054698944],
+    "{'rank': 50, 'reg_param': 0.01, 'alpha': 0.01}": [0.22895395755767822, 0.24994738399982452],
+    "{'rank': 100, 'reg_param': 0.5, 'alpha': 40.0}": [0.1996975690126419, 0.22139383852481842],
+    "{'rank': 100, 'reg_param': 0.01, 'alpha': 40.0}": [0.18062444031238556, 0.19831156730651855],
+    "{'rank': 100, 'reg_param': 0.01, 'alpha': 0.01}": [0.17769543826580048, 0.18555432558059692],
+}
+JAX_CV_ALS_FULL_CG_BEST = {'rank': 100, 'reg_param': 0.5, 'alpha': 0.01}
 # cv_lr --w2v-full (300 L-BFGS iterations, the five weight columns in one
 # batched solve): with the weights of ``ranker --shared``, each column's AUC
 # from the JAX package (``jax_reference_ndcg.py cv_lr --shared``) in its
@@ -3540,6 +3640,7 @@ CV_NEEDS = {
     "cv_als": ("als_partials", "solve_corrected", "land_rows", "topk_scores", "factor_health"),
     "cv_als real grid": ("als_partials", "als_partials_wide", "solve_corrected", "solve_corrected_wide",
                          "land_rows", "topk_scores", "factor_health"),
+    "cv_als real grid, cg": ("bucket_cg", "bucket_cg_wide", "land_rows", "topk_scores", "factor_health"),
     "cv_lr": ("segment_dot_grid", "gather_sum_grid", "segment_dot", "gather_sum", "land_rows",
               "als_partials", "solve_corrected", "sgns_step", "adam_dense", "factor_health"),
     # The shared weights replace the Word2Vec fit (no K9, no Adam).
@@ -3794,10 +3895,10 @@ def _same_order(got: list, want: list, tol: float) -> bool:
     return all(pos[a] < pos[b] for i, (a, va) in enumerate(want) for b, vb in want[i + 1:] if va - vb > tol)
 
 
-def _cv_als_real_grid() -> dict:
+def _cv_als_real_grid(solver: str = "cholesky") -> dict:
     """The real grid through ``cross_validate`` on the train_als tables,
-    every fit from the shared numpy init, each fold scored as the job
-    scores it; counts set to 0 before and read after."""
+    every fit from the shared numpy init by ``solver``, each fold scored as
+    the job scores it; counts set to 0 before and read after."""
     from albedo_tpu_torch import cli, kernels
     from albedo_tpu_torch.builders.jobs import CV_ALS_TABLES_GRID, JobContext, cv_als_evaluate
     from albedo_tpu_torch.cv import cross_validate, param_grid
@@ -3807,7 +3908,7 @@ def _cv_als_real_grid() -> dict:
 
     def fit(params, train):
         return ImplicitALS(max_iter=13, init_factors=_shared_init(train.n_users, train.n_items, params["rank"]),
-                           **params).fit(train)
+                           solver=solver, **params).fit(train)
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -3816,12 +3917,14 @@ def _cv_als_real_grid() -> dict:
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     folds = {str(r.params): r.fold_metrics for r in results}
-    gap = max((abs(a - b) for key, want in JAX_CV_ALS_FULL.items()
+    jax, jax_best, needs = ((JAX_CV_ALS_FULL, JAX_CV_ALS_FULL_BEST, CV_NEEDS["cv_als real grid"]) if solver == "cholesky"
+                            else (JAX_CV_ALS_FULL_CG, JAX_CV_ALS_FULL_CG_BEST, CV_NEEDS["cv_als real grid, cg"]))
+    gap = max((abs(a - b) for key, want in jax.items()
                for a, b in zip(folds.get(key, [float("inf")] * len(want)), want)), default=float("inf"))
-    return {"seconds": seconds, "launches": launches, "fold_ndcg": folds, "jax": JAX_CV_ALS_FULL,
-            "max_gap": gap, "best": results[0].params, "jax_best": JAX_CV_ALS_FULL_BEST,
-            "ok": (gap <= CV_ALS_FULL_TOL and results[0].params == JAX_CV_ALS_FULL_BEST
-                   and all(launches[n] > 0 for n in CV_NEEDS["cv_als real grid"]))}
+    return {"solver": solver, "seconds": seconds, "launches": launches, "fold_ndcg": folds, "jax": jax,
+            "max_gap": gap, "best": results[0].params, "jax_best": jax_best,
+            "ok": (gap <= CV_ALS_FULL_TOL and results[0].params == jax_best
+                   and all(launches[n] > 0 for n in needs))}
 
 
 def _landing_calls(est, matrix) -> list[tuple]:
@@ -3967,8 +4070,9 @@ def _fit_many_profile(fit, iters: int = 5) -> dict:
 def phase_cv(bench_train) -> dict:
     """The model-selection paths at full width: ``cv_als`` as the CLI runs
     it (seeded; each grid point's mean NDCG@30 in the JAX seed band), the
-    real grid through ``cross_validate`` from the shared numpy inits
-    (per-fold NDCG@30 against JAX, the best params), ``cv_lr --w2v-full``
+    real grid through ``cross_validate`` from the shared numpy inits, by
+    Cholesky and by 3-step CG (per-fold NDCG@30 against JAX, the best
+    params; K3's wide path launched by the CG grid), ``cv_lr --w2v-full``
     seeded (each column's AUC in the JAX seed band) and on the shared
     weights (each column's AUC within 1e-4 of JAX, in JAX's order); each
     with its launch counts. Then fit_many against five sequential fits and
@@ -3989,10 +4093,12 @@ def phase_cv(bench_train) -> dict:
         raise SystemExit("chip_smoke: cv_als left the JAX seed band or did not launch its kernels")
     launches["land_rows"] = report["launches"]["land_rows"]
 
-    real = _cv_als_real_grid()
-    emit(dict(real, phase="cv", run="cv_als real grid, shared inits", tol=CV_ALS_FULL_TOL))
-    if not real["ok"]:
-        raise SystemExit("chip_smoke: the real cv_als grid left the JAX values or picked other params")
+    for solver in ("cholesky", "cg"):
+        real = _cv_als_real_grid(solver)
+        emit(dict(real, phase="cv", run=f"cv_als real grid, shared inits, {solver}", tol=CV_ALS_FULL_TOL))
+        if not real["ok"]:
+            raise SystemExit(f"chip_smoke: the real cv_als grid ({solver}) left the JAX values or picked other "
+                             "params, or did not launch its kernels")
 
     seeded, fit = _cv_lr_run(shared=False)
     gaps = {c: a - JAX_CV_LR[c] for c, a in seeded["grid"]}
@@ -4190,16 +4296,54 @@ def phase_trainer_kernels() -> dict:
     for b, k in ((7, 32), (65536, 512)):
         note("sgns_shared", f"B {b}, K {k}, d 200, a pool of one word", _k9s_case(rng, b, 200, k, 56182, dev, True),
              1.0)
+    wide = _k3_bf16_wide_groups()
+    note("bucket_cg_bf16_wide", "the rank-100 fit's groups (F9's row limits)", wide["held"]["over_limit"], 1.0)
     torch.cuda.synchronize()
     counts = {n: c for n, c in launch_counts().items() if c}
-    ok = (all(w <= 1.0 for w in worst.values())
+    ok = (all(w <= 1.0 for w in worst.values()) and _held_ok(wide["held"], REL_TOL)
           and all(counts.get(n, 0) > 0 for n in ("als_partials_bf16", "als_partials_bf16_wide", "bucket_cg_bf16",
                                                  "bucket_cg_bf16_wide", "sgns_shared"))
           and not any(counts.get(n, 0) for n in F32_ALS))
-    emit({"phase": "trainer_kernels", "ok": ok, "worst_over_tol": worst, "launches": counts, "cases": cases})
+    emit({"phase": "trainer_kernels", "ok": ok, "worst_over_tol": worst, "launches": counts, "cases": cases,
+          "bucket_cg_bf16_wide": wide})
     if not ok:
         raise SystemExit("chip_smoke: K1-bf16, K3-bf16 or K9s disagrees with its plain version (or never ran)")
-    return worst
+    return {"bucket_cg_bf16_wide": wide["timed"]}
+
+
+def _k3_bf16_wide_groups() -> dict:
+    """K3-bf16's wide path at the rank-100 fit's 54 bucket groups (the
+    ``train_als`` tables' groups at rank 100, tables from the shared numpy
+    init: ``als_partials_bench.wide_data``), as ``_sweep_calls`` forms them
+    with the fixed sides cast to bf16: each group row by row to F9's limits
+    (``held``, :func:`_hold_groups`), each group's kernel ms (profiler
+    sums), and the iteration's calls timed with the plain version and the
+    bound; with K1-bf16 wide's bound at the same calls."""
+    from albedo_tpu_torch.kernels.als_partials_bench import wide_data
+    from albedo_tpu_torch.ops import als as ops_als
+
+    data = wide_data(torch, torch.device("cuda"))
+    other = {"users": "items", "items": "users"}
+    yty = {side: ops_als.gramian(data[side]) for side in other}
+    tables = {side: data[side].to(torch.bfloat16) for side in other}
+    calls = [(tables[side], yty[side], idx, val, mask, data[other[side]][rows.clamp(min=0).long()].contiguous(),
+              rows >= 0, mask.sum(dim=1, dtype=torch.float32)) for side, idx, val, mask, rows in data["calls"]]
+
+    def run():
+        return [ops_als.bucket_cg_body(*c[:6], REG, ALPHA, CG_STEPS, gather_dtype="bfloat16") for c in calls]
+
+    def plain():
+        return [ops_als.bucket_cg_reference(*c[:6], REG, ALPHA, CG_STEPS, "bfloat16") for c in calls]
+
+    held = _hold_groups(calls, run, plain,
+                        limits=lambda c: ops_als.bucket_cg_bf16_limits(*c[:6], REG, ALPHA, CG_STEPS, rows=c[6]))
+    per_group = _per_group(calls, [(lambda c=c: ops_als.bucket_cg_body(*c[:6], REG, ALPHA, CG_STEPS,
+                                                                       gather_dtype="bfloat16")) for c in calls])
+    timed = _timed(dict(err=(held["max_abs_err"], held["rel_err"]), ms=cuda_ms(run), plain_ms=cuda_ms(plain),
+                        library_ms=None, over=held["over_limit"], kernel_ms=per_group["kernel_ms"], **_k3_work(calls)))
+    return {"held": {n: v for n, v in held.items() if n not in ("rel_by_group", "over_by_group")},
+            "per_group": per_group, "timed": timed,
+            "als_partials_bf16_wide_bound": _bound_ms(_k1_work(calls))}
 
 
 def _bf16_calls(calls) -> list[tuple]:
@@ -4275,7 +4419,6 @@ def phase_bench_bf16(bench: dict) -> dict:
 
     est, model, _ = fits["cholesky"]
     calls = _bf16_calls(_sweep_calls(est, train, model))
-    k = model.user_table.shape[1]
 
     def k1(fn):
         return [fn(c[0], c[2], c[3], c[4], ALPHA, "bfloat16") for c in calls]
@@ -4302,15 +4445,11 @@ def phase_bench_bf16(bench: dict) -> dict:
         ),
     }
     # The f32 bounds of phase 7 with 2 bytes per table element read.
-    slots = sum(c[2].numel() for c in calls)
     entries = sum(int(c[4].sum()) for c in calls)
     rows = sum(c[2].shape[0] for c in calls)
-    table_bytes = 2 * (model.user_table.numel() + model.item_table.numel())
-    slot_bytes = 9 * slots
     work = {
-        "als_partials_bf16": (slot_bytes + table_bytes + 4 * rows * (k * k + k), entries * (k * (k + 1) + 2 * k)),
-        "bucket_cg_bf16": (slot_bytes + table_bytes + 4 * rows * 2 * k + 4 * k * k * 2,
-                           entries * 4 * k * (CG_STEPS + 2) + rows * ((CG_STEPS + 1) * 2 * k * k + CG_STEPS * 10 * k)),
+        "als_partials_bf16": tuple(_k1_work(calls).values()),
+        "bucket_cg_bf16": tuple(_k3_work(calls).values()),
     }
     out = {
         name: _timed(dict(err=(abs_err, rel), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -4571,9 +4710,9 @@ def main() -> int:
     phase_candidate_kernels()
     phase_serving_kernels()
     phase_repair_kernels()
-    phase_any_size_kernels()
+    any_size_timed = phase_any_size_kernels()
     phase_two_stage_kernels()
-    phase_trainer_kernels()
+    trainer_timed = phase_trainer_kernels()
     launches = phase_job()
     ranker_launches, inputs = phase_ranker_job()
     ranker_timed = phase_ranker_timing(inputs)
@@ -4601,7 +4740,8 @@ def main() -> int:
     launches.update(**wide["launches"], **two_stage["launches"], **cv["launches"], **bf16["launches"],
                     **w2v["launches"])
     timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed, **wide["timed"], **two_stage_timed,
-                 **cv["timed"], **bf16["timed"], **options["timed"], sgns_shared=w2v["timed"]["sgns_shared"])
+                 **cv["timed"], **bf16["timed"], **options["timed"], **any_size_timed, **trainer_timed,
+                 sgns_shared=w2v["timed"]["sgns_shared"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -8,8 +8,8 @@ and the ranker job's AUC and NDCG@30.
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py candidates [--port] [--seeds 42,1,2,3]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py serve [--port]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py two_stage [--port] [--shared]
-    JAX_PLATFORMS=cpu python jax_reference_ndcg.py wide_rank [--port] [--rank 100]
-    JAX_PLATFORMS=cpu python jax_reference_ndcg.py cv_als [--port] [--seeds 42,1,2,3] [--shared]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py wide_rank [--port] [--rank 100] [--solver cg] [--permute-seeds 1,2]
+    JAX_PLATFORMS=cpu python jax_reference_ndcg.py cv_als [--port] [--seeds 42,1,2,3] [--shared] [--solver cg]
     JAX_PLATFORMS=cpu python jax_reference_ndcg.py cv_lr [--port] [--seeds 42,1,2,3] [--shared]
 
 Same protocol as ``chip_smoke.py`` phase 5 and ``bench.py``'s quality gate:
@@ -84,7 +84,13 @@ minutes on a CPU.
 paths): ``ImplicitALS(rank=100)``, 26 iterations, Cholesky, on the
 ``train_als`` job's tables from the numpy init of ``--shared``, evaluated as
 the job evaluates (the 250 test users' top 30 against their most recent 30
-stars). One JSON line; about a minute on a CPU.
+stars). One JSON line; about a minute on a CPU. ``--solver cg`` fits with
+3-step CG instead (``chip_smoke.py``'s rank-100 CG fit). ``--permute-seeds
+1,2`` (with ``--port``) fits once more per seed with the live entries of
+every row of every bucket group in another order (``torch.Generator``
+seeded with the seed): a row's terms are the same, so only the float32
+summation order changes, and the spread of these fits is how far round-off
+alone moves the fit.
 
 ``cv_als`` runs the ``cv_als`` job at full size (the default synthetic
 tables, data policy ``off``): the grid the job takes without ``--tables``
@@ -95,7 +101,8 @@ runs the real grid (rank [50, 100] x regParam [0.01, 0.5] x alpha [0.01,
 40], 13 iterations, 2 folds) through ``cross_validate`` on the same tables,
 every fit from the numpy init of ``--shared`` (rank-wide), scored as the
 job scores a fold, and prints the per-fold NDCG@30 of every grid point and
-the best params (about ten minutes).
+the best params (about ten minutes). ``--solver cg`` fits every grid point
+with 3-step CG, as ``cv_als --solver cg`` does.
 
 ``cv_lr`` runs the ``cv_lr`` job at full size (Word2Vec dim 200 x 30 epochs,
 LR 300 iterations, the five weight columns in one batched solve), once per
@@ -501,10 +508,35 @@ def two_stage(argv: list[str]) -> None:
     }), flush=True)
 
 
+def _permuted_groups(als, original, seed: int) -> None:
+    """Make the port's ``ImplicitALS.device_groups`` return ``original``'s
+    bucket groups with the live entries of each row in another order (a
+    uniform random order per row, ``torch.Generator`` seeded with ``seed``);
+    the padding stays at the end of the row."""
+    import torch
+
+    from albedo_tpu_torch.datasets.ragged import Bucket
+
+    def permute(g):
+        gen = torch.Generator().manual_seed(seed)
+        keys = torch.rand(g.mask.shape, generator=gen).masked_fill(~g.mask, 2.0)
+        order = torch.argsort(keys, dim=-1)
+        return Bucket(idx=g.idx.gather(-1, order), val=g.val.gather(-1, order), mask=g.mask,
+                      row_ids=g.row_ids)
+
+    def device_groups(self, matrix):
+        ug, ig, u_land, i_land = original(self, matrix)
+        return [permute(g) for g in ug], [permute(g) for g in ig], u_land, i_land
+
+    als.ImplicitALS.device_groups = device_groups
+
+
 def wide_rank(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(prog="jax_reference_ndcg.py wide_rank")
     ap.add_argument("--port", action="store_true", help="run the port on the CPU")
     ap.add_argument("--rank", type=int, default=100)
+    ap.add_argument("--solver", default="cholesky", choices=["cholesky", "cg"])
+    ap.add_argument("--permute-seeds", default="", help="comma-separated seeds of entry permutations (--port)")
     args = ap.parse_args(argv)
     if args.port:
         from albedo_tpu_torch.builders import jobs
@@ -514,19 +546,28 @@ def wide_rank(argv: list[str]) -> None:
         from albedo_tpu.builders import jobs
         from albedo_tpu.models import als
         from albedo_tpu.recommenders import ALSRecommender
-    with tempfile.TemporaryDirectory() as data_dir:
-        ctx = _job_context(jobs, args.port, data_dir)
-        matrix = ctx.matrix()
-        est = als.ImplicitALS(rank=args.rank, reg_param=jobs.ALS_REG, alpha=jobs.ALS_ALPHA, max_iter=26,
-                              init_factors=shared_als_init(matrix.n_users, matrix.n_items, args.rank),
-                              **({"device": "cpu"} if args.port else {}))
-        model = est.fit(matrix)
-        users = matrix.user_ids[ctx.test_user_dense()]
-        ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=30).recommend_for_users(users))
-    print(json.dumps({
-        "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
-        "rank": args.rank, "ndcg": ndcg, "users": int(users.size),
-    }), flush=True)
+    seeds = [None] + [int(x) for x in args.permute_seeds.split(",") if x]
+    if not args.port and len(seeds) > 1:
+        ap.error("--permute-seeds needs --port")
+    original = als.ImplicitALS.device_groups
+    for seed in seeds:
+        if seed is not None:
+            _permuted_groups(als, original, seed)
+        with tempfile.TemporaryDirectory() as data_dir:
+            ctx = _job_context(jobs, args.port, data_dir)
+            matrix = ctx.matrix()
+            est = als.ImplicitALS(rank=args.rank, reg_param=jobs.ALS_REG, alpha=jobs.ALS_ALPHA, max_iter=26,
+                                  solver=args.solver,
+                                  init_factors=shared_als_init(matrix.n_users, matrix.n_items, args.rank),
+                                  **({"device": "cpu"} if args.port else {}))
+            model = est.fit(matrix)
+            users = matrix.user_ids[ctx.test_user_dense()]
+            ndcg = ctx.evaluate_topk(ALSRecommender(model, matrix, top_k=30).recommend_for_users(users))
+        print(json.dumps({
+            "package": "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)",
+            "rank": args.rank, "solver": args.solver, "permute_seed": seed, "ndcg": ndcg,
+            "users": int(users.size),
+        }), flush=True)
 
 
 def _cv_packages(port: bool):
@@ -566,6 +607,7 @@ def cv_als(argv: list[str]) -> None:
     ap.add_argument("--seeds", default="42", help="comma-separated ALS seeds")
     ap.add_argument("--shared", action="store_true",
                     help="the real grid, every fit from the shared numpy init")
+    ap.add_argument("--solver", default="cholesky", choices=["cholesky", "cg"], help="the real grid's solver")
     args = ap.parse_args(argv)
     cv, jobs, als, _ = _cv_packages(args.port)
     package = "albedo_tpu_torch (cpu)" if args.port else "albedo_tpu (jax cpu)"
@@ -594,7 +636,7 @@ def cv_als(argv: list[str]) -> None:
 
         def fit(params, train):
             init = shared_als_init(train.n_users, train.n_items, params["rank"])
-            return als.ImplicitALS(max_iter=13, init_factors=init, **params,
+            return als.ImplicitALS(max_iter=13, init_factors=init, solver=args.solver, **params,
                                    **({"device": "cpu"} if args.port else {})).fit(train)
 
         def evaluate(model, train, test):
@@ -602,7 +644,7 @@ def cv_als(argv: list[str]) -> None:
 
         results = cv.cross_validate(fit, evaluate, matrix, cv.param_grid(**CV_ALS_REAL_GRID), n_folds=2)
     print(json.dumps({
-        "package": package, "grid": "real", "init": "shared",
+        "package": package, "grid": "real", "init": "shared", "solver": args.solver,
         "results": [{"params": r.params, "fold_ndcg": r.fold_metrics, "mean": r.mean_metric} for r in results],
         "best": results[0].params,
     }), flush=True)

@@ -61,7 +61,7 @@ import torch
 
 from albedo_tpu_torch import kernels
 from albedo_tpu_torch.kernels import topk_bench
-from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS
+from albedo_tpu_torch.kernels.als_partials_bench import BENCH_GROUPS, WIDE_GROUPS
 from albedo_tpu_torch.ops import als as ops_als
 from albedo_tpu_torch.ops import bpr as ops_bpr
 from albedo_tpu_torch.ops import sgns as ops_sgns
@@ -1228,10 +1228,10 @@ def _force_k3_plan(monkeypatch, plan):
 
 def _hold_k3(dev, src, idx, val, mask, x0, gather_dtype, steps=3):
     """K3 (or K3-bf16) under the plan ``ops_als.k3_plan_for`` gives against
-    the plain version: rel 1e-4 (bf16 5e-4), the same bits on a second call,
-    one count."""
+    the plain version: rel 1e-4 (bf16 row by row to F9's limits), the same
+    bits on a second call, one count of the path the rank takes."""
     yty = ops_als.gramian(src)
-    entry = ops_als._entry("bucket_cg", gather_dtype)
+    entry = ops_als._path(ops_als._entry("bucket_cg", gather_dtype), src.shape[1])
     kernels.reset_launches()
     x = ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, steps, gather_dtype=gather_dtype)
     assert kernels.LAUNCHES[entry] == 1
@@ -1360,6 +1360,121 @@ def test_k3_refused_plans_raise(dev, monkeypatch):
     src, idx, val, mask, x0 = _k3_bucket(dev, 2, 700, 50)
     yty = ops_als.gramian(src)
     for plan in ((1, 32, 32, 1), (1, 4, 96, 1), (0, 1, 4, 1), (1, 1, 7000, 1)):
+        _force_k3_plan(monkeypatch, plan)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)
+
+
+# ---- K3's split design above rank 64, and its tiled path above 512 --------
+
+
+WIDE_K3_RANKS = [65, 96, 100, 128, 129, 200, 256, 512]
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", WIDE_K3_RANKS)
+@pytest.mark.parametrize("b, length", [(1, 1224), (40, 300), (256, 16), (2048, 16)],
+                         ids=["one-row-1224", "padding-slots", "warp-mode", "B2048"])
+def test_k3_wide_split_design_matches_plain(dev, b, length, k, gather_dtype):
+    """K3 and K3-bf16 at ranks 65-512 under their default plans (the
+    rank-100 fit's longest row over a cluster, rows with padding slots, the
+    warp mode of short rows): K3 at rel 1e-4, K3-bf16 row by row to F9's
+    limits, the same bits on a second call, one ``bucket_cg_wide`` count."""
+    _hold_k3(dev, *_k3_bucket(dev, b, length, k, n_source=2000, seed=k + length), gather_dtype)
+
+
+def _wide_k3_plan(k, bf16, case, length):
+    """The forced plan of a case of :func:`test_k3_wide_modes_match_plain`:
+    warp mode at the rank's pack length, or clusters of c whose slices stay
+    in shared memory where they fit (else streamed), or streamed."""
+    if case.startswith("warp"):
+        return 0, 1, max(4, -(-length // 4) * 4), 1
+    c = {"cta": 1, "c2": 2, "c4": 4, "c8": 8, "c16": 16, "streamed-c1": 1, "streamed-c4": 4}[case]
+    resident = (1, c, _slice(length, c), 1)
+    fits = ops_als.k3_smem(resident, k, bf16) <= ops_als.K3_SMEM
+    return (1, c, _slice(length, c), int(fits and not case.startswith("streamed")))
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [65, 100, 129, 256, 257, 512])
+@pytest.mark.parametrize("case", ["warp", "warp-L1", "warp-L0", "cta", "c2", "c4", "c8", "c16", "streamed-c1",
+                                  "streamed-c4", "masked-gaps", "all-masked-row"])
+def test_k3_wide_modes_match_plain(dev, monkeypatch, case, k, gather_dtype):
+    """Each mode of the split design above rank 64 under a forced plan, in
+    every column class (4, 8, 16 columns a lane; YtY from shared memory and
+    from L2; the CG vectors in registers and in shared memory): warp mode at
+    the rank's longest packed row, one slot and none, one CTA a row,
+    clusters of 2 to 16, streamed slices (windows of 64, or 32 above rank
+    256) at c = 1 and 4, rows with masked gaps and a row with no entry."""
+    bf16 = gather_dtype is not None
+    pack = ops_als.k3_pack_l(k)
+    b, length = {"warp": (37, pack), "warp-L1": (9, 1), "warp-L0": (3, 0), "cta": (5, 300), "c2": (3, 700),
+                 "c4": (3, 700), "c8": (3, 700), "c16": (2, 1500), "streamed-c1": (3, 300),
+                 "streamed-c4": (3, 700), "masked-gaps": (6, 700), "all-masked-row": (6, 300)}[case]
+    if case not in ("masked-gaps", "all-masked-row"):
+        _force_k3_plan(monkeypatch, _wide_k3_plan(k, bf16, case, length))
+    _hold_k3(dev, *_k3_bucket(dev, b, length, k, n_source=2000, gaps=case == "masked-gaps",
+                              empty_row=case == "all-masked-row", seed=k + length), gather_dtype)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("b, length", WIDE_GROUPS)
+def test_k3_wide_at_the_rank_100_groups(dev, b, length, gather_dtype):
+    """K3 and K3-bf16 under their default plans at every group shape of the
+    rank-100 fit, rank 100: K3 at rel 1e-4, K3-bf16 row by row to F9's
+    limits (``ops.als.bucket_cg_bf16_limits``, worst share under 1), the
+    same bits on a second call, one ``bucket_cg_wide`` count a call."""
+    _hold_k3(dev, *_k3_bucket(dev, b, length, 100, n_source=3000, seed=b + length), gather_dtype)
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [513, 600])
+@pytest.mark.parametrize("case", ["5x300", "256x16"])
+def test_k3_tiled_path_above_512(dev, case, k, gather_dtype):
+    """Above rank 512 K3 takes its tiled kernel, counted ``bucket_cg_tiled``
+    (``bucket_cg_bf16_tiled``): held as the split design, one count. The
+    256 x 16 bucket at rank 513 is F10's input: with thread 0 summing the
+    CG dots over all k columns, K3-bf16 was 2.3 times over F9's limits
+    there (``tests/test_torch_ops_als.py::test_f10_k3_tiled_dots``)."""
+    bucket = (_k3_bucket(dev, 5, 300, k, n_source=2000, seed=k) if case == "5x300"
+              else _wide_bucket(dev, k, 256, 16, seed=k + 256))
+    _hold_k3(dev, *bucket, gather_dtype)
+    assert kernels.LAUNCHES["bucket_cg_wide"] == kernels.LAUNCHES["bucket_cg_bf16_wide"] == 0
+
+
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+def test_k3_smem_mirror_is_the_library(dev, gather_dtype):
+    """The CPU mirror of K3's shared-memory layout (``ops.als.k3_smem``,
+    which the CPU plan tests use) counts the bytes ``bucket_cg.cu
+    bucket_cg_smem`` counts (with which the wrapper plans) at every rank
+    1-512: warp mode at every slice length, cluster mode resident and
+    streamed; so the warp-mode lengths and every plan of the rank-100 fit's
+    and the bench's groups agree, and the library refuses ranks above 512."""
+    bf16 = gather_dtype is not None
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = ([(0, 1, s, 1) for s in range(4, 129, 4)]
+             + [(1, 1, s, r) for s in (32, 64, 96, 320, 1248, 7648) for r in (0, 1)])
+    for k in range(1, 513):
+        for plan in plans:
+            assert ops_als.k3_smem_card(plan, k, bf16) == ops_als.k3_smem(plan, k, bf16), (k, plan)
+        assert ops_als.k3_pack_l(k, ops_als.k3_smem_card) == ops_als.k3_pack_l(k)
+    for k in (50, 65, 100, 128, 129, 256, 257, 512):
+        for b, length in WIDE_GROUPS + BENCH_GROUPS:
+            want = ops_als._k3_plan(b, length, k, bf16, n_sm)
+            if want[1] == 16 and not ops_als._k3_cluster16(dev, bf16, k, ops_als.k3_smem(want, k, bf16)):
+                want = ops_als._k3_plan(b, length, k, bf16, n_sm, c_max=8)
+            assert ops_als.k3_plan_for(b, length, k, gather_dtype, dev) == want, (k, b, length)
+    with pytest.raises(ValueError, match="no split-design plan"):
+        ops_als.k3_smem_card((0, 1, 4, 1), 513, bf16)
+
+
+def test_k3_wide_refused_plans_raise(dev, monkeypatch):
+    """Above rank 64 as below: a cluster the card cannot hold, a plan that
+    does not cover the row, warp mode past 128 slots and a resident slice
+    past shared memory are refused, and the wrapper raises."""
+    src, idx, val, mask, x0 = _k3_bucket(dev, 2, 700, 100)
+    yty = ops_als.gramian(src)
+    for plan in ((1, 32, 32, 1), (1, 4, 96, 1), (0, 1, 700, 1), (1, 1, 704, 1)):
         _force_k3_plan(monkeypatch, plan)
         with pytest.raises(RuntimeError, match="failed to launch"):
             ops_als.bucket_cg_body(src, yty, idx, val, mask, x0, 0.5, 40.0, 3)

@@ -50,6 +50,17 @@ def _t(*arrays):
     return [torch.as_tensor(a) for a in arrays]
 
 
+@pytest.fixture
+def one_thread():
+    """Torch's CPU ops on one thread for the test: the order models run
+    thousands of small ops, which a pool of threads contending with other
+    test processes for the cores slows many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("k", [8, 50])
 def test_k1_partial_terms(k):
     src, idx, val, mask, _ = _bucket(k)
@@ -701,6 +712,188 @@ def test_k3_cluster_model_matches_jax(b, length, cg_steps):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+# ---------------------------------------- K3's split design above rank 64
+#
+# Ranks 65-512 run the same split design with a lane owning ceil(k / 32)
+# columns, rounded up to a class of 4, 8 or 16 (``ops.als.k3_cols``): the
+# warp-mode length, the window, the exchanged partial and YtY's place (shared
+# memory up to rank 128, L2 above) are functions of k mirrored from the
+# source. The tests hold the mirror at ranks 65-512 and a model of the
+# kernel's summation order (a lane's columns, the xor tree, a warp's block
+# of entries, the warps in order, then the cluster's ranks) against JAX.
+
+WIDE_K3_RANKS = [65, 100, 128, 129, 200, 256, 257, 512]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", WIDE_K3_RANKS)
+def test_k3_wide_plan_covers_each_slot_once_in_rank_order(k, bf16):
+    """At every rank-100 fit group, bench group and edge shape, each plan's
+    units cover every slot of every row exactly once, a row's slices are
+    contiguous and added in rank order, warp mode takes exactly the rows of
+    at most ``k3_pack_l`` slots, and slices are whole chunks."""
+    pack = tals.k3_pack_l(k)
+    assert 4 <= pack <= 128 and pack % 4 == 0
+    for b, length in WIDE_GROUPS + BENCH_GROUPS + K3_EDGES:
+        plan = tals._k3_plan(b, length, k, bf16, N_SM)
+        mode, c, slice_, resident = plan
+        cover = np.zeros((b, length), dtype=np.int64)
+        ranks: dict[int, list] = {}
+        for cta, row, rank, start, end in tals.k3_units(b, length, plan):
+            assert 0 <= start <= end <= length
+            cover[row, start:end] += 1
+            ranks.setdefault(row, []).append((rank, start, end))
+            assert cta == (row // tals.K3_PACK_WARPS if mode == 0 else row * c + rank)
+        assert (cover == 1).all()
+        for got in ranks.values():
+            assert [r for r, _, _ in got] == list(range(c if mode == 1 else 1))
+            assert all(a[2] == z[1] for a, z in zip(got, got[1:]))
+        if mode == 0:
+            assert length <= pack and slice_ >= length and slice_ % 4 == 0 and resident
+        else:
+            assert length > pack and slice_ % 32 == 0 and -(-length // c) <= slice_ < -(-length // c) + 32
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k3_wide_plans_fit_shared_memory_at_every_rank(bf16):
+    """At every rank 65-512, every rank-100 fit group and every bench group
+    (and a 20 000-slot row), with clusters of 16 and of the portable 8, the
+    plan's shared bytes a CTA stay within the 227 KB a block may opt into;
+    the rank-100 fit's longest row (1224 slots) is resident; a group of few
+    rows is spread until it has a CTA an SM or K3_WIDE_SPREAD CTAs a row,
+    and further only while its slice does not fit."""
+    for k in range(65, 513):
+        for b, length in WIDE_GROUPS + BENCH_GROUPS + [(1, 20000)]:
+            for c_max in (8, 16):
+                plan = tals._k3_plan(b, length, k, bf16, N_SM, c_max)
+                mode, c, slice_, resident = plan
+                assert c in tals.K3_CLUSTERS and c <= c_max
+                assert tals.k3_smem(plan, k, bf16) <= tals.K3_SMEM < 227 * 1024 + 1
+                if mode == 1 and c < c_max:
+                    assert (b * c >= N_SM or c >= tals.K3_WIDE_SPREAD) and resident
+                if mode == 1 and c > tals.K3_WIDE_SPREAD:
+                    half = -(-(-(-length // (c // 2))) // 32) * 32
+                    assert tals.k3_smem((1, c // 2, half, 1), k, bf16) > tals.K3_SMEM
+    for k in (65, 100, 128):
+        assert tals._k3_plan(1, 1224, k, bf16, N_SM)[3] == 1
+    # above rank 128 YtY is read from L2 (no shared bytes), above 256 the CG vectors take shared memory
+    assert tals.k3_smem((1, 1, 32, 1), 129, bf16) < tals.k3_smem((1, 1, 32, 1), 128, bf16)
+    assert tals.k3_cols(64) == 2 and tals.k3_cols(65) == 4 and tals.k3_cols(257) == 16
+
+
+def _xor_dot(a, b, nc):
+    """``bucket_cg.cu dotv``: each lane's products over its columns l + 32 j
+    in column order, then the warp's xor tree (lane 0 adds lane 16, then
+    the pair 8 away, ...)."""
+    k = a.shape[-1]
+    prod = torch.nn.functional.pad(a * b, (0, 32 * nc - k)).reshape(*a.shape[:-1], nc, 32)
+    d = prod[..., 0, :]
+    for j in range(1, nc):
+        d = d + prod[..., j, :]
+    for o in (16, 8, 4, 2, 1):
+        d = d[..., :o] + d[..., o:2 * o]
+    return d[..., 0]
+
+
+def _k3_split_model(src, yty, idx, val, mask, x0, plan, cg_steps, gather_dtype=None):
+    """K3's split design as the card sums it, every row at once: each
+    warp's block of entries (warp mode one block, cluster mode each rank's
+    slice cut into K3_CTA_WARPS blocks) summed in entry order, the warps'
+    partials added in warp order, then the ranks' in rank order; entry dots
+    and CG dots over a lane's columns and the xor tree; YtY p with i
+    ascending; then JAX's CG update."""
+    def rnd(x):
+        return tals._round(x, gather_dtype)
+
+    mode, c, slice_, _ = plan
+    b, length = idx.shape
+    k = src.shape[1]
+    nc = tals.k3_cols(k)
+    warps, ranks = (1, 1) if mode == 0 else (tals.K3_CTA_WARPS, c)
+    y = tals.gather_table(src, gather_dtype)[idx.long()].float() * mask[..., None]
+    c1 = torch.where(mask, ALPHA * val, torch.zeros_like(val))
+    w = torch.where(mask, 1.0 + c1, torch.zeros_like(c1))
+    slot = torch.arange(length)
+    rank = slot // slice_ if mode == 1 else torch.zeros_like(slot)
+    n = (torch.clamp((rank + 1) * slice_, max=length) - rank * slice_) if mode == 1 else torch.full_like(slot, length)
+    per = -(-n // warps)
+    unit = rank * warps + (slot - rank * slice_) // per if mode == 1 else torch.zeros_like(slot)
+    pos = (slot - rank * slice_) % per if mode == 1 else slot
+
+    def summed(term):  # term(slots) -> (B, len(slots), k), each unit's block in entry order, then warps, ranks
+        acc = torch.zeros((b, ranks * warps, k))
+        for p in range(int(pos.max()) + 1 if length else 0):
+            at = (pos == p).nonzero()[:, 0]
+            acc[:, unit[at]] += term(at)
+        out = torch.zeros((b, k))
+        for r in range(ranks):
+            cta = torch.zeros((b, k))
+            for wi in range(warps):
+                cta = cta + acc[:, r * warps + wi]
+            out = out + cta
+        return out
+
+    rn = REG * mask.sum(1, dtype=torch.float32)[:, None]
+    b_vec = summed(lambda at: w[:, at, None] * y[:, at])
+    diag = torch.clamp(torch.diagonal(yty)[None] + summed(lambda at: rnd(y[:, at] * y[:, at]) * rnd(c1[:, at, None]))
+                       + rn, min=1e-12)
+
+    def matvec(p):
+        pr = rnd(p)
+        s = summed(lambda at: y[:, at] * rnd(c1[:, at] * _xor_dot(y[:, at], pr[:, None], nc))[..., None])
+        yp = torch.zeros_like(p)
+        for i in range(k):
+            yp = yp + p[:, i:i + 1] * yty[i]
+        return yp + s + rn * p
+
+    tiny = 1e-30
+    x = x0
+    r = b_vec - matvec(x)
+    z = r / diag
+    p = z
+    rz = _xor_dot(r, z, nc)
+    for _ in range(cg_steps):
+        ap = matvec(p)
+        step = rz / (_xor_dot(p, ap, nc) + tiny)
+        x = x + step[:, None] * p
+        r = r - step[:, None] * ap
+        z = r / diag
+        rz_new = _xor_dot(r, z, nc)
+        beta = rz_new / (rz + tiny)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+@pytest.mark.parametrize("k", [65, 100, 129])
+@pytest.mark.parametrize("b, length, gaps, c",
+                         [(9, 30, False, None), (3, 300, False, 16), (2, 700, True, 16), (3, 300, False, 8),
+                          (2, 700, True, 8), (1, 1224, False, None)],
+                         ids=["warp-mode", "c16-short", "c16-gaps", "c8-short", "c8-gaps", "rank-100-longest"])
+@pytest.mark.usefixtures("one_thread")
+def test_k3_wide_model_matches_jax(b, length, gaps, c, k):
+    """The split design's order at ranks 65, 100 and 129 (column classes of
+    4 and 8, YtY from shared memory and from L2), 3 CG steps, a row of
+    padding: under the plan the card takes (warp mode; the longest row of
+    the rank-100 fit over K3_WIDE_SPREAD CTAs) and under slices forced over
+    clusters of 16 and of 8 (ranks past the row's end holding no slot),
+    within rtol 1e-5, atol 1e-6 of JAX's ``bucket_cg_body``, as the other
+    K1-K3 parity tests (the order is the only difference)."""
+    src, idx, val, mask = _k1_bucket(k, b, length, n_source=2 * k + 40, n_pad=1 if b > 1 else 0, gaps=gaps,
+                                     seed=k + length)
+    x0 = (np.random.default_rng(length).standard_normal((b, k)) * 0.1).astype(np.float32)
+    yty = src.T @ src
+    if c is None:
+        plan = tals._k3_plan(b, length, k, False, N_SM)
+        assert plan[0] == (0 if length <= tals.k3_pack_l(k) else 1)
+    else:
+        plan = (1, c, -(-(-(-length // c)) // 32) * 32, 1)
+        assert length > tals.k3_pack_l(k) and plan[1] * (plan[2] - 32) < length <= plan[1] * plan[2]
+    got = _k3_split_model(*_t(src, yty, idx, val, mask, x0), plan, 3)
+    want = _jax_cg(src, yty, idx, val, mask, x0, 3, None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 
 def _f9_bucket(case: str):
     """The two buckets the K3-bf16 tolerance tests above use: "16x2152"
@@ -844,3 +1037,113 @@ def test_k3_bf16_reorders_keep_the_padding():
             live = mask[r].nonzero().flatten().tolist()
             assert sorted(src_pos[r, live].tolist()) == live
             assert src_pos[r, ~mask[r]].tolist() == (~mask[r]).nonzero().flatten().tolist()
+
+
+# ------------------------------------ F10: K3's tiled path's CG dot products
+#
+# Above rank 512 K3 runs its tiled kernel (one 128-thread CTA a row). Its CG
+# dot products were summed by thread 0 alone over all k columns. Under bf16
+# gathers that serial order's round-off flipped a bf16 rounding of p that
+# F9's row limits do not cover: on the card, rank 513, a bucket of 256 rows
+# of up to 16 entries, the worst row was 2.3 times over its limit. A model
+# of the kernel's order (its products fused, as the card's fmaf) reproduces
+# that number; with the dots summed as a block (each thread's columns, a
+# warp's xor tree, the warps in order) the worst row is 0.11 of its limit.
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k3_tiled_model(src, yty, idx, val, mask, x0, cg_steps, serial_dots):
+    """K3-bf16's tiled kernel in its order (``bucket_cg.cu
+    bucket_cg_wide_kernel``): b and the diagonal's sum entry by entry; each
+    matvec's entry dot over a lane's columns then the xor tree, t back
+    entry by entry, YtY p with i ascending; the CG dots by thread 0 in
+    column order (``serial_dots``) or by the block."""
+    b, length = idx.shape
+    k = src.shape[1]
+    y = src.to(torch.bfloat16).float()[idx.long()] * mask[..., None]
+    c1 = torch.where(mask, ALPHA * val, torch.zeros_like(val))
+    w = torch.where(mask, 1 + c1, torch.zeros_like(c1))
+    rn = (REG * mask.sum(1, dtype=torch.float32))[:, None]
+    b_vec, dg = torch.zeros(b, k), torch.zeros(b, k)
+    for slot in range(length):
+        b_vec = _fma(w[:, slot, None], y[:, slot], b_vec)
+        dg = _fma(tals._round(y[:, slot] * y[:, slot], "bfloat16"), tals._round(c1[:, slot, None], "bfloat16"), dg)
+    diag = torch.clamp(torch.diagonal(yty)[None] + dg + rn, min=1e-12)
+
+    def tree(a, q, threads):  # each thread's columns by fused products, xor trees of 32, warps in order
+        cols = -(-k // threads)
+        pa, pq = (torch.nn.functional.pad(v, (0, threads * cols - k)).reshape(b, cols, threads) for v in (a, q))
+        d = torch.zeros(b, threads)
+        for j in range(cols):
+            d = _fma(pa[:, j], pq[:, j], d)
+        d = d.reshape(b, threads // 32, 32)
+        for o in (16, 8, 4, 2, 1):
+            d = d[..., :o] + d[..., o:2 * o]
+        s = torch.zeros(b)
+        for wi in range(threads // 32):
+            s = s + d[:, wi, 0]
+        return s
+
+    def dot(a, q):
+        if not serial_dots:
+            return tree(a, q, 128)
+        s = torch.zeros(b)
+        for i in range(k):
+            s = _fma(a[:, i], q[:, i], s)
+        return s
+
+    def matvec(v):
+        out, pr = torch.zeros(b, k), tals._round(v, "bfloat16")
+        for slot in range(length):
+            t = tals._round(c1[:, slot] * tree(y[:, slot], pr, 32), "bfloat16")
+            out = _fma(y[:, slot], t[:, None], out)
+        yp = torch.zeros(b, k)
+        for i in range(k):
+            yp = _fma(v[:, i:i + 1], yty[i][None], yp)
+        return (yp + out) + rn * v
+
+    x = x0
+    r = b_vec - matvec(x)
+    z = r / diag
+    p = z
+    rz = dot(r, z)
+    for _ in range(cg_steps):
+        ap = matvec(p)
+        step = rz / (dot(p, ap) + 1e-30)
+        x = x + step[:, None] * p
+        r = r - step[:, None] * ap
+        z = r / diag
+        rz_new = dot(r, z)
+        beta = rz_new / (rz + 1e-30)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_f10_k3_tiled_dots():
+    """F10's input (the card test's 256 x 16 bucket at rank 513, the same
+    numpy draws): the serial dots put a row 2.3 times over F9's limit, the
+    block's dots keep every row under 0.2 of it."""
+    k, b, length = 513, 256, 16
+    rng = np.random.default_rng(k + b)
+    n_source = 2 * k + 40
+    src = (rng.standard_normal((n_source, k)) / np.sqrt(k)).astype(np.float32)
+    lens = rng.integers(0, length + 1, size=b)
+    lens[0], lens[-1] = length, 0
+    mask = np.arange(length)[None, :] < lens[:, None]
+    idx = np.where(mask, rng.integers(0, n_source, size=(b, length)), 0).astype(np.int32)
+    val = np.where(mask, rng.uniform(0.5, 3.0, size=(b, length)), 0).astype(np.float32)
+    x0 = (rng.standard_normal((b, k)) * 0.1).astype(np.float32)
+    src_t, idx_t, val_t, mask_t, x0_t = _t(src, idx, val, mask, x0)
+    yty = tals.gramian(src_t)
+    call = (src_t, yty, idx_t, val_t, mask_t, x0_t)
+    want = tals.bucket_cg_reference(*call, REG, ALPHA, 3, "bfloat16")
+    limits = tals.bucket_cg_bf16_limits(*call, REG, ALPHA, 3)
+    serial = tals.bucket_cg_bf16_over(_k3_tiled_model(*call, 3, serial_dots=True), want, limits)
+    block = tals.bucket_cg_bf16_over(_k3_tiled_model(*call, 3, serial_dots=False), want, limits)
+    assert float(serial.max()) > 2.0
+    assert float(block.max()) < 0.2
