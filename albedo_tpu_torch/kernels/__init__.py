@@ -6,8 +6,10 @@ compiles them with ``nvcc`` into ``build/kernels/`` at first use and launches
 them through ``ctypes``. The PyTorch-facing wrappers, with the plain
 versions beside them, are in ``albedo_tpu_torch.ops``.
 
-``LAUNCHES[name]`` counts the launches of each kernel in this process, so a
-run can show that its main path went through the kernels.
+``LAUNCHES[name]`` counts the launches of each kernel that the card ran in
+this process, so a run can show that its main path went through the
+kernels; a CUDA graph's launches count once for each replay
+(``build.LaunchRecord``).
 """
 
 from __future__ import annotations

@@ -184,7 +184,8 @@ def bench_data(torch, dev) -> dict:
 def time_fits(data: dict) -> dict:
     """The bench fit's device seconds (rank 50, 26 iterations, reg 0.5,
     alpha 40, from the pinned init), Cholesky and CG-3, at float32 and bf16
-    gathers, as ``chip_smoke.py``'s bench phases fit it."""
+    gathers, as ``chip_smoke.py``'s bench phases fit it; ``<name>_total``
+    adds the graph's capture (``compile_s``; a tree without it counts 0)."""
     from albedo_tpu_torch.datasets.star_matrix import StarMatrix
     from albedo_tpu_torch.models.als import ImplicitALS
 
@@ -196,7 +197,9 @@ def time_fits(data: dict) -> dict:
         est = ImplicitALS(rank=RANK, reg_param=REG, alpha=ALPHA, max_iter=26, solver=solver, cg_steps=3,
                           init_factors=init, gather_dtype=dtype, device="cuda")
         est.fit(train)
-        out[name] = est.last_fit_report["device_s"]
+        report = est.last_fit_report
+        out[name] = report["device_s"]
+        out[f"{name}_total"] = report["device_s"] + report.get("compile_s", 0.0)
     return out
 
 
@@ -649,7 +652,9 @@ def time_wide_fits(torch, data: dict) -> dict:
     ``cg_fit_s`` by 3-step CG; two fits each) and the wall seconds of the
     real cv_als grid (13 iterations, 2 folds, every fit from the shared
     numpy init of its rank, as chip_smoke.py's ``cv`` phase runs it:
-    ``grid_s`` by Cholesky, ``cg_grid_s`` by CG; two runs each)."""
+    ``grid_s`` by Cholesky, ``cg_grid_s`` by CG; two runs each).
+    ``fit_total_s`` and ``cg_fit_total_s`` add each fit's graph capture
+    (``compile_s``; a tree without it counts 0) to its device seconds."""
     from albedo_tpu_torch.builders.jobs import CV_ALS_TABLES_GRID, cv_als_evaluate, shared_als_init
     from albedo_tpu_torch.cv import cross_validate, param_grid
     from albedo_tpu_torch.datasets.star_matrix import StarMatrix
@@ -659,11 +664,12 @@ def time_wide_fits(torch, data: dict) -> dict:
     init = (data["users"].cpu().numpy(), data["items"].cpu().numpy())
     out = {}
     for solver, fit_key, grid_key in (("cholesky", "fit_s", "grid_s"), ("cg", "cg_fit_s", "cg_grid_s")):
-        fits = []
+        fits, totals = [], []
         for _ in range(2):
             est = ImplicitALS(rank=WIDE_RANK, max_iter=26, init_factors=init, solver=solver, device="cuda")
             est.fit(matrix)
             fits.append(est.last_fit_report["device_s"])
+            totals.append(fits[-1] + est.last_fit_report.get("compile_s", 0.0))
 
         def fit(params, train, solver=solver):
             return ImplicitALS(max_iter=13, init_factors=shared_als_init(train.n_users, train.n_items,
@@ -677,7 +683,7 @@ def time_wide_fits(torch, data: dict) -> dict:
             cross_validate(fit, cv_als_evaluate, matrix, param_grid(**CV_ALS_TABLES_GRID), n_folds=2)
             torch.cuda.synchronize()
             grids.append(time.perf_counter() - t0)
-        out.update({fit_key: fits, grid_key: grids})
+        out.update({fit_key: fits, fit_key.replace("fit_s", "fit_total_s"): totals, grid_key: grids})
     return out
 
 
@@ -877,7 +883,8 @@ def main_wide(torch, dev, argv: list[str]) -> int:
                                   "plain_ms")}
                for name in ("als_partials_wide", "als_partials_bf16_wide", "solve_corrected_wide", "bucket_cg_wide",
                             "bucket_cg_bf16_wide")}
-    summary.update({key: [r[key][1] for r in runs] for key in ("fit_s", "grid_s", "cg_fit_s", "cg_grid_s")})
+    summary.update({key: [r[key][1] for r in runs]
+                    for key in ("fit_s", "fit_total_s", "grid_s", "cg_fit_s", "cg_fit_total_s", "cg_grid_s")})
     print(json.dumps({"mode": "wide", "card": _card(), "order": [other, here, here, other], **summary}), flush=True)
     return 0
 

@@ -138,12 +138,52 @@ PATHS = {
     "bpr_step_wide": "bpr_step",
 }
 
-# Launches of each kernel (and path) in this process (see
+# Launches of each kernel (and path) that the card ran in this process (see
 # ``kernels.reset_launches``). Launches come from several threads (the
 # serving batcher's worker, HTTP handler threads), so every update holds
-# ``LAUNCHES_LOCK``.
+# ``LAUNCHES_LOCK``. A launch made while a CUDA graph is captured is counted
+# in the capturing thread's :class:`LaunchRecord` instead, and each replay of
+# the graph adds the recorded counts here.
 LAUNCHES: dict[str, int] = dict.fromkeys([*SIGNATURES, *PATHS], 0)
 LAUNCHES_LOCK = threading.Lock()
+_RECORDING = threading.local()  # .record: the LaunchRecord open in this thread, if any
+
+
+class LaunchRecord:
+    """The launches :func:`call` makes in one thread while the record is
+    open (``with record:``, around a CUDA graph's capture): they are kept in
+    ``counts``, not added to ``LAUNCHES``, because a capture runs nothing on
+    the card. :meth:`replayed` adds them to ``LAUNCHES`` once for each replay
+    of the graph. Launches from other threads meanwhile count as usual."""
+
+    def __init__(self) -> None:
+        self.counts: dict[str, int] = {}
+
+    def __enter__(self) -> "LaunchRecord":
+        if getattr(_RECORDING, "record", None) is not None:
+            raise RuntimeError("a launch record is already open in this thread")
+        _RECORDING.record = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _RECORDING.record = None
+
+    def replayed(self, times: int = 1) -> None:
+        """Count ``times`` replays of the recorded launches in ``LAUNCHES``."""
+        with LAUNCHES_LOCK:
+            for name, n in self.counts.items():
+                LAUNCHES[name] += n * times
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of ``name`` (a key of ``SIGNATURES`` or ``PATHS``): in
+    the thread's open :class:`LaunchRecord`, else in ``LAUNCHES``."""
+    record = getattr(_RECORDING, "record", None)
+    if record is not None:
+        record.counts[name] = record.counts.get(name, 0) + 1
+        return
+    with LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # entry point -> its source's loaded library
@@ -229,8 +269,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def call(name: str, device, *args, count: str | None = None) -> None:
     """Launch kernel ``name`` on CUDA ``device`` (building all kernels on
-    first use), raise if the launch was refused, and count it in
-    ``kernels.LAUNCHES`` under ``count`` (a key of ``PATHS``) or ``name``.
+    first use), raise if the launch was refused, and count it under
+    ``count`` (a key of ``PATHS``) or ``name`` (:func:`count_launch`).
     ``args`` are the launch function's arguments before the stream; the
     launch runs with ``device`` current, on PyTorch's current stream there,
     whichever device the caller had current. When ``device`` (a
@@ -251,8 +291,7 @@ def call(name: str, device, *args, count: str | None = None) -> None:
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    with LAUNCHES_LOCK:
-        LAUNCHES[count or name] += 1
+    count_launch(count or name)
 
 
 def on_cpu(kernel: str, *tensors) -> bool:

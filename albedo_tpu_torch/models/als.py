@@ -7,12 +7,14 @@ regParam=0.5, alpha=40, maxIter=26, seed=42.
 Port of the single-device resident fit of ``albedo_tpu/models/als.py``: the
 ratings are uploaded once as tier-packed bucket groups, and each iteration is
 two half-sweeps of bucket solves (``ops.als``: K1+K2 for Cholesky, K3 for
-CG) on the device. Iteration order matches MLlib: item factors update first,
+CG) on the device; on the card the iterations after the first replay one
+CUDA graph of an iteration (``ops.als.fit_loop``, the counterpart of JAX's
+``als_fit_fused``). Iteration order matches MLlib: item factors update first,
 then user factors. ``gather_dtype="bfloat16"`` reads the fixed side's
 table through a bf16 copy in both solvers (K1-bf16, K3-bf16); the factor
 tables stay float32. Not ported yet (they raise ``NotImplementedError``):
 the mesh, sharded and chunked fits, capacity admission and the
-compiled-program cache.
+compiled-program cache (a graph serves one fit).
 """
 
 from __future__ import annotations
@@ -229,9 +231,17 @@ class ImplicitALS:
         ``callback(iteration, user_factors, item_factors)`` if given is
         invoked after each full sweep with host (numpy) copies.
 
+        On the card the sweeps run as one CUDA graph of an iteration,
+        replayed (``ops.als.fit_loop``); ``ops.als.fit_loop_reference`` is
+        the eager loop.
+
         ``self.last_fit_report`` records ``prep_s`` (bucket layout + upload;
-        ~0 when this matrix's layout is cached), ``device_s`` (init and the
-        sweeps, synchronized by the health read), ``prep_cached``,
+        ~0 when this matrix's layout is cached), ``compile_s`` (capturing
+        and instantiating the graph; 0.0 on the CPU), ``compile_source``
+        (``"capture"`` on the card, None on the CPU or where nothing was
+        captured, at ``max_iter`` <= 1), ``device_s`` (init and the sweeps,
+        synchronized by the health read, less ``compile_s``, as in JAX),
+        ``prep_cached``,
         ``health`` (``utils.watchdog.health_dict`` of the final factors) and
         ``gather_dtype``.
         """
@@ -258,11 +268,12 @@ class ImplicitALS:
             def host_callback(it, uf, vf):
                 callback(it, uf.cpu().numpy(), vf.cpu().numpy())
 
+        loop_report: dict = {}
         user_f, item_f = fit_loop(
             user_f, item_f, ug, ig, u_land, i_land,
             float(self.reg_param), float(self.alpha), int(self.max_iter),
             solver=self.solver, cg_steps=self.cg_steps, callback=host_callback,
-            gather_dtype=self.gather_dtype,
+            gather_dtype=self.gather_dtype, report=loop_report,
         )
         # The health vector depends on every factor element, so reading it
         # to the host is also the fit's completion barrier.
@@ -270,9 +281,12 @@ class ImplicitALS:
 
         health = health_dict(factor_health(user_f, item_f))
         t2 = time.perf_counter()
+        compile_s = loop_report["compile_s"]
         self.last_fit_report = {
             "prep_s": round(t1 - t0, 4),
-            "device_s": round(t2 - t1, 4),
+            "compile_s": round(compile_s, 4),
+            "compile_source": loop_report["compile_source"],
+            "device_s": round(t2 - t1 - compile_s, 4),
             "prep_cached": bool(cache_warm),
             "health": health,
             "mode": "resident",

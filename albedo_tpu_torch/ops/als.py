@@ -49,18 +49,22 @@ solved rows through the precomputed landing permutation, as the JAX sweep
 does: K2/K3 write each group's block into one solved pool and K4 reads the
 pool and the old table where they lie (no concatenated copy). K4 is a kernel of its own rather than an epilogue of K2
 and K3, which keep their measured times; :func:`gramian` stays a matmul, as
-the JAX package leaves it to XLA.
+the JAX package leaves it to XLA. :func:`fit_loop`, JAX's fused fit, runs
+the sweeps on the card as one CUDA graph of an iteration, replayed;
+:func:`fit_loop_reference` is the same loop enqueued from Python.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
+import time
 
 import torch
 
 from albedo_tpu_torch.datasets.ragged import Bucket
-from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+from albedo_tpu_torch.kernels.build import LaunchRecord, call, check_operand, on_cpu
 
 KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wide paths
 # Dynamic shared memory a block may opt into (227 KB), less a margin for the
@@ -78,6 +82,7 @@ K1_CTAS_PER_SM = 16   # CTAs an unsplit group's grid aims for, per SM: two waves
 K1_SPLIT_KMAX = 512   # the widest rank of K1's split design (narrow up to KMAX, then wide); tiled above
 _K1_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
 _K1_WORKSPACE_LOCK = threading.Lock()
+_K1_OWNED = threading.local()  # .store: the workspaces of a graph fit running in this thread, else None
 # K3's plan (csrc/bucket_cg.cu, ranks up to K3_SPLIT_KMAX; :func:`_k3_plan`).
 # The first two mirror the source's PW and CW; :func:`k3_cols`,
 # :func:`k3_window` and :func:`k3_cpart` its column classes, windows and
@@ -290,7 +295,14 @@ def _k1_workspace(n: int, dev: torch.device) -> torch.Tensor:
     """At least ``n`` floats of the (device, current stream)'s K1 workspace
     (split rows' partials), grown as calls need: launches on one stream run
     in order, so they share it, and a fit's 74 calls an iteration allocate
-    nothing."""
+    nothing. Inside a graph fit (:func:`fit_loop`) the workspace is the
+    fit's own instead: a graph keeps the pointers it captured, so no other
+    call may replace or free what it writes through."""
+    store = getattr(_K1_OWNED, "store", None)
+    if store is not None:
+        if not store or store[-1].numel() < n:
+            store.append(torch.empty(n, dtype=torch.float32, device=dev))  # earlier ones stay alive
+        return store[-1]
     key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     ws = _K1_WORKSPACE.get(key)
     if ws is None or ws.numel() < n:
@@ -900,7 +912,7 @@ def half_sweep(
     return land_rows(target, pool, landing)
 
 
-def fit_loop(
+def fit_loop_reference(
     user_f: torch.Tensor,
     item_f: torch.Tensor,
     user_groups: list[Bucket],
@@ -915,10 +927,11 @@ def fit_loop(
     callback=None,
     gather_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``n_iter`` alternating sweeps in MLlib order: item factors first (from
-    the user factors), then user factors. ``callback(it, user_f, item_f)``,
-    if given, runs after each sweep with the device tensors. The factor
-    tables stay float32 under bf16 gathers."""
+    """Plain version of :func:`fit_loop`: ``n_iter`` alternating sweeps in
+    MLlib order, item factors first (from the user factors), then user
+    factors, each half-sweep enqueued from Python. ``callback(it, user_f,
+    item_f)``, if given, runs after each sweep with the device tensors. The
+    factor tables stay float32 under bf16 gathers."""
     for it in range(n_iter):
         item_f = half_sweep(user_f, item_f, item_groups, item_landing, reg, alpha, solver, cg_steps,
                             gather_dtype)
@@ -927,6 +940,161 @@ def fit_loop(
         if callback is not None:
             callback(it, user_f, item_f)
     return user_f, item_f
+
+
+def fit_loop(
+    user_f: torch.Tensor,
+    item_f: torch.Tensor,
+    user_groups: list[Bucket],
+    item_groups: list[Bucket],
+    user_landing: torch.Tensor,
+    item_landing: torch.Tensor,
+    reg: float,
+    alpha: float,
+    n_iter: int,
+    solver: str = "cholesky",
+    cg_steps: int = 3,
+    callback=None,
+    gather_dtype: str | None = None,
+    report: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused fit (JAX ``als_fit_fused``, ``als_init_fit_fused``): the
+    sweeps of :func:`fit_loop_reference`, on the card as one CUDA graph of an
+    iteration replayed. On CPU tensors it is :func:`fit_loop_reference`.
+
+    On the card, iteration 0 runs eagerly on the thread's capture stream: it
+    is the fit's first iteration and the warm-up (cuBLAS's workspace, the
+    kernels' attributes and plans, K1's workspace). Then one iteration (both
+    half-sweeps, items first, ending in copies of the new tables into the
+    static ``user_f``/``item_f`` it read) is captured and replayed ``n_iter -
+    1`` times, so the host enqueues a replay, not ~80-150 calls, an
+    iteration; the bits are the eager loop's. ``reg``, ``alpha``,
+    ``cg_steps``, the plans and every pointer are fixed in the graph, so a
+    graph serves one fit and is released when the fit returns. The graph
+    owns every buffer it reads or writes: K1's workspace is the fit's own
+    (:func:`_k1_workspace`), the rest lives in the static tables or in the
+    thread's graph pool (:func:`_graph_pool`), whose blocks the next fit's
+    capture reuses once this fit's graph is gone. The capture starts while
+    iteration 0 still runs on the card. ``callback(it, user_f, item_f)``, if
+    given, runs after iteration 0 and after each replay with copies of that
+    iteration's tables (the next replay overwrites the static ones). ``report``, if
+    given, gets ``compile_s`` (the seconds spent capturing and
+    instantiating) and ``compile_source`` (``"capture"``); both stay 0.0 and
+    None where nothing is captured: on the CPU, and at ``n_iter`` 0 or 1.
+
+    The capture runs in ``thread_local`` mode: it refuses a host sync in
+    this thread (a hidden sync in a half-sweep raises), and ignores other
+    threads' CUDA calls, which go to their own streams, so serving threads
+    neither fail the fit nor land in its graph. A capture or
+    replay that fails raises ``RuntimeError`` naming the fit: there is no
+    eager fallback."""
+    if report is not None:
+        report.update(compile_s=0.0, compile_source=None)
+    if on_cpu("fit_loop", user_f, item_f, user_landing, item_landing):
+        return fit_loop_reference(user_f, item_f, user_groups, item_groups, user_landing, item_landing, reg, alpha,
+                                  n_iter, solver, cg_steps, callback, gather_dtype)
+    if n_iter <= 0:
+        return user_f, item_f
+    name = (f"ALS fit ({solver}, rank {user_f.shape[1]}, {len(item_groups)} item and {len(user_groups)} user "
+            f"groups, {n_iter} iterations)")
+
+    def iteration(uf, vf):  # one sweep of the eager loop
+        return fit_loop_reference(uf, vf, user_groups, item_groups, user_landing, item_landing, reg, alpha, 1,
+                                  solver, cg_steps, gather_dtype=gather_dtype)
+
+    dev = user_f.device
+    caller = torch.cuda.current_stream(dev)
+    stream = _capture_stream(dev)
+    stream.wait_stream(caller)
+    outer, _K1_OWNED.store = getattr(_K1_OWNED, "store", None), []
+    try:
+        with torch.cuda.stream(stream):
+            user_f, item_f = iteration(user_f, item_f)  # iteration 0, eager: the warm-up
+            if callback is not None:
+                callback(0, user_f.clone(), item_f.clone())
+            if n_iter > 1:
+                # Captured while iteration 0 still runs on the card: the
+                # replays follow it on the stream.
+                t0 = time.perf_counter()
+                graph, record = torch.cuda.CUDAGraph(), LaunchRecord()
+                with _CAPTURE_LOCK, record:
+                    pool = None
+                    try:
+                        pool = _graph_pool(dev)
+                        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                        try:
+                            uf, vf = iteration(user_f, item_f)
+                            user_f.copy_(uf)
+                            item_f.copy_(vf)
+                            del uf, vf
+                        finally:
+                            graph.capture_end()
+                    except Exception as exc:
+                        if pool is not None:
+                            _abandon_graph_pool(dev, pool)
+                        raise RuntimeError(f"{name}: the CUDA graph capture failed: {exc}") from exc
+                if report is not None:
+                    report.update(compile_s=time.perf_counter() - t0, compile_source="capture")
+                with torch.profiler.record_function("fit_loop.replays"):  # the replays' span in a trace
+                    for it in range(1, n_iter):
+                        try:
+                            graph.replay()
+                        except Exception as exc:
+                            raise RuntimeError(f"{name}: replay {it} of the CUDA graph failed: {exc}") from exc
+                        record.replayed()
+                        if callback is not None:
+                            callback(it, user_f.clone(), item_f.clone())
+                stream.synchronize()  # no replay runs when the graph is destroyed
+                del graph  # the graph goes with the fit; its pool serves the next capture
+    finally:
+        _K1_OWNED.store = outer
+    caller.wait_stream(stream)
+    user_f.record_stream(caller)  # allocated on the capture stream, used on the caller's
+    item_f.record_stream(caller)
+    return user_f, item_f
+
+
+_CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process, as torch's graphs require
+_GRAPH_FITS = threading.local()  # .streams, .keepers: this thread's capture stream and pool keeper a device
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """This thread's stream for graph fits on ``dev``: iteration 0, the
+    capture and the replays run there, so no other thread's work lands in a
+    capture, and cuBLAS's workspace for it is set up once."""
+    streams = _GRAPH_FITS.__dict__.setdefault("streams", {})
+    if dev.index not in streams:
+        streams[dev.index] = torch.cuda.Stream(dev)
+    return streams[dev.index]
+
+
+def _graph_pool(dev: torch.device) -> tuple:
+    """This thread's memory pool for graph fits on ``dev``: the pool of a
+    one-node graph the thread keeps, which holds the pool open between fits.
+    A fit's graph allocates its tensors there during the capture; they are
+    free again once the fit has dropped its graph, so the next fit's capture
+    reuses the blocks: the thread's fits hold one pool, not one each, and a
+    capture needs no ``cudaMalloc`` once the pool is as large as the fits
+    ask. Called under ``_CAPTURE_LOCK``, on the capture stream."""
+    keepers = _GRAPH_FITS.__dict__.setdefault("keepers", {})
+    if dev.index not in keepers:
+        keeper = torch.cuda.CUDAGraph()
+        keeper.capture_begin(capture_error_mode="thread_local")
+        try:
+            torch.zeros(1, device=dev)
+        finally:
+            keeper.capture_end()
+        keepers[dev.index] = keeper
+    return keepers[dev.index].pool()
+
+
+def _abandon_graph_pool(dev: torch.device, pool: tuple) -> None:
+    """After a failed capture: stop sending this thread's allocations to
+    ``pool`` (torch ends that only when a capture ends cleanly) and drop the
+    thread's keeper, so that its next graph fit captures into a new pool."""
+    with contextlib.suppress(RuntimeError):  # raised where the capture never began to allocate
+        torch._C._cuda_endAllocateToPool(dev.index, pool)
+    _GRAPH_FITS.__dict__.get("keepers", {}).pop(dev.index, None)
 
 
 def implicit_loss(

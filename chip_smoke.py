@@ -212,6 +212,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``lr_adam``: the 300-step fit in the float32 band of the JAX value, a
    10-step fit within rel 1e-4, seconds beside L-BFGS).
 
+13. fused_fit — (after ``bench_bf16``) K16, the fused fit: every ALS fit on
+   the card runs iteration 0 eagerly, then replays one captured iteration
+   as a CUDA graph (``ops.als.fit_loop``). The bench fits by Cholesky and
+   3-step CG and the rank-100 fits by both solvers, 26 iterations each,
+   five times by the eager loop (``fit_loop_reference``) and five times
+   by the graph, in turns: every graph fit equal to the eager fit bit for
+   bit and launching what it launches (a replay counts the captured
+   launches). Emitted: ``device_s`` and ``compile_s`` (capture and
+   instantiation) of the graph fits beside the eager ``device_s``, their
+   medians, and the card's busy share over one graph fit's replays from a
+   ``torch.profiler`` trace. The other phases' fits run as graphs too, and
+   report ``compile_s`` beside ``device_s``.
+
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
 """
@@ -2431,7 +2444,7 @@ def phase_bench() -> dict:
         ok = abs(ndcg - JAX_NDCG[solver]) <= NDCG_TOL[solver] and est.last_fit_report["health"]["nonfinite"] == 0
         emit({"phase": "bench", "solver": solver, "ndcg": ndcg, "jax_ndcg": JAX_NDCG[solver],
               "tol": NDCG_TOL[solver], "ok": ok, "fit_s": est.last_fit_report["device_s"],
-              "prep_s": est.last_fit_report["prep_s"], "data_s": round(data_s, 3),
+              "compile_s": est.last_fit_report["compile_s"], "prep_s": est.last_fit_report["prep_s"], "data_s": round(data_s, 3),
               "train_nnz": train.nnz, "health": est.last_fit_report["health"]})
         if not ok:
             raise SystemExit(f"chip_smoke: bench NDCG@30 ({solver}) {ndcg} is off {JAX_NDCG[solver]}")
@@ -3246,7 +3259,9 @@ def phase_wide_rank() -> dict:
           and bool(torch.isfinite(uf).all()) and tuple(idx.shape) == (len(dense), SELECT_K))
     emit({"phase": "wide_rank", "ok": ok, "rank": WIDE_RANK, "fit_s": fit_s, "ndcg": ndcg,
           "jax_ndcg": JAX_WIDE_RANK_NDCG, "tol": WIDE_RANK_TOL, "cg_fit_s": cg_fit_s,
-          "cg_device_s": cg_est.last_fit_report["device_s"], "cg_ndcg": cg_ndcg, "cg_jax_ndcg": JAX_WIDE_RANK_CG_NDCG,
+          "device_s": est.last_fit_report["device_s"], "compile_s": est.last_fit_report["compile_s"],
+          "cg_device_s": cg_est.last_fit_report["device_s"], "cg_compile_s": cg_est.last_fit_report["compile_s"],
+          "cg_ndcg": cg_ndcg, "cg_jax_ndcg": JAX_WIDE_RANK_CG_NDCG,
           "cg_tol": WIDE_RANK_CG_TOL, "select_k": SELECT_K,
           "launches": launches, "groups": len(calls), "held": held, "per_group": per_group, "timed": timed})
     if not ok:
@@ -3906,9 +3921,14 @@ def _cv_als_real_grid(solver: str = "cholesky") -> dict:
 
     matrix = JobContext(cli.parse_args(["train_als"])).matrix()
 
+    compile_s = []
+
     def fit(params, train):
-        return ImplicitALS(max_iter=13, init_factors=_shared_init(train.n_users, train.n_items, params["rank"]),
-                           solver=solver, **params).fit(train)
+        est = ImplicitALS(max_iter=13, init_factors=_shared_init(train.n_users, train.n_items, params["rank"]),
+                          solver=solver, **params)
+        model = est.fit(train)
+        compile_s.append(est.last_fit_report["compile_s"])
+        return model
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -3921,7 +3941,8 @@ def _cv_als_real_grid(solver: str = "cholesky") -> dict:
                             else (JAX_CV_ALS_FULL_CG, JAX_CV_ALS_FULL_CG_BEST, CV_NEEDS["cv_als real grid, cg"]))
     gap = max((abs(a - b) for key, want in jax.items()
                for a, b in zip(folds.get(key, [float("inf")] * len(want)), want)), default=float("inf"))
-    return {"solver": solver, "seconds": seconds, "launches": launches, "fold_ndcg": folds, "jax": jax,
+    return {"solver": solver, "seconds": seconds, "compile_s": compile_s, "launches": launches, "fold_ndcg": folds,
+            "jax": jax,
             "max_gap": gap, "best": results[0].params, "jax_best": jax_best,
             "ok": (gap <= CV_ALS_FULL_TOL and results[0].params == jax_best
                    and all(launches[n] > 0 for n in needs))}
@@ -4409,7 +4430,7 @@ def phase_bench_bf16(bench: dict) -> dict:
               and corr > BF16_CORR and launched and est.last_fit_report["health"]["nonfinite"] == 0)
         emit({"phase": "bench_bf16", "solver": solver, "ok": ok, "ndcg": ndcg, "jax_ndcg": JAX_NDCG_BF16[solver],
               "tol": NDCG_TOL[solver], "fit_s": est.last_fit_report["device_s"],
-              "fit_s_f32": f32_est.last_fit_report["device_s"], "loss": loss, "loss_f32": loss_f32,
+              "compile_s": est.last_fit_report["compile_s"], "fit_s_f32": f32_est.last_fit_report["device_s"], "loss": loss, "loss_f32": loss_f32,
               "loss_ratio": loss / loss_f32, "max_loss_ratio": BF16_LOSS_RATIO, "corr": corr, "min_corr": BF16_CORR,
               "launches": counts, "gather_dtype": est.last_fit_report["gather_dtype"]})
         if not ok:
@@ -4474,6 +4495,155 @@ def phase_bench_bf16(bench: dict) -> dict:
     launches = {"als_partials_bf16": fits["cholesky"][2].get("als_partials_bf16", 0),
                 "bucket_cg_bf16": fits["cg"][2].get("bucket_cg_bf16", 0)}
     return {"timed": out, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 13
+
+FUSED_RUNS = 5  # fits of each kind per configuration, eager and graph in turns
+FUSED_SPAN = "fit_loop.replays"  # ops.als.fit_loop's profiler span around its replays
+
+
+@contextlib.contextmanager
+def _eager_fits():
+    """``ImplicitALS.fit`` through ``ops.als.fit_loop_reference``, the loop
+    enqueued from Python, for the block."""
+    from albedo_tpu_torch.models import als as models_als
+    from albedo_tpu_torch.ops import als as ops_als
+
+    graph = models_als.fit_loop
+
+    def eager(*args, report=None, **kw):
+        report.update(compile_s=0.0, compile_source=None)
+        return ops_als.fit_loop_reference(*args, **kw)
+
+    models_als.fit_loop = eager
+    try:
+        yield
+    finally:
+        models_als.fit_loop = graph
+
+
+def _replay_busy(prof) -> dict:
+    """The card's busy share over a graph fit's replays, from a
+    ``torch.profiler`` trace: the union of the kernels' and copies'
+    intervals that start after ``FUSED_SPAN`` opens on the host, over the
+    window from the first one's start to the last one's end, and the eight
+    largest sums of their time by name (``replay_top_ms``)."""
+    events = prof.events()
+    spans = [e.time_range.start for e in events if e.name == FUSED_SPAN and e.device_type != torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return {"busy_share": None, "device_events": 0}
+    work = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name != FUSED_SPAN
+                  and e.time_range.start >= spans[0])
+    if not work:
+        return {"busy_share": None, "device_events": 0}
+    by_name: dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != FUSED_SPAN and e.time_range.start >= spans[0]:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy, end = 0.0, work[0][0]
+    for a, b in work:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = end - work[0][0]
+    return {"busy_share": busy / window if window > 0 else None, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "device_events": len(work), "replay_top_ms": [[name[:120], ms] for name, ms in top]}
+
+
+def _fused_bound(est, matrix, model, solver: str) -> dict:
+    """The least time of each part of one iteration's body at this fit's
+    shapes (``_bound_ms``): K1 + K2 or K3 over both half-sweeps' groups, CG's
+    warm-start gathers, K4's landings and the Gramians."""
+    calls = _sweep_calls(est, matrix, model)
+    k, rows, n = model.rank, sum(c[2].shape[0] for c in calls), matrix.n_users + matrix.n_items
+    parts = {}
+    if solver == "cg":
+        parts["bucket_cg"] = _bound_ms(_k3_work(calls))[0]
+        parts["warm_starts"] = _bound_ms({"bytes": rows * (4 + 8 * k), "flops": 0})[0]
+    else:
+        parts["als_partials"] = _bound_ms(_k1_work(calls))[0]
+        parts["solve_corrected"] = _bound_ms({"bytes": 4 * rows * (k * (k + 1) // 2 + 2 * k + 1) + 4 * k * (k + 1) // 2,
+                                              "flops": rows * (k ** 3 / 3 + 2 * k * k)})[0]
+    parts["land_rows"] = _bound_ms({"bytes": n * (8 + 8 * k), "flops": 0})[0]
+    parts["gramian"] = _bound_ms({"bytes": 4 * n * k + 8 * k * k, "flops": 2 * n * k * k})[0]
+    return parts
+
+
+def phase_fused_fit(bench: dict) -> dict:
+    """K16, the fused fit (``ops.als.fit_loop``: an iteration captured as a
+    CUDA graph and replayed) against the eager loop (``fit_loop_reference``)
+    in one process: the bench fits by Cholesky and 3-step CG (rank 50, from
+    phase 7's pinned init) and the rank-100 fits by both solvers (the
+    ``train_als`` job's tables, the shared init), 26 iterations each, each
+    fitted FUSED_RUNS times by each loop in turns through ``ImplicitALS.fit``.
+    Each graph fit must equal the eager fit bit for bit and launch what it
+    launches; emitted: ``device_s`` and ``compile_s`` of both, their medians,
+    the card's busy share over the replays of one more graph fit
+    (``torch.profiler``), and K16's record (ms a fit, the bound of its body
+    times the iterations, launches a fit)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from albedo_tpu_torch import cli
+    from albedo_tpu_torch.builders.jobs import ALS_ALPHA, ALS_REG, JobContext
+    from albedo_tpu_torch.kernels import launch_counts, reset_launches
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    job = JobContext(cli.parse_args(["train_als"] + NOW)).matrix()
+    wide = dict(rank=WIDE_RANK, reg_param=ALS_REG, alpha=ALS_ALPHA,
+                init_factors=_shared_init(job.n_users, job.n_items, WIDE_RANK))
+    bench_kw = dict(rank=50, reg_param=REG, alpha=ALPHA, cg_steps=CG_STEPS, init_factors=bench["init"])
+    configs = (("bench cholesky", bench["train"], dict(bench_kw, solver="cholesky")),
+               ("bench cg", bench["train"], dict(bench_kw, solver="cg")),
+               ("rank-100 cholesky", job, dict(wide, solver="cholesky")),
+               ("rank-100 cg", job, dict(wide, solver="cg")))
+    records, ok = {}, True
+    for name, matrix, kw in configs:
+        est = ImplicitALS(max_iter=26, device="cuda", **kw)
+        est.fit(matrix)  # the layout uploaded and every kernel warm before the timed fits
+        runs = {"eager": [], "graph": []}
+        same_bits, same_counts, counts = True, True, {}
+        for _ in range(FUSED_RUNS):
+            tables = {}
+            for kind in ("eager", "graph"):
+                reset_launches()
+                with _eager_fits() if kind == "eager" else contextlib.nullcontext():
+                    model = est.fit(matrix)
+                torch.cuda.synchronize()
+                counts[kind] = {n: c for n, c in launch_counts().items() if c}
+                report = est.last_fit_report
+                runs[kind].append((report["device_s"], report["compile_s"]))
+                tables[kind] = (model.user_table, model.item_table)
+            same_bits &= all(_same_bits(g, e) for g, e in zip(tables["graph"], tables["eager"]))
+            same_counts &= counts["graph"] == counts["eager"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model = est.fit(matrix)
+            torch.cuda.synchronize()
+        busy = _replay_busy(prof)
+        eager_s = [d for d, _ in runs["eager"]]
+        graph_s = [d for d, _ in runs["graph"]]
+        compile_s = [c for _, c in runs["graph"]]
+        total_s = [d + c for d, c in runs["graph"]]
+        parts = _fused_bound(est, matrix, model, kw["solver"])
+        launches = sum(counts["graph"].values())
+        rec = {"phase": "fused_fit", "config": name, "rank": kw["rank"], "solver": kw["solver"], "iterations": 26,
+               "same_bits": same_bits, "same_launches": same_counts, "launches": counts["graph"],
+               "device_s": graph_s, "compile_s": compile_s, "device_plus_compile_s": total_s,
+               "eager_device_s": eager_s, "median_device_s": float(np.median(graph_s)),
+               "median_compile_s": float(np.median(compile_s)), "median_total_s": float(np.median(total_s)),
+               "median_eager_device_s": float(np.median(eager_s)),
+               "total_within_eager": bool(np.median(total_s) <= np.median(eager_s)), **busy,
+               "k16": {"ms": 1e3 * float(np.median(graph_s)), "plain_ms": 1e3 * float(np.median(eager_s)),
+                       "bound_ms": 26 * sum(parts.values()), "bound_parts_ms": parts, "launches": launches}}
+        rec["ok"] = same_bits and same_counts and launches > 0
+        emit(rec)
+        records[name] = rec
+        ok &= rec["ok"]
+    if not ok:
+        raise SystemExit("chip_smoke: a graph fit differs from the eager loop in its bits or its launches")
+    return records
 
 
 def _refscale_corpus() -> list[list[str]]:
@@ -4734,6 +4904,7 @@ def main() -> int:
     two_stage_timed = phase_two_stage_timing(two_stage, bench_model)
     cv = phase_cv(train)
     bf16 = phase_bench_bf16(bench_state)
+    phase_fused_fit(bench_state)
     w2v = phase_w2v_refscale()
     phase_w2v_quality()
     phase_lr_adam()

@@ -52,8 +52,15 @@ the same bits on a second call, one count a call. K6, K7, the select path
 and K11's masked_topk on ``topk_bench.k5_edge_cases`` (NaN, +-inf, +-0,
 ties): exact, NaN where NaN (``topk_bench.same``); masked_topk at any k and
 starred width exactly; K9's and K10's wide paths (d above 512; rank above
-128 or side width above 32) at K9's and K10's tolerances.
+128 or side width above 32) at K9's and K10's tolerances. The fused fit
+(``ops.als.fit_loop``: an iteration captured as a CUDA graph, replayed)
+equals the eager loop (``fit_loop_reference``) bit for bit at the bench's
+and the rank-100 fit's groups, both solvers and gather dtypes, with and
+without a callback, and beside a thread that launches K5, and launches what
+it launches.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -1639,3 +1646,147 @@ def test_k9s_plan_fits_the_batch(dev, b, d, k):
     short = torch.empty(plan["numel"] - 1, device=dev)
     with pytest.raises(RuntimeError, match="cudaError"):
         ops_sgns.sgns_shared_step(*t, *ids, *g, 5 / max(k, 1), short)
+
+
+# ------------------------------------------------------------ the fused fit
+
+
+@pytest.fixture(scope="module")
+def fit_layouts():
+    """The bench fit's groups (rank 50, the bench split of 30000 x 20000)
+    and the rank-100 fit's (the ``train_als`` job's tables), on the card,
+    each with its shared numpy init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from albedo_tpu_torch import cli
+    from albedo_tpu_torch.builders.jobs import JobContext, shared_als_init
+    from albedo_tpu_torch.datasets import random_split_by_user
+    from albedo_tpu_torch.datasets.synthetic import synthetic_stars
+    from albedo_tpu_torch.models.als import ImplicitALS
+
+    bench, _ = random_split_by_user(synthetic_stars(30000, 20000, rank=24, mean_stars=60, seed=42),
+                                    test_ratio=0.1, seed=42)
+    job = JobContext(cli.parse_args(["train_als", "--device", "cpu"])).matrix()
+    return {name: (ImplicitALS(rank=rank, device="cuda").device_groups(m),
+                   shared_als_init(m.n_users, m.n_items, rank, 1))
+            for name, m, rank in (("bench", bench, 50), ("wide", job, 100))}
+
+
+def _fit(layout, n_iter, solver="cholesky", gather_dtype=None, graph=True, callback=False):
+    """(user_f, item_f, host copies of each iteration's tables when
+    ``callback``) of ``fit_loop`` (``graph``) or ``fit_loop_reference``."""
+    (ug, ig, u_land, i_land), (u0, v0) = layout
+    seen = []
+    hook = (lambda it, u, v: seen.append((it, u.cpu(), v.cpu()))) if callback else None
+    fit = ops_als.fit_loop if graph else ops_als.fit_loop_reference
+    u, v = fit(torch.as_tensor(u0, device="cuda"), torch.as_tensor(v0, device="cuda"), ug, ig, u_land, i_land,
+               0.5, 40.0, n_iter, solver=solver, cg_steps=3, callback=hook, gather_dtype=gather_dtype)
+    torch.cuda.synchronize()
+    return u, v, seen
+
+
+@pytest.mark.parametrize("callback", [False, True])
+@pytest.mark.parametrize("n_iter", [1, 2, 26])
+@pytest.mark.parametrize("gather_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("solver", ["cholesky", "cg"])
+@pytest.mark.parametrize("layout", ["bench", "wide"])
+def test_fused_fit_same_bits_as_eager_loop(fit_layouts, layout, solver, gather_dtype, n_iter, callback):
+    """The graph fit equals the eager loop bit for bit, and its callback
+    sees every iteration's tables."""
+    want_u, want_v, want_seen = _fit(fit_layouts[layout], n_iter, solver, gather_dtype, graph=False,
+                                     callback=callback)
+    got_u, got_v, got_seen = _fit(fit_layouts[layout], n_iter, solver, gather_dtype, callback=callback)
+    assert torch.equal(got_u, want_u) and torch.equal(got_v, want_v)
+    assert [it for it, _, _ in got_seen] == ([*range(n_iter)] if callback else [])
+    for (_, gu, gv), (_, wu, wv) in zip(got_seen, want_seen, strict=True):
+        assert torch.equal(gu, wu) and torch.equal(gv, wv)
+
+
+def test_fused_fits_of_two_layouts_back_to_back(fit_layouts):
+    """Graphs of two layouts and ranks, captured one after the other in one
+    process (K1's workspace grows between them), each equal to the eager
+    loop bit for bit."""
+    got = [_fit(fit_layouts[name], 4, solver) for name, solver in
+           (("bench", "cholesky"), ("wide", "cholesky"), ("bench", "cg"), ("wide", "cg"))]
+    want = [_fit(fit_layouts[name], 4, solver, graph=False) for name, solver in
+            (("bench", "cholesky"), ("wide", "cholesky"), ("bench", "cg"), ("wide", "cg"))]
+    for (gu, gv, _), (wu, wv, _) in zip(got, want):
+        assert torch.equal(gu, wu) and torch.equal(gv, wv)
+
+
+def test_fused_fit_capture_that_syncs_raises(fit_layouts, monkeypatch):
+    """A host sync in a half-sweep fails the capture: the fit raises, names
+    itself, and runs no eager iteration after iteration 0; a later fit
+    captures and replays as usual."""
+    land, landed = ops_als.land_rows, []
+
+    def syncing(target, pool, landing):
+        out = land(target, pool, landing)
+        landed.append(float(out[0, 0]))  # a host sync: allowed eagerly, refused in a capture
+        return out
+
+    monkeypatch.setattr(ops_als, "land_rows", syncing)
+    with pytest.raises(RuntimeError, match=r"ALS fit \(cholesky, rank 50.*CUDA graph capture failed"):
+        _fit(fit_layouts["bench"], 5)
+    assert len(landed) == 2  # iteration 0's two half-sweeps only
+    monkeypatch.undo()
+    got, want = _fit(fit_layouts["bench"], 3), _fit(fit_layouts["bench"], 3, graph=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_fit_beside_a_serving_thread(fit_layouts):
+    """Another thread that launches K5, allocates and copies to the host
+    during graph fits (as serving threads do) neither fails the fits nor
+    lands in their graphs, and each of its launches counts once."""
+    want = _fit(fit_layouts["bench"], 6, graph=False)
+    rng = np.random.default_rng(5)
+    q, items = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device="cuda")
+                for shape in ((64, 50), (20000, 50)))
+    stop, errors, calls = threading.Event(), [], [0]
+
+    def serve():
+        try:
+            while not stop.is_set():
+                _, idx = ops_topk.topk_scores(q, items, 30)
+                idx.cpu()
+                calls[0] += 1
+        except Exception as exc:  # noqa: BLE001 - the test reports it
+            errors.append(exc)
+
+    kernels.reset_launches()
+    worker = threading.Thread(target=serve)
+    worker.start()
+    try:
+        got = [_fit(fit_layouts["bench"], 6) for _ in range(3)]
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert not worker.is_alive() and not errors and calls[0] > 0
+    assert all(torch.equal(g[0], want[0]) and torch.equal(g[1], want[1]) for g in got)
+    assert kernels.LAUNCHES["topk_scores"] == calls[0]
+
+
+@pytest.mark.parametrize("solver", ["cholesky", "cg"])
+def test_fused_fit_counts_the_eager_launches(fit_layouts, solver):
+    kernels.reset_launches()
+    _fit(fit_layouts["wide"], 26, solver, graph=False)
+    eager = kernels.launch_counts()
+    kernels.reset_launches()
+    _fit(fit_layouts["wide"], 26, solver)
+    graph = kernels.launch_counts()
+    assert graph == eager and sum(graph.values()) > 0
+
+
+def test_fused_fits_share_one_pool(fit_layouts):
+    """Three graph fits in a row hold no more than one fit's memory pool: a
+    fit's graph goes when it returns, and the next fit's capture reuses the
+    thread's pool."""
+    _fit(fit_layouts["bench"], 3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    _fit(fit_layouts["bench"], 3)
+    one = torch.cuda.memory_reserved()
+    _fit(fit_layouts["bench"], 3)
+    _fit(fit_layouts["bench"], 3)
+    assert torch.cuda.memory_reserved() - one <= one - before
