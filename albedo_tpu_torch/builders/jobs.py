@@ -286,7 +286,7 @@ def train_word2vec_job(args) -> None:
     report = ctx._cache.get("w2v_report")
     if report:
         print(f"[train_word2vec] pairs = {report['pairs']}, steps = {report['steps']}, "
-              f"final epoch loss = {report['epoch_loss'][-1]}")
+              f"final epoch loss = {report['epoch_loss'][-1]}, compile = {report['compile_s']:.4f}s")
     _report("train_word2vec", "vocab", float(len(model.vocab)), t0)
 
 
@@ -499,7 +499,7 @@ def ranking_mf_job(args) -> None:
         model = mf.fit(train, item_side=item_side_features(ctx, matrix))
     report = mf.last_fit_report
     print(f"[ranking_mf] steps = {report['steps']}, final epoch loss = {report['epoch_loss'][-1]}, "
-          f"fit = {ctx.timer.totals['ranking_mf_fit']:.4f}s")
+          f"fit = {ctx.timer.totals['ranking_mf_fit']:.4f}s, compile = {report['compile_s']:.4f}s")
     users_dense = sample_test_users(test, n=250, seed=42)
     indptr, cols_arr, _ = train.csr()
     excl = padded_rows(indptr, cols_arr, users_dense)

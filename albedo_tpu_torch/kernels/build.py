@@ -64,8 +64,8 @@ SIGNATURES: dict[str, list] = {
     # in, out, centers, contexts, pool, grad_in, grad_out, loss_acc, keys, perm, ws, ws_numel, B, V, d, K,
     # neg_scale, stream
     "sgns_shared": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _P],
-    # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, stream
-    "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # p, g, m, v, n, lr, b1, b2, 1-b1, 1-b2, eps, bc1, bc2, bias (the pair on the device, or null), stream
+    "adam_dense": [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     # x, indptr, idx, val, out, units, n_units, long_rows, n_long, ws, S, B, stream
     "spmm_rows": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P],
     # scores, sb, si, starred, norm, out_s, out_i, B, n, k, L, Lpad, stream

@@ -21,20 +21,27 @@ negatives (``schedule``) as arguments, so a test can hand it the JAX
 module's own draws. When they are absent, they are drawn from one
 ``torch.Generator`` on the fit's device seeded with ``seed``; seeded fits
 are then compared by metric.
+
+On the card the epochs run as K18, the JAX ``run_jit``: epoch 0 eagerly,
+then one epoch captured as a CUDA graph and replayed
+(:meth:`RankingFactorization.fit`, ``utils/graphs.py``);
+:meth:`RankingFactorization.fit_reference` is the eager loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from albedo_tpu_torch.datasets.star_matrix import StarMatrix
 from albedo_tpu_torch.ops.bpr import bpr_step
-from albedo_tpu_torch.ops.sgns import adam_dense
+from albedo_tpu_torch.ops.sgns import adam_dense, bias_table
 from albedo_tpu_torch.ops.topk import topk_scores
 from albedo_tpu_torch.utils.device import resolve_device
+from albedo_tpu_torch.utils.graphs import replay_epochs
 
 
 @dataclasses.dataclass
@@ -98,6 +105,29 @@ class RankingFactorizationModel:
 
 
 @dataclasses.dataclass
+class _Fit:
+    """A BPR fit's device state (:meth:`RankingFactorization.fit`)."""
+
+    params: torch.Tensor            # flat x | y | b | w
+    views: list[torch.Tensor]       # x (U, r), y (I, r), b (I,), w (d,) over params
+    grads: torch.Tensor             # flat, zeroed by each Adam step
+    grad_views: list[torch.Tensor]
+    moments: tuple[torch.Tensor, torch.Tensor]
+    g: torch.Tensor                 # (I, d) item side features
+    rows: torch.Tensor              # (nnz,) users of the matrix's pairs
+    cols: torch.Tensor              # (nnz,) their items
+    loss_acc: torch.Tensor          # (1,) an epoch's summed step losses
+    losses: torch.Tensor            # (epochs,) per-epoch mean loss
+    bias: torch.Tensor              # (epochs * n_batches, 2) Adam's corrections (ops.sgns.bias_table)
+    gen: torch.Generator
+    n_batches: int
+    # The schedule on the device: (epochs, n_batches * batch) permutations
+    # and (epochs, n_batches, batch, negatives) negatives.
+    schedule: tuple[torch.Tensor, torch.Tensor] | None
+    report: dict
+
+
+@dataclasses.dataclass
 class RankingFactorization:
     """BPR-trained implicit ranking factorization. Defaults mirror
     graphlab's ``ranking_factorization_recommender``: num_factors=32,
@@ -120,16 +150,67 @@ class RankingFactorization:
         init: tuple[np.ndarray, np.ndarray] | None = None,
         schedule: list[tuple[np.ndarray, np.ndarray]] | None = None,
     ) -> RankingFactorizationModel:
-        """Train on the binary star matrix. ``item_side`` (I, d) features
+        """The fit of :meth:`fit_reference`, on the card as one CUDA graph
+        of an epoch replayed (K18, the JAX ``run_jit``); on the CPU it is
+        :meth:`fit_reference`.
+
+        Epoch 0 runs eagerly; one epoch (the permutation and negatives, the
+        gathers, K10 and Adam a batch, Adam reading its bias pair from the
+        fit's table) is captured and replayed ``epochs - 1`` times
+        (``utils.graphs.replay_epochs``); a ``schedule`` is uploaded once.
+        K10's atomics add in an order that changes from run to run, so a
+        graph fit equals an eager fit bit for bit only where no two pairs
+        of a batch add into one element; the fit's generator ends where the
+        eager loop leaves it. ``last_fit_report`` adds ``compile_s`` and
+        ``compile_source``, 0.0 and None where nothing is captured (on the
+        CPU, or one epoch)."""
+        del user_side  # user-constant terms cancel in pairwise ranking
+        dev = resolve_device(self.device)
+        if dev.type == "cpu":
+            return self.fit_reference(matrix, item_side=item_side, init=init, schedule=schedule)
+        return self._fit_graph(self._start(matrix, item_side, init, schedule, dev))
+
+    def _fit_graph(self, fit: _Fit) -> RankingFactorizationModel:
+        """:meth:`fit`'s loop on the card: the epochs of ``fit`` through
+        ``utils.graphs.replay_epochs``."""
+        name = (f"BPR fit (rank {self.rank}, side width {fit.g.shape[1]}, batch {self.batch_size}, "
+                f"{fit.n_batches} batches an epoch, {self.epochs} epochs)")
+        t0 = time.perf_counter()
+        replay_epochs(name, lambda *a: self._epoch(fit, *a), self.epochs, fit.bias, fit.losses, fit.schedule,
+                      fit.gen, fit.report, "bpr.replays")
+        return self._finish(fit, t0)
+
+    def fit_reference(
+        self,
+        matrix: StarMatrix,
+        user_side: np.ndarray | None = None,
+        item_side: np.ndarray | None = None,
+        init: tuple[np.ndarray, np.ndarray] | None = None,
+        schedule: list[tuple[np.ndarray, np.ndarray]] | None = None,
+    ) -> RankingFactorizationModel:
+        """Train on the binary star matrix, each batch enqueued from Python
+        (the plain version of :meth:`fit`). ``item_side`` (I, d) features
         enter as a learned linear term per item; ``user_side`` is accepted
         and cancels in the pairwise objective. ``init`` is the initial
         (x (U, rank), y (I, rank)); ``schedule`` holds, per epoch, the
         permutation of the matrix's nonzeros (at least ``n_batches *
         batch_size`` long) and the negatives (n_batches, batch_size,
         negatives). Either, when absent, is drawn from the seeded generator.
-        The per-epoch mean loss is in ``last_fit_report``."""
+        The per-epoch mean loss, the step count and ``device_s`` (the
+        loop's seconds, synchronized by the loss read, less ``compile_s``)
+        are in ``last_fit_report``; the final flat parameters, Adam's
+        moments and the fit's generator in ``last_fit_state``."""
         del user_side  # user-constant terms cancel in pairwise ranking
-        dev = resolve_device(self.device)
+        fit = self._start(matrix, item_side, init, schedule, resolve_device(self.device))
+        t0 = time.perf_counter()
+        n = fit.n_batches
+        for e in range(self.epochs):
+            self._epoch(fit, fit.bias[e * n:(e + 1) * n], fit.losses[e:e + 1],
+                        None if fit.schedule is None else tuple(t[e] for t in fit.schedule))
+        return self._finish(fit, t0)
+
+    def _start(self, matrix: StarMatrix, item_side, init, schedule, dev: torch.device) -> _Fit:
+        """A fit's device state before its first epoch."""
         n_users, n_items, r = matrix.n_users, matrix.n_items, self.rank
         n_pairs = int(matrix.nnz)
         n_batches = max(1, n_pairs // self.batch_size)
@@ -144,9 +225,10 @@ class RankingFactorization:
         gen.manual_seed(self.seed)
         # One flat buffer x | y | b | w, its gradient and Adam moments.
         sizes = [n_users * r, n_items * r, n_items, d]
+        shapes = ((n_users, r), (n_items, r), (n_items,), (d,))
         params = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-        x, y, bias, w = (t.view(s) for t, s in zip(
-            params.split(sizes), ((n_users, r), (n_items, r), (n_items,), (d,))))
+        views = [t.view(s) for t, s in zip(params.split(sizes), shapes)]
+        x, y = views[:2]
         if init is None:
             scale = 0.1 / np.sqrt(r)
             x.normal_(generator=gen).mul_(scale)
@@ -155,37 +237,55 @@ class RankingFactorization:
             x.copy_(torch.as_tensor(np.array(init[0], np.float32)))
             y.copy_(torch.as_tensor(np.array(init[1], np.float32)))
         grads = torch.zeros_like(params)
-        gx, gy, gb, gw = (t.view(s) for t, s in zip(
-            grads.split(sizes), ((n_users, r), (n_items, r), (n_items,), (d,))))
-        moments = (torch.zeros_like(params), torch.zeros_like(params))
-        loss_acc = torch.zeros(1, dtype=torch.float32, device=dev)
-        count = 0
-        epoch_loss = []
-        for epoch in range(self.epochs):
-            if schedule is None:
-                perm = torch.randperm(n_pairs, generator=gen, device=dev)[:pad]
-                negs = torch.randint(0, n_items, (n_batches, self.batch_size, self.negatives),
-                                     generator=gen, device=dev, dtype=torch.int32)
-            else:
-                perm = torch.as_tensor(np.array(schedule[epoch][0][:pad], np.int64)).to(dev)
-                negs = torch.as_tensor(np.array(schedule[epoch][1], np.int32)).to(dev)
-            u_all = rows[perm].view(n_batches, self.batch_size)
-            i_all = cols[perm].view(n_batches, self.batch_size)
-            loss_acc.zero_()
-            for s in range(n_batches):
-                bpr_step(x, y, bias, w, g, u_all[s], i_all[s], negs[s], gx, gy, gb, gw, loss_acc, self.reg)
-                count += 1
-                adam_dense(params, grads, *moments, count, self.learning_rate)
-            epoch_loss.append(loss_acc / n_batches)
-        self.last_fit_report = {
-            "pairs": n_pairs, "batches": n_batches, "steps": count,
-            "epoch_loss": [float(v) for v in torch.cat(epoch_loss).cpu()] if epoch_loss else [],
-        }
-        item_bias = (bias + g @ w).cpu().numpy()
+        draws = None
+        if schedule is not None:  # uploaded once; an epoch's slice is read on the device
+            draws = (torch.as_tensor(np.stack([np.asarray(pm)[:pad] for pm, _ in schedule[: self.epochs]])
+                                     .astype(np.int64)).to(dev),
+                     torch.as_tensor(np.stack([np.asarray(ng, np.int32) for _, ng in schedule[: self.epochs]])).to(dev))
+        return _Fit(
+            params=params, views=views,
+            grad_views=[t.view(s) for t, s in zip(grads.split(sizes), shapes)], grads=grads,
+            moments=(torch.zeros_like(params), torch.zeros_like(params)), g=g, rows=rows, cols=cols,
+            loss_acc=torch.zeros(1, dtype=torch.float32, device=dev),
+            losses=torch.zeros(self.epochs, dtype=torch.float32, device=dev),
+            bias=bias_table(self.epochs * n_batches, dev), gen=gen, n_batches=n_batches, schedule=draws,
+            report={"pairs": n_pairs, "batches": n_batches, "steps": self.epochs * n_batches, "compile_s": 0.0,
+                    "compile_source": None},
+        )
+
+    def _epoch(self, fit: _Fit, bias: torch.Tensor, loss_out: torch.Tensor,
+               draws: tuple[torch.Tensor, torch.Tensor] | None) -> None:
+        """One epoch of the eager loop, the unit both loops run: ``bias``
+        (n_batches, 2) holds Adam's corrections of its steps, ``loss_out``
+        (1,) gets its mean loss. Its permutation and negatives are
+        ``draws`` (one epoch of the schedule), else drawn from the fit's
+        generator."""
+        dev, n, bs = fit.params.device, fit.n_batches, self.batch_size
+        if draws is None:
+            perm = torch.randperm(int(fit.rows.shape[0]), generator=fit.gen, device=dev)[: n * bs]
+            negs = torch.randint(0, fit.g.shape[0], (n, bs, self.negatives), generator=fit.gen, device=dev,
+                                 dtype=torch.int32)
+        else:
+            perm, negs = draws
+        u_all = fit.rows[perm].view(n, bs)
+        i_all = fit.cols[perm].view(n, bs)
+        fit.loss_acc.zero_()
+        for s in range(n):
+            bpr_step(*fit.views, fit.g, u_all[s], i_all[s], negs[s], *fit.grad_views, fit.loss_acc, self.reg)
+            adam_dense(fit.params, fit.grads, *fit.moments, bias[s], self.learning_rate)
+        torch.div(fit.loss_acc, n, out=loss_out)
+
+    def _finish(self, fit: _Fit, t0: float) -> RankingFactorizationModel:
+        report = self.last_fit_report = fit.report
+        report["epoch_loss"] = [float(v) for v in fit.losses.cpu()]
+        report["device_s"] = time.perf_counter() - t0 - report["compile_s"]
+        self.last_fit_state = {"params": fit.params, "moments": fit.moments, "generator": fit.gen}
+        x, y, bias, w = fit.views
+        item_bias = (bias + fit.g @ w).cpu().numpy()
         return RankingFactorizationModel(
             user_factors=x.cpu().numpy(),
             item_factors=y.cpu().numpy(),
             item_bias=item_bias.astype(np.float32),
-            rank=r,
-            device=dev,
+            rank=self.rank,
+            device=fit.params.device,
         )

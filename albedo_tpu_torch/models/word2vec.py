@@ -18,7 +18,12 @@ uniform(±0.5/dim) init of the input table, the per-epoch permutation (the
 remainder of the last minibatch is dropped) and the negatives, drawn by
 inverse CDF over the float32 cumulative unigram^0.75 table — comes from one
 ``torch.Generator`` on the fit's device seeded with ``seed``, so it cannot
-reproduce ``jax.random``'s draws: seeded fits are compared by metric.
+reproduce ``jax.random``'s draws: seeded fits are compared by metric, and a
+test hands ``train`` the JAX fit's draws (``init``, ``schedule``).
+
+On the card the epochs run as K17, the JAX ``epoch_jit``: epoch 0 eagerly,
+then one epoch captured as a CUDA graph and replayed (:meth:`Word2Vec.train`,
+``utils/graphs.py``); :meth:`Word2Vec.train_reference` is the eager loop.
 
 Not ported: ``mesh`` (raises ``NotImplementedError``), and the persistent
 executable cache.
@@ -27,6 +32,7 @@ executable cache.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -35,8 +41,9 @@ import torch
 
 from albedo_tpu_torch.datasets.ragged import segment_positions
 from albedo_tpu_torch.features.pipeline import Transformer, memo_map
-from albedo_tpu_torch.ops.sgns import adam_dense, sgns_shared_step, sgns_shared_workspace, sgns_step
+from albedo_tpu_torch.ops.sgns import adam_dense, bias_table, sgns_shared_step, sgns_shared_workspace, sgns_step
 from albedo_tpu_torch.utils.device import resolve_device
+from albedo_tpu_torch.utils.graphs import replay_epochs
 
 
 def skipgram_pairs(
@@ -142,6 +149,30 @@ class CorpusPlan:
 
 
 @dataclasses.dataclass
+class _Fit:
+    """A Word2Vec fit's device state (:meth:`Word2Vec.train`)."""
+
+    tables: torch.Tensor    # (2, V, dim): in, out
+    grads: torch.Tensor     # (2, V, dim), zeroed by each Adam step
+    moments: tuple[torch.Tensor, torch.Tensor]
+    loss_acc: torch.Tensor  # (1,) an epoch's summed step losses
+    losses: torch.Tensor    # (max_iter,) per-epoch mean loss
+    bias: torch.Tensor      # (max_iter * steps, 2) Adam's corrections (ops.sgns.bias_table)
+    gen: torch.Generator
+    noise_cdf: torch.Tensor
+    centers: torch.Tensor
+    contexts: torch.Tensor
+    bs: int
+    steps: int
+    neg_shape: tuple
+    workspace: torch.Tensor | None
+    # The schedule on the device: (max_iter, steps * bs) permutations and
+    # (max_iter, steps, *neg_shape) uniforms.
+    schedule: tuple[torch.Tensor, torch.Tensor] | None
+    report: dict
+
+
+@dataclasses.dataclass
 class Word2Vec:
     """Skip-gram negative-sampling estimator. Defaults mirror the reference
     corpus builder (``Word2VecCorpusBuilder.scala:74-83``)."""
@@ -216,15 +247,66 @@ class Word2Vec:
         vectors = state["tables"][0].cpu().numpy().astype(np.float32)
         return Word2VecModel(plan.vocab, vectors, self.input_col, out_col)
 
-    def train(self, plan: CorpusPlan, dev: torch.device) -> tuple[dict, dict]:
-        """The device loop: ``max_iter`` epochs of shuffled minibatches, each
-        one K9 step (K9s with a shared pool) and one dense Adam step. The
-        shared pool is drawn once per step, ``(K,)`` uniforms through the
-        inverse CDF, as the JAX step draws it. The "in" and "out" tables are
-        one (2, V, dim) tensor, as are their gradients and moments, so one
-        Adam launch updates both. Returns the final optimizer state
+    def train(self, plan: CorpusPlan, dev: torch.device, init: np.ndarray | None = None,
+              schedule: list[tuple[np.ndarray, np.ndarray]] | None = None) -> tuple[dict, dict]:
+        """The device loop of :meth:`train_reference`, on the card as one
+        CUDA graph of an epoch replayed (K17, the JAX ``epoch_jit``); on the
+        CPU it is :meth:`train_reference`.
+
+        Epoch 0 runs eagerly; one epoch (the permutation, the gathers, each
+        step's draws, K9 or K9s and Adam reading its bias pair from the
+        fit's table) is captured and replayed ``max_iter - 1`` times
+        (``utils.graphs.replay_epochs``). The bits are the eager loop's
+        where its kernels give the same bits on the same inputs (K9s, Adam;
+        K9's atomics add in an order that changes from run to run), and the
+        fit's generator ends where the eager loop leaves it. The report adds
+        ``compile_s`` (capture and instantiation) and ``compile_source``
+        (``"capture"``), 0.0 and None where nothing is captured (on the
+        CPU, or one epoch)."""
+        if torch.device(dev).type == "cpu":
+            return self.train_reference(plan, dev, init, schedule)
+        return self._train_graph(self._start(plan, dev, init, schedule))
+
+    def _train_graph(self, fit: _Fit) -> tuple[dict, dict]:
+        """:meth:`train`'s loop on the card: the epochs of ``fit`` through
+        ``utils.graphs.replay_epochs``."""
+        kind = f"K9s, a pool of {self.shared_negatives}" if self.shared_negatives else "K9"
+        name = (f"Word2Vec fit ({kind}, V {fit.tables.shape[1]}, dim {self.dim}, batch {fit.bs}, "
+                f"{fit.steps} steps an epoch, {self.max_iter} epochs)")
+        t0 = time.perf_counter()
+        replay_epochs(name, lambda *a: self._epoch(fit, *a), self.max_iter, fit.bias, fit.losses, fit.schedule,
+                      fit.gen, fit.report, "word2vec.replays")
+        return self._finish(fit, t0)
+
+    def train_reference(self, plan: CorpusPlan, dev: torch.device, init: np.ndarray | None = None,
+                        schedule: list[tuple[np.ndarray, np.ndarray]] | None = None) -> tuple[dict, dict]:
+        """The device loop enqueued from Python, the plain version of
+        :meth:`train`: ``max_iter`` epochs of shuffled minibatches, each one
+        K9 step (K9s with a shared pool) and one dense Adam step. The shared
+        pool is drawn once per step, ``(K,)`` uniforms through the inverse
+        CDF, as the JAX step draws it. The "in" and "out" tables are one (2,
+        V, dim) tensor, as are their gradients and moments, so one Adam
+        launch updates both.
+
+        ``init`` is the initial "in" table (V, dim) and ``schedule`` holds,
+        per epoch, the permutation of the pairs (at least ``steps * batch``
+        long) and each step's uniforms (steps, batch, negatives), or (steps,
+        K) with a shared pool: a test hands in ``jax.random``'s draws with
+        them. Either, when absent, is drawn from one ``torch.Generator`` on
+        ``dev`` seeded with ``seed``. Returns the final optimizer state
         (``tables``, ``moments`` (m, v) and step ``count``, on the device)
-        and a report (pairs, batch, steps, per-epoch mean loss)."""
+        and a report (pairs, batch, steps, per-epoch mean loss, and
+        ``device_s``: the loop's seconds, synchronized by the loss read,
+        less ``compile_s``)."""
+        fit = self._start(plan, dev, init, schedule)
+        t0 = time.perf_counter()
+        for e in range(self.max_iter):
+            self._epoch(fit, fit.bias[e * fit.steps:(e + 1) * fit.steps], fit.losses[e:e + 1],
+                        None if fit.schedule is None else tuple(t[e] for t in fit.schedule))
+        return self._finish(fit, t0)
+
+    def _start(self, plan: CorpusPlan, dev: torch.device, init, schedule) -> _Fit:
+        """A fit's device state before its first epoch."""
         v_size, dim = len(plan.vocab), self.dim
         p_noise = plan.freq**0.75
         p_noise /= p_noise.sum()
@@ -239,37 +321,63 @@ class Word2Vec:
         gen.manual_seed(self.seed)
         scale = 0.5 / dim
         tables = torch.zeros((2, v_size, dim), dtype=torch.float32, device=dev)  # in, out
-        tables[0].uniform_(-scale, scale, generator=gen)
-        grads = torch.zeros_like(tables)
-        moments = (torch.zeros_like(tables), torch.zeros_like(tables))
-        loss_acc = torch.zeros(1, dtype=torch.float32, device=dev)
+        if init is None:
+            tables[0].uniform_(-scale, scale, generator=gen)
+        else:
+            tables[0].copy_(torch.as_tensor(np.array(init, np.float32)))
         shared = self.shared_negatives
         neg_shape = (shared,) if shared else (bs, self.negatives)
-        # K9s's workspace (logit gradients, pair rows, partials), allocated once.
-        workspace = sgns_shared_workspace(bs, dim, shared, dev) if shared else None
-        count = 0
-        epoch_loss = []
-        for _ in range(self.max_iter):
-            perm = torch.randperm(n_pairs, generator=gen, device=dev)[: steps * bs]
-            c_sh = centers[perm].view(steps, bs)
-            o_sh = contexts[perm].view(steps, bs)
-            loss_acc.zero_()
-            for s in range(steps):
-                u = torch.rand(neg_shape, generator=gen, device=dev)
-                neg = torch.searchsorted(noise_cdf, u).clamp_max_(v_size - 1).to(torch.int32)
-                if shared:
-                    sgns_shared_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], loss_acc,
-                                     self.negatives / shared, workspace)
-                else:
-                    sgns_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], loss_acc)
-                count += 1
-                adam_dense(tables, grads, *moments, count, self.learning_rate)
-            epoch_loss.append(loss_acc / steps)
-        report = {
-            "pairs": n_pairs, "batch": bs, "steps": count,
-            "epoch_loss": [float(x) for x in torch.cat(epoch_loss).cpu()],
-        }
-        return {"tables": tables, "moments": moments, "count": count, "noise_cdf": noise_cdf}, report
+        draws = None
+        if schedule is not None:  # uploaded once; an epoch's slice is read on the device
+            draws = (torch.as_tensor(np.stack([np.asarray(pm)[: steps * bs] for pm, _ in schedule[: self.max_iter]])
+                                     .astype(np.int64)).to(dev),
+                     torch.as_tensor(np.stack([np.asarray(u, np.float32).reshape(steps, *neg_shape)
+                                               for _, u in schedule[: self.max_iter]])).to(dev))
+        return _Fit(
+            tables=tables, grads=torch.zeros_like(tables),
+            moments=(torch.zeros_like(tables), torch.zeros_like(tables)),
+            loss_acc=torch.zeros(1, dtype=torch.float32, device=dev),
+            losses=torch.zeros(self.max_iter, dtype=torch.float32, device=dev),
+            bias=bias_table(self.max_iter * steps, dev), gen=gen, noise_cdf=noise_cdf, centers=centers,
+            contexts=contexts, bs=bs, steps=steps, neg_shape=neg_shape,
+            # K9s's workspace (logit gradients, pair rows, partials), allocated once.
+            workspace=sgns_shared_workspace(bs, dim, shared, dev) if shared else None,
+            schedule=draws,
+            report={"pairs": n_pairs, "batch": bs, "steps": self.max_iter * steps, "compile_s": 0.0,
+                    "compile_source": None},
+        )
+
+    def _epoch(self, fit: _Fit, bias: torch.Tensor, loss_out: torch.Tensor,
+               draws: tuple[torch.Tensor, torch.Tensor] | None) -> None:
+        """One epoch of the eager loop, the unit both loops run: ``bias``
+        (steps, 2) holds Adam's corrections of its steps, ``loss_out`` (1,)
+        gets its mean loss. Its permutation and uniforms are ``draws`` (one
+        epoch of the schedule), else drawn from the fit's generator."""
+        n, bs, v_size = fit.centers.shape[0], fit.bs, fit.tables.shape[1]
+        perm = torch.randperm(n, generator=fit.gen, device=fit.tables.device)[: fit.steps * bs] \
+            if draws is None else draws[0]
+        c_sh = fit.centers[perm].view(fit.steps, bs)
+        o_sh = fit.contexts[perm].view(fit.steps, bs)
+        tables, grads = fit.tables, fit.grads
+        fit.loss_acc.zero_()
+        for s in range(fit.steps):
+            u = torch.rand(fit.neg_shape, generator=fit.gen, device=tables.device) if draws is None else draws[1][s]
+            neg = torch.searchsorted(fit.noise_cdf, u).clamp_max_(v_size - 1).to(torch.int32)
+            if self.shared_negatives:
+                sgns_shared_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], fit.loss_acc,
+                                 self.negatives / self.shared_negatives, fit.workspace)
+            else:
+                sgns_step(tables[0], tables[1], c_sh[s], o_sh[s], neg, grads[0], grads[1], fit.loss_acc)
+            adam_dense(tables, grads, *fit.moments, bias[s], self.learning_rate)
+        torch.div(fit.loss_acc, fit.steps, out=loss_out)
+
+    def _finish(self, fit: _Fit, t0: float) -> tuple[dict, dict]:
+        report = fit.report
+        report["epoch_loss"] = [float(x) for x in fit.losses.cpu()]
+        report["device_s"] = time.perf_counter() - t0 - report["compile_s"]
+        state = {"tables": fit.tables, "moments": fit.moments, "count": report["steps"],
+                 "noise_cdf": fit.noise_cdf, "generator": fit.gen}
+        return state, report
 
     def fit(self, df: pd.DataFrame) -> Word2VecModel:
         return self.fit_corpus(list(df[self.input_col]))

@@ -56,15 +56,14 @@ the sweeps on the card as one CUDA graph of an iteration, replayed;
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import threading
-import time
 
 import torch
 
 from albedo_tpu_torch.datasets.ragged import Bucket
-from albedo_tpu_torch.kernels.build import LaunchRecord, call, check_operand, on_cpu
+from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+from albedo_tpu_torch.utils.graphs import replay_loop
 
 KMAX = 64  # the widest rank of the K1-K3 narrow paths; wider ranks take the wide paths
 # Dynamic shared memory a block may opt into (227 KB), less a margin for the
@@ -973,8 +972,8 @@ def fit_loop(
     graph serves one fit and is released when the fit returns. The graph
     owns every buffer it reads or writes: K1's workspace is the fit's own
     (:func:`_k1_workspace`), the rest lives in the static tables or in the
-    thread's graph pool (:func:`_graph_pool`), whose blocks the next fit's
-    capture reuses once this fit's graph is gone. The capture starts while
+    thread's graph pool (``utils.graphs.graph_pool``), whose blocks the next fit's
+    capture reuses once this fit's graph is gone (``utils.graphs.replay_loop``). The capture starts while
     iteration 0 still runs on the card. ``callback(it, user_f, item_f)``, if
     given, runs after iteration 0 and after each replay with copies of that
     iteration's tables (the next replay overwrites the static ones). ``report``, if
@@ -998,103 +997,30 @@ def fit_loop(
     name = (f"ALS fit ({solver}, rank {user_f.shape[1]}, {len(item_groups)} item and {len(user_groups)} user "
             f"groups, {n_iter} iterations)")
 
-    def iteration(uf, vf):  # one sweep of the eager loop
-        return fit_loop_reference(uf, vf, user_groups, item_groups, user_landing, item_landing, reg, alpha, 1,
-                                  solver, cg_steps, gather_dtype=gather_dtype)
+    tables = [user_f, item_f]
 
-    dev = user_f.device
-    caller = torch.cuda.current_stream(dev)
-    stream = _capture_stream(dev)
-    stream.wait_stream(caller)
+    def unit(it):  # iteration 0 replaces the tables; the captured one writes into them
+        uf, vf = fit_loop_reference(tables[0], tables[1], user_groups, item_groups, user_landing, item_landing,
+                                    reg, alpha, 1, solver, cg_steps, gather_dtype=gather_dtype)
+        if it == 0:
+            tables[:] = uf, vf
+        else:
+            tables[0].copy_(uf)
+            tables[1].copy_(vf)
+
+    def after(it):
+        callback(it, tables[0].clone(), tables[1].clone())
+
     outer, _K1_OWNED.store = getattr(_K1_OWNED, "store", None), []
     try:
-        with torch.cuda.stream(stream):
-            user_f, item_f = iteration(user_f, item_f)  # iteration 0, eager: the warm-up
-            if callback is not None:
-                callback(0, user_f.clone(), item_f.clone())
-            if n_iter > 1:
-                # Captured while iteration 0 still runs on the card: the
-                # replays follow it on the stream.
-                t0 = time.perf_counter()
-                graph, record = torch.cuda.CUDAGraph(), LaunchRecord()
-                with _CAPTURE_LOCK, record:
-                    pool = None
-                    try:
-                        pool = _graph_pool(dev)
-                        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                        try:
-                            uf, vf = iteration(user_f, item_f)
-                            user_f.copy_(uf)
-                            item_f.copy_(vf)
-                            del uf, vf
-                        finally:
-                            graph.capture_end()
-                    except Exception as exc:
-                        if pool is not None:
-                            _abandon_graph_pool(dev, pool)
-                        raise RuntimeError(f"{name}: the CUDA graph capture failed: {exc}") from exc
-                if report is not None:
-                    report.update(compile_s=time.perf_counter() - t0, compile_source="capture")
-                with torch.profiler.record_function("fit_loop.replays"):  # the replays' span in a trace
-                    for it in range(1, n_iter):
-                        try:
-                            graph.replay()
-                        except Exception as exc:
-                            raise RuntimeError(f"{name}: replay {it} of the CUDA graph failed: {exc}") from exc
-                        record.replayed()
-                        if callback is not None:
-                            callback(it, user_f.clone(), item_f.clone())
-                stream.synchronize()  # no replay runs when the graph is destroyed
-                del graph  # the graph goes with the fit; its pool serves the next capture
+        replay_loop(name, user_f.device, unit, n_iter, after=None if callback is None else after, report=report,
+                    span="fit_loop.replays")
     finally:
         _K1_OWNED.store = outer
-    caller.wait_stream(stream)
-    user_f.record_stream(caller)  # allocated on the capture stream, used on the caller's
-    item_f.record_stream(caller)
-    return user_f, item_f
-
-
-_CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process, as torch's graphs require
-_GRAPH_FITS = threading.local()  # .streams, .keepers: this thread's capture stream and pool keeper a device
-
-
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    """This thread's stream for graph fits on ``dev``: iteration 0, the
-    capture and the replays run there, so no other thread's work lands in a
-    capture, and cuBLAS's workspace for it is set up once."""
-    streams = _GRAPH_FITS.__dict__.setdefault("streams", {})
-    if dev.index not in streams:
-        streams[dev.index] = torch.cuda.Stream(dev)
-    return streams[dev.index]
-
-
-def _graph_pool(dev: torch.device) -> tuple:
-    """This thread's memory pool for graph fits on ``dev``: the pool of a
-    one-node graph the thread keeps, which holds the pool open between fits.
-    A fit's graph allocates its tensors there during the capture; they are
-    free again once the fit has dropped its graph, so the next fit's capture
-    reuses the blocks: the thread's fits hold one pool, not one each, and a
-    capture needs no ``cudaMalloc`` once the pool is as large as the fits
-    ask. Called under ``_CAPTURE_LOCK``, on the capture stream."""
-    keepers = _GRAPH_FITS.__dict__.setdefault("keepers", {})
-    if dev.index not in keepers:
-        keeper = torch.cuda.CUDAGraph()
-        keeper.capture_begin(capture_error_mode="thread_local")
-        try:
-            torch.zeros(1, device=dev)
-        finally:
-            keeper.capture_end()
-        keepers[dev.index] = keeper
-    return keepers[dev.index].pool()
-
-
-def _abandon_graph_pool(dev: torch.device, pool: tuple) -> None:
-    """After a failed capture: stop sending this thread's allocations to
-    ``pool`` (torch ends that only when a capture ends cleanly) and drop the
-    thread's keeper, so that its next graph fit captures into a new pool."""
-    with contextlib.suppress(RuntimeError):  # raised where the capture never began to allocate
-        torch._C._cuda_endAllocateToPool(dev.index, pool)
-    _GRAPH_FITS.__dict__.get("keepers", {}).pop(dev.index, None)
+    caller = torch.cuda.current_stream(user_f.device)
+    for t in tables:
+        t.record_stream(caller)  # allocated on the capture stream, used on the caller's
+    return tables[0], tables[1]
 
 
 def implicit_loss(

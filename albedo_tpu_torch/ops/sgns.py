@@ -422,13 +422,23 @@ def bias_corrections(count: int, b1: float, b2: float) -> tuple[float, float]:
     return float(np.float32(1.0 - b1**count)), float(np.float32(1.0 - b2**count))
 
 
+def bias_table(steps: int, device, b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
+    """Adam's bias corrections of a fit's steps on ``device``: float32
+    ``(steps, 2)``, row ``t - 1`` the pair :func:`bias_corrections` gives
+    step ``t``, the same bits. A fit builds it once; each step hands its row
+    to :func:`adam_dense`, which the kernel reads from device memory."""
+    rows = [bias_corrections(t, b1, b2) for t in range(1, steps + 1)]
+    return torch.tensor(rows, dtype=torch.float32).reshape(steps, 2).to(device)
+
+
 def adam_dense_reference(
-    p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, count: int,
+    p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, count: int | torch.Tensor,
     lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 ) -> None:
     """Plain version of the Adam kernel: optax ``adam`` on one table in
-    place, step ``count`` (1 on the first step); zeroes ``g`` after."""
-    bc1, bc2 = bias_corrections(count, b1, b2)
+    place, step ``count`` (1 on the first step), or with the bias pair of a
+    row of :func:`bias_table` in its place; zeroes ``g`` after."""
+    bc1, bc2 = (count[0], count[1]) if isinstance(count, torch.Tensor) else bias_corrections(count, b1, b2)
     m.copy_((1 - b1) * g + b1 * m)
     v.copy_((1 - b2) * (g * g) + b2 * v)
     p.add_(-lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))
@@ -436,21 +446,32 @@ def adam_dense_reference(
 
 
 def adam_dense(
-    p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, count: int,
+    p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, count: int | torch.Tensor,
     lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 ) -> None:
     """One dense Adam step on table ``p`` with gradient ``g`` and moments
     ``m``/``v`` (all the same shape, f32, updated in place; ``g`` zeroed)
-    (CUDA kernel ``adam_dense``)."""
-    if on_cpu("adam_dense", p, g, m, v):
+    (CUDA kernel ``adam_dense``). ``count`` is the step (1 on the first),
+    whose bias corrections are passed by value, or a float32 ``(2,)`` pair
+    on ``p``'s device (a row of :func:`bias_table`), which the kernel reads
+    when it runs: a step captured in a CUDA graph then takes whatever the
+    pair holds at each replay."""
+    tensors = (p, g, m, v, count) if isinstance(count, torch.Tensor) else (p, g, m, v)
+    if on_cpu("adam_dense", *tensors):
         adam_dense_reference(p, g, m, v, count, lr, b1, b2, eps)
         return
     dev = p.device
     for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
         check_operand("adam_dense", name, t, torch.float32, tuple(p.shape), dev)
-    if count < 1:
+    if isinstance(count, torch.Tensor):
+        check_operand("adam_dense", "bias", count, torch.float32, (2,), dev)
+        bc1 = bc2 = 0.0
+        bias = count.data_ptr()
+    elif count < 1:
         raise ValueError(f"adam_dense: step count starts at 1, got {count}")
-    bc1, bc2 = bias_corrections(count, b1, b2)
+    else:
+        bc1, bc2 = bias_corrections(count, b1, b2)
+        bias = None
     call("adam_dense", dev, p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
          p.numel(), lr, b1, b2, float(np.float32(1 - b1)), float(np.float32(1 - b2)),
-         eps, bc1, bc2)
+         eps, bc1, bc2, bias)

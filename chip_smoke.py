@@ -225,6 +225,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``torch.profiler`` trace. The other phases' fits run as graphs too, and
    report ``compile_s`` beside ``device_s``.
 
+14. fused_loops — (after ``fused_fit``) K17 and K18, the whole-loop
+   programs of Word2Vec and BPR: each fit runs epoch 0 eagerly, then
+   replays one captured epoch (``Word2Vec.train``,
+   ``RankingFactorization.fit``) against the eager loops
+   (``train_reference``, ``fit_reference``), LOOP_RUNS times each in turns:
+   the ``train_word2vec --w2v-full`` fit (K9), the same corpus with 512
+   shared negatives (K9s), and the full ``ranking_mf`` fit with a drawn
+   and with an injected schedule. Each graph fit launches what the eager
+   fit launches and leaves its generator where the eager fit does (the
+   next draw equal). K9s sums in a fixed order, so its graph fits equal
+   the eager fits bit for bit in tables, moments and per-epoch losses; K9
+   and K10 add with atomics in an order that changes from run to run (the
+   card tests hold their graphs bit for bit at a batch of one pair), so
+   their graph fits are held to the eager fits' own spread. Emitted:
+   ``device_s`` and ``compile_s`` of the graph fits, the eager
+   ``device_s``, the card's busy share over one graph fit's replays, and
+   K17's and K18's records (ms a fit, the bound of its step kernels over
+   the fit's own inputs, launches a fit). The other phases' Word2Vec and
+   BPR fits run as graphs too and report ``compile_s``.
+
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
 """
@@ -363,6 +383,9 @@ KERNELS = {
     "bpr_step_wide": ("albedo_tpu_torch/kernels/csrc/bpr_step.cu", "albedo_tpu/models/ranking_factorization.py:152"),
     "bucket_cg_bf16_wide": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
     "bucket_cg_tiled": ("albedo_tpu_torch/kernels/csrc/bucket_cg.cu", "albedo_tpu/ops/als.py:154"),
+    # The whole-loop programs: CUDA graphs of the kernels above, an epoch captured and replayed.
+    "w2v_epoch": ("albedo_tpu_torch/models/word2vec.py", "albedo_tpu/models/word2vec.py:339"),
+    "bpr_fit": ("albedo_tpu_torch/models/ranking_factorization.py", "albedo_tpu/models/ranking_factorization.py:201"),
 }
 
 
@@ -1444,8 +1467,8 @@ def phase_ranker_job() -> tuple[dict, dict]:
         inputs["lr"] = (self, fm, labels, sample_weight, model)
         return model
 
-    def recording_train(self, plan, dev):
-        state, report = train(self, plan, dev)
+    def recording_train(self, plan, dev, **kw):
+        state, report = train(self, plan, dev, **kw)
         inputs["w2v"] = (self, plan, state)
         return state, report
 
@@ -1477,9 +1500,9 @@ def phase_ranker_job() -> tuple[dict, dict]:
                       and abs(ndcg - JAX_RANKER["ndcg"]) <= RANKER_TOL["ndcg"])
                 launches = {n: counts[n] for n in ("segment_dot", "sgns_step", "adam_dense")}
             else:
-                w2v = re.search(r"pairs = (\d+), steps = (\d+), final epoch loss = (\S+)", text)
+                w2v = re.search(r"pairs = (\d+), steps = (\d+), final epoch loss = (\S+), compile = (\S+)s", text)
                 report.update(pairs=int(w2v.group(1)), steps=int(w2v.group(2)),
-                              final_epoch_loss=float(w2v.group(3)))
+                              final_epoch_loss=float(w2v.group(3)), compile_s=float(w2v.group(4)))
                 ok = ok and bool(np.isfinite(report["final_epoch_loss"]))
             emit(dict(report, phase="ranker_job", ok=ok))
             if not ok:
@@ -1975,10 +1998,10 @@ def phase_candidates() -> tuple[dict, dict]:
             ndcg = float(re.search(r"NDCG@30 = (\S+)", text).group(1))
             ok = ok and bool(np.isfinite(ndcg)) and abs(ndcg - JAX_CANDIDATES[label]) <= CANDIDATE_TOL[label]
             report.update(ndcg=ndcg, jax=JAX_CANDIDATES[label], tol=CANDIDATE_TOL[label])
-            fit = re.search(r"steps = (\d+), final epoch loss = (\S+), fit = (\S+)s", text)
+            fit = re.search(r"steps = (\d+), final epoch loss = (\S+), fit = (\S+)s, compile = (\S+)s", text)
             if fit:
                 report.update(steps=int(fit.group(1)), final_epoch_loss=float(fit.group(2)),
-                              fit_s=float(fit.group(3)))
+                              fit_s=float(fit.group(3)), compile_s=float(fit.group(4)))
         errs: dict = {}
         for kernel, args in calls:
             e = _hold_call(kernel, args)
@@ -4523,24 +4546,24 @@ def _eager_fits():
         models_als.fit_loop = graph
 
 
-def _replay_busy(prof) -> dict:
+def _replay_busy(prof, span: str = FUSED_SPAN) -> dict:
     """The card's busy share over a graph fit's replays, from a
     ``torch.profiler`` trace: the union of the kernels' and copies'
-    intervals that start after ``FUSED_SPAN`` opens on the host, over the
+    intervals that start after ``span`` opens on the host, over the
     window from the first one's start to the last one's end, and the eight
     largest sums of their time by name (``replay_top_ms``)."""
     events = prof.events()
-    spans = [e.time_range.start for e in events if e.name == FUSED_SPAN and e.device_type != torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range.start for e in events if e.name == span and e.device_type != torch.autograd.DeviceType.CUDA]
     if not spans:
         return {"busy_share": None, "device_events": 0}
     work = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name != FUSED_SPAN
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name != span
                   and e.time_range.start >= spans[0])
     if not work:
         return {"busy_share": None, "device_events": 0}
     by_name: dict[str, float] = {}
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != FUSED_SPAN and e.time_range.start >= spans[0]:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != span and e.time_range.start >= spans[0]:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy, end = 0.0, work[0][0]
@@ -4644,6 +4667,226 @@ def phase_fused_fit(bench: dict) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: a graph fit differs from the eager loop in its bits or its launches")
     return records
+
+
+# ------------------------------------------------------------------ phase 14
+
+LOOP_RUNS = 3  # fits of each kind per configuration, eager and graph in turns
+# K9's and K10's graph fits against the eager fits, where the kernels' atomics
+# add in an order that changes from run to run: no graph fit may differ from
+# an eager fit by more than LOOP_SPREAD times the most two eager fits differ
+# by (tables, moments and per-epoch losses, each as its largest element's
+# difference over that of the eager fit), and by nothing where the eager fits
+# agree bit for bit. On an H100 the eager fits differ by 3.5e-6 to 3.6e-5
+# and the graph fits by 0.85 to 1.9 times that; a graph that replays the
+# first replay's Adam corrections, or its schedule, differs by 0.27 to 1.0,
+# over 8000 times that (PERF.md, the fused loops' findings).
+LOOP_SPREAD = 10.0
+
+
+def _loop_fits() -> list[tuple[str, str, object]]:
+    """The fused loops' configurations, each (name, kernel, run) where
+    ``run(graph)`` fits once by the graph (``graph``) or the eager loop and
+    returns its final tables, moments, per-epoch losses, report and
+    generator: the ``train_word2vec --w2v-full`` fit (K9), the same corpus
+    with 512 shared negatives (K9s), and the full ``ranking_mf`` fit (K10)
+    with a drawn schedule and with one drawn here with numpy."""
+    import dataclasses
+
+    from albedo_tpu_torch import cli
+    from albedo_tpu_torch.builders.jobs import JobContext, item_side_features
+    from albedo_tpu_torch.datasets import random_split_by_user
+    from albedo_tpu_torch.models.ranking_factorization import RankingFactorization
+
+    dev = torch.device("cuda")
+    ctx = JobContext(cli.parse_args(["train_word2vec", "--w2v-full"] + NOW))
+    k9 = ctx.word2vec_estimator()
+    plan = k9.plan(ctx.word2vec_corpus())
+
+    def w2v(est):
+        def run(graph: bool) -> dict:
+            state, report = (est.train if graph else est.train_reference)(plan, dev)
+            return {"tables": [state["tables"], *state["moments"]], "loss": report["epoch_loss"], "report": report,
+                    "generator": state["generator"]}
+        return run
+
+    bctx = JobContext(cli.parse_args(["ranking_mf"] + NOW))
+    matrix = bctx.matrix()
+    train, _ = random_split_by_user(matrix, test_ratio=0.2, seed=42)
+    side = item_side_features(bctx, matrix)
+    mf = RankingFactorization(rank=32, epochs=10, batch_size=8192, device="cuda")  # ranking_mf_job's full size
+    rng = np.random.default_rng(7)
+    n_batches = max(1, train.nnz // mf.batch_size)
+    injected = [(rng.permutation(train.nnz), rng.integers(0, train.n_items, size=(n_batches, mf.batch_size,
+                                                                                  mf.negatives), dtype=np.int32))
+                for _ in range(mf.epochs)]
+
+    def bpr(schedule):
+        def run(graph: bool) -> dict:
+            model = (mf.fit if graph else mf.fit_reference)(train, item_side=side, schedule=schedule)
+            st = mf.last_fit_state
+            return {"tables": [st["params"], *st["moments"]], "loss": mf.last_fit_report["epoch_loss"],
+                    "report": dict(mf.last_fit_report), "generator": st["generator"], "model": model}
+        return run
+
+    return [("train_word2vec --w2v-full", "K9", w2v(k9)),
+            ("train_word2vec --w2v-full, 512 shared negatives", "K9s",
+             w2v(dataclasses.replace(k9, shared_negatives=512))),
+            ("ranking_mf, drawn schedule", "K10", bpr(None)),
+            ("ranking_mf, injected schedule", "K10", bpr(injected))]
+
+
+def _loop_bound(run, kernel: str) -> dict:
+    """The least time of a fit's step kernels on its own inputs: one more
+    eager fit with the step kernels' wrappers counting, call by call, the
+    bytes and operations of K9 (K9s, K10) as ``_time_k9`` (``_k9s_at_state``,
+    ``_time_bpr``) count them and Adam's (each element's p, g, m and v read
+    and written), summed over the calls' bounds (``_bound_ms``)."""
+    from albedo_tpu_torch.models import ranking_factorization as rf_mod
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    parts = {"step": [0.0, 0], "adam_dense": [0.0, 0]}
+    by = {"bytes": 0.0, "operations": 0.0}  # the bound's ms by what bounds each call
+
+    def add(part, work):
+        ms, bound_by = _bound_ms(work)
+        parts[part][0] += ms
+        parts[part][1] += 1
+        by[bound_by] += ms
+
+    def k9(in_t, out_t, c, o, neg, *rest):
+        d, (bs, k) = in_t.shape[1], neg.shape
+        rows = int(torch.unique(c).numel()) + int(torch.unique(torch.cat([o, neg.reshape(-1)])).numel())
+        add("step", {"bytes": 4 * d * 3 * rows + 4 * bs * (2 + k) + 8, "flops": bs * (1 + k) * (6 * d + 20)})
+        return sgns_step(in_t, out_t, c, o, neg, *rest)
+
+    def k9s(in_t, out_t, c, o, pool, *rest):
+        d, bs, k = in_t.shape[1], c.shape[0], pool.shape[0]
+        rows = int(torch.unique(c).numel()) + int(torch.unique(torch.cat([o, pool])).numel())
+        add("step", {"bytes": 4 * d * 3 * rows + 4 * (2 * bs + k) + 8, "flops": bs * (1 + k) * (6 * d + 20)})
+        return sgns_shared_step(in_t, out_t, c, o, pool, *rest)
+
+    def k10(x, y, bias, w, g, users, pos, neg, *rest):
+        (b, n), r, d = neg.shape, x.shape[1], g.shape[1]
+        rows_x = int(torch.unique(users).numel())
+        rows_y = int(torch.unique(torch.cat([pos, neg.reshape(-1)])).numel())
+        add("step", {"bytes": 4 * (3 * r * (rows_x + rows_y) + (3 + d) * rows_y + b * (2 + n)),
+                     "flops": b * (1 + n) * (2 * r + 2 * d) + b * n * (6 * r + 2 * d + 20)})
+        return bpr_step(x, y, bias, w, g, users, pos, neg, *rest)
+
+    def adam(p, *rest):
+        add("adam_dense", {"bytes": 32 * p.numel(), "flops": 12 * p.numel()})
+        return adam_dense(p, *rest)
+
+    sgns_step, sgns_shared_step, bpr_step = w2v_mod.sgns_step, w2v_mod.sgns_shared_step, rf_mod.bpr_step
+    adam_dense = w2v_mod.adam_dense
+    names = [(w2v_mod, "sgns_step", k9), (w2v_mod, "sgns_shared_step", k9s), (rf_mod, "bpr_step", k10),
+             (w2v_mod, "adam_dense", adam), (rf_mod, "adam_dense", adam)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, fn in names:
+        setattr(mod, name, fn)
+    try:
+        run(False)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return {"bound_ms": parts["step"][0] + parts["adam_dense"][0],
+            "bound_by": max(by, key=by.get), "bound_parts_ms": {f"{kernel} ({parts['step'][1]} calls)": parts["step"][0],
+                                                               f"adam_dense ({parts['adam_dense'][1]} calls)":
+                                                                   parts["adam_dense"][0]}}
+
+
+def _loop_gap(a: dict, b: dict) -> float:
+    """The largest difference of two fits' tables, moments and per-epoch
+    losses, each over its largest element (0.0 where they agree bit for
+    bit; inf where one is NaN and the other not)."""
+    gap = 0.0
+    for x, y in zip(a["tables"], b["tables"]):
+        if not _same_bits(x, y):
+            gap = max(gap, float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30))
+    la, lb = np.asarray(a["loss"]), np.asarray(b["loss"])
+    if not np.array_equal(la, lb):
+        gap = max(gap, float(np.abs(la - lb).max() / max(np.abs(lb).max(), 1e-30)))
+    return gap if np.isfinite(gap) else float("inf")
+
+
+def phase_fused_loops() -> dict:
+    """K17 and K18, the whole-loop programs (an epoch captured as a CUDA
+    graph and replayed, ``utils.graphs.replay_loop``) against the eager
+    loops in one process: each configuration of :func:`_loop_fits` fitted
+    LOOP_RUNS times by each loop in turns after one warm-up fit of each,
+    with the launch counts set to 0 before each fit and read after it. Each
+    graph fit must launch what the eager fit launches and leave its
+    generator where the eager fit leaves it (the next 8 draws equal); K9s's
+    graph fits must equal its eager fits bit for bit, K9's and K10's differ
+    from them by at most LOOP_SPREAD times the eager fits' own spread.
+    Emitted: ``device_s`` and ``compile_s`` of both loops, their medians,
+    the card's busy share over one more graph fit's replays
+    (``torch.profiler``), and the records of K17 (the K9 fit) and K18 (the
+    drawn ``ranking_mf`` fit): ms a fit (``device_s + compile_s``), the
+    bound of its step kernels, launches a fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from albedo_tpu_torch.kernels import launch_counts, reset_launches
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    records, ok = {}, True
+    for name, kernel, run in _loop_fits():
+        for graph in (False, True):
+            run(graph)  # the kernels built, the data uploaded, every path warm
+        fits = {"eager": [], "graph": []}
+        counts, draws = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+        for _ in range(LOOP_RUNS):
+            for kind in ("eager", "graph"):
+                reset_launches()
+                fit = run(kind == "graph")
+                torch.cuda.synchronize()
+                counts[kind].append({n: c for n, c in launch_counts().items() if c})
+                draws[kind].append(torch.rand(8, generator=fit["generator"], device="cuda"))
+                fits[kind].append(fit)
+        eager_spread = max((_loop_gap(a, b) for i, a in enumerate(fits["eager"]) for b in fits["eager"][i + 1:]),
+                           default=0.0)
+        graph_gap = max(_loop_gap(g, e) for g in fits["graph"] for e in fits["eager"])
+        same_bits = graph_gap == 0.0
+        same_counts = all(c == counts["eager"][0] for c in counts["eager"] + counts["graph"])
+        same_draws = all(torch.equal(d, draws["eager"][0]) for d in draws["eager"] + draws["graph"])
+        finite = all(np.isfinite(f["loss"]).all() for f in fits["eager"] + fits["graph"])
+        held = same_bits if kernel == "K9s" else graph_gap <= LOOP_SPREAD * eager_spread
+        span = "word2vec.replays" if kernel.startswith("K9") else "bpr.replays"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(True)
+            torch.cuda.synchronize()
+        busy = _replay_busy(prof, span)
+        eager_s = [f["report"]["device_s"] for f in fits["eager"]]
+        graph_s = [f["report"]["device_s"] for f in fits["graph"]]
+        compile_s = [f["report"]["compile_s"] for f in fits["graph"]]
+        total_s = [d + c for d, c in zip(graph_s, compile_s)]
+        bound = _loop_bound(run, kernel)
+        launches = sum(counts["graph"][0].values())
+        max_abs = max(float((g["tables"][0] - e["tables"][0]).abs().max())
+                      for g, e in zip(fits["graph"], fits["eager"]))
+        rec = {"phase": "fused_loops", "config": name, "kernel": kernel, "card": card,
+               "epochs": len(fits["graph"][0]["loss"]), "steps": fits["graph"][0]["report"]["steps"],
+               "same_bits": same_bits, "graph_gap": graph_gap, "eager_spread": eager_spread, "held": held,
+               "same_launches": same_counts, "same_next_draw": same_draws, "finite": finite,
+               "launches": counts["graph"][0], "device_s": graph_s, "compile_s": compile_s,
+               "device_plus_compile_s": total_s, "eager_device_s": eager_s,
+               "median_device_s": float(np.median(graph_s)), "median_compile_s": float(np.median(compile_s)),
+               "median_total_s": float(np.median(total_s)), "median_eager_device_s": float(np.median(eager_s)),
+               "epoch_loss": fits["graph"][0]["loss"], **busy,
+               "record": {"ms": 1e3 * float(np.median(total_s)), "plain_ms": 1e3 * float(np.median(eager_s)),
+                          "max_abs_err": max_abs, "library_ms": None, "launches": launches, **bound}}
+        rec["ok"] = held and same_counts and same_draws and finite and launches > 0
+        emit(rec)
+        records[name] = rec
+        ok &= rec["ok"]
+        del fits
+    if not ok:
+        raise SystemExit("chip_smoke: a graph loop differs from the eager loop in its results, its launches "
+                         "or its generator")
+    return {"w2v_epoch": records["train_word2vec --w2v-full"]["record"],
+            "bpr_fit": records["ranking_mf, drawn schedule"]["record"]}
 
 
 def _refscale_corpus() -> list[list[str]]:
@@ -4763,7 +5006,8 @@ def phase_w2v_refscale() -> dict:
           "projected_30_epochs_s": est.max_iter * probe_s, "epochs": epochs, "epochs_cut": epochs < est.max_iter,
           "train_s": train_s, "fit_s": plan_s + train_s, "epoch_tokens_per_s": n_tok * epochs / (plan_s + train_s),
           "epoch_tokens_per_s_device_loop": n_tok * epochs / train_s, "ms_per_step": 1e3 * train_s / report["steps"],
-          "epoch_loss": losses, "launches": counts, "timed": timed})
+          "epoch_loss": losses, "compile_s": report["compile_s"], "device_s": report["device_s"],
+          "launches": counts, "timed": timed})
     if not ok:
         raise SystemExit("chip_smoke: the refscale Word2Vec fit was not finite or falling, skipped K9s, "
                          "a kernel disagrees with its plain version at its state, or F8's check passed a fault")
@@ -4814,7 +5058,8 @@ def phase_w2v_quality() -> dict:
                                                          "max_across": 0.5, "launches": cluster_launches},
           "job_corpus": {"final_epoch_loss": final, "jax_mean": jax_mean, "band": band, "fit_s": fit_s,
                          "pairs": est.last_fit_report["pairs"], "epoch_loss": est.last_fit_report["epoch_loss"],
-                         "launches": job_launches}})
+                         "compile_s": est.last_fit_report["compile_s"],
+                         "device_s": est.last_fit_report["device_s"], "launches": job_launches}})
     if not ok:
         raise SystemExit("chip_smoke: shared-negative Word2Vec left the cluster test's or the JAX loss band")
     return {"sgns_shared": cluster_launches + job_launches}
@@ -4905,6 +5150,7 @@ def main() -> int:
     cv = phase_cv(train)
     bf16 = phase_bench_bf16(bench_state)
     phase_fused_fit(bench_state)
+    loops = phase_fused_loops()
     w2v = phase_w2v_refscale()
     phase_w2v_quality()
     phase_lr_adam()
@@ -4912,7 +5158,8 @@ def main() -> int:
                     **w2v["launches"])
     timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed, **wide["timed"], **two_stage_timed,
                  **cv["timed"], **bf16["timed"], **options["timed"], **any_size_timed, **trainer_timed,
-                 sgns_shared=w2v["timed"]["sgns_shared"])
+                 sgns_shared=w2v["timed"]["sgns_shared"], **loops)
+    launches.update({name: rec["launches"] for name, rec in loops.items()})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

@@ -57,7 +57,15 @@ starred width exactly; K9's and K10's wide paths (d above 512; rank above
 equals the eager loop (``fit_loop_reference``) bit for bit at the bench's
 and the rank-100 fit's groups, both solvers and gather dtypes, with and
 without a callback, and beside a thread that launches K5, and launches what
-it launches.
+it launches. The whole-loop fits K17 and K18 (``Word2Vec.train``,
+``RankingFactorization.fit``: an epoch captured as a CUDA graph, replayed)
+equal their eager loops bit for bit in tables, moments and per-epoch
+losses, with and without a schedule, launch what they launch and leave
+their generators where the eager loops do; K9 and K10 run at a batch of
+one pair there (one warp adds every term, in program order: at larger
+batches their atomics add in an order that changes from run to run), K9s
+at 256. Adam with its bias pair read from device memory gives the bits of
+the pair passed by value.
 """
 
 import threading
@@ -1790,3 +1798,146 @@ def test_fused_fits_share_one_pool(fit_layouts):
     _fit(fit_layouts["bench"], 3)
     _fit(fit_layouts["bench"], 3)
     assert torch.cuda.memory_reserved() - one <= one - before
+
+
+@pytest.mark.parametrize("count", [1, 2, 1000, 1441])
+def test_adam_dense_device_pair_same_bits_as_values(dev, count):
+    """Adam with its bias pair read from device memory (a row of
+    ``ops.sgns.bias_table``) gives the bits of the pair passed by value."""
+    rng = np.random.default_rng(count)
+    shape = (2, 146, 200)
+    base = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    base.append(np.abs(rng.normal(size=shape)).astype(np.float32) * 1e-3)
+    table = ops_sgns.bias_table(1441, dev)
+    res = []
+    for arg in (count, table[count - 1]):
+        p, g, m, v = (torch.as_tensor(a.copy(), device=dev) for a in base)
+        kernels.reset_launches()
+        ops_sgns.adam_dense(p, g, m, v, arg, 0.025)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["adam_dense"] == 1
+        res.append((p, g, m, v))
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+def _w2v_corpus(n=400):
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(60)]
+    p = 1.0 / np.arange(1, 61) ** 1.1
+    p /= p.sum()
+    return [[words[i] for i in rng.choice(60, size=rng.integers(2, 12), p=p)] for _ in range(n)]
+
+
+# K9 at a batch of one pair: one warp adds every term, in program order, so
+# its sums have one order and a graph fit can be held to the eager loop bit
+# for bit; at larger batches its atomics add in an order that changes from
+# run to run. K9s sums in a fixed order at any batch.
+W2V_LOOPS = {"K9": dict(dim=16, batch_size=1, shared_negatives=0),
+             "K9s": dict(dim=16, batch_size=256, shared_negatives=32)}
+
+
+def _w2v_fit(kind, epochs, graph, schedule=False):
+    from albedo_tpu_torch.models.word2vec import Word2Vec
+
+    est = Word2Vec(window=3, min_count=3, max_iter=epochs, subsample=0.0, seed=5, device="cuda", **W2V_LOOPS[kind])
+    plan = est.plan(_w2v_corpus(60 if kind == "K9" else 400))
+    draws = (None, None)
+    if schedule:
+        rng = np.random.default_rng(1)
+        bs = min(est.batch_size, len(plan.centers))
+        steps = len(plan.centers) // bs
+        shape = (steps, est.shared_negatives) if est.shared_negatives else (steps, bs, est.negatives)
+        draws = (None, [(rng.permutation(len(plan.centers)), rng.random(shape, dtype=np.float32))
+                        for _ in range(epochs)])
+    kernels.reset_launches()
+    state, report = (est.train if graph else est.train_reference)(plan, torch.device("cuda"), *draws)
+    torch.cuda.synchronize()
+    return state, report, kernels.launch_counts()
+
+
+@pytest.mark.parametrize("schedule", [False, True], ids=["drawn", "schedule"])
+@pytest.mark.parametrize("epochs", [1, 2, 3])
+@pytest.mark.parametrize("kind", ["K9", "K9s"])
+def test_word2vec_graph_fit_same_bits_as_eager_loop(dev, kind, epochs, schedule):
+    """K17: the Word2Vec fit replaying one captured epoch equals the eager
+    loop (``train_reference``) bit for bit in tables, moments and per-epoch
+    losses, launches what it launches, and leaves its generator where the
+    eager loop does."""
+    got, got_report, got_counts = _w2v_fit(kind, epochs, graph=True, schedule=schedule)
+    want, want_report, want_counts = _w2v_fit(kind, epochs, graph=False, schedule=schedule)
+    assert torch.equal(got["tables"], want["tables"])
+    assert all(torch.equal(a, b) for a, b in zip(got["moments"], want["moments"]))
+    assert got_report["epoch_loss"] == want_report["epoch_loss"] and len(got_report["epoch_loss"]) == epochs
+    assert got_counts == want_counts and got_counts["adam_dense"] == got_report["steps"]
+    assert (got_report["compile_source"] == "capture") == (epochs > 1) and got_report["compile_s"] >= 0.0
+    assert torch.equal(torch.rand(8, generator=got["generator"], device=dev),
+                       torch.rand(8, generator=want["generator"], device=dev))
+
+
+def _bpr_data():
+    from albedo_tpu_torch.datasets.synthetic import synthetic_stars
+
+    m = synthetic_stars(n_users=60, n_items=40, mean_stars=8, seed=1)
+    side = np.random.default_rng(0).normal(size=(m.n_items, 3)).astype(np.float32)
+    return m, side
+
+
+def _bpr_fit(epochs, graph, schedule):
+    from albedo_tpu_torch.models.ranking_factorization import RankingFactorization
+
+    m, side = _bpr_data()
+    # A batch of one pair: K10's atomics then add in program order (one warp).
+    est = RankingFactorization(rank=8, epochs=epochs, batch_size=1, device="cuda")
+    sched = None
+    if schedule:
+        rng = np.random.default_rng(2)
+        sched = [(rng.permutation(m.nnz), rng.integers(0, m.n_items, size=(m.nnz, 1, 4)).astype(np.int32))
+                 for _ in range(epochs)]
+    kernels.reset_launches()
+    model = (est.fit if graph else est.fit_reference)(m, item_side=side, schedule=sched)
+    torch.cuda.synchronize()
+    return model, dict(est.last_fit_report), kernels.launch_counts(), est.last_fit_state
+
+
+@pytest.mark.parametrize("schedule", [False, True], ids=["drawn", "schedule"])
+@pytest.mark.parametrize("epochs", [1, 2, 10])
+def test_bpr_graph_fit_same_bits_as_eager_loop(dev, epochs, schedule):
+    """K18: the BPR fit replaying one captured epoch equals the eager loop
+    (``fit_reference``) bit for bit, launches what it launches, and leaves
+    its generator where the eager loop does."""
+    got, got_report, got_counts, got_state = _bpr_fit(epochs, True, schedule)
+    want, want_report, want_counts, want_state = _bpr_fit(epochs, False, schedule)
+    for name in ("user_factors", "item_factors", "item_bias"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got_state["params"], want_state["params"])
+    assert all(torch.equal(a, b) for a, b in zip(got_state["moments"], want_state["moments"]))
+    assert got_report["epoch_loss"] == want_report["epoch_loss"] and len(got_report["epoch_loss"]) == epochs
+    assert got_counts == want_counts and got_counts["bpr_step"] == got_report["steps"]
+    assert (got_report["compile_source"] == "capture") == (epochs > 1)
+    assert torch.equal(torch.rand(8, generator=got_state["generator"], device=dev),
+                       torch.rand(8, generator=want_state["generator"], device=dev))
+
+
+def test_graph_loop_captures_that_sync_raise(dev, monkeypatch):
+    """A host sync in an epoch fails the capture: the Word2Vec and BPR fits
+    raise ``RuntimeError`` naming themselves after their eager epoch 0; a
+    later fit captures and replays as usual."""
+    from albedo_tpu_torch.models import ranking_factorization as rf_mod
+    from albedo_tpu_torch.models import word2vec as w2v_mod
+
+    adam, seen = ops_sgns.adam_dense, []
+
+    def syncing(p, *args):
+        seen.append(float(p.reshape(-1)[0]))  # a host sync: allowed eagerly, refused in a capture
+        return adam(p, *args)
+
+    monkeypatch.setattr(w2v_mod, "adam_dense", syncing)
+    with pytest.raises(RuntimeError, match=r"Word2Vec fit \(K9s, a pool of 32.*CUDA graph capture failed"):
+        _w2v_fit("K9s", 2, graph=True)
+    monkeypatch.setattr(rf_mod, "adam_dense", syncing)
+    with pytest.raises(RuntimeError, match=r"BPR fit \(rank 8.*CUDA graph capture failed"):
+        _bpr_fit(2, True, False)
+    assert seen
+    monkeypatch.undo()
+    got, want = _w2v_fit("K9s", 3, graph=True), _w2v_fit("K9s", 3, graph=False)
+    assert torch.equal(got[0]["tables"], want[0]["tables"])

@@ -46,7 +46,7 @@ def test_every_module_imports_without_nvcc():
                    "serving.batcher", "serving.service", "serving.cache", "serving.metrics",
                    "serving.overload", "serving.http", "retrieval.bank", "retrieval.build",
                    "retrieval.parity", "serving.pipeline", "serving.breaker", "utils.retry",
-                   "utils.watchdog", "cv"):
+                   "utils.watchdog", "utils.graphs", "cv"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
