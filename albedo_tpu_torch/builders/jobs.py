@@ -256,7 +256,7 @@ class JobContext:
             k=TOP_K,
         )
         actual = user_actual_items(matrix, k=TOP_K)
-        return RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(predicted, actual)
+        return RankingEvaluator(metric_name="ndcg@k", k=TOP_K, device=self.device).evaluate(predicted, actual)
 
 
 def _report(job: str, metric_name: str, value: float, t0: float) -> None:
@@ -356,7 +356,7 @@ def cv_als_evaluate(model: ALSModel, train, test) -> float:
         order_key=rec_frame["score"].to_numpy(np.float64),
         k=TOP_K,
     )
-    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(
+    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K, device=model.device).evaluate(
         predicted, user_actual_items(test, k=TOP_K)
     )
 
@@ -447,7 +447,7 @@ def _holdout_cf_ndcg(ctx: JobContext, rec_cls) -> float:
         k=TOP_K,
     )
     actual = user_actual_items(test, k=TOP_K)
-    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(predicted, actual)
+    return RankingEvaluator(metric_name="ndcg@k", k=TOP_K, device=ctx.device).evaluate(predicted, actual)
 
 
 def item_cf_job(args) -> None:
@@ -505,7 +505,7 @@ def ranking_mf_job(args) -> None:
     excl = padded_rows(indptr, cols_arr, users_dense)
     _, idx = model.recommend(users_dense, k=TOP_K, exclude_idx=excl)
     predicted = UserItems(users=users_dense, items=idx.astype(np.int32))
-    ndcg = RankingEvaluator(metric_name="ndcg@k", k=TOP_K).evaluate(
+    ndcg = RankingEvaluator(metric_name="ndcg@k", k=TOP_K, device=ctx.device).evaluate(
         predicted, user_actual_items(test, k=TOP_K)
     )
     _report("ranking_mf", "NDCG@30", ndcg, t0)

@@ -367,7 +367,7 @@ def train_ranker(
                 k=config.top_k,
             )
             actual = eval_actual if eval_actual is not None else user_actual_items(matrix, k=config.top_k)
-            ndcg = RankingEvaluator(metric_name="ndcg@k", k=config.top_k).evaluate(
+            ndcg = RankingEvaluator(metric_name="ndcg@k", k=config.top_k, device=dev).evaluate(
                 predicted, actual
             )
 

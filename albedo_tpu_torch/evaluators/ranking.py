@@ -15,8 +15,11 @@ MLlib's:
   pre-sliced) prediction list, divided by ``|actual|``.
 
 Port of ``albedo_tpu/evaluators/ranking.py``. Users are rows of fixed-width
-``-1``-padded index arrays; :func:`_ranking_metrics` (K13) is plain float32
-torch over them, on the CPU: the lists are small host arrays.
+``-1``-padded index arrays; :func:`ranking_metrics` (K13) computes the three
+metrics of every row in one launch of the CUDA kernel ``ranking_metrics`` on
+the card, or its plain float32 torch version
+(:func:`ranking_metrics_reference`) on CPU tensors. The evaluator runs on the
+card unless the caller asks for the CPU (``device``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 
 from albedo_tpu_torch.datasets.star_matrix import StarMatrix
+from albedo_tpu_torch.kernels.build import call, check_operand, on_cpu
+from albedo_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,17 +114,18 @@ def user_actual_items(
     return user_items_from_pairs(matrix.rows, matrix.cols, order_key=order_key, k=k)
 
 
-# --- metric kernels (padded arrays, plain torch) ---------------------------
+# --- metric kernel (padded arrays) ------------------------------------------
 
 
-def _ranking_metrics(pred: torch.Tensor, actual: torch.Tensor, k: int) -> dict[str, torch.Tensor]:
-    """All three MLlib metrics per query; inputs already sliced to k."""
+def ranking_metrics_reference(pred: torch.Tensor, actual: torch.Tensor, k: int) -> dict[str, torch.Tensor]:
+    """Plain version of K13: all three MLlib metrics per query (float32,
+    (Q,) each); inputs already sliced to k."""
     hits = ((pred[:, :, None] == actual[:, None, :]) & (pred[:, :, None] >= 0)).any(-1)
     pred_len = (pred >= 0).sum(dim=1)
     lab_size = (actual >= 0).sum(dim=1)
 
     kp = pred.shape[1]
-    pos = torch.arange(max(kp, actual.shape[1]), dtype=torch.float32)
+    pos = torch.arange(max(kp, actual.shape[1]), dtype=torch.float32, device=pred.device)
     gains = 1.0 / torch.log(pos + 2.0)
 
     # NDCG: n = min(max(|pred|, |actual|), k); pads never hit so the dcg sum
@@ -141,17 +147,40 @@ def _ranking_metrics(pred: torch.Tensor, actual: torch.Tensor, k: int) -> dict[s
     return {"ndcg": ndcg, "precision": prec, "map": ap}
 
 
-def _metrics(pred: np.ndarray, actual: np.ndarray, k: int) -> dict[str, torch.Tensor]:
-    return _ranking_metrics(
-        torch.as_tensor(np.asarray(pred[:, :k], dtype=np.int32)),
-        torch.as_tensor(np.asarray(actual[:, :k], dtype=np.int32)),
+def ranking_metrics(pred: torch.Tensor, actual: torch.Tensor, k: int) -> dict[str, torch.Tensor]:
+    """K13: NDCG@k, precision@k and MAP of each query row (float32, (Q,)
+    each, on the lists' device) from contiguous int32 ``pred`` (Q, kp) and
+    ``actual`` (Q, ka), -1 padded and already sliced to ``k``. CUDA kernel
+    ``ranking_metrics`` on the card, :func:`ranking_metrics_reference` on
+    CPU tensors."""
+    if on_cpu("ranking_metrics", pred, actual):
+        return ranking_metrics_reference(pred, actual, k)
+    if k < 1:
+        raise ValueError(f"ranking_metrics: k must be at least 1, got {k}")
+    dev = pred.device
+    q, kp = pred.shape
+    ka = actual.shape[1]
+    check_operand("ranking_metrics", "pred", pred, torch.int32, (q, kp), dev)
+    check_operand("ranking_metrics", "actual", actual, torch.int32, (q, ka), dev)
+    out = torch.empty((3, q), dtype=torch.float32, device=dev)
+    if q:
+        call("ranking_metrics", dev, pred.data_ptr(), actual.data_ptr(), q, kp, ka, k, out.data_ptr())
+    return {"ndcg": out[0], "precision": out[1], "map": out[2]}
+
+
+def _metrics(pred: np.ndarray, actual: np.ndarray, k: int, device) -> dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return ranking_metrics(
+        torch.as_tensor(np.ascontiguousarray(pred[:, :k], dtype=np.int32), device=dev),
+        torch.as_tensor(np.ascontiguousarray(actual[:, :k], dtype=np.int32), device=dev),
         k,
     )
 
 
-def ndcg_at_k(pred: np.ndarray, actual: np.ndarray, k: int) -> float:
-    """Mean NDCG@k over queries; ``pred``/``actual`` are -1-padded index arrays."""
-    return float(_metrics(pred, actual, k)["ndcg"].mean())
+def ndcg_at_k(pred: np.ndarray, actual: np.ndarray, k: int, device: str | torch.device = "cuda") -> float:
+    """Mean NDCG@k over queries; ``pred``/``actual`` are -1-padded index
+    arrays; computed on ``device``."""
+    return float(_metrics(pred, actual, k, device)["ndcg"].mean())
 
 
 @dataclasses.dataclass
@@ -160,11 +189,13 @@ class RankingEvaluator:
 
     Parity: ``RankingEvaluator.scala:14-103``. ``metric_name`` one of
     ``"ndcg@k"`` (default), ``"precision@k"``, ``"map"``; ``k`` defaults to 15
-    as the reference does (builders set 30).
+    as the reference does (builders set 30). The metrics are computed on
+    ``device`` (K13).
     """
 
     metric_name: str = "ndcg@k"
     k: int = 15
+    device: str | torch.device = "cuda"
 
     @property
     def formatted_metric_name(self) -> str:
@@ -176,6 +207,6 @@ class RankingEvaluator:
         )
         if common.shape[0] == 0:
             raise ValueError("no users in common between predicted and actual")
-        m = _metrics(predicted.items[pi], actual.items[ai], self.k)
+        m = _metrics(predicted.items[pi], actual.items[ai], self.k, self.device)
         key = {"ndcg@k": "ndcg", "precision@k": "precision", "map": "map"}[self.metric_name]
         return float(m[key].mean())

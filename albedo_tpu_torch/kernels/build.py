@@ -87,14 +87,27 @@ SIGNATURES: dict[str, list] = {
     "factor_health": [_P, _L, _P, _L, _P, _I, _P, _P],
     # x, y, bias, w, g, users, pos, neg, gx, gy, gbias, gw, loss_acc, B, N, r, d, reg, stream
     "bpr_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # fs, is, ms, flags, G, value, slope, slope_init, count, max_steps, stream
+    "lbfgs_state": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+    # fs, is, ms, flags, G, finite, gnorm, max_iter, tol, slots, stream
+    "lbfgs_stop": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P],
+    # pred, actual, Q, kp, ka, k, out, stream
+    "ranking_metrics": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
+
+# Sources that launch no kernel of their own through :func:`call`, built and
+# loaded beside the kernels for the functions they export: ``cond_graph``
+# (a CUDA graph of conditional nodes, ``utils/graphs.py replay_while``).
+HELPERS = ("cond_graph",)
 
 # Entry points of a source other than the one named as the source: entry ->
 # source. K8g and K8c-g (K8 and K8c over a leading grid axis) live beside
 # their one-row kernels; ``scatter_rows`` (K4's ``scatter_solved``) beside
 # ``land_rows`` (K4's landing); K1-bf16 and K3-bf16 (the bf16 gathers) are
 # K1 and K3 instantiated for a bf16 table; ``masked_select`` (K11's
-# masked_topk at any k and starred width) lives beside the select path.
+# masked_topk at any k and starred width) lives beside the select path;
+# ``lbfgs_stop`` (the L-BFGS loop's bookkeeping) beside its line search's
+# trial (``lbfgs_state``).
 ENTRIES = {
     "segment_dot_grid": "segment_dot",
     "gather_sum_grid": "gather_sum",
@@ -102,6 +115,7 @@ ENTRIES = {
     "als_partials_bf16": "als_partials",
     "bucket_cg_bf16": "bucket_cg",
     "masked_select": "topk_select",
+    "lbfgs_stop": "lbfgs_state",
 }
 
 
@@ -141,32 +155,37 @@ PATHS = {
 # Launches of each kernel (and path) that the card ran in this process (see
 # ``kernels.reset_launches``). Launches come from several threads (the
 # serving batcher's worker, HTTP handler threads), so every update holds
-# ``LAUNCHES_LOCK``. A launch made while a CUDA graph is captured is counted
-# in the capturing thread's :class:`LaunchRecord` instead, and each replay of
-# the graph adds the recorded counts here.
+# ``LAUNCHES_LOCK``. A launch made onto a stream while a CUDA graph is
+# captured there is counted in the capture's :class:`LaunchRecord` instead,
+# and each replay of the graph adds the recorded counts here.
 LAUNCHES: dict[str, int] = dict.fromkeys([*SIGNATURES, *PATHS], 0)
 LAUNCHES_LOCK = threading.Lock()
-_RECORDING = threading.local()  # .record: the LaunchRecord open in this thread, if any
+_RECORDS: dict[int, "LaunchRecord"] = {}  # raw CUDA stream -> the record open on it
 
 
 class LaunchRecord:
-    """The launches :func:`call` makes in one thread while the record is
-    open (``with record:``, around a CUDA graph's capture): they are kept in
-    ``counts``, not added to ``LAUNCHES``, because a capture runs nothing on
-    the card. :meth:`replayed` adds them to ``LAUNCHES`` once for each replay
-    of the graph. Launches from other threads meanwhile count as usual."""
+    """The launches :func:`call` makes onto ``stream`` (a raw CUDA stream
+    handle, a capture's) while the record is open (``with record:``, around
+    the capture), from any thread (autograd's backward launches from its
+    device thread): they are kept in ``counts``, not added to ``LAUNCHES``,
+    because a capture runs nothing on the card. :meth:`replayed` adds them
+    to ``LAUNCHES`` once for each replay of the graph. Launches onto other
+    streams meanwhile count as usual."""
 
-    def __init__(self) -> None:
+    def __init__(self, stream: int) -> None:
         self.counts: dict[str, int] = {}
+        self.stream = stream
 
     def __enter__(self) -> "LaunchRecord":
-        if getattr(_RECORDING, "record", None) is not None:
-            raise RuntimeError("a launch record is already open in this thread")
-        _RECORDING.record = self
+        with LAUNCHES_LOCK:
+            if self.stream in _RECORDS:
+                raise RuntimeError("a launch record is already open on this stream")
+            _RECORDS[self.stream] = self
         return self
 
     def __exit__(self, *exc) -> None:
-        _RECORDING.record = None
+        with LAUNCHES_LOCK:
+            _RECORDS.pop(self.stream, None)
 
     def replayed(self, times: int = 1) -> None:
         """Count ``times`` replays of the recorded launches in ``LAUNCHES``."""
@@ -175,15 +194,16 @@ class LaunchRecord:
                 LAUNCHES[name] += n * times
 
 
-def count_launch(name: str) -> None:
-    """Count one launch of ``name`` (a key of ``SIGNATURES`` or ``PATHS``): in
-    the thread's open :class:`LaunchRecord`, else in ``LAUNCHES``."""
-    record = getattr(_RECORDING, "record", None)
-    if record is not None:
-        record.counts[name] = record.counts.get(name, 0) + 1
-        return
+def count_launch(name: str, stream: int | None = None) -> None:
+    """Count one launch of ``name`` (a key of ``SIGNATURES`` or ``PATHS``)
+    made onto raw CUDA stream ``stream``: in the :class:`LaunchRecord` open
+    on that stream, else in ``LAUNCHES``."""
     with LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        record = _RECORDS.get(stream)
+        if record is not None:
+            record.counts[name] = record.counts.get(name, 0) + 1
+        else:
+            LAUNCHES[name] += 1
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # entry point -> its source's loaded library
@@ -221,7 +241,7 @@ def build(verbose: bool = False) -> dict[str, float]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs: dict[str, tuple[subprocess.Popen, Path, Path, float]] = {}
-        sources = sorted({source_of(name) for name in SIGNATURES})
+        sources = sorted({source_of(name) for name in SIGNATURES} | set(HELPERS))
         seconds = {name: 0.0 for name in sources}
         for name in sources:
             out = _library_path(name)
@@ -255,13 +275,18 @@ def build(verbose: bool = False) -> dict[str, float]:
                 fn.argtypes = SIGNATURES[name]
                 fn.restype = ctypes.c_int
                 _libs[name] = lib
+        for name in HELPERS:
+            if name not in _libs:
+                _libs[name] = loaded.get(name) or ctypes.CDLL(str(_library_path(name)))
         return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of entry point ``name`` (building every kernel on
-    first use), for a query function its source exports beside the launch
-    functions (``bucket_cg_clusters``, ``bucket_cg_smem``, ``sgns_shared_plan``)."""
+    """The loaded library of entry point or helper ``name`` (building every
+    kernel on first use), for a query function its source exports beside the
+    launch functions (``bucket_cg_clusters``, ``bucket_cg_smem``,
+    ``sgns_shared_plan``, ``lbfgs_state_load``) or a helper's functions
+    (``cond_graph_build``)."""
     if name not in _libs:
         build()
     return _libs[name]
@@ -285,13 +310,15 @@ def call(name: str, device, *args, count: str | None = None) -> None:
     index = getattr(device, "index", None)
     raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # None in a CPU-only build
     if index is not None and raw_stream is not None and index == torch.cuda.current_device():
-        rc = fn(*args, raw_stream(index))
+        stream = raw_stream(index)
+        rc = fn(*args, stream)
     else:
         with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    count_launch(count or name)
+    count_launch(count or name, stream)
 
 
 def on_cpu(kernel: str, *tensors) -> bool:

@@ -17,22 +17,32 @@ The solver is the JAX module's ``_lbfgs_loop`` written out, without optax
   ``initial_guess_strategy="one"``, its defaults otherwise; its final value
   and gradient are reused by the next iteration, as
   ``optax.value_and_grad_from_state`` does;
-- :func:`_lbfgs_loop` keeps the last finite point and stops after at least
-  2 steps on 3 consecutive plateaus or a gradient norm at ``tol``.
+- :func:`_lbfgs_loop_reference` keeps the last finite point and stops after
+  at least 2 steps on 3 consecutive plateaus or a gradient norm at ``tol``.
 
-The parameters live in one flat float32 vector on the device; the line
-search's scalar logic runs on the host in float32 (one device read per
-function evaluation), where the JAX loop runs in a device ``while_loop``.
+The parameters live in one flat float32 vector on the device. In the plain
+loop (:func:`_lbfgs_loop_reference`, what ``fit`` runs on the CPU) the line
+search's scalar logic runs on the host in numpy float32, one device read per
+function evaluation, where the JAX loop runs in a device ``while_loop``. On
+the card ``fit`` runs K19, the port's ``_lbfgs_fit_jit``
+(:func:`_lbfgs_loop_graph`): the loop's state in device tensors, its logic in
+the ``lbfgs_state`` and ``lbfgs_stop`` kernels (``ops/lbfgs.py``), iteration
+0 up to its first trial eager, then one iteration captured once as a CUDA
+graph whose pieces (the stale re-evaluation, the direction in its memory-slot
+order, each of the 8 trials, the step) sit under conditional nodes, launched
+in blocks of 10 while some row is active: the plain loop's bits, with the
+host reading one flag a block (``utils/graphs.py replay_while``).
 
 ``fit_many`` (the CV instance-weight grid) is the JAX module's ``jax.vmap``
-of that loop written out: :func:`_lbfgs_loop_many` keeps a (G, P) parameter
-matrix, and each row its own L-BFGS memory, line-search state, step count
-and stop rule, with the host logic on (G,) float32 vectors (the device reads
-per step do not grow with G). Every line-search trial evaluates the loss and
-gradient of all G rows in one pass (K8g and K8c-g, ``ops.sparse_linear``).
-As under ``vmap``, a row whose loop or line search has stopped keeps its
-state while the others go on; a row that stopped never runs again, so the
-rows still running share one step count.
+of that loop written out: :func:`_lbfgs_loop_many_reference` keeps a (G, P)
+parameter matrix, and each row its own L-BFGS memory, line-search state,
+step count and stop rule, with the host logic on (G,) float32 vectors (the
+device reads per step do not grow with G); on the card the same device loop
+runs it, a row a thread in the state kernels. Every line-search trial
+evaluates the loss and gradient of all G rows in one pass (K8g and K8c-g,
+``ops.sparse_linear``). As under ``vmap``, a row whose loop or line search
+has stopped keeps its state while the others go on; a row that stopped never
+runs again, so the rows still running share one step count.
 
 ``solver="adam"`` is the JAX module's ``_run_adam``: ``max_iter`` steps,
 each the loss and gradient at the current parameters (K8, K8c) followed by
@@ -40,7 +50,12 @@ one ``optax.adam`` update of the flat vector (the ``adam_dense`` kernel;
 optax's update is elementwise, so over the flat vector it equals its
 per-leaf update). As in JAX there is no stop rule, ``train_loss`` is the loss
 of the last step, at the parameters before its update, and ``n_iter_run`` is
-None.
+None. On the card the steps run as one captured step replayed
+(:func:`_adam_graph`, the JAX scan's counterpart); on the CPU
+:func:`_adam_loop`.
+
+A fit's ``compile_s`` (the model's and ``last_fit_report``'s) is the time of
+capturing its graph, None on the CPU; ``run_s`` the solve less it.
 
 Not ported: ``mesh`` and ``fit_many(grid_mesh=...)`` (multi-GPU; both raise
 ``NotImplementedError``), and the persistent executable cache.
@@ -56,7 +71,8 @@ import numpy as np
 import torch
 
 from albedo_tpu_torch.features.assembler import FeatureMatrix
-from albedo_tpu_torch.ops.sgns import adam_dense
+from albedo_tpu_torch.ops import lbfgs as lbfgs_ops
+from albedo_tpu_torch.ops.sgns import adam_dense, bias_table
 from albedo_tpu_torch.ops.sparse_linear import (
     block_logits,
     dense_center,
@@ -65,6 +81,7 @@ from albedo_tpu_torch.ops.sparse_linear import (
     inverse_std_scales,
     weighted_logloss,
 )
+from albedo_tpu_torch.utils import graphs
 from albedo_tpu_torch.utils.device import resolve_device
 from albedo_tpu_torch.utils.watchdog import TrainingDiverged, check_lr_loss
 
@@ -87,7 +104,8 @@ class LogisticRegressionModel:
     center: np.ndarray | None = None
     n_iter_run: int | None = None
     prep_s: float | None = None  # host batch layout, moments and upload
-    run_s: float | None = None  # the solve (shared by the models of one fit_many)
+    compile_s: float | None = None  # capturing the solve's CUDA graph (None on the CPU)
+    run_s: float | None = None  # the solve less compile_s (shared by the models of one fit_many)
     device: str | torch.device = "cuda"
 
     @staticmethod
@@ -180,14 +198,24 @@ class LogisticRegression:
         def loss_fn(theta: torch.Tensor) -> torch.Tensor:
             return weighted_logloss(layout.views(theta), scales, batch, y, w, reg, center=center)
 
+        report = self.last_fit_report = _new_report(dev)
         t0 = time.perf_counter()
         if self.solver == "lbfgs":
-            theta, loss_t, n_done = _lbfgs_loop(loss_fn, theta0, self.max_iter, self.tol)
-        else:
+            if dev.type == "cpu":
+                theta, loss_t, n_done = _lbfgs_loop_reference(loss_fn, theta0, self.max_iter, self.tol)
+            else:
+                name = f"LogisticRegression.fit (L-BFGS, {layout.size} parameters)"
+                theta, loss_t, n_done = _lbfgs_loop_graph(loss_fn, theta0, self.max_iter, self.tol, name, report)
+        elif dev.type == "cpu":
             theta, loss_t = _adam_loop(loss_fn, theta0, self.max_iter, self.learning_rate)
-            n_done = None
+        else:
+            name = f"LogisticRegression.fit (Adam, {layout.size} parameters, {self.max_iter} steps)"
+            theta, loss_t = _adam_graph(loss_fn, theta0, self.max_iter, self.learning_rate, name, report)
         loss = float(loss_t)  # device read: the completion barrier
-        run_s = time.perf_counter() - t0
+        n_done = None if self.solver == "adam" else int(n_done)
+        compile_s = report["compile_s"]
+        run_s = time.perf_counter() - t0 - (compile_s or 0.0)
+        report["device_s"] = run_s
 
         if not check_lr_loss(loss):
             if _damped_retry:
@@ -197,7 +225,8 @@ class LogisticRegression:
 
         return LogisticRegressionModel(
             params=layout.unflatten(theta), scales=scales_np, train_loss=loss,
-            center=center_np, n_iter_run=n_done, prep_s=prep_s, run_s=run_s, device=self.device,
+            center=center_np, n_iter_run=n_done, prep_s=prep_s, compile_s=compile_s, run_s=run_s,
+            device=self.device,
         )
 
     def fit_many(
@@ -243,18 +272,33 @@ class LogisticRegression:
         def loss_fn(theta: torch.Tensor) -> torch.Tensor:
             return weighted_logloss(layout.views(theta), scales, batch, y, w, reg, center=center)
 
+        report = self.last_fit_report = _new_report(dev)
         t0 = time.perf_counter()
-        theta, losses_t, n_done = _lbfgs_loop_many(loss_fn, theta0, self.max_iter, self.tol)
+        if dev.type == "cpu":
+            theta, losses_t, n_done = _lbfgs_loop_many_reference(loss_fn, theta0, self.max_iter, self.tol)
+        else:
+            name = f"LogisticRegression.fit_many (L-BFGS, {ws.shape[0]} rows of {layout.size} parameters)"
+            theta, losses_t, n_done = _lbfgs_loop_graph(loss_fn, theta0, self.max_iter, self.tol, name, report)
+            n_done = n_done.cpu().numpy()
         losses = losses_t.cpu().numpy()  # device read: the completion barrier
-        run_s = time.perf_counter() - t0
+        compile_s = report["compile_s"]
+        run_s = time.perf_counter() - t0 - (compile_s or 0.0)
+        report["device_s"] = run_s
         return [
             LogisticRegressionModel(
                 params=layout.unflatten(theta[g]), scales=scales_np, train_loss=float(losses[g]),
-                center=center_np, n_iter_run=int(n_done[g]), prep_s=prep_s, run_s=run_s,
+                center=center_np, n_iter_run=int(n_done[g]), prep_s=prep_s, compile_s=compile_s, run_s=run_s,
                 device=self.device,
             )
             for g in range(ws.shape[0])
         ]
+
+
+def _new_report(dev: torch.device) -> dict:
+    """A fit's ``last_fit_report`` before its solve: ``compile_s`` None on
+    the CPU (no graph), 0.0 on the card until a graph is captured."""
+    return {"compile_s": None if dev.type == "cpu" else 0.0, "compile_source": None, "blocks": 0,
+            "host_reads": None, "evaluations": None}
 
 
 class _Layout:
@@ -293,7 +337,7 @@ class _Layout:
         return out
 
 
-def _lbfgs_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+def _lbfgs_loop_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
                 max_iter: int, tol: float) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The JAX module's ``_lbfgs_loop``: L-BFGS steps with the zoom line
     search until at least 2 steps are done and then 3 consecutive plateaus
@@ -351,11 +395,183 @@ def _adam_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Ten
     return theta, loss
 
 
+def _adam_graph(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor, max_iter: int, lr: float,
+                name: str, report: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_adam_loop` on the card, the JAX scan's counterpart: step 0
+    eagerly, then one step captured as a CUDA graph and replayed ``max_iter
+    - 1`` times (``utils.graphs.replay_loop``). Adam reads each step's bias
+    pair from a row of ``ops.sgns.bias_table`` (the captured step from a
+    static row refilled before each replay), and the loss goes into a slot:
+    the same bits as :func:`_adam_loop`."""
+    if max_iter < 1:
+        raise ValueError(f"solver='adam' runs max_iter >= 1 steps, got {max_iter}")
+    theta = theta.clone()
+    m, v = torch.zeros_like(theta), torch.zeros_like(theta)
+    bias = bias_table(max_iter, theta.device)
+    row = bias[0].clone()  # the captured step's pair
+    loss = torch.zeros((), dtype=theta.dtype, device=theta.device)
+
+    def step(i):
+        value, grad = _value_and_grad(loss_fn, theta)
+        adam_dense(theta, grad, m, v, bias[0] if i == 0 else row, lr)
+        loss.copy_(value)
+
+    graphs.replay_loop(name, theta.device, step, max_iter, refill=lambda i: row.copy_(bias[i]), report=report,
+                       span="lr_adam.replays")
+    return theta, loss
+
+
 def _value_and_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor):
     x = theta.detach().requires_grad_(True)
     value = loss_fn(x)
     (grad,) = torch.autograd.grad(value, x)
     return value.detach(), grad
+
+
+def _grid_value_and_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor):
+    """The (G,) values and (G, P) gradients of a grid objective (rows are
+    independent, so the gradient of their sum is each row's)."""
+    x = theta.detach().requires_grad_(True)
+    value = loss_fn(x)
+    (grad,) = torch.autograd.grad(value.sum(), x)
+    return value.detach(), grad
+
+
+# Iterations a block: the graph of one iteration is launched this many times
+# between two host reads of "some row is active".
+BLOCK = MEMORY_SIZE
+
+
+class _DeviceLoop:
+    """The L-BFGS loop with its state on the device (K19): a (P,) ``theta``
+    (``fit``, one row: ``torch.dot`` and the vector norm, as
+    :func:`_lbfgs_loop_reference`) or a (G, P) one (``fit_many``: ``_rowdot``
+    and row norms, as :func:`_lbfgs_loop_many_reference`), the same torch
+    operations in the same order as those loops, with their host logic in
+    ``ops.lbfgs`` (the ``lbfgs_state`` and ``lbfgs_stop`` kernels). Every
+    value the loop carries lives in a tensor updated in place, so one
+    iteration captured once serves every launch. An iteration is pieces
+    (``utils.graphs.replay_while``), each run where its flag holds: the
+    stale re-evaluation (some active row has no stored value), the L-BFGS
+    direction in one of ``MEMORY_SIZE`` slot orders (the iteration's count
+    modulo the memory size, which ``lbfgs_stop`` flags), each line-search
+    trial (some row still searches), the step and stop test (some row is
+    active)."""
+
+    def __init__(self, loss_fn, theta: torch.Tensor, max_iter: int, tol: float):
+        self.grid = theta.dim() == 2
+        self.loss_fn, self.max_iter, self.tol = loss_fn, max_iter, tol
+        self.theta = theta.detach().clone()
+        self.state = lbfgs_ops.new_state(theta.shape[0] if self.grid else 1, theta.device, max_iter, MEMORY_SIZE)
+        self.opt = _LBFGS(self.theta)
+        self.ls_grad = torch.zeros_like(self.theta)  # the line search's stored gradient
+        self.updates = torch.zeros_like(self.theta)  # this iteration's direction
+        self.slope_init = torch.zeros_like(self.state.fs[0])  # its slope at the iteration's point
+        self.grad = torch.zeros_like(self.theta)  # the search's current gradient
+        self.safe_grad = torch.zeros_like(self.theta)
+        self.host_reads = self.evaluations = self.first_evaluations = 0
+
+    def _value_and_grad(self, x):
+        self.evaluations += 1  # enqueued eagerly or captured
+        return _grid_value_and_grad(self.loss_fn, x) if self.grid else _value_and_grad(self.loss_fn, x)
+
+    def _dot(self, a, b):
+        return _rowdot(a, b) if self.grid else torch.dot(a, b)
+
+    def _row(self, field: int) -> torch.Tensor:
+        """A (G,) float field as a (G, 1) column ((1,) for one row)."""
+        f = self.state.fs[field]
+        return f[:, None] if self.grid else f
+
+    def _mask(self, mask: int) -> torch.Tensor:
+        m = self.state.ms[mask]
+        return m[:, None] if self.grid else m
+
+    def stale(self) -> None:
+        """Rows without a stored value re-evaluate at their point."""
+        v, g = self._value_and_grad(self.theta)
+        ls_value = self.state.fs[lbfgs_ops.F_LS_VALUE]
+        torch.where(self.state.ms[lbfgs_ops.M_STALE], v, ls_value, out=ls_value)
+        torch.where(self._mask(lbfgs_ops.M_STALE), g, self.ls_grad, out=self.ls_grad)
+
+    def direction(self, count: int) -> None:
+        """Iteration ``count``'s L-BFGS direction (its memory slots follow
+        ``count``), its slope, and the search's safe gradient."""
+        self.opt.count = count
+        self.updates.copy_(self.opt.direction(self.ls_grad, self.theta))
+        self.slope_init.copy_(self._dot(self.updates, self.ls_grad).reshape(-1))
+        self.safe_grad.copy_(self.ls_grad)
+
+    def trial(self, j: int) -> None:
+        """Line-search trial ``j`` of the rows still searching."""
+        x = self.theta + self._row(lbfgs_ops.F_TRIAL) * self.updates
+        v, g = self._value_and_grad(x)
+        lbfgs_ops.zoom_trial(self.state, v, self._dot(g, self.updates), self.slope_init if j == 0 else None, j,
+                             MAX_LINESEARCH_STEPS)
+        torch.where(self._mask(lbfgs_ops.M_SAFE_NEW), g, self.safe_grad, out=self.safe_grad)
+        torch.where(self._mask(lbfgs_ops.M_TOOK), g, self.grad, out=self.grad)
+        torch.where(self._mask(lbfgs_ops.M_SAFE_TAKE), self.safe_grad, self.grad, out=self.grad)
+
+    def finish(self) -> None:
+        """The step of the active rows, kept where finite, and the stop test."""
+        new_theta = self.theta + self._row(lbfgs_ops.F_STEP) * self.updates
+        finite = torch.isfinite(new_theta).all(dim=1) if self.grid else torch.isfinite(new_theta).all()
+        torch.where(self._mask(lbfgs_ops.M_ACTIVE), self.grad, self.ls_grad, out=self.ls_grad)
+        gnorm = (torch.linalg.vector_norm(self.ls_grad, dim=1) if self.grid
+                 else torch.linalg.vector_norm(self.ls_grad))
+        lbfgs_ops.lbfgs_stop(self.state, finite, gnorm, self.max_iter, self.tol)
+        torch.where(self._mask(lbfgs_ops.M_OK), new_theta, self.theta, out=self.theta)
+
+    def iteration(self, when) -> None:
+        """Enqueue an iteration after the first as ``when(pred, key, fn)``
+        pieces; of its ``MEMORY_SIZE`` direction pieces, the one of its
+        count's slot runs."""
+        flags = self.state.flags
+        when(flags[lbfgs_ops.FLAG_STALE], ("stale",), self.stale)
+        for k in range(MEMORY_SIZE):
+            when(flags[lbfgs_ops.FLAG_SLOT + k], ("direction", k), lambda k=k: self.direction(k or MEMORY_SIZE))
+        for j in range(MAX_LINESEARCH_STEPS):
+            when(flags[lbfgs_ops.FLAG_RUNNING], ("trial", j), lambda j=j: self.trial(j))
+        when(flags[lbfgs_ops.FLAG_ACTIVE], ("finish",), self.finish)
+
+    def first(self) -> None:
+        """Iteration 0 up to its first trial, eagerly (every row is stale
+        and active): the warm-up. Its other trials and its step run from
+        the captured pieces."""
+        lbfgs_ops.load(self.theta.device)  # the state kernels, before a capture launches lbfgs_stop
+        self.stale()
+        self.direction(0)
+        self.trial(0)
+        self.first_evaluations = self.evaluations
+
+    def run(self, name: str, report: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The loop to its end; returns ``(theta, loss at theta, steps run
+        per row)`` (0-d loss and step count for one row)."""
+        if self.max_iter >= 1:
+            self.host_reads = graphs.replay_while(
+                name, self.theta.device, self.first, self.iteration, self.state.flags[lbfgs_ops.FLAG_ACTIVE],
+                self.max_iter - 1, ("trial", 1), BLOCK, report=report, span="lbfgs.replays")
+        runs = report.get("key_runs")  # the captured pieces' runs; each trial and the stale piece evaluates once
+        report.update(host_reads=self.host_reads, evaluations=self.evaluations if runs is None else
+                      self.first_evaluations + sum(t for key, t in runs.items() if key[0] in ("stale", "trial")))
+        with torch.no_grad():
+            loss = self.loss_fn(self.theta)
+        steps = self.state.is_[lbfgs_ops.I_ITER]
+        return self.theta, loss, (steps if self.grid else steps[0])
+
+
+def _lbfgs_loop_graph(loss_fn, theta: torch.Tensor, max_iter: int, tol: float, name: str,
+                      report: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_lbfgs_loop_reference` (a (P,) ``theta``) or
+    :func:`_lbfgs_loop_many_reference` (a (G, P) one) with the loop's state
+    on the card: iteration 0 up to its first trial eagerly, then one
+    iteration captured as a CUDA graph of conditional pieces (the rest of
+    iteration 0 runs from them first) and launched in blocks of ``BLOCK``
+    while some row is active: the same bits. ``report`` gets
+    ``compile_s``, ``blocks``, ``host_reads`` (one flag a block) and
+    ``evaluations`` (of the objective and its gradient, the final loss not
+    counted)."""
+    return _DeviceLoop(loss_fn, theta, max_iter, tol).run(name, report)
 
 
 class _LBFGS:
@@ -406,8 +622,8 @@ class _LBFGS:
             beta = self.rho[i] * dot(self.du[i], vec)
             vec = vec + (alphas[i] - beta)[..., None] * self.dw[i]
         self.count += 1
-        self.params = params
-        self.updates = grad
+        self.params.copy_(params)  # in place: a captured step reads them where the next one wrote them
+        self.updates.copy_(grad)
         return -vec
 
 
@@ -446,21 +662,27 @@ def _curvature_error(slope_step, slope_init):
 
 
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """optax's cubic interpolant's minimizer. Its powers are products,
+    ``x * x`` and ``x * (x * x)``, as JAX lowers ``x**2`` and ``x**3``:
+    numpy's float32 ``**`` goes through the host's ``powf`` (scalars) or a
+    vector library (arrays), which round differently from each other and
+    from the card."""
     C = fpa
     db = b - a
     dc = c - a
-    denom = (db * dc) ** 2 * (db - dc)
+    dbdc = db * dc
+    denom = (dbdc * dbdc) * (db - dc)
     r0 = fb - fa - C * db
     r1 = fc - fa - C * dc
-    A = (dc**2 * r0 + -(db**2) * r1) / denom
-    B = (-(dc**3) * r0 + db**3 * r1) / denom
+    A = ((dc * dc) * r0 + -(db * db) * r1) / denom
+    B = (-(dc * (dc * dc)) * r0 + (db * (db * db)) * r1) / denom
     radical = B * B - F(3.0) * A * C
     return F(a + (-B + np.sqrt(radical)) / (F(3.0) * A))
 
 
 def _quadmin(a, fa, fpa, b, fb):
     db = b - a
-    B = (fb - fa - fpa * db) / (db**2)
+    B = (fb - fa - fpa * db) / (db * db)
     return F(a - fpa / (F(2.0) * B))
 
 
@@ -585,9 +807,9 @@ def _zoom_step(st: dict, on_line, max_steps: int) -> None:
 # --------------------------------------------------------- the grid (vmap)
 
 
-def _lbfgs_loop_many(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+def _lbfgs_loop_many_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
                      max_iter: int, tol: float) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-    """:func:`_lbfgs_loop` for each row of a (G, P) ``theta``, as
+    """:func:`_lbfgs_loop_reference` for each row of a (G, P) ``theta``, as
     ``jax.vmap`` runs it: the loop goes on while any row's condition holds,
     and a row whose condition fails keeps its point, value, step count and
     stop flags. ``loss_fn`` maps (G, P) to the (G,) losses, row g a function
@@ -596,10 +818,7 @@ def _lbfgs_loop_many(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: tor
     n_grid = theta.shape[0]
 
     def value_and_grad(x):
-        x = x.detach().requires_grad_(True)
-        value = loss_fn(x)
-        (grad,) = torch.autograd.grad(value.sum(), x)  # rows are independent
-        return value.detach(), grad
+        return _grid_value_and_grad(loss_fn, x)
 
     opt = _LBFGS(theta)
     ls_value, ls_grad = np.full(n_grid, np.inf, F), torch.zeros_like(theta)

@@ -1,7 +1,9 @@
 """CUDA graphs of a fit's loop: the capture and replay that the whole-loop
 programs share (K16 the ALS fit, ``ops/als.py fit_loop``; K17 the Word2Vec
 epoch, ``models/word2vec.py``; K18 the BPR fit,
-``models/ranking_factorization.py``, both through :func:`replay_epochs`).
+``models/ranking_factorization.py``, both through :func:`replay_epochs`; LR's
+Adam steps, ``models/logistic_regression.py``; K19 the L-BFGS fits, through
+:func:`replay_while`).
 
 A fit's loop is ``n`` units of identical work (an ALS iteration, an epoch).
 :func:`replay_loop` runs unit 0 eagerly on the thread's capture stream (the
@@ -12,6 +14,12 @@ differs between units reaches the graph through static buffers the caller
 refills before each replay (a Python value read during the capture is fixed
 in the graph). The launches the capture records are counted once a replay
 (:class:`~albedo_tpu_torch.kernels.build.LaunchRecord`).
+
+A loop whose units decide on the card whether they run (the L-BFGS fits:
+each iteration's line-search trials and stop test) goes through
+:func:`replay_while`: unit 0 eagerly, then a block of units whose pieces
+sit under conditional nodes, replayed while a device flag holds, the host
+reading that flag once a block.
 
 The capture runs in ``thread_local`` mode: it refuses a host sync in this
 thread (a hidden sync in a unit raises), and ignores other threads' CUDA
@@ -74,6 +82,27 @@ def abandon_graph_pool(dev: torch.device, pool: tuple) -> None:
     _GRAPH_FITS.__dict__.get("keepers", {}).pop(dev.index, None)
 
 
+def _capture(name: str, dev: torch.device, graph: torch.cuda.CUDAGraph, record: LaunchRecord,
+             enqueue: Callable[[], None]) -> None:
+    """Capture what ``enqueue()`` enqueues on the current (capture) stream
+    into ``graph``, in this thread's pool, its launches into ``record``.
+    Called under ``_CAPTURE_LOCK``. A failed capture abandons the pool and
+    raises ``RuntimeError`` naming the fit."""
+    pool = None
+    with record:
+        try:
+            pool = graph_pool(dev)
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                enqueue()
+            finally:
+                graph.capture_end()
+        except Exception as exc:
+            if pool is not None:
+                abandon_graph_pool(dev, pool)
+            raise RuntimeError(f"{name}: the CUDA graph capture failed: {exc}") from exc
+
+
 def replay_loop(
     name: str,
     dev: torch.device,
@@ -115,25 +144,14 @@ def replay_loop(
             # Captured while unit 0 still runs on the card: the replays
             # follow it on the stream.
             t0 = time.perf_counter()
-            graph, record = torch.cuda.CUDAGraph(), LaunchRecord()
+            graph, record = torch.cuda.CUDAGraph(), LaunchRecord(stream.cuda_stream)
             for gen in generators:
                 try:
                     graph.register_generator_state(gen)
                 except (AttributeError, RuntimeError) as exc:
                     raise RuntimeError(f"{name}: cannot register its generator with the CUDA graph: {exc}") from exc
-            with _CAPTURE_LOCK, record:
-                pool = None
-                try:
-                    pool = graph_pool(dev)
-                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                    try:
-                        unit(1)
-                    finally:
-                        graph.capture_end()
-                except Exception as exc:
-                    if pool is not None:
-                        abandon_graph_pool(dev, pool)
-                    raise RuntimeError(f"{name}: the CUDA graph capture failed: {exc}") from exc
+            with _CAPTURE_LOCK:
+                _capture(name, dev, graph, record, lambda: unit(1))
             if report is not None:
                 report.update(compile_s=time.perf_counter() - t0, compile_source="capture")
             with torch.profiler.record_function(span):  # the replays' span in a trace
@@ -198,3 +216,116 @@ def replay_epochs(
 
     replay_loop(name, losses.device, unit, n, refill=refill, after=after, generators=(generator,), report=report,
                 span=span)
+
+
+def replay_while(
+    name: str,
+    dev: torch.device,
+    first: Callable[[], None],
+    unit: Callable[[Callable], None],
+    flag: torch.Tensor,
+    max_units: int,
+    resume,
+    per_read: int,
+    *,
+    report: dict | None = None,
+    span: str = "replay_while.replays",
+) -> int:
+    """Run a loop whose units decide on the card whether they run:
+    ``first()`` enqueues the first unit's pieces before the one keyed
+    ``resume``, eagerly (the warm-up); then one unit is captured once as a
+    CUDA graph, the first unit's pieces from ``resume`` on run from a graph
+    of their own, and the unit is launched up to ``max_units`` times, in
+    blocks of ``per_read`` launches, while the 0-d device bool ``flag``
+    holds after a block. Returns the blocks launched: the host reads of
+    ``flag``.
+
+    ``unit(when)`` enqueues a unit as pieces, each ``when(pred, key, fn)``:
+    ``fn()`` enqueues the piece's work, which runs on the card only where
+    the 0-d device bool ``pred`` holds when the unit reaches it (a piece that
+    does not run leaves memory as it is). Each piece is captured as a CUDA
+    graph of its own, and the unit's graph chains them, each under an IF
+    conditional node (built by ``kernels/csrc/cond_graph.cu``: torch 2.11
+    has none) whose switch also counts its runs. What a piece leaves for a
+    later one must be in memory allocated before the unit; a Python value
+    ``fn`` reads is fixed at capture. Each piece's launches are recorded at
+    its capture and counted once for each of its runs, read from the card
+    after the last block. ``report``, if given, gets ``compile_s``
+    (capturing the pieces, building, instantiating and uploading the
+    graphs), ``compile_source`` (``"capture"``), ``pieces``, ``blocks`` and
+    ``key_runs`` (each piece's runs, by its ``key``). The launches run inside a
+    ``torch.profiler`` span named ``span``; ``name`` names the fit in
+    errors. When it returns, the caller's stream waits for the loop's
+    work."""
+    import ctypes
+
+    from albedo_tpu_torch.kernels.build import library
+
+    caller = torch.cuda.current_stream(dev)
+    stream = capture_stream(dev)
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        first()
+        t0 = time.perf_counter()
+        lib = library("cond_graph")
+        _P = ctypes.c_void_p
+        lib.cond_graph_build.argtypes = [ctypes.c_int, _P, _P, _P, _P, _P, _P]
+        lib.cond_graph_launch.argtypes = [_P, _P]
+        lib.cond_graph_destroy.argtypes = [_P, _P]
+        pieces: list[tuple[torch.Tensor, object, torch.cuda.CUDAGraph, LaunchRecord]] = []
+
+        def when(pred: torch.Tensor, key, fn: Callable[[], None]) -> None:
+            graph, record = torch.cuda.CUDAGraph(keep_graph=True), LaunchRecord(stream.cuda_stream)
+            with _CAPTURE_LOCK:
+                _capture(name, dev, graph, record, fn)
+            pieces.append((pred, key, graph, record))
+
+        unit(when)
+        runs = torch.zeros(len(pieces), dtype=torch.int32, device=dev)
+        execs = []  # (exec, graph): the unit's, then the first unit's rest
+
+        def chain(start: int) -> None:
+            exec_, parent = _P(), _P()
+            part = pieces[start:]
+            bodies = (_P * len(part))(*(g.raw_cuda_graph() for _, _, g, _ in part))
+            preds = (_P * len(part))(*(p.data_ptr() for p, _, _, _ in part))
+            rc = lib.cond_graph_build(len(part), bodies, preds, runs[start:].data_ptr(), stream.cuda_stream,
+                                       ctypes.byref(exec_), ctypes.byref(parent))
+            if rc != 0:
+                raise RuntimeError(f"{name}: building the CUDA graph of its conditional pieces failed: "
+                                   f"cudaError {rc}")
+            execs.append((exec_, parent))
+
+        def launch(exec_, what: str) -> None:
+            rc = lib.cond_graph_launch(exec_, stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: launching its CUDA graph ({what}) failed: cudaError {rc}")
+
+        n = blocks = 0
+        try:
+            chain(0)
+            chain([key for _, key, _, _ in pieces].index(resume))
+            if report is not None:
+                report.update(compile_s=time.perf_counter() - t0, compile_source="capture", pieces=len(pieces))
+            with torch.profiler.record_function(span):  # the launches' span in a trace
+                launch(execs[1][0], "the first unit's rest")
+                while n < max_units:
+                    for _ in range(min(per_read, max_units - n)):
+                        launch(execs[0][0], f"unit {n + 1}")
+                        n += 1
+                    blocks += 1
+                    if not bool(flag):
+                        break
+            key_runs: dict = {}
+            for (_, key, _, record), times in zip(pieces, runs.tolist()):
+                record.replayed(times)
+                key_runs[key] = key_runs.get(key, 0) + times
+        finally:
+            stream.synchronize()  # nothing runs when the graphs are destroyed
+            for exec_, parent in execs:
+                lib.cond_graph_destroy(exec_, parent)
+        if report is not None:
+            report.update(blocks=blocks, key_runs=key_runs)
+        del pieces  # the pieces' graphs go with the fit; their pool serves the next capture
+    caller.wait_stream(stream)
+    return blocks

@@ -85,7 +85,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain versions, and times each with its plain version, a library call and
    its bound (K8 also call by call beside cuSPARSE, and the card's kernel
    time of the 20 calls); K9 and Adam also at a realistic vocabulary
-   (100 000 words, synthetic tables and pairs from a numpy seed).
+   (100 000 words, synthetic tables and pairs from a numpy seed); and K13
+   (the ranking metrics) at the lists the job's NDCG@30 scored.
 6. candidates — runs ``popularity``, ``curation``, ``item_cf``, ``user_cf``,
    ``ranking_mf``, ``tfidf_content``, ``content --w2v-full`` and ``content``
    with the Word2Vec vectors shared with JAX, counts set to 0 before each
@@ -302,6 +303,13 @@ SHARED_SEED, SHARED_W2V_SCALE = 1, 0.3  # as in jax_reference_ndcg.py
 # must be exactly 0. Adam, elementwise: 1e-6 of max |plain| of each table
 # (measured 9e-8).
 RANKER_REL = {"segment_dot": 1e-5, "sgns_step": 5e-5, "adam_dense": 1e-6}
+# K13 (the ranking metrics) at the ranker job's lists: every metric to 1e-6
+# of the plain version on the card (float32 sums in another order; every
+# metric lies in [0, 1]), precision exactly the plain version's on the CPU
+# (torch on the card multiplies by the reciprocal of a scalar divisor; the
+# kernel divides once, as JAX and torch on the CPU do), the same bits on a
+# second call.
+K13_ABS = 1e-6
 W2V_VOCAB = 100_000  # the realistic vocabulary K9 and Adam are also timed at
 
 # The candidate-generator kernels against their plain versions. spmm_rows
@@ -386,6 +394,13 @@ KERNELS = {
     # The whole-loop programs: CUDA graphs of the kernels above, an epoch captured and replayed.
     "w2v_epoch": ("albedo_tpu_torch/models/word2vec.py", "albedo_tpu/models/word2vec.py:339"),
     "bpr_fit": ("albedo_tpu_torch/models/ranking_factorization.py", "albedo_tpu/models/ranking_factorization.py:201"),
+    # K19's state machine: the zoom line search's trial and the loop's bookkeeping and stop test.
+    "lbfgs_state": ("albedo_tpu_torch/kernels/csrc/lbfgs_state.cu", "albedo_tpu/models/logistic_regression.py:299"),
+    "lbfgs_stop": ("albedo_tpu_torch/kernels/csrc/lbfgs_state.cu", "albedo_tpu/models/logistic_regression.py:346"),
+    # K19, the L-BFGS fit, and LR's Adam scan: CUDA graphs of the kernels above.
+    "lbfgs_fit": ("albedo_tpu_torch/models/logistic_regression.py", "albedo_tpu/models/logistic_regression.py:378"),
+    "lr_adam_fit": ("albedo_tpu_torch/models/logistic_regression.py", "albedo_tpu/models/logistic_regression.py:447"),
+    "ranking_metrics": ("albedo_tpu_torch/kernels/csrc/ranking_metrics.cu", "albedo_tpu/evaluators/ranking.py:117"),
 }
 
 
@@ -1448,19 +1463,20 @@ def phase_job() -> dict:
 RANKER_NEEDS = {
     "train_word2vec": ("sgns_step", "adam_dense"),
     "train_lr": ("als_partials", "solve_corrected", "land_rows", "topk_scores", "segment_dot", "gather_sum",
-                 "sgns_step", "adam_dense", "factor_health"),
+                 "sgns_step", "adam_dense", "factor_health", "lbfgs_state", "lbfgs_stop", "ranking_metrics"),
 }
 
 
 def phase_ranker_job() -> tuple[dict, dict]:
     """The ranker jobs at full width, with the inputs their kernels saw
     recorded on the way (the LR fit's arguments and model, the Word2Vec
-    plan and final optimizer state)."""
+    plan and final optimizer state, the lists K13 scored)."""
+    from albedo_tpu_torch.evaluators import ranking as ranking_mod
     from albedo_tpu_torch.models import logistic_regression as lr_mod
     from albedo_tpu_torch.models import word2vec as w2v_mod
 
     inputs: dict = {}
-    fit, train = lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train
+    fit, train, metrics = lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train, ranking_mod.ranking_metrics
 
     def recording_fit(self, fm, labels, sample_weight=None, _damped_retry=False):
         model = fit(self, fm, labels, sample_weight, _damped_retry)
@@ -1472,16 +1488,13 @@ def phase_ranker_job() -> tuple[dict, dict]:
         inputs["w2v"] = (self, plan, state)
         return state, report
 
-    value_and_grad = lr_mod._value_and_grad
-    inputs["lr_evals"] = 0
-
-    def counting_value_and_grad(loss_fn, theta):
-        inputs["lr_evals"] += 1
-        return value_and_grad(loss_fn, theta)
+    def recording_metrics(pred, actual, k):
+        inputs["ranking_metrics"] = (pred.clone(), actual.clone(), k)
+        return metrics(pred, actual, k)
 
     launches = {}
     lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train = recording_fit, recording_train
-    lr_mod._value_and_grad = counting_value_and_grad
+    ranking_mod.ranking_metrics = recording_metrics
     try:
         for job in ("train_word2vec", "train_lr"):
             report, text = _run_cli([job, "--w2v-full", "--now", "1600000000"])
@@ -1498,7 +1511,9 @@ def phase_ranker_job() -> tuple[dict, dict]:
                 ok = (ok and bool(np.isfinite([auc, ndcg, float(it.group(2))]).all()) and auc > 0.5
                       and abs(auc - JAX_RANKER["auc"]) <= RANKER_TOL["auc"]
                       and abs(ndcg - JAX_RANKER["ndcg"]) <= RANKER_TOL["ndcg"])
-                launches = {n: counts[n] for n in ("segment_dot", "sgns_step", "adam_dense")}
+                launches = {n: counts[n] for n in ("segment_dot", "sgns_step", "adam_dense", "lbfgs_state",
+                                                   "lbfgs_stop", "ranking_metrics")}
+                inputs["lr_evals"] = inputs["lr"][0].last_fit_report["evaluations"]
             else:
                 w2v = re.search(r"pairs = (\d+), steps = (\d+), final epoch loss = (\S+), compile = (\S+)s", text)
                 report.update(pairs=int(w2v.group(1)), steps=int(w2v.group(2)),
@@ -1510,7 +1525,7 @@ def phase_ranker_job() -> tuple[dict, dict]:
                                  "gave a non-finite result or left the JAX band")
     finally:
         lr_mod.LogisticRegression.fit, w2v_mod.Word2Vec.train = fit, train
-        lr_mod._value_and_grad = value_and_grad
+        ranking_mod.ranking_metrics = metrics
     _ranker_job_shared()
     return launches, inputs
 
@@ -1849,11 +1864,12 @@ def phase_ranker_timing(inputs: dict) -> dict:
     # And at a realistic vocabulary, where Adam's pass over (2, V, 200) and
     # K9's contention on the frequent rows behave otherwise.
     at_vocab = _k9_adam_at(*_w2v_at_vocab(W2V_VOCAB, est.dim, est.batch_size, k), est.learning_rate)
+    out["ranking_metrics"], k13_ok = _k13_at(*inputs["ranking_metrics"])
     torch.cuda.synchronize()
     timed = {name: _timed(r) for name, r in out.items()}
     at_vocab = {name: _timed(r) for name, r in at_vocab.items()}
     ok = (all(max(timed[n]["rel_err"], at_vocab.get(n, timed[n])["rel_err"]) <= RANKER_REL[n] for n in RANKER_REL)
-          and _k8_new_checks_ok(merge_checks))
+          and _k8_new_checks_ok(merge_checks) and k13_ok)
     emit({"phase": "ranker_job_kernels", "ok": ok, "rel_tol": RANKER_REL, "timed": timed,
           "segment_dot_merge_checks": merge_checks, "segment_dot_per_call": per_call,
           "segment_dot_device": k8_device, "at_vocab": at_vocab, "lr_evals_in_job": inputs["lr_evals"],
@@ -1862,6 +1878,31 @@ def phase_ranker_timing(inputs: dict) -> dict:
         raise SystemExit("chip_smoke: a ranker kernel disagrees with its plain version at the job's inputs "
                          "(or K8 with its order's bound, itself, or its one launch)")
     return timed
+
+
+def _k13_at(pred, actual, k) -> tuple[dict, bool]:
+    """K13 at the lists the ranker job scored: held against its plain
+    version (``K13_ABS``; precision exactly the CPU's), the same bits twice, timed
+    beside the plain version. No single library call computes the metrics.
+    Bound: bytes, one read of both lists and three floats written a row;
+    operations, a compare of every predicted slot with every actual one."""
+    from albedo_tpu_torch.evaluators import ranking
+
+    got = ranking.ranking_metrics(pred, actual, k)
+    again = ranking.ranking_metrics(pred, actual, k)
+    want = ranking.ranking_metrics_reference(pred, actual, k)
+    errs = [rel_err(got[n], want[n]) for n in ("ndcg", "precision", "map")]
+    err = (max(e[0] for e in errs), max(e[1] for e in errs))
+    same = all(torch.equal(got[n], again[n]) for n in got)
+    cpu_precision = ranking.ranking_metrics_reference(pred.cpu(), actual.cpu(), k)["precision"]
+    ok = err[0] <= K13_ABS and torch.equal(got["precision"].cpu(), cpu_precision) and same
+    q, kp = pred.shape
+    ka = actual.shape[1]
+    return dict(err=err, ms=cuda_ms(lambda: ranking.ranking_metrics(pred, actual, k), reps=20),
+                plain_ms=cuda_ms(lambda: ranking.ranking_metrics_reference(pred, actual, k), reps=20),
+                library_ms=None, bytes=4 * q * (kp + ka) + 12 * q, flops=q * kp * ka,
+                shape={"queries": q, "pred_width": kp, "actual_width": ka, "k": k},
+                tol=K13_ABS, same_bits=same), ok
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3680,10 +3721,11 @@ CV_NEEDS = {
                          "land_rows", "topk_scores", "factor_health"),
     "cv_als real grid, cg": ("bucket_cg", "bucket_cg_wide", "land_rows", "topk_scores", "factor_health"),
     "cv_lr": ("segment_dot_grid", "gather_sum_grid", "segment_dot", "gather_sum", "land_rows",
-              "als_partials", "solve_corrected", "sgns_step", "adam_dense", "factor_health"),
+              "als_partials", "solve_corrected", "sgns_step", "adam_dense", "factor_health", "lbfgs_state",
+              "lbfgs_stop"),
     # The shared weights replace the Word2Vec fit (no K9, no Adam).
     "cv_lr shared": ("segment_dot_grid", "gather_sum_grid", "segment_dot", "gather_sum", "land_rows",
-                     "als_partials", "solve_corrected", "factor_health"),
+                     "als_partials", "solve_corrected", "factor_health", "lbfgs_state", "lbfgs_stop"),
 }
 GRID_SIZES = (1, 5, 7)
 
@@ -4181,7 +4223,7 @@ def phase_cv(bench_train) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: a grid or landing kernel disagrees at its timed inputs, "
                          "or fit_many left the sequential fits")
-    return {"launches": launches, "timed": dict(grid_timed, land_rows=land)}
+    return {"launches": launches, "timed": dict(grid_timed, land_rows=land), "cv_lr_fit": fit}
 
 
 # ------------------------------------------------------------------ phase 12
@@ -5110,6 +5152,305 @@ def phase_lr_adam() -> dict:
     return {"adam_dense": counts["adam_dense"]}
 
 
+# K19 and the Adam scan: the graph fits against the
+# host-driven loops in one process, FUSED_LR_RUNS fits of each in turns
+# after a warm-up of each, the counts set to 0 before each fit.
+FUSED_LR_RUNS = 3
+# How the block's pieces are switched: IF conditional nodes, built by
+# ``kernels/csrc/cond_graph.cu`` (torch 2.11 has no begin_capture_to_if_node).
+FUSED_LR_DESIGN = "if_nodes"
+
+
+def _recorded_lr_inputs() -> tuple[tuple, tuple]:
+    """The ranker job's LR fit inputs (``train_lr --w2v-full``) and the
+    ``cv_lr --w2v-full`` grid's, recorded from the jobs, for
+    :func:`phase_fused_lr` run alone."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+
+    fit, recorded = lr_mod.LogisticRegression.fit, {}
+
+    def recording_fit(self, fm, labels, sample_weight=None, _damped_retry=False):
+        model = fit(self, fm, labels, sample_weight, _damped_retry)
+        recorded["lr"] = (self, fm, labels, sample_weight, model)
+        return model
+
+    lr_mod.LogisticRegression.fit = recording_fit
+    try:
+        _run_cli(["train_lr", "--w2v-full"] + NOW)
+    finally:
+        lr_mod.LogisticRegression.fit = fit
+    return recorded["lr"], _cv_lr_run(shared=False)[1]
+
+
+class _HostReads(torch.overrides.TorchFunctionMode):
+    """Counts the reads of CUDA tensors by the host (``.cpu()``, ``.item()``,
+    ``.tolist()``, ``bool``, ``float``, ``int``) inside the block."""
+
+    READS = {torch.Tensor.cpu, torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.__bool__,
+             torch.Tensor.__float__, torch.Tensor.__int__}
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.READS and args and isinstance(args[0], torch.Tensor) and args[0].is_cuda:
+            self.reads += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _host_loops():
+    """Within the block, the LR fits run the host-driven loops on the card
+    (the plain versions: ``_lbfgs_loop_reference``,
+    ``_lbfgs_loop_many_reference``, ``_adam_loop``)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+
+    graph, adam = lr_mod._lbfgs_loop_graph, lr_mod._adam_graph
+
+    def host_lbfgs(loss_fn, theta, max_iter, tol, name, report):
+        loop = lr_mod._lbfgs_loop_reference if theta.dim() == 1 else lr_mod._lbfgs_loop_many_reference
+        theta, loss, steps = loop(loss_fn, theta, max_iter, tol)
+        return theta, loss, torch.as_tensor(steps)
+
+    lr_mod._lbfgs_loop_graph = host_lbfgs
+    lr_mod._adam_graph = lambda loss_fn, theta, max_iter, rate, name, report: lr_mod._adam_loop(
+        loss_fn, theta, max_iter, rate)
+    try:
+        yield
+    finally:
+        lr_mod._lbfgs_loop_graph, lr_mod._adam_graph = graph, adam
+
+
+def _lr_bound(run) -> dict:
+    """The least time of a fit's K8, K8g, K8c, K8c-g and Adam calls (one
+    more host-loop fit with their wrappers counting each call's bytes and
+    operations, ``_bound_ms`` summed over the calls) and of the state
+    kernels' bytes (each trial's and each step's read and write of the
+    rows' state)."""
+    from albedo_tpu_torch.models import logistic_regression as lr_mod
+    from albedo_tpu_torch.ops import lbfgs
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    parts = {"segment_dot": [0.0, 0], "gather_sum": [0.0, 0], "adam_dense": [0.0, 0]}
+    by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(part, work):
+        ms, bound_by = _bound_ms(work)
+        parts[part][0] += ms
+        parts[part][1] += 1
+        by[bound_by] += ms
+
+    def k8(x, idx, val, indptr):
+        g = x.shape[0] if x.dim() == 2 else 1
+        terms = idx.numel() * (2 if val is not None else 1)
+        add("segment_dot", {"bytes": 4 * (terms + indptr.numel() + x.numel() + g * (indptr.numel() - 1)),
+                            "flops": g * terms})
+        return segment_dot(x, idx, val, indptr)
+
+    def k8c(base, tables, idxs):
+        n = base.shape[-1]
+        g = base.shape[0] if base.dim() == 2 else 1
+        add("gather_sum", {"bytes": 4 * (2 * g * n + len(idxs) * n + sum(t.numel() for t in tables)),
+                           "flops": g * n * len(tables)})
+        return gather_sum(base, tables, idxs)
+
+    def adam(p, *rest):
+        add("adam_dense", {"bytes": 32 * p.numel(), "flops": 12 * p.numel()})
+        return adam_dense(p, *rest)
+
+    segment_dot, gather_sum, adam_dense = sl.segment_dot, sl.gather_sum, lr_mod.adam_dense
+    sl.segment_dot, sl.gather_sum, lr_mod.adam_dense = k8, k8c, adam
+    try:
+        with _host_loops():
+            out = run()
+    finally:
+        sl.segment_dot, sl.gather_sum, lr_mod.adam_dense = segment_dot, gather_sum, adam_dense
+    rows = len(out["models"])
+    state_bytes = 2 * rows * (4 * lbfgs.NF + 4 * lbfgs.NI + lbfgs.NM) + 12 * rows
+    steps = max(m.n_iter_run or 0 for m in out["models"])
+    state_ms = _bound_ms({"bytes": state_bytes * (steps + parts["gather_sum"][1]), "flops": 0})[0] if steps else 0.0
+    total = parts["segment_dot"][0] + parts["gather_sum"][0] + parts["adam_dense"][0] + state_ms
+    return {"bound_ms": total, "bound_by": max(by, key=by.get),
+            "bound_parts_ms": {f"K8/K8g ({parts['segment_dot'][1]} calls)": parts["segment_dot"][0],
+                               f"K8c/K8c-g ({parts['gather_sum'][1]} calls)": parts["gather_sum"][0],
+                               f"adam_dense ({parts['adam_dense'][1]} calls)": parts["adam_dense"][0],
+                               "state kernels (bytes)": state_ms}}
+
+
+def _lr_state_kernels(rows: int) -> dict:
+    """``lbfgs_state`` and ``lbfgs_stop`` at ``rows`` rows (the main path's
+    1 and 5) on a drawn state: against their plain versions on the same
+    inputs (on the CPU copies: the same bits), timed with the plain
+    versions run on the card."""
+    from albedo_tpu_torch.ops import lbfgs
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(rows)
+    fs = (rng.normal(size=(lbfgs.NF, rows)) * 10.0 ** rng.integers(-3, 3, size=(lbfgs.NF, rows))).astype(np.float32)
+    for k in (lbfgs.F_STEP, lbfgs.F_LOW, lbfgs.F_HIGH, lbfgs.F_SAFE_STEP, lbfgs.F_TRIAL):
+        fs[k] = np.abs(fs[k])
+    ints = rng.integers(0, 2, size=(lbfgs.NI, rows)).astype(np.int32)
+    masks = rng.random((lbfgs.NM, rows)) < 0.8
+    inputs = [rng.normal(size=rows).astype(np.float32) for _ in range(4)]
+    finite = rng.random(rows) < 0.9
+
+    def state(on):
+        return lbfgs.LoopState(torch.tensor(fs, device=on), torch.tensor(ints, device=on),
+                               torch.tensor(masks, device=on), torch.ones(lbfgs.FLAG_SLOT + 10, dtype=torch.bool, device=on))
+
+    def same(a, b):  # the same bits, NaN where NaN (the card's NaNs carry other signs and payloads)
+        def eq(x, y):
+            x = x.cpu()
+            if x.dtype != torch.float32:
+                return torch.equal(x, y)
+            nx, ny = torch.isnan(x), torch.isnan(y)
+            return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x).view(torch.int32),
+                                                       torch.where(ny, 0.0, y).view(torch.int32))
+        return all(eq(x, y) for x, y in zip((a.fs, a.is_, a.ms, a.flags), (b.fs, b.is_, b.ms, b.flags)))
+
+    out = {}
+    for name, count in (("lbfgs_state", 0), ("lbfgs_state", 3), ("lbfgs_stop", None)):
+        want, got, plain = state("cpu"), state(dev), state(dev)
+        v, s, si = ([torch.tensor(x, device=on) for x in inputs] for on in ("cpu", dev, dev))
+        fin = [torch.tensor(finite, device=on) for on in ("cpu", dev, dev)]
+        if name == "lbfgs_state":
+            lbfgs.zoom_trial(want, v[0], v[1], v[2], count, 8)
+            lbfgs.zoom_trial(got, s[0], s[1], s[2], count, 8)
+            timed_state = state(dev)
+            ms = cuda_ms(lambda: lbfgs.zoom_trial(timed_state, s[0], s[1], None, 3, 8), reps=20)
+            plain_ms = cuda_ms(lambda: lbfgs.zoom_trial_reference(plain, si[0], si[1], None, 3, 8), reps=20)
+        else:
+            lbfgs.lbfgs_stop(want, fin[0], v[3].abs(), 300, 1e-6)
+            lbfgs.lbfgs_stop(got, fin[1], s[3].abs(), 300, 1e-6)
+            timed_state = state(dev)
+            ms = cuda_ms(lambda: lbfgs.lbfgs_stop(timed_state, fin[1], s[3].abs(), 300, 1e-6), reps=20)
+            plain_ms = cuda_ms(lambda: lbfgs.lbfgs_stop_reference(plain, fin[2], si[3].abs(), 300, 1e-6), reps=20)
+        torch.cuda.synchronize()
+        held = same(got, want)
+        rec = out.setdefault(name, {"same_bits": True, "ms": ms, "plain_ms": plain_ms, "rows": rows})
+        rec["same_bits"] &= held
+    state_bytes = 2 * rows * (4 * lbfgs.NF + 4 * lbfgs.NI + lbfgs.NM) + 12 * rows
+    for rec in out.values():
+        rec.update(max_abs_err=0.0 if rec["same_bits"] else float("inf"), library_ms=None,
+                   bound_ms=_bound_ms({"bytes": state_bytes, "flops": 0})[0], bound_by="bytes")
+    return out
+
+
+def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
+    """K19, the L-BFGS fits as CUDA graphs of blocks of 10 iterations with
+    the zoom line search on the card (``lbfgs_state``, ``lbfgs_stop``), and
+    LR's Adam as a graph of a step, against the host-driven loops in one
+    process: the ranker job's fit (``train_lr --w2v-full``), the ``cv_lr``
+    grid's G = 5 ``fit_many`` and the same job's fit by Adam (300 steps,
+    lr 0.05), each FUSED_LR_RUNS times by each loop in turns after a
+    warm-up fit of each, the counts set to 0 before each fit and read
+    after. Every graph fit must give the host loop's bits (coefficients,
+    train_loss, steps per row) and launch K8, K8c, K8g and K8c-g as often
+    (the state kernels besides). Emitted: ``device_s`` and ``compile_s``,
+    the card's busy share over the replays (``torch.profiler``), the host
+    reads of each loop's warm-up fit (counted, not timed; the host loop's
+    also counts its kernels' bound), the design, and the records of K19
+    (the ``train_lr`` fit), the Adam scan and the state kernels (at 1 and
+    5 rows). Run alone (after ``phase_device`` and ``phase_build``), it
+    records its inputs from the two jobs first."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from albedo_tpu_torch.kernels import launch_counts, reset_launches
+
+    if lr_inputs is None or grid_inputs is None:
+        lr_inputs, grid_inputs = _recorded_lr_inputs()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    est, fm, labels, weights = lr_inputs[:4]
+    grid_est, grid_fm, grid_labels, ws = grid_inputs[:4]
+    adam = dataclasses.replace(est, solver="adam", learning_rate=0.05)
+
+    def fitter(e, f, y, w, many):
+        def run() -> dict:
+            models = e.fit_many(f, y, w) if many else [e.fit(f, y, w)]
+            return {"models": models, "report": dict(e.last_fit_report)}
+        return run
+
+    configs = [("train_lr --w2v-full", "lbfgs_fit", "lbfgs.replays", fitter(est, fm, labels, weights, False)),
+               ("cv_lr --w2v-full, G 5", "lbfgs_fit_many", "lbfgs.replays",
+                fitter(grid_est, grid_fm, grid_labels, ws, True)),
+               ("train_lr --w2v-full, Adam 300 steps", "lr_adam_fit", "lr_adam.replays",
+                fitter(adam, fm, labels, weights, False))]
+    records, ok = {}, True
+    for name, kernel, span, run in configs:
+        reads = {}  # the warm-up fits: their host reads counted, and the host loop's kernels' bound
+        with _HostReads() as mode:
+            bound = _lr_bound(run)
+        reads["host"] = mode.reads
+        with _HostReads() as mode:
+            run()
+        reads["graph"] = mode.reads
+        fits, counts = {"host": [], "graph": []}, {"host": [], "graph": []}
+        for _ in range(FUSED_LR_RUNS):
+            for kind in ("host", "graph"):
+                with contextlib.ExitStack() as stack:
+                    if kind == "host":
+                        stack.enter_context(_host_loops())
+                    reset_launches()
+                    fit = run()
+                    torch.cuda.synchronize()
+                counts[kind].append({n: c for n, c in launch_counts().items() if c})
+                fits[kind].append(fit)
+        want = fits["host"][0]["models"]
+        same_bits = all(
+            m.n_iter_run == w.n_iter_run and np.array_equal(np.float32(m.train_loss), np.float32(w.train_loss),
+                                                            equal_nan=True)
+            and all(np.array_equal(m.params[k], w.params[k]) for k in w.params)
+            for f in fits["host"] + fits["graph"] for m, w in zip(f["models"], want))
+        shared = [{n: c for n, c in cs.items() if not n.startswith("lbfgs_")} for cs in counts["graph"]]
+        same_counts = all(c == counts["host"][0] for c in counts["host"] + shared)
+        state_ran = kernel == "lr_adam_fit" or all(c.get("lbfgs_state", 0) > 0 and c.get("lbfgs_stop", 0) > 0
+                                                  for c in counts["graph"])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        busy = _replay_busy(prof, span)
+        graph_s = [f["report"]["device_s"] for f in fits["graph"]]
+        compile_s = [f["report"]["compile_s"] for f in fits["graph"]]
+        host_s = [f["report"]["device_s"] for f in fits["host"]]
+        total_s = [d + c for d, c in zip(graph_s, compile_s)]
+        report = fits["graph"][0]["report"]
+        max_abs = max(float(np.max(np.abs(m.params[k] - w.params[k]))) if m.params[k].size else 0.0
+                      for f in fits["graph"] for m, w in zip(f["models"], want) for k in w.params)
+        rec = {"phase": "fused_lr", "config": name, "kernel": kernel, "card": card, "design": FUSED_LR_DESIGN,
+               "rows": len(want), "steps": [m.n_iter_run for m in want], "train_loss": [m.train_loss for m in want],
+               "same_bits": same_bits, "same_launches": same_counts, "state_kernels_ran": state_ran,
+               "launches": counts["graph"][0], "host_launches": counts["host"][0],
+               "device_s": graph_s, "compile_s": compile_s, "device_plus_compile_s": total_s,
+               "host_device_s": host_s, "median_device_s": float(np.median(graph_s)),
+               "median_compile_s": float(np.median(compile_s)), "median_total_s": float(np.median(total_s)),
+               "median_host_device_s": float(np.median(host_s)), "host_reads": reads["graph"],
+               "host_loop_host_reads": reads["host"], "reported_host_reads": report.get("host_reads"),
+               "blocks": report.get("blocks"), "evaluations": report.get("evaluations"),
+               "pieces": report.get("pieces"), **busy,
+               "record": {"ms": 1e3 * float(np.median(total_s)), "plain_ms": 1e3 * float(np.median(host_s)),
+                          "max_abs_err": max_abs, "library_ms": None, "launches": sum(counts["graph"][0].values()),
+                          **bound}}
+        rec["ok"] = same_bits and same_counts and state_ran and all(np.isfinite(total_s))
+        emit(rec)
+        records[kernel] = rec
+        ok &= rec["ok"]
+    state = {1: _lr_state_kernels(1), 5: _lr_state_kernels(5)}
+    held = all(r["same_bits"] for by_rows in state.values() for r in by_rows.values())
+    emit({"phase": "fused_lr", "config": "state kernels", "card": card, "ok": held,
+          "by_rows": {str(k): v for k, v in state.items()}})
+    if not (ok and held):
+        raise SystemExit("chip_smoke: a graph LR fit differs from the host-driven loop in its bits or launches, "
+                         "or a state kernel from its plain version")
+    timed = {"lbfgs_fit": records["lbfgs_fit"]["record"], "lr_adam_fit": records["lr_adam_fit"]["record"]}
+    for name in ("lbfgs_state", "lbfgs_stop"):
+        timed[name] = dict(state[1][name], rows_5=state[5][name])
+    return timed
+
+
 def _job_matrix():
     from albedo_tpu_torch import cli
     from albedo_tpu_torch.builders.jobs import JobContext
@@ -5154,12 +5495,14 @@ def main() -> int:
     w2v = phase_w2v_refscale()
     phase_w2v_quality()
     phase_lr_adam()
+    fused_lr = phase_fused_lr(inputs["lr"], cv["cv_lr_fit"])
     launches.update(**wide["launches"], **two_stage["launches"], **cv["launches"], **bf16["launches"],
                     **w2v["launches"])
     timed = dict(bench_timed, **ranker_timed, **cand_timed, **serving_timed, **wide["timed"], **two_stage_timed,
                  **cv["timed"], **bf16["timed"], **options["timed"], **any_size_timed, **trainer_timed,
-                 sgns_shared=w2v["timed"]["sgns_shared"], **loops)
+                 sgns_shared=w2v["timed"]["sgns_shared"], **loops, **fused_lr)
     launches.update({name: rec["launches"] for name, rec in loops.items()})
+    launches.update(lbfgs_fit=fused_lr["lbfgs_fit"]["launches"], lr_adam_fit=fused_lr["lr_adam_fit"]["launches"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": timed[name]["max_abs_err"],

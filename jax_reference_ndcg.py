@@ -597,7 +597,8 @@ def cv_fold_ndcg(model, train, test, recommender_cls, datasets, evaluators) -> f
         train.items_of(frame["repo_id"].to_numpy(np.int64)),
         order_key=frame["score"].to_numpy(np.float64), k=30,
     )
-    return evaluators.RankingEvaluator(metric_name="ndcg@k", k=30).evaluate(
+    on = {"device": "cpu"} if evaluators.__name__.startswith("albedo_tpu_torch") else {}  # the port on the CPU
+    return evaluators.RankingEvaluator(metric_name="ndcg@k", k=30, **on).evaluate(
         predicted, evaluators.user_actual_items(test, k=30))
 
 

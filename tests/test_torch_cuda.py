@@ -65,7 +65,16 @@ their generators where the eager loops do; K9 and K10 run at a batch of
 one pair there (one warp adds every term, in program order: at larger
 batches their atomics add in an order that changes from run to run), K9s
 at 256. Adam with its bias pair read from device memory gives the bits of
-the pair passed by value.
+the pair passed by value. K19, the L-BFGS fits with their state on the card
+(``lbfgs_state`` and ``lbfgs_stop``, bit for bit their plain versions on
+drawn states, NaN and inf included, at 1 to 1500 rows), equal the
+host-driven loops bit for bit (``fit``, ``fit_many``, and LR's Adam as a
+graph), K8, K8c, K8g and K8c-g launched as often (they add in a fixed
+order: no atomics); a capture that syncs raises naming the fit. K13's
+ranking metrics (a warp a query row) against their plain version on the
+card to 1e-6 (float32 sums in another order), precision exactly the plain
+version's on the CPU, the same bits on a second call, one launch a call,
+and the evaluator's mean on the card against the CPU's.
 """
 
 import threading
@@ -1941,3 +1950,276 @@ def test_graph_loop_captures_that_sync_raise(dev, monkeypatch):
     monkeypatch.undo()
     got, want = _w2v_fit("K9s", 3, graph=True), _w2v_fit("K9s", 3, graph=False)
     assert torch.equal(got[0]["tables"], want[0]["tables"])
+
+
+# ------------------------------------------------------------------ K19
+
+
+def lr_problem(seed: int = 0, n: int = 400):
+    """A weighted-LR problem made with numpy: the FeatureMatrix keyword
+    arguments (dense with a near-constant column, a categorical, a bag and
+    a factored vec field), labels, weights, and a 4-row weight grid: the
+    weights, uniform draws, 1 on the negatives and 0 elsewhere (at the zero
+    init the objective's gradient, JAX's at a tie, is -w y / sum w, so this
+    row's is 0: it stops after 2 steps), and all zeros (a NaN objective:
+    the row stops after 1 step, its point kept)."""
+    rng = np.random.default_rng(seed)
+    dense = rng.normal(size=(n, 3)).astype(np.float32)
+    dense[:, 0] = 250.0 + rng.normal(size=n).astype(np.float32) * 1e-3
+    bag_idx = rng.integers(0, 6, size=(n, 3)).astype(np.int32)
+    bag_idx[rng.random((n, 3)) < 0.4] = -1
+    bag_val = np.where(bag_idx >= 0, rng.integers(1, 3, size=(n, 3)), 0).astype(np.float32)
+    cat = rng.integers(0, 4, size=n).astype(np.int32)
+    rep = rng.integers(0, 12, size=n).astype(np.int32)
+    logits = dense[:, 1] - dense[:, 2] + 0.5 * (cat == 1) + bag_val[:, 0] * (bag_idx[:, 0] == 2)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, size=n).astype(np.float32)
+    kw = dict(dense=dense, dense_names=["d0", "d1", "d2"] + [f"v[{i}]" for i in range(5)],
+              cat={"c": cat}, cat_sizes={"c": 4}, bag_idx={"b": bag_idx}, bag_val={"b": bag_val},
+              bag_sizes={"b": 6}, vec={"v": rng.normal(size=(12, 5)).astype(np.float32)}, vec_rep={"v": rep})
+    ws = np.stack([w, rng.uniform(0.1, 3.0, size=n).astype(np.float32), (y == 0).astype(np.float32),
+                   np.zeros(n, np.float32)])
+    return kw, y, w, ws
+
+
+def _lbfgs_states(rows: int, seed: int):
+    """A drawn ``ops.lbfgs.LoopState`` (on the CPU) with a trial's value,
+    slope and slope_init: finite fields mostly, with NaN, +-inf, zero
+    intervals and rows that do not run."""
+    from albedo_tpu_torch.ops import lbfgs
+
+    rng = np.random.default_rng(seed)
+    st = lbfgs.new_state(rows, "cpu", 25)
+
+    def draw(size):
+        x = (rng.normal(size=size) * 10.0 ** rng.integers(-3, 3, size=size)).astype(np.float32)
+        odd = rng.random(size)
+        x[odd < 0.03] = np.nan
+        x[(odd >= 0.03) & (odd < 0.06)] = np.inf
+        x[(odd >= 0.06) & (odd < 0.09)] = -np.inf
+        return x
+
+    st.fs.copy_(torch.as_tensor(draw((lbfgs.NF, rows))))
+    st.fs[lbfgs.F_HIGH] = torch.where(torch.as_tensor(rng.random(rows) < 0.2), st.fs[lbfgs.F_LOW], st.fs[lbfgs.F_HIGH])
+    for k in (lbfgs.F_STEP, lbfgs.F_LOW, lbfgs.F_HIGH, lbfgs.F_SAFE_STEP, lbfgs.F_TRIAL):
+        st.fs[k] = st.fs[k].abs()
+    st.is_.copy_(torch.as_tensor(rng.integers(0, 2, size=(lbfgs.NI, rows)), dtype=torch.int32))
+    st.is_[lbfgs.I_ITER] = torch.as_tensor(rng.integers(0, 30, size=rows), dtype=torch.int32)
+    st.is_[lbfgs.I_FLAT] = torch.as_tensor(rng.integers(0, 4, size=rows), dtype=torch.int32)
+    st.ms.copy_(torch.as_tensor(rng.random((lbfgs.NM, rows)) < 0.8))
+    return st, (torch.as_tensor(draw(rows)), torch.as_tensor(draw(rows)), torch.as_tensor(draw(rows)),
+                torch.as_tensor(rng.random(rows) < 0.9), torch.as_tensor(np.abs(draw(rows))))
+
+
+def _state_on(st, dev):
+    from albedo_tpu_torch.ops import lbfgs
+
+    return lbfgs.LoopState(*(t.to(dev, copy=True) for t in (st.fs, st.is_, st.ms, st.flags)))
+
+
+def _same_bits_or_nan(x, y) -> bool:
+    """The same bits, NaN where NaN (the card's and the CPU's NaNs carry
+    other signs and payloads)."""
+    x, y = x.cpu(), y.cpu()
+    if x.dtype != torch.float32:
+        return torch.equal(x, y)
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x).view(torch.int32),
+                                               torch.where(ny, 0.0, y).view(torch.int32))
+
+
+def _same_state(a, b) -> bool:
+    return all(_same_bits_or_nan(x, y) for x, y in zip((a.fs, a.is_, a.ms, a.flags), (b.fs, b.is_, b.ms, b.flags)))
+
+
+@pytest.mark.parametrize("count", [0, 1, 7])
+@pytest.mark.parametrize("rows", [1, 3, 64, 1500])
+def test_lbfgs_state_same_bits_as_plain(dev, rows, count):
+    """The trial kernel and its plain version on one drawn state give the
+    same bits in every field, mask and flag, NaN where NaN."""
+    from albedo_tpu_torch.ops import lbfgs
+
+    for seed in range(3):
+        st, (value, slope, slope_init, _, _) = _lbfgs_states(rows, seed)
+        want = _state_on(st, "cpu")
+        lbfgs.zoom_trial(want, value, slope, slope_init, count, 8)
+        got = _state_on(st, dev)
+        kernels.reset_launches()
+        lbfgs.zoom_trial(got, value.to(dev), slope.to(dev), slope_init.to(dev), count, 8)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["lbfgs_state"] == 1
+        assert _same_state(got, want), (rows, count, seed)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 64, 1500])
+def test_lbfgs_stop_same_bits_as_plain(dev, rows):
+    from albedo_tpu_torch.ops import lbfgs
+
+    for seed in range(3):
+        st, (_, _, _, finite, gnorm) = _lbfgs_states(rows, seed)
+        want = _state_on(st, "cpu")
+        lbfgs.lbfgs_stop(want, finite, gnorm, 25, 1e-6)
+        got = _state_on(st, dev)
+        kernels.reset_launches()
+        lbfgs.lbfgs_stop(got, finite.to(dev), gnorm.to(dev), 25, 1e-6)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["lbfgs_stop"] == 1
+        assert _same_state(got, want), (rows, seed)
+
+
+@pytest.fixture(scope="module")
+def lr_data():
+    from albedo_tpu_torch.features.assembler import FeatureMatrix
+
+    kw, y, w, ws = lr_problem(n=3000)
+    return FeatureMatrix(**kw), y, w, ws
+
+
+def _host_loops(monkeypatch):
+    """The fits through the host-driven loops on the card (the plain
+    versions: ``_lbfgs_loop_reference``, ``_lbfgs_loop_many_reference``,
+    ``_adam_loop``)."""
+    from albedo_tpu_torch.models import logistic_regression as lr
+
+    def host_lbfgs(loss_fn, theta, max_iter, tol, name, report):
+        loop = lr._lbfgs_loop_reference if theta.dim() == 1 else lr._lbfgs_loop_many_reference
+        theta, loss, steps = loop(loss_fn, theta, max_iter, tol)
+        return theta, loss, torch.as_tensor(steps)
+
+    monkeypatch.setattr(lr, "_lbfgs_loop_graph", host_lbfgs)
+    monkeypatch.setattr(lr, "_adam_graph", lambda loss_fn, theta, max_iter, lr_, name, report:
+                        lr._adam_loop(loss_fn, theta, max_iter, lr_))
+
+
+def _lr_fits(est, data, many: bool):
+    fm, y, w, ws = data
+    kernels.reset_launches()
+    models = est.fit_many(fm, y, ws) if many else [est.fit(fm, y, w)]
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in kernels.launch_counts().items() if c and not n.startswith("lbfgs_")}
+    return models, counts, kernels.launch_counts()
+
+
+def _same_models(a, b) -> bool:
+    return all(ma.n_iter_run == mb.n_iter_run
+               and np.array_equal(np.float32(ma.train_loss), np.float32(mb.train_loss), equal_nan=True)
+               and all(np.array_equal(ma.params[k], mb.params[k]) for k in ma.params) for ma, mb in zip(a, b))
+
+
+@pytest.mark.parametrize("max_iter", [1, 2, 11, 25, 300])
+@pytest.mark.parametrize("many", [False, True], ids=["fit", "fit_many"])
+def test_lbfgs_graph_fit_same_bits_as_host_loop(dev, lr_data, monkeypatch, many, max_iter):
+    """K19 (blocks of 10 iterations as CUDA graphs) against the host-driven
+    loop on the card: the same coefficients, losses and steps per row, and
+    K8, K8c, K8g, K8c-g launched as often; the state kernels ran."""
+    from albedo_tpu_torch.models.logistic_regression import LogisticRegression
+
+    est = LogisticRegression(max_iter=max_iter, reg_param=0.7, device="cuda")
+    got, got_counts, all_counts = _lr_fits(est, lr_data, many)
+    report = dict(est.last_fit_report)
+    with monkeypatch.context() as m:
+        _host_loops(m)
+        want, want_counts, _ = _lr_fits(est, lr_data, many)
+    assert _same_models(got, want)
+    assert got_counts == want_counts
+    assert all_counts["lbfgs_state"] > 0 and all_counts["lbfgs_stop"] == max(m.n_iter_run for m in got)
+    assert report["host_reads"] == report["blocks"] <= -(-(max_iter - 1) // 10)  # one read a block of 10
+    assert report["compile_s"] > 0
+    if many and max_iter > 2:
+        assert [m.n_iter_run for m in got][2:] == [2, 1]  # the negatives' row and the zero row
+
+
+@pytest.mark.parametrize("steps", [1, 2, 30])
+def test_lr_adam_graph_same_bits_as_host_loop(dev, lr_data, monkeypatch, steps):
+    from albedo_tpu_torch.models.logistic_regression import LogisticRegression
+
+    est = LogisticRegression(max_iter=steps, reg_param=0.7, solver="adam", learning_rate=0.05, device="cuda")
+    got, got_counts, _ = _lr_fits(est, lr_data, False)
+    assert (est.last_fit_report["compile_s"] > 0) == (steps > 1)
+    with monkeypatch.context() as m:
+        _host_loops(m)
+        want, want_counts, _ = _lr_fits(est, lr_data, False)
+    assert _same_models(got, want) and got[0].n_iter_run is None
+    assert got_counts == want_counts and got_counts["adam_dense"] == steps
+
+
+def test_lbfgs_graph_capture_that_syncs_raises(dev, lr_data, monkeypatch):
+    """A host sync in a captured piece fails the capture: ``fit`` raises
+    ``RuntimeError`` naming itself (no fallback to the host loop); a later
+    fit captures and replays as usual."""
+    from albedo_tpu_torch.models import logistic_regression as lr
+    from albedo_tpu_torch.ops import lbfgs
+
+    fm, y, w, ws = lr_data
+    stop, seen = lbfgs.lbfgs_stop, []
+
+    def syncing(st, *args):
+        seen.append(st.rows)
+        bool(st.flags[0])  # a host sync: refused in a capture (lbfgs_stop runs only in captured pieces)
+        return stop(st, *args)
+
+    monkeypatch.setattr(lbfgs, "lbfgs_stop", syncing)
+    est = lr.LogisticRegression(max_iter=20, reg_param=0.7, device="cuda")
+    with pytest.raises(RuntimeError, match=r"LogisticRegression.fit \(L-BFGS, \d+ parameters\).*capture failed"):
+        est.fit(fm, y, w)
+    with pytest.raises(RuntimeError, match=r"LogisticRegression.fit_many \(L-BFGS, 4 rows.*capture failed"):
+        est.fit_many(fm, y, ws)
+    assert seen == [1, 4]
+    monkeypatch.undo()
+    got, _, _ = _lr_fits(est, lr_data, False)
+    with monkeypatch.context() as m:
+        _host_loops(m)
+        want, _, _ = _lr_fits(est, lr_data, False)
+    assert _same_models(got, want)
+
+
+def _ranking_lists(seed, q, kp, ka, n_items):
+    """-1-padded predictions (q, kp) and actual items (q, ka): random
+    lengths (0 included), a small catalog, duplicates in every fifth row."""
+    rng = np.random.default_rng(seed)
+    pred = np.full((q, kp), -1, np.int32)
+    actual = np.full((q, ka), -1, np.int32)
+    for r in range(q):
+        n_p, n_a = rng.integers(0, kp + 1), rng.integers(0, ka + 1)
+        pred[r, :n_p] = rng.integers(0, n_items, n_p) if r % 5 == 0 else rng.permutation(n_items)[:n_p]
+        actual[r, :n_a] = rng.permutation(n_items)[:n_a]
+    pred[0], actual[0] = np.arange(kp) % n_items, np.arange(ka) % n_items
+    return pred, actual
+
+
+@pytest.mark.parametrize("q,kp,ka,k,n_items", [(1, 30, 30, 30, 40), (250, 30, 30, 30, 60), (5000, 30, 30, 30, 3000),
+                                               (333, 30, 12, 30, 40), (97, 70, 65, 70, 120), (64, 1, 3, 1, 4),
+                                               (40, 5, 5, 15, 12)])
+def test_k13_ranking_metrics_match_plain(dev, q, kp, ka, k, n_items):
+    """K13: NDCG and MAP to 1e-6 of the plain version on the card (float32
+    sums in another order); precision exactly the plain version's on the
+    CPU, hits / k divided once as JAX does (torch on the card multiplies
+    by the reciprocal of a scalar divisor, an ulp off); the same bits on a
+    second call, one launch a call."""
+    from albedo_tpu_torch.evaluators import ranking
+
+    pred, actual = (torch.as_tensor(x, device=dev) for x in _ranking_lists(q + kp, q, kp, ka, n_items))
+    kernels.reset_launches()
+    got = ranking.ranking_metrics(pred, actual, k)
+    assert kernels.LAUNCHES["ranking_metrics"] == 1
+    want = ranking.ranking_metrics_reference(pred, actual, k)
+    assert torch.equal(got["precision"].cpu(),
+                       ranking.ranking_metrics_reference(pred.cpu(), actual.cpu(), k)["precision"])
+    for name in ("ndcg", "precision", "map"):
+        assert float((got[name] - want[name]).abs().max()) <= 1e-6, name
+    again = ranking.ranking_metrics(pred, actual, k)
+    assert all(torch.equal(got[n], again[n]) for n in got)
+
+
+def test_k13_evaluator_on_the_card_matches_the_cpu(dev):
+    from albedo_tpu_torch.evaluators import RankingEvaluator, UserItems
+
+    pred, actual = _ranking_lists(13, 500, 30, 30, 200)
+    users = np.arange(500, dtype=np.int32)
+    for metric in ("ndcg@k", "precision@k", "map"):
+        kernels.reset_launches()
+        got = RankingEvaluator(metric_name=metric, k=30).evaluate(UserItems(users, pred), UserItems(users, actual))
+        assert kernels.LAUNCHES["ranking_metrics"] == 1
+        want = RankingEvaluator(metric_name=metric, k=30, device="cpu").evaluate(
+            UserItems(users, pred), UserItems(users, actual))
+        assert abs(got - want) <= 1e-6, (metric, got, want)

@@ -94,7 +94,8 @@ def test_bf16_cg_fit_loop_ndcg_matches_als_fit_fused(matrix, one_thread):
 
     def ndcg(u, v):
         _, idx = ALSModel(torch.tensor(u), torch.tensor(v), RANK).recommend(users, k=30, exclude_idx=excl)
-        return RankingEvaluator(metric_name="ndcg@k", k=30).evaluate(UserItems(users, idx.astype(np.int32)), actual)
+        return RankingEvaluator(metric_name="ndcg@k", k=30, device="cpu").evaluate(
+            UserItems(users, idx.astype(np.int32)), actual)
 
     t_ndcg, j_ndcg = ndcg(tu, tv), ndcg(ju, jv)
     assert abs(t_ndcg - j_ndcg) <= 3e-3, (t_ndcg, j_ndcg)
@@ -126,39 +127,43 @@ def counts():
     build.LAUNCHES.update(saved)
 
 
+CAPTURE_STREAM = 0x5EED  # a raw stream handle standing for a capture's
+
+
 def test_launch_record_counts_replays_not_captures(counts):
-    record = build.LaunchRecord()
+    record = build.LaunchRecord(CAPTURE_STREAM)
     with record:  # a "capture": K1 + K2 for two groups, then K4
         for name in ("als_partials", "solve_corrected", "als_partials_wide", "solve_corrected_wide", "land_rows"):
-            build.count_launch(name)
-        build.count_launch("land_rows")
+            build.count_launch(name, CAPTURE_STREAM)
+        build.count_launch("land_rows", CAPTURE_STREAM)
     assert sum(counts.values()) == 0
     assert record.counts == {"als_partials": 1, "solve_corrected": 1, "als_partials_wide": 1,
                              "solve_corrected_wide": 1, "land_rows": 2}
     record.replayed()
     record.replayed(times=3)
     assert counts["als_partials"] == counts["solve_corrected_wide"] == 4 and counts["land_rows"] == 8
-    build.count_launch("bucket_cg")  # the record is closed: counted at once
+    build.count_launch("bucket_cg", CAPTURE_STREAM)  # the record is closed: counted at once
     assert counts["bucket_cg"] == 1 and "bucket_cg" not in record.counts
 
 
 def test_launch_record_leaves_other_threads_alone(counts):
-    """Launches of other threads during a capture count at once, in
-    ``LAUNCHES``, and never in the capturing thread's record: 16 threads
-    count 500 launches each while one thread records 500, with thread
-    switches forced often, and no count is lost."""
-    record, start = build.LaunchRecord(), threading.Barrier(17)
+    """Launches of other threads onto their own streams during a capture
+    count at once, in ``LAUNCHES``, and never in the capture's record: 16
+    threads count 500 launches each while one thread records 500 onto the
+    capture's stream, with thread switches forced often, and no count is
+    lost."""
+    record, start = build.LaunchRecord(CAPTURE_STREAM), threading.Barrier(17)
 
     def other():
         start.wait(timeout=30)
         for _ in range(500):
-            build.count_launch("gather_topk")
+            build.count_launch("gather_topk", threading.get_ident())
 
     def capture():
         with record:
             start.wait(timeout=30)
             for _ in range(500):
-                build.count_launch("bucket_cg")
+                build.count_launch("bucket_cg", CAPTURE_STREAM)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -175,7 +180,7 @@ def test_launch_record_leaves_other_threads_alone(counts):
     assert counts["gather_topk"] == 16 * 500 and counts["bucket_cg"] == 0
     assert record.counts == {"bucket_cg": 500}
     with record, pytest.raises(RuntimeError, match="already open"):
-        build.LaunchRecord().__enter__()
+        build.LaunchRecord(CAPTURE_STREAM).__enter__()
 
 
 @pytest.mark.parametrize("max_iter", [0, 1, 3])

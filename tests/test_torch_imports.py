@@ -46,7 +46,7 @@ def test_every_module_imports_without_nvcc():
                    "serving.batcher", "serving.service", "serving.cache", "serving.metrics",
                    "serving.overload", "serving.http", "retrieval.bank", "retrieval.build",
                    "retrieval.parity", "serving.pipeline", "serving.breaker", "utils.retry",
-                   "utils.watchdog", "utils.graphs", "cv"):
+                   "utils.watchdog", "utils.graphs", "ops.lbfgs", "cv", "evaluators.ranking"):
         assert f"albedo_tpu_torch.{needed}" in names
     for name in names:
         importlib.import_module(name)
@@ -63,6 +63,7 @@ def test_every_module_imports_without_nvcc():
         "als_partials_bf16", "bucket_cg_bf16", "als_partials_bf16_wide", "bucket_cg_bf16_wide",
         "sgns_shared", "masked_select", "masked_topk_select", "sgns_step_wide", "bpr_step_wide",
         "als_partials_tiled", "als_partials_bf16_tiled", "bucket_cg_tiled", "bucket_cg_bf16_tiled",
+        "lbfgs_state", "lbfgs_stop", "ranking_metrics",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:

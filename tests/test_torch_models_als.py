@@ -85,7 +85,7 @@ def _heldout_ndcg(matrix, solver, gather_dtype=None) -> tuple[float, float]:
     _, ji = jm.recommend(users, k=30, exclude_idx=excl)
     _, ti = tm.recommend(users, k=30, exclude_idx=excl)
     j_ndcg = JEval(metric_name="ndcg@k", k=30).evaluate(JItems(users, ji.astype(np.int32)), j_actual(test, k=30))
-    t_ndcg = RankingEvaluator(metric_name="ndcg@k", k=30).evaluate(
+    t_ndcg = RankingEvaluator(metric_name="ndcg@k", k=30, device="cpu").evaluate(
         UserItems(users, ti.astype(np.int32)), user_actual_items(test, k=30)
     )
     return t_ndcg, j_ndcg
