@@ -89,8 +89,12 @@ SIGNATURES: dict[str, list] = {
     "bpr_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # fs, is, ms, flags, G, value, slope, slope_init, count, max_steps, stream
     "lbfgs_state": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
-    # fs, is, ms, flags, G, finite, gnorm, max_iter, tol, slots, stream
-    "lbfgs_stop": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _I, _P],
+    # fs, is, ms, flags, G, finite, gnorm, max_iter, tol, stream
+    "lbfgs_stop": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _P],
+    # grad, params, dw, du, rho, prev_params, prev_grad, iters, n_iters, G, P, m, updates, slope, scratch, stream
+    "lbfgs_direction": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # z, y, w, wsum, theta, G, N, P, reg, half_reg, loss, dz, bias, pen, partials, tickets, nb, stream
+    "logloss": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _I, _P],
     # pred, actual, Q, kp, ka, k, out, stream
     "ranking_metrics": [_P, _P, _I, _I, _I, _I, _P, _P],
 }

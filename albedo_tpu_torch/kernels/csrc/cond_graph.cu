@@ -85,3 +85,8 @@ extern "C" int cond_graph_destroy(void* exec, void* graph) {
   cudaError_t f = cudaGraphDestroy((cudaGraph_t)graph);
   return (int)(e != cudaSuccess ? e : f);
 }
+
+// The number of nodes of graph `graph` (a piece torch captured) in *n.
+extern "C" int cond_graph_nodes(void* graph, size_t* n) {
+  return (int)cudaGraphGetNodes((cudaGraph_t)graph, nullptr, n);
+}

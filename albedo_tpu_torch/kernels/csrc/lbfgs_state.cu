@@ -21,10 +21,10 @@
 //   plateau, flat, prev, i, bad, the stored line-search value, then the
 //   stop test (at least 2 steps, then 3 consecutive plateaus or a gradient
 //   norm at tol) on the gradient norms torch computed; it writes each row's
-//   `active`, one device bool: some row is still active, and which memory
-//   slot order the next iteration's direction takes (its count modulo the
-//   memory size: the loop's count is the largest i, the rows still active
-//   share it).
+//   `active` and one device bool: some row is still active. The next
+//   iteration's direction (lbfgs_direction.cu) reads its count from the
+//   rows' i: the loop's count is the largest i, the rows still active share
+//   it.
 //
 // Same bits as numpy float32: every add, subtract, multiply, divide and
 // square root is an explicit round-to-nearest intrinsic (__fadd_rn and
@@ -46,7 +46,7 @@
 namespace {
 
 // State layout, mirrored by albedo_tpu_torch/ops/lbfgs.py: fs (NF, G)
-// float32, is (NI, G) int32, ms (NM, G) bool, flags (FLAG_SLOT + slots,) bool.
+// float32, is (NI, G) int32, ms (NM, G) bool, flags (NFLAGS,) bool.
 enum {
   F_VALUE_INIT, F_SLOPE_INIT, F_STEP, F_VALUE, F_SLOPE, F_DEC, F_CURV,
   F_LOW, F_VALUE_LOW, F_SLOPE_LOW, F_HIGH, F_VALUE_HIGH, F_SLOPE_HIGH,
@@ -55,10 +55,8 @@ enum {
 };
 enum { I_INTERVAL, I_DONE, I_FAILED, I_ITER, I_BAD, I_FLAT, NI };
 enum { M_RUNNING, M_TOOK, M_SAFE_NEW, M_SAFE_TAKE, M_ACTIVE, M_OK, M_STALE, NM };
-// flags (FLAG_SLOT + slots,) bool: some row active, running, stale; then,
-// per L-BFGS memory slot k, "some row is active and the next iteration's
-// count is k modulo the memory size" (the two-loop recursion's slot order).
-enum { FLAG_ACTIVE, FLAG_RUNNING, FLAG_STALE, FLAG_SLOT };
+// flags (NFLAGS,) bool: some row active, running, stale.
+enum { FLAG_ACTIVE, FLAG_RUNNING, FLAG_STALE, NFLAGS };
 
 // np.float32 of optax's defaults, exactly.
 constexpr float SLOPE_RTOL = 0x1.a36e2ep-14f;          // 1e-4
@@ -244,10 +242,7 @@ __global__ void lbfgs_state_kernel(float* __restrict__ fs, int* __restrict__ is,
 
 __global__ void lbfgs_stop_kernel(float* __restrict__ fs, int* __restrict__ is, bool* __restrict__ ms,
                                   bool* __restrict__ flags, int G, const bool* __restrict__ finite,
-                                  const float* __restrict__ gnorm, int max_iter, float tol, int slots) {
-  __shared__ int count;
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
+                                  const float* __restrict__ gnorm, int max_iter, float tol) {
   int any_active = 0, any_stale = 0;
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
     bool ok_active = false;
@@ -273,7 +268,6 @@ __global__ void lbfgs_stop_kernel(float* __restrict__ fs, int* __restrict__ is, 
     FS(F_TRIAL) = active ? 1.0f : 0.0f;
     any_active |= active;
     any_stale |= stale;
-    atomicMax_block(&count, i);
   }
   any_active = __syncthreads_or(any_active);
   any_stale = __syncthreads_or(any_stale);
@@ -282,7 +276,6 @@ __global__ void lbfgs_stop_kernel(float* __restrict__ fs, int* __restrict__ is, 
     flags[FLAG_RUNNING] = any_active;
     flags[FLAG_STALE] = any_stale;
   }
-  for (int k = threadIdx.x; k < slots; k += blockDim.x) flags[FLAG_SLOT + k] = any_active && count % slots == k;
 }
 
 #undef FS
@@ -307,13 +300,12 @@ extern "C" int lbfgs_state_launch(float* fs, int* is, bool* ms, bool* flags, int
 }
 
 // finite (G,) bool: each row's iterate after the step is finite; gnorm (G,)
-// f32: each row's stored line-search gradient norm; slots: the L-BFGS
-// memory size (flags holds FLAG_SLOT + slots bools).
+// f32: each row's stored line-search gradient norm.
 extern "C" int lbfgs_stop_launch(float* fs, int* is, bool* ms, bool* flags, int G, const bool* finite,
-                                 const float* gnorm, int max_iter, float tol, int slots, void* stream) {
-  if (G < 1 || slots < 1) return (int)cudaErrorInvalidValue;
+                                 const float* gnorm, int max_iter, float tol, void* stream) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
   lbfgs_stop_kernel<<<1, threads_for(G), 0, (cudaStream_t)stream>>>(fs, is, ms, flags, G, finite, gnorm,
-                                                                    max_iter, tol, slots);
+                                                                    max_iter, tol);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,9 @@ The solver is the JAX module's ``_lbfgs_loop`` written out, without optax
 
 - :class:`_LBFGS` is optax 0.2.6's ``scale_by_lbfgs`` (memory 10, the
   initial preconditioner scaled by the capped reciprocal gradient norm,
-  then by the last secant pair) chained with ``scale(-1)``;
+  then by the last secant pair) chained with ``scale(-1)``: the
+  ``lbfgs_direction`` kernel on the card, one launch an iteration
+  (``ops/lbfgs.py``; on the CPU its plain version, torch ops);
 - :func:`_zoom_linesearch` is optax's ``scale_by_zoom_linesearch`` with
   ``max_linesearch_steps=MAX_LINESEARCH_STEPS`` (8) and
   ``initial_guess_strategy="one"``, its defaults otherwise; its final value
@@ -20,7 +22,10 @@ The solver is the JAX module's ``_lbfgs_loop`` written out, without optax
 - :func:`_lbfgs_loop_reference` keeps the last finite point and stops after
   at least 2 steps on 3 consecutive plateaus or a gradient norm at ``tol``.
 
-The parameters live in one flat float32 vector on the device. In the plain
+The parameters live in one flat float32 vector on the device, and the
+objective and its gradient are ``ops.sparse_linear.LogisticObjective`` on
+that vector (K8, K8c and the ``logloss`` kernel around the dense products,
+no autograd: about 35 graph nodes an evaluation). In the plain
 loop (:func:`_lbfgs_loop_reference`, what ``fit`` runs on the CPU) the line
 search's scalar logic runs on the host in numpy float32, one device read per
 function evaluation, where the JAX loop runs in a device ``while_loop``. On
@@ -28,10 +33,10 @@ the card ``fit`` runs K19, the port's ``_lbfgs_fit_jit``
 (:func:`_lbfgs_loop_graph`): the loop's state in device tensors, its logic in
 the ``lbfgs_state`` and ``lbfgs_stop`` kernels (``ops/lbfgs.py``), iteration
 0 up to its first trial eager, then one iteration captured once as a CUDA
-graph whose pieces (the stale re-evaluation, the direction in its memory-slot
-order, each of the 8 trials, the step) sit under conditional nodes, launched
-in blocks of 10 while some row is active: the plain loop's bits, with the
-host reading one flag a block (``utils/graphs.py replay_while``).
+graph whose pieces (the stale re-evaluation, the direction, each of the 8
+trials, the step) sit under conditional nodes, launched in blocks of 10 while
+some row is active: the plain loop's bits, with the host reading one flag a
+block (``utils/graphs.py replay_while``).
 
 ``fit_many`` (the CV instance-weight grid) is the JAX module's ``jax.vmap``
 of that loop written out: :func:`_lbfgs_loop_many_reference` keeps a (G, P)
@@ -65,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -74,12 +79,12 @@ from albedo_tpu_torch.features.assembler import FeatureMatrix
 from albedo_tpu_torch.ops import lbfgs as lbfgs_ops
 from albedo_tpu_torch.ops.sgns import adam_dense, bias_table
 from albedo_tpu_torch.ops.sparse_linear import (
+    LogisticObjective,
     block_logits,
     dense_center,
     feature_batch,
     init_params,
     inverse_std_scales,
-    weighted_logloss,
 )
 from albedo_tpu_torch.utils import graphs
 from albedo_tpu_torch.utils.device import resolve_device
@@ -188,29 +193,25 @@ class LogisticRegression:
         w = torch.as_tensor(np.asarray(sample_weight, np.float32)).to(dev)
         scales_np, center_np = self._prepare_scales(fm)
         params_np = init_params(fm)
-        scales = _to_device(scales_np, dev)
         center = None if center_np is None else torch.as_tensor(center_np).to(dev)
         layout = _Layout(params_np)
         theta0 = layout.flatten(params_np, dev)
-        reg = float(self.reg_param)
+        objective = LogisticObjective(layout.sizes, scales_np, batch, y, w, float(self.reg_param), center)
         prep_s = time.perf_counter() - t_prep
-
-        def loss_fn(theta: torch.Tensor) -> torch.Tensor:
-            return weighted_logloss(layout.views(theta), scales, batch, y, w, reg, center=center)
 
         report = self.last_fit_report = _new_report(dev)
         t0 = time.perf_counter()
         if self.solver == "lbfgs":
             if dev.type == "cpu":
-                theta, loss_t, n_done = _lbfgs_loop_reference(loss_fn, theta0, self.max_iter, self.tol)
+                theta, loss_t, n_done = _lbfgs_loop_reference(objective, theta0, self.max_iter, self.tol)
             else:
                 name = f"LogisticRegression.fit (L-BFGS, {layout.size} parameters)"
-                theta, loss_t, n_done = _lbfgs_loop_graph(loss_fn, theta0, self.max_iter, self.tol, name, report)
+                theta, loss_t, n_done = _lbfgs_loop_graph(objective, theta0, self.max_iter, self.tol, name, report)
         elif dev.type == "cpu":
-            theta, loss_t = _adam_loop(loss_fn, theta0, self.max_iter, self.learning_rate)
+            theta, loss_t = _adam_loop(objective, theta0, self.max_iter, self.learning_rate)
         else:
             name = f"LogisticRegression.fit (Adam, {layout.size} parameters, {self.max_iter} steps)"
-            theta, loss_t = _adam_graph(loss_fn, theta0, self.max_iter, self.learning_rate, name, report)
+            theta, loss_t = _adam_graph(objective, theta0, self.max_iter, self.learning_rate, name, report)
         loss = float(loss_t)  # device read: the completion barrier
         n_done = None if self.solver == "adam" else int(n_done)
         compile_s = report["compile_s"]
@@ -262,23 +263,19 @@ class LogisticRegression:
         w = torch.as_tensor(ws).to(dev)
         scales_np, center_np = self._prepare_scales(fm)
         params_np = init_params(fm)
-        scales = _to_device(scales_np, dev)
         center = None if center_np is None else torch.as_tensor(center_np).to(dev)
         layout = _Layout(params_np)
         theta0 = layout.flatten(params_np, dev).expand(ws.shape[0], -1).contiguous()
-        reg = float(self.reg_param)
+        objective = LogisticObjective(layout.sizes, scales_np, batch, y, w, float(self.reg_param), center)
         prep_s = time.perf_counter() - t_prep
-
-        def loss_fn(theta: torch.Tensor) -> torch.Tensor:
-            return weighted_logloss(layout.views(theta), scales, batch, y, w, reg, center=center)
 
         report = self.last_fit_report = _new_report(dev)
         t0 = time.perf_counter()
         if dev.type == "cpu":
-            theta, losses_t, n_done = _lbfgs_loop_many_reference(loss_fn, theta0, self.max_iter, self.tol)
+            theta, losses_t, n_done = _lbfgs_loop_many_reference(objective, theta0, self.max_iter, self.tol)
         else:
             name = f"LogisticRegression.fit_many (L-BFGS, {ws.shape[0]} rows of {layout.size} parameters)"
-            theta, losses_t, n_done = _lbfgs_loop_graph(loss_fn, theta0, self.max_iter, self.tol, name, report)
+            theta, losses_t, n_done = _lbfgs_loop_graph(objective, theta0, self.max_iter, self.tol, name, report)
             n_done = n_done.cpu().numpy()
         losses = losses_t.cpu().numpy()  # device read: the completion barrier
         compile_s = report["compile_s"]
@@ -314,6 +311,11 @@ class _Layout:
             off += int(np.prod(shape, dtype=np.int64))
         self.size = off
 
+    @property
+    def sizes(self) -> dict[str, int]:
+        """Each leaf's number of entries, in the flat order."""
+        return {k: int(np.prod(shape, dtype=np.int64)) for k, _, shape in self.parts}
+
     def flatten(self, params: dict[str, np.ndarray], device) -> torch.Tensor:
         flat = np.concatenate([np.asarray(params[k], np.float32).reshape(-1) for k, _, _ in self.parts])
         return torch.as_tensor(flat).to(device)
@@ -337,19 +339,17 @@ class _Layout:
         return out
 
 
-def _lbfgs_loop_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+def _lbfgs_loop_reference(objective: LogisticObjective, theta: torch.Tensor,
                 max_iter: int, tol: float) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The JAX module's ``_lbfgs_loop``: L-BFGS steps with the zoom line
     search until at least 2 steps are done and then 3 consecutive plateaus
     (``|prev - value| <= tol * max(|value|, 1e-12)`` in float32) or a
     gradient norm at ``tol``; ``max_iter`` caps the steps. A non-finite
     value or iterate keeps the last finite point and stops. Returns
-    ``(theta, loss at theta, steps run)``."""
+    ``(theta, loss at theta, steps run)``. ``objective``'s
+    ``value_and_grad`` returns a fresh gradient each call."""
     tol32 = F(tol)
-
-    def value_and_grad(x):
-        return _value_and_grad(loss_fn, x)
-
+    value_and_grad = objective.value_and_grad
     opt = _LBFGS(theta)
     ls_value, ls_grad = F(np.inf), torch.zeros_like(theta)  # the line search's state
     prev, i, bad, flat = F(np.inf), 0, False, 0
@@ -362,8 +362,8 @@ def _lbfgs_loop_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta
         else:
             v, grad = value_and_grad(theta)
             value = F(float(v))
-        updates = opt.direction(grad, theta)
-        stepsize, ls_value, ls_grad = _zoom_linesearch(value_and_grad, theta, updates, value, grad)
+        updates, slope = opt.direction(grad, theta)
+        stepsize, ls_value, ls_grad = _zoom_linesearch(value_and_grad, theta, updates, value, grad, slope)
         new_theta = theta + float(stepsize) * updates
         ok = bool(np.isfinite(value)) and bool(torch.isfinite(new_theta).all())
         if ok:
@@ -373,12 +373,10 @@ def _lbfgs_loop_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta
         plateau = bool(abs(prev - value) <= tol32 * max(abs(value), F(1e-12)))
         flat = flat + 1 if plateau else 0
         prev, i, bad = value, i + 1, not ok
-    with torch.no_grad():
-        loss = loss_fn(theta)
-    return theta, loss, i
+    return theta, objective.value(theta), i
 
 
-def _adam_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+def _adam_loop(objective: LogisticObjective, theta: torch.Tensor,
                max_iter: int, lr: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX module's ``_run_adam``: ``max_iter`` steps of the loss and
     gradient at ``theta`` followed by one Adam update (``adam_dense``, in
@@ -390,12 +388,12 @@ def _adam_loop(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Ten
     theta = theta.clone()
     m, v = torch.zeros_like(theta), torch.zeros_like(theta)
     for count in range(1, max_iter + 1):
-        loss, grad = _value_and_grad(loss_fn, theta)
+        loss, grad = objective.value_and_grad(theta)
         adam_dense(theta, grad, m, v, count, lr)
     return theta, loss
 
 
-def _adam_graph(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor, max_iter: int, lr: float,
+def _adam_graph(objective: LogisticObjective, theta: torch.Tensor, max_iter: int, lr: float,
                 name: str, report: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`_adam_loop` on the card, the JAX scan's counterpart: step 0
     eagerly, then one step captured as a CUDA graph and replayed ``max_iter
@@ -412,29 +410,13 @@ def _adam_graph(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Te
     loss = torch.zeros((), dtype=theta.dtype, device=theta.device)
 
     def step(i):
-        value, grad = _value_and_grad(loss_fn, theta)
+        value, grad = objective.value_and_grad(theta)
         adam_dense(theta, grad, m, v, bias[0] if i == 0 else row, lr)
         loss.copy_(value)
 
     graphs.replay_loop(name, theta.device, step, max_iter, refill=lambda i: row.copy_(bias[i]), report=report,
                        span="lr_adam.replays")
     return theta, loss
-
-
-def _value_and_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor):
-    x = theta.detach().requires_grad_(True)
-    value = loss_fn(x)
-    (grad,) = torch.autograd.grad(value, x)
-    return value.detach(), grad
-
-
-def _grid_value_and_grad(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor):
-    """The (G,) values and (G, P) gradients of a grid objective (rows are
-    independent, so the gradient of their sum is each row's)."""
-    x = theta.detach().requires_grad_(True)
-    value = loss_fn(x)
-    (grad,) = torch.autograd.grad(value.sum(), x)
-    return value.detach(), grad
 
 
 # Iterations a block: the graph of one iteration is launched this many times
@@ -445,24 +427,24 @@ BLOCK = MEMORY_SIZE
 class _DeviceLoop:
     """The L-BFGS loop with its state on the device (K19): a (P,) ``theta``
     (``fit``, one row: ``torch.dot`` and the vector norm, as
-    :func:`_lbfgs_loop_reference`) or a (G, P) one (``fit_many``: ``_rowdot``
+    :func:`_lbfgs_loop_reference`) or a (G, P) one (``fit_many``: row dots
     and row norms, as :func:`_lbfgs_loop_many_reference`), the same torch
     operations in the same order as those loops, with their host logic in
-    ``ops.lbfgs`` (the ``lbfgs_state`` and ``lbfgs_stop`` kernels). Every
-    value the loop carries lives in a tensor updated in place, so one
-    iteration captured once serves every launch. An iteration is pieces
-    (``utils.graphs.replay_while``), each run where its flag holds: the
-    stale re-evaluation (some active row has no stored value), the L-BFGS
-    direction in one of ``MEMORY_SIZE`` slot orders (the iteration's count
-    modulo the memory size, which ``lbfgs_stop`` flags), each line-search
-    trial (some row still searches), the step and stop test (some row is
-    active)."""
+    ``ops.lbfgs`` (the ``lbfgs_state``, ``lbfgs_stop`` and
+    ``lbfgs_direction`` kernels). Every value the loop carries lives in a
+    tensor updated in place, so one iteration captured once serves every
+    launch. An iteration is pieces (``utils.graphs.replay_while``), each run
+    where its flag holds: the stale re-evaluation (some active row has no
+    stored value), the L-BFGS direction (some row is active; its memory
+    slots follow the count the kernel reads from the state's ``i``), each
+    line-search trial (some row still searches), the step and stop test
+    (some row is active)."""
 
-    def __init__(self, loss_fn, theta: torch.Tensor, max_iter: int, tol: float):
+    def __init__(self, objective: LogisticObjective, theta: torch.Tensor, max_iter: int, tol: float):
         self.grid = theta.dim() == 2
-        self.loss_fn, self.max_iter, self.tol = loss_fn, max_iter, tol
+        self.objective, self.max_iter, self.tol = objective, max_iter, tol
         self.theta = theta.detach().clone()
-        self.state = lbfgs_ops.new_state(theta.shape[0] if self.grid else 1, theta.device, max_iter, MEMORY_SIZE)
+        self.state = lbfgs_ops.new_state(theta.shape[0] if self.grid else 1, theta.device, max_iter)
         self.opt = _LBFGS(self.theta)
         self.ls_grad = torch.zeros_like(self.theta)  # the line search's stored gradient
         self.updates = torch.zeros_like(self.theta)  # this iteration's direction
@@ -473,10 +455,7 @@ class _DeviceLoop:
 
     def _value_and_grad(self, x):
         self.evaluations += 1  # enqueued eagerly or captured
-        return _grid_value_and_grad(self.loss_fn, x) if self.grid else _value_and_grad(self.loss_fn, x)
-
-    def _dot(self, a, b):
-        return _rowdot(a, b) if self.grid else torch.dot(a, b)
+        return self.objective.value_and_grad(x)
 
     def _row(self, field: int) -> torch.Tensor:
         """A (G,) float field as a (G, 1) column ((1,) for one row)."""
@@ -494,19 +473,18 @@ class _DeviceLoop:
         torch.where(self.state.ms[lbfgs_ops.M_STALE], v, ls_value, out=ls_value)
         torch.where(self._mask(lbfgs_ops.M_STALE), g, self.ls_grad, out=self.ls_grad)
 
-    def direction(self, count: int) -> None:
-        """Iteration ``count``'s L-BFGS direction (its memory slots follow
-        ``count``), its slope, and the search's safe gradient."""
-        self.opt.count = count
-        self.updates.copy_(self.opt.direction(self.ls_grad, self.theta))
-        self.slope_init.copy_(self._dot(self.updates, self.ls_grad).reshape(-1))
+    def direction(self) -> None:
+        """The iteration's L-BFGS direction and its slope (the count read
+        from the rows' ``i``), and the search's safe gradient."""
+        self.opt.direction(self.ls_grad, self.theta, self.state.is_[lbfgs_ops.I_ITER],
+                           out=(self.updates, self.slope_init))
         self.safe_grad.copy_(self.ls_grad)
 
     def trial(self, j: int) -> None:
         """Line-search trial ``j`` of the rows still searching."""
         x = self.theta + self._row(lbfgs_ops.F_TRIAL) * self.updates
         v, g = self._value_and_grad(x)
-        lbfgs_ops.zoom_trial(self.state, v, self._dot(g, self.updates), self.slope_init if j == 0 else None, j,
+        lbfgs_ops.zoom_trial(self.state, v, lbfgs_ops.dot(g, self.updates), self.slope_init if j == 0 else None, j,
                              MAX_LINESEARCH_STEPS)
         torch.where(self._mask(lbfgs_ops.M_SAFE_NEW), g, self.safe_grad, out=self.safe_grad)
         torch.where(self._mask(lbfgs_ops.M_TOOK), g, self.grad, out=self.grad)
@@ -524,12 +502,10 @@ class _DeviceLoop:
 
     def iteration(self, when) -> None:
         """Enqueue an iteration after the first as ``when(pred, key, fn)``
-        pieces; of its ``MEMORY_SIZE`` direction pieces, the one of its
-        count's slot runs."""
+        pieces."""
         flags = self.state.flags
         when(flags[lbfgs_ops.FLAG_STALE], ("stale",), self.stale)
-        for k in range(MEMORY_SIZE):
-            when(flags[lbfgs_ops.FLAG_SLOT + k], ("direction", k), lambda k=k: self.direction(k or MEMORY_SIZE))
+        when(flags[lbfgs_ops.FLAG_ACTIVE], ("direction",), self.direction)
         for j in range(MAX_LINESEARCH_STEPS):
             when(flags[lbfgs_ops.FLAG_RUNNING], ("trial", j), lambda j=j: self.trial(j))
         when(flags[lbfgs_ops.FLAG_ACTIVE], ("finish",), self.finish)
@@ -540,7 +516,7 @@ class _DeviceLoop:
         the captured pieces."""
         lbfgs_ops.load(self.theta.device)  # the state kernels, before a capture launches lbfgs_stop
         self.stale()
-        self.direction(0)
+        self.direction()
         self.trial(0)
         self.first_evaluations = self.evaluations
 
@@ -554,13 +530,12 @@ class _DeviceLoop:
         runs = report.get("key_runs")  # the captured pieces' runs; each trial and the stale piece evaluates once
         report.update(host_reads=self.host_reads, evaluations=self.evaluations if runs is None else
                       self.first_evaluations + sum(t for key, t in runs.items() if key[0] in ("stale", "trial")))
-        with torch.no_grad():
-            loss = self.loss_fn(self.theta)
+        loss = self.objective.value(self.theta)
         steps = self.state.is_[lbfgs_ops.I_ITER]
         return self.theta, loss, (steps if self.grid else steps[0])
 
 
-def _lbfgs_loop_graph(loss_fn, theta: torch.Tensor, max_iter: int, tol: float, name: str,
+def _lbfgs_loop_graph(objective: LogisticObjective, theta: torch.Tensor, max_iter: int, tol: float, name: str,
                       report: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`_lbfgs_loop_reference` (a (P,) ``theta``) or
     :func:`_lbfgs_loop_many_reference` (a (G, P) one) with the loop's state
@@ -571,65 +546,32 @@ def _lbfgs_loop_graph(loss_fn, theta: torch.Tensor, max_iter: int, tol: float, n
     ``compile_s``, ``blocks``, ``host_reads`` (one flag a block) and
     ``evaluations`` (of the objective and its gradient, the final loss not
     counted)."""
-    return _DeviceLoop(loss_fn, theta, max_iter, tol).run(name, report)
+    return _DeviceLoop(objective, theta, max_iter, tol).run(name, report)
 
 
 class _LBFGS:
     """optax ``scale_by_lbfgs(memory_size, scale_init_precond=True)``
-    followed by ``scale(-1)``: the descent direction ``-P_k g_k``, for a (P,)
-    vector or, row by row, a (G, P) matrix (the grid: only the rows still
-    running use the result, and they share the step count, since a row that
-    stops never runs again)."""
+    followed by ``scale(-1)``: the descent direction ``-P_k g_k`` and its
+    slope, for a (P,) vector or, row by row, a (G, P) matrix (the grid: only
+    the rows still running use the result, and they share the step count,
+    since a row that stops never runs again). ``ops.lbfgs.lbfgs_direction``
+    computes it: the kernel on the card, its plain version (the two-loop
+    recursion in torch ops) on the CPU."""
 
     def __init__(self, theta: torch.Tensor, memory_size: int = MEMORY_SIZE):
-        self.m = memory_size
-        self.count = 0
-        self.params = torch.zeros_like(theta)
-        self.updates = torch.zeros_like(theta)
-        self.dw = torch.zeros((memory_size, *theta.shape), dtype=theta.dtype, device=theta.device)
-        self.du = torch.zeros((memory_size, *theta.shape), dtype=theta.dtype, device=theta.device)
-        self.rho = torch.zeros((memory_size, *theta.shape[:-1]), dtype=theta.dtype, device=theta.device)
-        self.dot = torch.dot if theta.dim() == 1 else _rowdot
+        self.memory = lbfgs_ops.new_memory(theta, memory_size)
+        self.count = 0  # the host loops' count; the device loop passes the state's
+        self.iters = torch.zeros(1, dtype=torch.int32, device=theta.device)
 
-    def direction(self, grad: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-        m, dot = self.m, self.dot
-        memory_idx = self.count % m
-        prev_idx = (self.count - 1) % m
-        if self.count > 0:
-            dw = params - self.params
-            du = grad - self.updates
-            vdot = dot(du, dw)
-            self.dw[prev_idx] = dw
-            self.du[prev_idx] = du
-            self.rho[prev_idx] = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
-            denom = dot(du, du)
-            scale = torch.where(denom > 0.0, vdot / denom, torch.ones_like(vdot))
-        else:
-            # First step: the capped reciprocal of the gradient norm (the
-            # zero secant pair optax stores here is a no-op and is skipped).
-            scale = torch.clamp_max(1.0 / torch.linalg.vector_norm(grad, dim=-1), 1.0)
-        # Two-loop recursion, oldest slot to newest starting at memory_idx;
-        # unwritten slots have rho 0 and change nothing, as in optax.
-        order = [(memory_idx + j) % m for j in range(m)]
-        vec = grad
-        alphas = {}
-        for i in reversed(order):
-            alpha = self.rho[i] * dot(self.dw[i], vec)
-            vec = vec - alpha[..., None] * self.du[i]
-            alphas[i] = alpha
-        vec = scale[..., None] * vec
-        for i in order:
-            beta = self.rho[i] * dot(self.du[i], vec)
-            vec = vec + (alphas[i] - beta)[..., None] * self.dw[i]
-        self.count += 1
-        self.params.copy_(params)  # in place: a captured step reads them where the next one wrote them
-        self.updates.copy_(grad)
-        return -vec
-
-
-def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The (G,) dot products of the rows of two (G, P) matrices."""
-    return torch.sum(a * b, dim=1)
+    def direction(self, grad: torch.Tensor, params: torch.Tensor, iters: torch.Tensor | None = None,
+                  out: tuple[torch.Tensor, torch.Tensor] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(updates, slope)`` at the iteration whose count is the largest
+        of the device tensor ``iters``, or, without it, at this object's
+        next count (written to a device tensor, no host sync)."""
+        if iters is None:
+            iters = self.iters.fill_(self.count)
+            self.count += 1
+        return lbfgs_ops.lbfgs_direction(grad, params, self.memory, iters, out)
 
 
 # --------------------------------------------------------------- zoom search
@@ -686,10 +628,11 @@ def _quadmin(a, fa, fpa, b, fb):
     return F(a - fpa / (F(2.0) * B))
 
 
-def _zoom_linesearch(value_and_grad, params, updates, value, grad, max_steps=MAX_LINESEARCH_STEPS):
+def _zoom_linesearch(value_and_grad, params, updates, value, grad, slope, max_steps=MAX_LINESEARCH_STEPS):
     """optax's zoom line search along ``updates`` from ``params`` (value
-    ``value``, gradient ``grad``). Returns ``(stepsize, value, grad)`` at the
-    accepted step; value and gradient are reused by the next iteration."""
+    ``value``, gradient ``grad``, slope ``slope`` = ``<updates, grad>``).
+    Returns ``(stepsize, value, grad)`` at the accepted step; value and
+    gradient are reused by the next iteration."""
 
     def on_line(stepsize):
         step = params + float(stepsize) * updates
@@ -699,7 +642,7 @@ def _zoom_linesearch(value_and_grad, params, updates, value, grad, max_steps=MAX
         return F(host[0]), g, F(host[1])
 
     value_init = F(float(value))
-    slope_init = F(float(torch.dot(updates, grad)))
+    slope_init = F(float(slope))
     st = dict(
         value_init=value_init, slope_init=slope_init,
         count=0, stepsize=F(0.0), value=value_init, grad=grad, slope=slope_init,
@@ -807,19 +750,17 @@ def _zoom_step(st: dict, on_line, max_steps: int) -> None:
 # --------------------------------------------------------- the grid (vmap)
 
 
-def _lbfgs_loop_many_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], theta: torch.Tensor,
+def _lbfgs_loop_many_reference(objective: LogisticObjective, theta: torch.Tensor,
                      max_iter: int, tol: float) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """:func:`_lbfgs_loop_reference` for each row of a (G, P) ``theta``, as
     ``jax.vmap`` runs it: the loop goes on while any row's condition holds,
     and a row whose condition fails keeps its point, value, step count and
-    stop flags. ``loss_fn`` maps (G, P) to the (G,) losses, row g a function
-    of row g only. Returns ``(theta, losses at theta, steps run per row)``."""
+    stop flags. ``objective`` maps (G, P) to the (G,) losses and their (G,
+    P) gradients, row g a function of row g only. Returns ``(theta, losses
+    at theta, steps run per row)``."""
     tol32 = F(tol)
     n_grid = theta.shape[0]
-
-    def value_and_grad(x):
-        return _grid_value_and_grad(loss_fn, x)
-
+    value_and_grad = objective.value_and_grad
     opt = _LBFGS(theta)
     ls_value, ls_grad = np.full(n_grid, np.inf, F), torch.zeros_like(theta)
     prev = np.full(n_grid, np.inf, F)
@@ -837,9 +778,9 @@ def _lbfgs_loop_many_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], 
             v, g = value_and_grad(theta)
             value = np.where(stale, v.cpu().numpy().astype(F), ls_value)
             grad = torch.where(_rows(stale, theta), g, ls_grad)
-        updates = opt.direction(grad, theta)
+        updates, slope = opt.direction(grad, theta)
         stepsize, new_value, new_grad = _zoom_linesearch_many(
-            value_and_grad, theta, updates, value, grad, active)
+            value_and_grad, theta, updates, value, grad, slope, active)
         new_theta = theta + torch.as_tensor(stepsize, device=theta.device)[:, None] * updates
         ok = np.isfinite(value) & torch.isfinite(new_theta).all(dim=1).cpu().numpy()
         theta = torch.where(_rows(active & ok, theta), new_theta, theta)
@@ -851,9 +792,7 @@ def _lbfgs_loop_many_reference(loss_fn: Callable[[torch.Tensor], torch.Tensor], 
         prev = np.where(active, value, prev)
         i = np.where(active, i + 1, i)
         bad = np.where(active, ~ok, bad)
-    with torch.no_grad():
-        losses = loss_fn(theta)
-    return theta, losses, i
+    return theta, objective.value(theta), i
 
 
 def _rows(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -861,10 +800,11 @@ def _rows(mask: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(mask, device=like.device)[:, None]
 
 
-def _zoom_linesearch_many(value_and_grad, params, updates, value, grad, active,
+def _zoom_linesearch_many(value_and_grad, params, updates, value, grad, slope, active,
                           max_steps=MAX_LINESEARCH_STEPS):
     """:func:`_zoom_linesearch` for each row of (G, P) ``params`` along its
-    row of ``updates``, from (G,) ``value`` and (G, P) ``grad``, for the rows
+    row of ``updates``, from (G,) ``value``, (G, P) ``grad`` and (G,)
+    ``slope`` (each row's ``<updates, grad>``), for the rows
     of the (G,) mask ``active``; the others are returned as given (their
     results are not used). Each trial evaluates every row in one pass: a
     row still searching its interval at its next trial step, a row zooming
@@ -874,11 +814,11 @@ def _zoom_linesearch_many(value_and_grad, params, updates, value, grad, active,
 
     def on_line(stepsize):
         v, g = value_and_grad(params + torch.as_tensor(stepsize, device=dev)[:, None] * updates)
-        host = torch.stack([v, _rowdot(g, updates)]).cpu().numpy().astype(F)
+        host = torch.stack([v, lbfgs_ops.dot(g, updates)]).cpu().numpy().astype(F)
         return host[0], g, host[1]
 
     value_init = np.asarray(value, F)
-    slope_init = _rowdot(updates, grad).cpu().numpy().astype(F)
+    slope_init = slope.cpu().numpy().astype(F)
     zero = np.zeros(n_grid, F)
     inf = np.full(n_grid, np.inf, F)
     st = dict(

@@ -1,25 +1,29 @@
 """The L-BFGS fits' loop state on the device and its kernels (K19's state
-machine, ``kernels/csrc/lbfgs_state.cu``).
+machine, ``kernels/csrc/lbfgs_state.cu``, and its direction,
+``kernels/csrc/lbfgs_direction.cu``).
 
 The loop of ``models/logistic_regression.py`` keeps every scalar it carries
 in one :class:`LoopState`: per grid row (G rows, 1 for ``fit``) the zoom
 line search's state and the loop's ``i``, ``bad``, ``flat``, ``prev`` and
 stored line-search value, the row masks the torch glue selects gradients
 and iterates by, and the device bools that switch a captured iteration's
-conditional nodes: some row active, running, stale, and one a memory slot
-(the next iteration's count modulo the memory size, where some row is
-active).
+conditional nodes: some row active, running, stale.
 
 - :func:`zoom_trial` (CUDA kernel ``lbfgs_state``): one line-search trial
   from its (G,) value and slope; a row that is not running is left as it
   is.
 - :func:`lbfgs_stop` (CUDA kernel ``lbfgs_stop``, counted apart): the
-  bookkeeping after a step, the stop test on the (G,) gradient norms, and
-  which L-BFGS memory slot order the next iteration's direction takes.
+  bookkeeping after a step and the stop test on the (G,) gradient norms.
+- :func:`lbfgs_direction` (CUDA kernel ``lbfgs_direction``): the whole
+  L-BFGS direction of an iteration (optax's ``scale_by_lbfgs`` with
+  ``scale(-1)``) and its slope, with the update of the :class:`Memory`, the
+  iteration count read from a device tensor (the loop state's ``i``).
 
 The plain versions (:func:`zoom_trial_reference`, :func:`lbfgs_stop_reference`)
 apply the same float32 rules with torch on (G,) tensors; they give the
-kernel's bits, and the plain loops' numpy float32 values. On the CPU the
+kernel's bits, and the plain loops' numpy float32 values.
+:func:`lbfgs_direction_reference` is the plain loops' two-loop recursion in
+torch ops (the kernel sums its dots in another order). On the CPU the
 wrappers run them; on the card they launch the kernel or raise.
 """
 
@@ -45,10 +49,9 @@ NI = 6
 # step kept (finite); stale (no stored value to reuse).
 M_RUNNING, M_TOOK, M_SAFE_NEW, M_SAFE_TAKE, M_ACTIVE, M_OK, M_STALE = range(7)
 NM = 7
-# flags (FLAG_SLOT + slots,) bool: some row active, running, stale, then one
-# a memory slot: some row active and the next iteration's count is k modulo
-# the memory size.
-FLAG_ACTIVE, FLAG_RUNNING, FLAG_STALE, FLAG_SLOT = range(4)
+# flags (NFLAGS,) bool: some row active, running, stale.
+FLAG_ACTIVE, FLAG_RUNNING, FLAG_STALE = range(3)
+NFLAGS = 3
 
 F = np.float32
 # optax.scale_by_zoom_linesearch's defaults as float32 (the plain loops'
@@ -66,21 +69,16 @@ class LoopState:
     fs: torch.Tensor     # (NF, G) float32
     is_: torch.Tensor    # (NI, G) int32
     ms: torch.Tensor     # (NM, G) bool
-    flags: torch.Tensor  # (FLAG_SLOT + slots,) bool
+    flags: torch.Tensor  # (NFLAGS,) bool
 
     @property
     def rows(self) -> int:
         return self.fs.shape[1]
 
-    @property
-    def slots(self) -> int:
-        return self.flags.shape[0] - FLAG_SLOT
 
-
-def new_state(rows: int, device, max_iter: int, slots: int = 10) -> LoopState:
-    """The state before iteration 0 of a loop whose L-BFGS memory has
-    ``slots`` slots: no stored value (stale), ``i`` 0, every row active
-    (``max_iter`` >= 1) and about to try step 1, in slot 0."""
+def new_state(rows: int, device, max_iter: int) -> LoopState:
+    """The state before iteration 0: no stored value (stale), ``i`` 0, every
+    row active (``max_iter`` >= 1) and about to try step 1."""
     fs = torch.zeros((NF, rows), dtype=torch.float32)
     fs[F_LS_VALUE] = np.inf
     fs[F_PREV] = np.inf
@@ -88,7 +86,7 @@ def new_state(rows: int, device, max_iter: int, slots: int = 10) -> LoopState:
     ms = torch.zeros((NM, rows), dtype=torch.bool)
     on = max_iter >= 1
     ms[M_ACTIVE] = ms[M_RUNNING] = ms[M_STALE] = on
-    flags = torch.tensor([on] * (FLAG_SLOT + 1) + [False] * (slots - 1), dtype=torch.bool)
+    flags = torch.tensor([on] * NFLAGS, dtype=torch.bool)
     return LoopState(fs.to(device), torch.zeros((NI, rows), dtype=torch.int32, device=device), ms.to(device),
                      flags.to(device))
 
@@ -250,8 +248,6 @@ def lbfgs_stop_reference(st: LoopState, finite: torch.Tensor, gnorm: torch.Tenso
     fs[F_TRIAL] = now.float()
     st.flags[FLAG_ACTIVE] = st.flags[FLAG_RUNNING] = now.any()
     st.flags[FLAG_STALE] = stale.any()
-    slot = torch.arange(st.slots, device=i.device) == i.max() % st.slots  # the loop's count: the largest i
-    st.flags[FLAG_SLOT:] = slot & now.any()
 
 
 def load(device) -> None:
@@ -273,7 +269,7 @@ def _check_state(kernel: str, st: LoopState, dev) -> None:
     check_operand(kernel, "fs", st.fs, torch.float32, (NF, g), dev)
     check_operand(kernel, "is", st.is_, torch.int32, (NI, g), dev)
     check_operand(kernel, "ms", st.ms, torch.bool, (NM, g), dev)
-    check_operand(kernel, "flags", st.flags, torch.bool, (FLAG_SLOT + st.slots,), dev)
+    check_operand(kernel, "flags", st.flags, torch.bool, (NFLAGS,), dev)
 
 
 def zoom_trial(st: LoopState, value: torch.Tensor, slope: torch.Tensor, slope_init: torch.Tensor | None,
@@ -307,9 +303,8 @@ def lbfgs_stop(st: LoopState, finite: torch.Tensor, gnorm: torch.Tensor, max_ite
     test of the next (CUDA kernel ``lbfgs_stop``): ``finite`` (G bools) says
     each row's new iterate is finite, ``gnorm`` (G values) each row's stored
     gradient norm. Updates ``ok``, ``i``, ``bad``, ``flat``, ``prev``, the
-    stored value, ``active``/``running``/``stale`` and the flags (the slot
-    flags from the loop's count, the largest ``i``) in place. No host
-    sync."""
+    stored value, ``active``/``running``/``stale`` and the flags in place.
+    No host sync."""
     if on_cpu("lbfgs_stop", st.fs, finite, gnorm):
         lbfgs_stop_reference(st, finite, gnorm, max_iter, tol)
         return
@@ -320,4 +315,123 @@ def lbfgs_stop(st: LoopState, finite: torch.Tensor, gnorm: torch.Tensor, max_ite
     check_operand("lbfgs_stop", "finite", finite, torch.bool, tuple(finite.shape), dev)
     check_operand("lbfgs_stop", "gnorm", gnorm, torch.float32, tuple(gnorm.shape), dev)
     call("lbfgs_stop", dev, st.fs.data_ptr(), st.is_.data_ptr(), st.ms.data_ptr(), st.flags.data_ptr(), g,
-         finite.data_ptr(), gnorm.data_ptr(), int(max_iter), float(F(tol)), st.slots)
+         finite.data_ptr(), gnorm.data_ptr(), int(max_iter), float(F(tol)))
+
+
+# ---------------------------------------------------------------- direction
+
+
+@dataclasses.dataclass
+class Memory:
+    """The L-BFGS memory of ``m`` slots for a (P,) vector or, row by row, a
+    (G, P) matrix: the secant pairs, their ``rho``, and the previous point
+    and gradient (optax's ``scale_by_lbfgs`` state)."""
+    dw: torch.Tensor           # (m, P) or (m, G, P)
+    du: torch.Tensor           # the same
+    rho: torch.Tensor          # (m,) or (m, G)
+    params: torch.Tensor       # (P,) or (G, P)
+    grad: torch.Tensor         # the same
+
+    @property
+    def slots(self) -> int:
+        return self.dw.shape[0]
+
+
+def new_memory(theta: torch.Tensor, slots: int) -> Memory:
+    """An empty memory for ``theta``'s shape, on its device."""
+    z = torch.zeros_like(theta)
+    return Memory(theta.new_zeros((slots, *theta.shape)), theta.new_zeros((slots, *theta.shape)),
+                  theta.new_zeros((slots, *theta.shape[:-1])), z, z.clone())
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.dot`` of two (P,) vectors, or the (G,) dots of two (G, P)
+    matrices' rows (the loops' dots, in torch's order)."""
+    return torch.dot(a, b) if a.dim() == 1 else torch.sum(a * b, dim=1)
+
+
+def lbfgs_direction_reference(grad: torch.Tensor, params: torch.Tensor, mem: Memory,
+                              count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`lbfgs_direction` at iteration ``count``: the
+    plain loops' two-loop recursion in torch ops. Returns ``(updates,
+    slope)``."""
+    m = mem.slots
+    memory_idx = count % m
+    prev_idx = (count - 1) % m
+    if count > 0:
+        dw = params - mem.params
+        du = grad - mem.grad
+        vdot = dot(du, dw)
+        mem.dw[prev_idx] = dw
+        mem.du[prev_idx] = du
+        mem.rho[prev_idx] = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
+        denom = dot(du, du)
+        scale = torch.where(denom > 0.0, vdot / denom, torch.ones_like(vdot))
+    else:
+        # First step: the capped reciprocal of the gradient norm (the zero
+        # secant pair optax stores here is a no-op and is skipped).
+        scale = torch.clamp_max(1.0 / torch.linalg.vector_norm(grad, dim=-1), 1.0)
+    # Two-loop recursion, oldest slot to newest starting at memory_idx;
+    # unwritten slots have rho 0 and change nothing, as in optax.
+    order = [(memory_idx + j) % m for j in range(m)]
+    vec = grad
+    alphas = {}
+    for i in reversed(order):
+        alpha = mem.rho[i] * dot(mem.dw[i], vec)
+        vec = vec - alpha[..., None] * mem.du[i]
+        alphas[i] = alpha
+    vec = scale[..., None] * vec
+    for i in order:
+        beta = mem.rho[i] * dot(mem.du[i], vec)
+        vec = vec + (alphas[i] - beta)[..., None] * mem.dw[i]
+    mem.params.copy_(params)  # in place: a captured step reads them where the next one wrote them
+    mem.grad.copy_(grad)
+    updates = -vec
+    return updates, dot(updates, grad)
+
+
+def lbfgs_direction(grad: torch.Tensor, params: torch.Tensor, mem: Memory, iters: torch.Tensor,
+                    out: tuple[torch.Tensor, torch.Tensor] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The L-BFGS descent direction ``-P_k g_k`` of a (P,) gradient at
+    ``params`` (or of each row of (G, P) ones) and its slope ``<updates,
+    grad>`` (0-d, or (G,)), updating ``mem`` in place (CUDA kernel
+    ``lbfgs_direction``, one launch). The iteration count is the largest of
+    the int32 device tensor ``iters`` (the loop state's ``i`` of every row,
+    or a one-element count the host loops fill), so a captured call serves
+    every iteration. ``out``: the (updates, slope) tensors to write, else
+    new ones."""
+    if on_cpu("lbfgs_direction", grad, params, mem.dw, iters):
+        updates, slope = lbfgs_direction_reference(grad, params, mem, int(iters.max()))
+        if out is None:
+            return updates, slope
+        out[0].copy_(updates)
+        out[1].copy_(slope.reshape(out[1].shape))
+        return out
+    dev = grad.device
+    g = 1 if grad.dim() == 1 else grad.shape[0]
+    p, m = grad.shape[-1], mem.slots
+    shape = tuple(grad.shape)
+    for name, t, want in (("grad", grad, shape), ("params", params, shape), ("dw", mem.dw, (m, *shape)),
+                          ("du", mem.du, (m, *shape)), ("rho", mem.rho, (m, *shape[:-1])),
+                          ("prev_params", mem.params, shape), ("prev_grad", mem.grad, shape)):
+        check_operand("lbfgs_direction", name, t, torch.float32, want, dev)
+    check_operand("lbfgs_direction", "iters", iters, torch.int32, (iters.numel(),), dev)
+    if iters.numel() < 1 or m > DIRECTION_MAX_SLOTS:
+        raise ValueError(f"lbfgs_direction: needs an iteration count and at most {DIRECTION_MAX_SLOTS} slots")
+    if out is None:
+        out = (torch.empty_like(grad), torch.empty(shape[:-1], dtype=torch.float32, device=dev))
+    check_operand("lbfgs_direction", "updates", out[0], torch.float32, shape, dev)
+    check_operand("lbfgs_direction", "slope", out[1], torch.float32, tuple(out[1].shape), dev)
+    if out[1].numel() != g:
+        raise ValueError(f"lbfgs_direction: slope needs {g} values")
+    scratch = torch.empty((g, p), dtype=torch.float32, device=dev) if p > DIRECTION_SMEM_FLOATS else None
+    call("lbfgs_direction", dev, grad.data_ptr(), params.data_ptr(), mem.dw.data_ptr(), mem.du.data_ptr(),
+         mem.rho.data_ptr(), mem.params.data_ptr(), mem.grad.data_ptr(), iters.data_ptr(), iters.numel(), g, p, m,
+         out[0].data_ptr(), out[1].data_ptr(), None if scratch is None else scratch.data_ptr())
+    return out
+
+
+# lbfgs_direction.cu's limits: vec in shared memory up to this many floats a
+# row (above, a global scratch row), and at most this many memory slots.
+DIRECTION_SMEM_FLOATS = 49152
+DIRECTION_MAX_SLOTS = 64

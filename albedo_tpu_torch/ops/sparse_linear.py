@@ -29,6 +29,13 @@ JAX module's functions under ``jax.vmap``). K8g (``segment_dot`` with x of
 shape (G, n)) and K8c-g (``gather_sum`` with base of shape (G, N)) read each
 index once for all G rows; the dense block stays one matmul, (N, D) @ (D, G).
 
+The fits evaluate the objective on their flat parameter vector with
+:class:`LogisticObjective`: the same terms, K8 and K8c launched as often as
+under autograd, the elementwise loss and its reductions in the ``logloss``
+kernel (:func:`logloss`), and each gradient written into its slice of one
+buffer; :func:`weighted_logloss` (autograd) stays the plain version of the
+whole objective, and scoring (:func:`block_logits`) is unchanged.
+
 Standardization (Spark ``setStandardization(true)``): features are scaled by
 ``1/std`` (no centering of the sparse blocks, as MLlib); the L2 penalty
 applies to the scaled coefficients; ``fold_scales`` converts back to raw
@@ -255,34 +262,41 @@ def _segment_dot_workspace(n_seg: int, nnz: int, dev: torch.device) -> tuple[tor
 
 
 def segment_dot(
-    x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor | None, indptr: torch.Tensor
+    x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor | None, indptr: torch.Tensor,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K8: (S,) CSR segment sums of ``x[idx] * val`` over ``indptr`` (S + 1,)
     (CUDA kernel ``segment_dot``). ``x`` (n,) f32; ``idx`` (nnz,) int32 in
     [0, n); ``val`` (nnz,) f32 or None for ones; ``indptr`` int32,
     nondecreasing, ``indptr[0] == 0``, ``indptr[-1] == nnz``. With ``x``
     (G, n), K8g: (G, S), the sums of each row (CUDA kernel
-    ``segment_dot_grid``, counted apart). On the card the kernel splits the
-    work by a merge path over segment ends and entries, not by segments, and
-    passes its carries between CTAs through a workspace kept per device and
-    stream; one launch is counted a call."""
+    ``segment_dot_grid``, counted apart). ``out``, if given, is the
+    contiguous f32 tensor of the result's shape the sums are written to (a
+    slice of a larger buffer), and is returned. On the card the kernel
+    splits the work by a merge path over segment ends and entries, not by
+    segments, and passes its carries between CTAs through a workspace kept
+    per device and stream; one launch is counted a call."""
     if not _kernel_layout(x, idx, val, indptr):
         operands = [x, idx, indptr] + ([] if val is None else [val])
         if on_cpu("segment_dot_grid" if x.dim() == 2 else "segment_dot", *operands):
-            return segment_dot_reference(x, idx, val, indptr)
+            sums = segment_dot_reference(x, idx, val, indptr)
+            return sums if out is None else out.copy_(sums)
         _raise_on_layout(x, idx, val, indptr)
     dev = x.device
     nnz = idx.shape[0]
     n_seg = indptr.shape[0] - 1
     ws, cap = _segment_dot_workspace(n_seg, nnz, dev)
     val_ptr = None if val is None else val.data_ptr()
+    shape = (x.shape[0], n_seg) if x.dim() == 2 else (n_seg,)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    else:
+        check_operand("segment_dot_grid" if x.dim() == 2 else "segment_dot", "out", out, torch.float32, shape, dev)
     if x.dim() == 2:
         g, n_x = x.shape
-        out = torch.empty((g, n_seg), dtype=torch.float32, device=dev)
         call("segment_dot_grid", dev, x.data_ptr(), n_x, idx.data_ptr(), val_ptr, indptr.data_ptr(), out.data_ptr(),
              n_seg, g, nnz, ws.data_ptr(), cap)
     else:
-        out = torch.empty(n_seg, dtype=torch.float32, device=dev)
         call("segment_dot", dev, x.data_ptr(), idx.data_ptr(), val_ptr, indptr.data_ptr(), out.data_ptr(), n_seg,
              nnz, ws.data_ptr(), cap)
     return out
@@ -473,6 +487,40 @@ def block_logits(
     return _GatherSum.apply(base, (idxs, orders, indptrs), *tables)
 
 
+def logit_layout(batch: dict[str, torch.Tensor]) -> tuple[int, list[tuple[str, str, tuple]]]:
+    """The logits' terms in a feature batch, in the order they are summed:
+    ``(d_scalar, terms)``, the dense block's scalar columns and each term as
+    ``(kind, leaf, part)``. First each vec field ``f`` (sorted), ``("vec",
+    "vec:f", (col, d, vec, rep, order, indptr))``: its ``d`` columns from
+    ``col`` of the dense leaf, its distinct vectors and their rep expansion;
+    then, in batch order, each ``cat:`` field ``("cat", "cat:f", (idx,
+    order, indptr))`` (the backward layout None where the batch carries none)
+    and each bag field ``("bag", "bag:f", (r, v, rep))``: ``r`` =
+    (r_vocab, r_val, r_indptr) and ``v`` = (v_rows, v_val, v_indptr) its
+    forward and backward layouts, ``rep`` (rep, order, indptr) its rep
+    expansion, or None for an unfactored bag, whose term joins the base."""
+    d_scalar = batch["dense"].shape[1]
+    terms: list[tuple[str, str, tuple]] = []
+    col = d_scalar
+    for f in sorted(key[len("vecflat:"):-len(":vec")] for key in batch
+                    if key.startswith("vecflat:") and key.endswith(":vec")):
+        arr, p = batch[f"vecflat:{f}:vec"], f"vecflat:{f}:"
+        terms.append(("vec", f"vec:{f}", (col, arr.shape[1], arr, batch[p + "rep"], batch[p + "order"],
+                                          batch[p + "indptr"])))
+        col += arr.shape[1]
+    for key, arr in batch.items():
+        if key.startswith("cat:"):
+            g = f"catgrad:{key[len('cat:'):]}:"
+            terms.append(("cat", key, (arr, batch.get(g + "order"), batch.get(g + "indptr"))))
+        elif key.startswith("bagflat:") and key.endswith(":r_vocab"):
+            f = key[len("bagflat:"):-len(":r_vocab")]
+            p, rp = f"bagflat:{f}:", f"bagrep:{f}:"
+            rep = (batch[rp + "rep"], batch[rp + "order"], batch[rp + "indptr"]) if rp + "rep" in batch else None
+            terms.append(("bag", f"bag:{f}", (tuple(batch[p + k] for k in ("r_vocab", "r_val", "r_indptr")),
+                                               tuple(batch[p + k] for k in ("v_rows", "v_val", "v_indptr")), rep)))
+    return d_scalar, terms
+
+
 def logit_terms(
     params: Params,
     scales: Params,
@@ -486,13 +534,12 @@ def logit_terms(
     The logical dense block is [scalars | vec fields in sorted order]; each
     vec field's term is computed per DISTINCT vector and each bag field's
     through ``_bag_term``. The bias, the dense product and the bag terms of
-    unfactored bag fields form the base; the gather terms are the vec
-    fields' rep expansions, then, in batch order, each ``cat:`` field's
-    weights and each factored bag field's rep expansion. On the grid every
-    term gains the leading G axis; the dense products are (N, D) @ (D, G)."""
+    unfactored bag fields form the base; the gather terms follow
+    :func:`logit_layout`'s order. On the grid every term gains the leading
+    G axis; the dense products are (N, D) @ (D, G)."""
     grid = params["bias"].dim() == 1
     w_dense = params["dense"] * scales["dense"]
-    d_scalar = batch["dense"].shape[1]
+    d_scalar, layout = logit_layout(batch)
     dense = batch["dense"] if center is None else batch["dense"] - center[:d_scalar]
     if grid:
         base = params["bias"][:, None] + (dense @ w_dense[:, :d_scalar].T).T
@@ -509,43 +556,23 @@ def logit_terms(
         orders.append(order)
         indptrs.append(indptr)
 
-    off = d_scalar
-    vec_fields = sorted(
-        key[len("vecflat:"):-len(":vec")]
-        for key in batch
-        if key.startswith("vecflat:") and key.endswith(":vec")
-    )
-    for f in vec_fields:
-        arr = batch[f"vecflat:{f}:vec"]
-        d = arr.shape[1]
-        w_f = w_dense[..., off:off + d]
-        # Center BEFORE the contraction (no cancellation of two large
-        # near-equal dots per distinct vector).
-        vals = arr if center is None else arr - center[off:off + d]
-        p = f"vecflat:{f}:"
-        term = (vals @ w_f.T).T if grid else vals @ w_f
-        gather(term, batch[p + "rep"], batch[p + "order"], batch[p + "indptr"])
-        off += d
-    for key, arr in batch.items():
-        if key.startswith("cat:"):
-            f = key[len("cat:"):]
-            g = f"catgrad:{f}:"
-            gather(params[f"cat:{f}"] * scales[f"cat:{f}"], arr, batch.get(g + "order"),
-                   batch.get(g + "indptr"))
-        elif key.startswith("bagflat:") and key.endswith(":r_vocab"):
-            f = key[len("bagflat:"):-len(":r_vocab")]
-            w = params[f"bag:{f}"] * scales[f"bag:{f}"]
-            p = f"bagflat:{f}:"
-            term = _bag_term(
-                w,
-                batch[p + "r_vocab"], batch[p + "r_val"], batch[p + "r_indptr"],
-                batch[p + "v_rows"], batch[p + "v_val"], batch[p + "v_indptr"],
-            )
-            rp = f"bagrep:{f}:"
-            if rp + "rep" in batch:
-                gather(term, batch[rp + "rep"], batch[rp + "order"], batch[rp + "indptr"])
-            else:
+    for kind, leaf, part in layout:
+        if kind == "vec":
+            col, d, arr, rep, order, indptr = part
+            w_f = w_dense[..., col:col + d]
+            # Center BEFORE the contraction (no cancellation of two large
+            # near-equal dots per distinct vector).
+            vals = arr if center is None else arr - center[col:col + d]
+            gather((vals @ w_f.T).T if grid else vals @ w_f, rep, order, indptr)
+        elif kind == "cat":
+            gather(params[leaf] * scales[leaf], *part)
+        else:
+            r, v, rep = part
+            term = _bag_term(params[leaf] * scales[leaf], *r, *v)
+            if rep is None:
                 base = base + term
+            else:
+                gather(term, *rep)
     return base, tables, idxs, orders, indptrs
 
 
@@ -582,6 +609,247 @@ def weighted_logloss(
         data = torch.sum(weights * ce) / torch.sum(weights)
         pen = sum(torch.sum(v**2) for k, v in params.items() if k != "bias")
     return data + 0.5 * reg * pen
+
+
+# ------------------------------------------------- the objective's kernel (K19)
+
+PRE_CLIP = 1e6  # logloss.cu's clips
+CE_CLIP = 35.0
+LOGLOSS_CHUNK = 256 * 8  # logloss.cu's rows (and parameters) a CTA: THREADS x ITEMS
+
+
+def logloss_ctas(n: int, p: int) -> int:
+    """``logloss.cu``'s CTAs a grid row: a chunk of rows and of parameters each."""
+    return max(-(-n // LOGLOSS_CHUNK), -(-p // LOGLOSS_CHUNK), 1)
+
+
+def logloss_reference(
+    z: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor, wsum: torch.Tensor, theta: torch.Tensor,
+    reg: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`logloss`: the objective's per-row arithmetic
+    in torch, the sums by ``torch.sum``. Returns ``(loss, dz, bias, pen)``."""
+    reg32, half32 = float(np.float32(reg)), float(np.float32(0.5 * reg))
+    wsum = wsum.reshape(z.shape[:-1])
+    inside = (z >= -PRE_CLIP) & (z <= PRE_CLIP)
+    z1 = z.clamp(-PRE_CLIP, PRE_CLIP)
+    z2 = z1 + (z1.clamp(-CE_CLIP, CE_CLIP) - z1)  # the straight-through clip's value
+    e = torch.exp(-torch.where(z2 >= 0, z2, -z2))
+    ce = torch.maximum(z2, torch.zeros_like(z2)) - z2 * labels + torch.log1p(e)
+    # The slopes of max(z, 0) (0.5 at a tie) and |z| (+1 at 0), as JAX's.
+    dm = torch.where(z2 > 0, 1.0, torch.where(z2 == 0, 0.5, 0.0))
+    sign = torch.where(z2 >= 0, 1.0, -1.0)
+    dce = (dm - labels) - sign * (e / (1.0 + e))
+    inv = (1.0 / wsum)[..., None]
+    dz = torch.where(inside, (inv * weights) * dce, torch.zeros_like(z))
+    data = torch.sum(weights * ce, dim=-1) / wsum
+    rest = theta[..., 1:]
+    loss = data + half32 * torch.sum(rest * rest, dim=-1)
+    pen = theta * reg32
+    pen[..., 0] = 0.0
+    return loss, dz, torch.sum(dz, dim=-1), pen
+
+
+# One workspace per (device, stream), grown as calls need: a ticket a grid
+# row, 0 between launches (each launch's last CTAs reset theirs), and the
+# CTAs' partials.
+_LOGLOSS_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _logloss_workspace(g: int, nb: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _LOGLOSS_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < g or ws[1].numel() < 3 * g * nb:
+        with _K8_WORKSPACE_LOCK:
+            ws = _LOGLOSS_WORKSPACE.get(key)
+            if ws is None or ws[0].numel() < g or ws[1].numel() < 3 * g * nb:
+                tickets = ws[0] if ws is not None and ws[0].numel() >= g else torch.zeros(
+                    max(g, 64), dtype=torch.int32, device=dev)
+                partials = ws[1] if ws is not None and ws[1].numel() >= 3 * g * nb else torch.empty(
+                    max(3 * g * nb, 2 * (0 if ws is None else ws[1].numel())), dtype=torch.float32, device=dev)
+                ws = _LOGLOSS_WORKSPACE[key] = (tickets, partials)
+    return ws
+
+
+def logloss(
+    z: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor, wsum: torch.Tensor, theta: torch.Tensor,
+    reg: float, bias: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LR objective at its logits and its gradient wrt them (CUDA kernel
+    ``logloss``, one launch): for (N,) logits ``z`` (or (G, N), a row a
+    model), (N,) ``labels``, ``weights`` shaped as ``z``, their sums
+    ``wsum`` ((G,), once a fit) and the flat parameters ``theta`` ((P,) or
+    (G, P), bias first), returns ``(loss, dz, bias, pen)``: the values
+    ``sum(w ce) / sum(w) + 0.5 reg sum_{k>0} theta_k^2`` (0-d, or (G,)),
+    the logits' cotangent ``w ce' / sum(w)``, the bias gradient ``sum(dz)``
+    (shaped as the values; written into ``bias`` where given, a contiguous
+    (G,) slice of a gradient buffer) and
+    ``reg theta`` with 0 in the bias slot. ``ce`` is ``weighted_logloss``'s
+    (clipped at +-1e6, then straight-through at +-35) and ``ce'`` its
+    gradient rule; a zero weight row gives NaN, as there."""
+    if on_cpu("logloss", z, labels, weights, wsum, theta):
+        loss, dz, bsum, pen = logloss_reference(z, labels, weights, wsum, theta, reg)
+        if bias is not None:
+            bsum = bias.copy_(bsum.reshape(bias.shape)).reshape(bsum.shape)
+        return loss, dz, bsum, pen
+    dev = z.device
+    g = 1 if z.dim() == 1 else z.shape[0]
+    n, p = z.shape[-1], theta.shape[-1]
+    check_operand("logloss", "z", z, torch.float32, (n,) if z.dim() == 1 else (g, n), dev)
+    check_operand("logloss", "labels", labels, torch.float32, (n,), dev)
+    check_operand("logloss", "weights", weights, torch.float32, tuple(z.shape), dev)
+    check_operand("logloss", "wsum", wsum, torch.float32, (g,), dev)
+    check_operand("logloss", "theta", theta, torch.float32, (p,) if z.dim() == 1 else (g, p), dev)
+    if bias is None:
+        bias = torch.empty(g, dtype=torch.float32, device=dev)
+    check_operand("logloss", "bias", bias, torch.float32, (g,), dev)
+    nb = logloss_ctas(n, p)
+    tickets, partials = _logloss_workspace(g, nb, dev)
+    loss = torch.empty(g, dtype=torch.float32, device=dev)
+    dz, pen = torch.empty_like(z), torch.empty_like(theta)
+    call("logloss", dev, z.data_ptr(), labels.data_ptr(), weights.data_ptr(), wsum.data_ptr(), theta.data_ptr(), g, n,
+         p, float(np.float32(reg)), float(np.float32(0.5 * reg)), loss.data_ptr(), dz.data_ptr(), bias.data_ptr(),
+         pen.data_ptr(), partials.data_ptr(), tickets.data_ptr(), nb)
+    return loss.reshape(z.shape[:-1]), dz, bias.reshape(z.shape[:-1]), pen
+
+
+class LogisticObjective:
+    """``weighted_logloss`` and its gradient on the flat parameter vector
+    (bias first, then each leaf in the params' order; a (G, P) matrix, a row
+    a model, on the CV grid), without autograd: the fits' objective.
+
+    Built once a fit, from a batch made with ``feature_batch(...,
+    grad_layout=True)``: the centered dense block and Word2Vec tables, the
+    weights' sums, the flat scales, each term's backward layout. An
+    evaluation, :meth:`value_and_grad`, is one ``theta * scales``, the dense
+    and Word2Vec products (``torch.matmul``, as JAX leaves them to XLA), the
+    bag terms' K8, K8c over the gather terms, the ``logloss`` kernel, each
+    gather table's and bag's gradient by K8 (K8g on the grid) straight into
+    its slice of a raw gradient buffer, the transposed products into the
+    ``dense`` slice, and one fold ``grad = raw * scales + pen``: K8, K8g,
+    K8c and K8c-g launch as often as under autograd (:meth:`value`, the
+    objective alone, as often as its forward). No host sync and no
+    allocation whose size depends on a device value, so it captures into a
+    CUDA graph. On the grid the scaled parameters and the raw gradient are
+    kept leaf-major (each leaf a contiguous (G, size) block, as K8g and
+    K8c-g read and write them; one gather in, one out); for G = 1 that is the
+    flat order. On the CPU the same function runs the plain pieces."""
+
+    def __init__(self, sizes: dict[str, int], scales: dict[str, np.ndarray], batch: dict[str, torch.Tensor],
+                 labels: torch.Tensor, weights: torch.Tensor, reg: float, center: torch.Tensor | None = None):
+        dev = labels.device
+        self.grid = weights.dim() == 2
+        self.rows = weights.shape[0] if self.grid else 1
+        self.labels, self.weights, self.reg = labels, weights, float(reg)
+        self.wsum = torch.sum(weights, dim=-1).reshape(self.rows)
+        offsets, off = {}, 0
+        for k, n in sizes.items():
+            offsets[k] = off
+            off += n
+        self.size = off
+        d_scalar, layout = logit_layout(batch)
+        dense = batch["dense"] if center is None else batch["dense"] - center[:d_scalar]
+        self.dense = dense.contiguous()
+        # Blocks in theta's order: the dense leaf's scalar columns, then each
+        # vec field's columns, then every other leaf.
+        self.blocks = {"bias": (0, 1), "dense": (offsets["dense"], d_scalar)}
+        self.vec: list[tuple[str, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = []
+        self.terms: list[tuple[str, str, tuple]] = []  # the cat and bag terms, as logit_layout gives them
+        for kind, leaf, part in layout:
+            if kind == "vec":
+                col, d, arr, rep, order, indptr = part
+                vals = arr if center is None else arr - center[col:col + d]
+                self.blocks[leaf] = (offsets["dense"] + col, d)
+                self.vec.append((leaf, vals.contiguous(), rep, order, indptr))
+                continue
+            if kind == "cat" and part[1] is None:
+                raise ValueError("LogisticObjective: the batch needs feature_batch(..., grad_layout=True)")
+            self.blocks[leaf] = (offsets[leaf], sizes[leaf])
+            self.terms.append((kind, leaf, part))
+        flat = np.ones(self.size, np.float32)
+        for k, o in offsets.items():
+            flat[o:o + sizes[k]] = np.asarray(scales[k], np.float32).reshape(-1)
+        self.scales = torch.as_tensor(flat).to(dev)
+        if self.grid:
+            g, size = self.rows, self.size
+            lm = np.concatenate([(np.arange(g)[:, None] * size + o + np.arange(n)[None, :]).reshape(-1)
+                                 for o, n in sorted(self.blocks.values())])
+            inv = np.empty_like(lm)
+            inv[lm] = np.arange(lm.size)
+            self.lm_index = torch.as_tensor(lm).to(dev)
+            self.inv_index = torch.as_tensor(inv).to(dev)
+            self.scales_lm = torch.as_tensor(flat[lm % size]).to(dev)
+        if sum(n for _, n in self.blocks.values()) != self.size:
+            raise ValueError("LogisticObjective: the batch's fields do not cover the parameters")
+
+    def _block(self, buf: torch.Tensor, name: str) -> torch.Tensor:
+        """Leaf block ``name`` of a leaf-major buffer: (size,), or (G, size)."""
+        off, n = self.blocks[name]
+        if not self.grid:
+            return buf[off:off + n]
+        return buf[self.rows * off:self.rows * (off + n)].view(self.rows, n)
+
+    def value(self, theta: torch.Tensor) -> torch.Tensor:
+        """The objective at ``theta`` alone (the forward's launches and
+        ``logloss``): 0-d for a (P,) ``theta``, (G,) for (G, P)."""
+        return logloss(self._logits(theta), self.labels, self.weights, self.wsum, theta, self.reg)[0]
+
+    def value_and_grad(self, theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The objective at ``theta`` ((P,): a 0-d value; (G, P): (G,)
+        values) and its (P,) or (G, P) gradient."""
+        grid, g = self.grid, self.rows
+        z = self._logits(theta)
+        raw = torch.empty(g * self.size, dtype=torch.float32, device=theta.device)
+        loss, dz, _, pen = logloss(z, self.labels, self.weights, self.wsum, theta, self.reg,
+                                   bias=self._block(raw, "bias").reshape(g))
+        for name, vals, _, order, indptr in self.vec:
+            d_term = segment_dot(dz, order, None, indptr)
+            if grid:
+                torch.mm(d_term, vals, out=self._block(raw, name))
+            else:
+                torch.mv(vals.T, d_term, out=self._block(raw, name))
+        for kind, name, part in self.terms:
+            if kind == "cat":
+                segment_dot(dz, part[1], None, part[2], out=self._block(raw, name))
+                continue
+            _, v, rep = part
+            d_doc = dz if rep is None else segment_dot(dz, rep[1], None, rep[2])
+            segment_dot(d_doc, *v, out=self._block(raw, name))
+        if grid:
+            torch.mm(dz, self.dense, out=self._block(raw, "dense"))
+            grad = torch.addcmul(pen, torch.take(raw, self.inv_index).view(g, self.size), self.scales)
+        else:
+            torch.mv(self.dense.T, dz, out=self._block(raw, "dense"))
+            grad = torch.addcmul(pen, raw, self.scales)
+        return loss, grad
+
+    def _logits(self, theta: torch.Tensor) -> torch.Tensor:
+        """The (N,) or (G, N) logits at ``theta``."""
+        grid = self.grid
+        ws = torch.take(theta, self.lm_index) * self.scales_lm if grid else theta * self.scales
+        w_dense = self._block(ws, "dense")
+        if grid:
+            base = torch.addmm(self._block(ws, "bias"), w_dense, self.dense.T)
+        else:
+            base = torch.addmv(self._block(ws, "bias"), self.dense, w_dense)
+        tables, idxs = [], []
+        for name, vals, rep, _, _ in self.vec:
+            w_f = self._block(ws, name)
+            tables.append(torch.mm(w_f, vals.T) if grid else torch.mv(vals, w_f))
+            idxs.append(rep)
+        for kind, name, part in self.terms:
+            if kind == "cat":
+                tables.append(self._block(ws, name))
+                idxs.append(part[0])
+                continue
+            r, _, rep = part
+            term = segment_dot(self._block(ws, name), *r)
+            if rep is None:
+                base = base + term
+            else:
+                tables.append(term)
+                idxs.append(rep[0])
+        return gather_sum(base, tables, idxs)
 
 
 def fold_scales(params: Params, scales: Params) -> Params:

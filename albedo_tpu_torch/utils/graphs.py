@@ -128,8 +128,8 @@ def replay_loop(
     next draw after the fit is the eager loop's. ``report``, if given, gets
     ``compile_s`` (capturing and instantiating) and ``compile_source``
     (``"capture"``) where a graph is captured (``n`` >= 2). The replays
-    run inside a ``torch.profiler`` span named ``span``; ``name`` names the
-    fit in errors. When it returns, the caller's stream waits for the
+    run inside a ``torch.profiler`` span named ``span``, which closes once
+    the card has run them; ``name`` names the fit in errors. When it returns, the caller's stream waits for the
     fit's work; tensors the units allocated are the capture stream's."""
     if n <= 0:
         return
@@ -165,7 +165,7 @@ def replay_loop(
                     record.replayed()
                     if after is not None:
                         after(i)
-            stream.synchronize()  # no replay runs when the graph is destroyed
+                stream.synchronize()  # no replay runs when the graph is destroyed, nor after the span closes
             del graph  # the graph goes with the fit; its pool serves the next capture
     caller.wait_stream(stream)
 
@@ -254,9 +254,11 @@ def replay_while(
     (capturing the pieces, building, instantiating and uploading the
     graphs), ``compile_source`` (``"capture"``), ``pieces``, ``blocks`` and
     ``key_runs`` (each piece's runs, by its ``key``). The launches run inside a
-    ``torch.profiler`` span named ``span``; ``name`` names the fit in
-    errors. When it returns, the caller's stream waits for the loop's
-    work."""
+    ``torch.profiler`` span named ``span``, which closes after the last read
+    of ``flag``, once the card has run them; ``name`` names the fit in
+    errors; ``report`` also gets ``piece_nodes``, each piece's graph nodes
+    by its key joined with "/". When it returns, the caller's stream waits
+    for the loop's work."""
     import ctypes
 
     from albedo_tpu_torch.kernels.build import library
@@ -272,6 +274,7 @@ def replay_while(
         lib.cond_graph_build.argtypes = [ctypes.c_int, _P, _P, _P, _P, _P, _P]
         lib.cond_graph_launch.argtypes = [_P, _P]
         lib.cond_graph_destroy.argtypes = [_P, _P]
+        lib.cond_graph_nodes.argtypes = [_P, ctypes.POINTER(ctypes.c_size_t)]
         pieces: list[tuple[torch.Tensor, object, torch.cuda.CUDAGraph, LaunchRecord]] = []
 
         def when(pred: torch.Tensor, key, fn: Callable[[], None]) -> None:
@@ -281,6 +284,11 @@ def replay_while(
             pieces.append((pred, key, graph, record))
 
         unit(when)
+        piece_nodes = {}
+        for _, key, graph, _ in pieces:
+            count = ctypes.c_size_t()
+            if lib.cond_graph_nodes(graph.raw_cuda_graph(), ctypes.byref(count)) == 0:
+                piece_nodes["/".join(map(str, key))] = count.value
         runs = torch.zeros(len(pieces), dtype=torch.int32, device=dev)
         execs = []  # (exec, graph): the unit's, then the first unit's rest
 
@@ -306,7 +314,8 @@ def replay_while(
             chain(0)
             chain([key for _, key, _, _ in pieces].index(resume))
             if report is not None:
-                report.update(compile_s=time.perf_counter() - t0, compile_source="capture", pieces=len(pieces))
+                report.update(compile_s=time.perf_counter() - t0, compile_source="capture", pieces=len(pieces),
+                              piece_nodes=piece_nodes)
             with torch.profiler.record_function(span):  # the launches' span in a trace
                 launch(execs[1][0], "the first unit's rest")
                 while n < max_units:

@@ -246,6 +246,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the fit's own inputs, launches a fit). The other phases' Word2Vec and
    BPR fits run as graphs too and report ``compile_s``.
 
+15. fused_lr — (after ``lr_adam``) K19, the L-BFGS fits (the
+   ``train_lr --w2v-full`` fit and ``cv_lr``'s G 5 ``fit_many``), and LR's
+   Adam as graphs, against their host-driven loops in one process, in
+   turns: the same bits and launches (K8/K8g, K8c/K8c-g, ``logloss`` an
+   evaluation, ``lbfgs_direction`` an iteration), ``device_s``,
+   ``compile_s``, the busy share and the kernel time by class over one
+   graph fit's launches, the idle gaps by kind (entering a conditional
+   body, a skipped body, host reads, between kernels), each captured
+   piece's nodes, host reads, and the
+   bound (K8, K8c, the dense and Word2Vec products, ``logloss``,
+   ``lbfgs_direction``, Adam and the state kernels). ``logloss`` and
+   ``lbfgs_direction`` are held against their plain versions at the two
+   fits' recorded inputs (and ``logloss`` at logits set to 0, +-35, +-40,
+   +-1e6 and +-2e6 with a zero weight row), the same bits twice, and
+   timed; the state kernels against theirs at 1 and 5 rows.
+
 The kernels line (``{"kernels": [...]}``), the card line, and
 ``{"ok": true, "device": {...}}`` as the last line close the run.
 """
@@ -253,6 +269,7 @@ The kernels line (``{"kernels": [...]}``), the card line, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -401,6 +418,10 @@ KERNELS = {
     "lbfgs_fit": ("albedo_tpu_torch/models/logistic_regression.py", "albedo_tpu/models/logistic_regression.py:378"),
     "lr_adam_fit": ("albedo_tpu_torch/models/logistic_regression.py", "albedo_tpu/models/logistic_regression.py:447"),
     "ranking_metrics": ("albedo_tpu_torch/kernels/csrc/ranking_metrics.cu", "albedo_tpu/evaluators/ranking.py:117"),
+    # K19's redesign: the objective's value and logit gradient, and the L-BFGS direction, a launch each.
+    "logloss": ("albedo_tpu_torch/kernels/csrc/logloss.cu", "albedo_tpu/ops/sparse_linear.py:371"),
+    "lbfgs_direction": ("albedo_tpu_torch/kernels/csrc/lbfgs_direction.cu",
+                        "albedo_tpu/models/logistic_regression.py:327"),
 }
 
 
@@ -1463,7 +1484,8 @@ def phase_job() -> dict:
 RANKER_NEEDS = {
     "train_word2vec": ("sgns_step", "adam_dense"),
     "train_lr": ("als_partials", "solve_corrected", "land_rows", "topk_scores", "segment_dot", "gather_sum",
-                 "sgns_step", "adam_dense", "factor_health", "lbfgs_state", "lbfgs_stop", "ranking_metrics"),
+                 "sgns_step", "adam_dense", "factor_health", "lbfgs_state", "lbfgs_stop", "ranking_metrics",
+                 "logloss", "lbfgs_direction"),
 }
 
 
@@ -1512,7 +1534,7 @@ def phase_ranker_job() -> tuple[dict, dict]:
                       and abs(auc - JAX_RANKER["auc"]) <= RANKER_TOL["auc"]
                       and abs(ndcg - JAX_RANKER["ndcg"]) <= RANKER_TOL["ndcg"])
                 launches = {n: counts[n] for n in ("segment_dot", "sgns_step", "adam_dense", "lbfgs_state",
-                                                   "lbfgs_stop", "ranking_metrics")}
+                                                   "lbfgs_stop", "ranking_metrics", "logloss", "lbfgs_direction")}
                 inputs["lr_evals"] = inputs["lr"][0].last_fit_report["evaluations"]
             else:
                 w2v = re.search(r"pairs = (\d+), steps = (\d+), final epoch loss = (\S+), compile = (\S+)s", text)
@@ -1770,10 +1792,21 @@ def _adam_at(tables, grad, moments, count: int, lr: float) -> dict:
         ms=cuda_ms(lambda: sgns.adam_dense(*bufs, count, lr)),
         plain_ms=cuda_ms(lambda: sgns.adam_dense_reference(*bufs, count, lr)),
         library_ms=cuda_ms(lambda: fused_adam(*bufs)),
+        # The card's time alone (torch.profiler, a window of ADAM_DEVICE_CALLS calls), without a lone
+        # launch's host time.
+        device_ms=_per_call(_device_ms(lambda: [sgns.adam_dense(*bufs, count, lr) for _ in range(ADAM_DEVICE_CALLS)])),
+        library_device_ms=_per_call(_device_ms(lambda: [fused_adam(*bufs) for _ in range(ADAM_DEVICE_CALLS)])),
         library_rel_err=max(rel_err(a, e)[1] for a, e in zip(adam_res[2], adam_res[1])),
         bytes=32 * tables.numel(), flops=12 * tables.numel(),
         shape={"tables": 2, "V": int(v_size), "d": int(d)},
     )
+
+
+ADAM_DEVICE_CALLS = 20
+
+
+def _per_call(ms: float | None) -> float | None:
+    return None if ms is None else ms / ADAM_DEVICE_CALLS
 
 
 def _timed(r: dict) -> dict:
@@ -1790,7 +1823,7 @@ def _timed(r: dict) -> dict:
     if r.get("no_fma"):  # K5/K14: a multiply and an add a term, half the FP32 peak
         out["bound_no_fma_ms"] = max(t_bytes, 2 * t_ops)
     out.update({key: r[key] for key in ("tol", "tol_cap", "over", "faults", "same_bits", "same_bits_calls", "mm_ms",
-                                        "kernel_ms")
+                                        "kernel_ms", "device_ms", "library_device_ms")
                 if key in r})
     return out
 
@@ -3722,10 +3755,11 @@ CV_NEEDS = {
     "cv_als real grid, cg": ("bucket_cg", "bucket_cg_wide", "land_rows", "topk_scores", "factor_health"),
     "cv_lr": ("segment_dot_grid", "gather_sum_grid", "segment_dot", "gather_sum", "land_rows",
               "als_partials", "solve_corrected", "sgns_step", "adam_dense", "factor_health", "lbfgs_state",
-              "lbfgs_stop"),
+              "lbfgs_stop", "logloss", "lbfgs_direction"),
     # The shared weights replace the Word2Vec fit (no K9, no Adam).
     "cv_lr shared": ("segment_dot_grid", "gather_sum_grid", "segment_dot", "gather_sum", "land_rows",
-                     "als_partials", "solve_corrected", "factor_health", "lbfgs_state", "lbfgs_stop"),
+                     "als_partials", "solve_corrected", "factor_health", "lbfgs_state", "lbfgs_stop", "logloss",
+                     "lbfgs_direction"),
 }
 GRID_SIZES = (1, 5, 7)
 
@@ -4588,25 +4622,33 @@ def _eager_fits():
         models_als.fit_loop = graph
 
 
+def _span_events(prof, span: str) -> list:
+    """The device events (kernels, copies) of a ``torch.profiler`` trace
+    that start while the host's ``span`` is open, from its first opening to
+    its closing (the port's replay loops close it once the card has run
+    the replays), in the order they start."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e for e in prof.events() if e.name == span and e.device_type != cuda]
+    if not spans:
+        return []
+    a, b = spans[0].time_range.start, spans[0].time_range.end
+    return sorted((e for e in prof.events() if e.device_type == cuda and e.name != span
+                   and a <= e.time_range.start <= b), key=lambda e: e.time_range.start)
+
+
 def _replay_busy(prof, span: str = FUSED_SPAN) -> dict:
     """The card's busy share over a graph fit's replays, from a
-    ``torch.profiler`` trace: the union of the kernels' and copies'
-    intervals that start after ``span`` opens on the host, over the
-    window from the first one's start to the last one's end, and the eight
-    largest sums of their time by name (``replay_top_ms``)."""
-    events = prof.events()
-    spans = [e.time_range.start for e in events if e.name == span and e.device_type != torch.autograd.DeviceType.CUDA]
-    if not spans:
+    ``torch.profiler`` trace: the union of the intervals of the kernels and
+    copies in ``span`` (:func:`_span_events`), over the window from the
+    first one's start to the last one's end, and the eight largest sums of
+    their time by name (``replay_top_ms``)."""
+    events = _span_events(prof, span)
+    if not events:
         return {"busy_share": None, "device_events": 0}
-    work = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name != span
-                  and e.time_range.start >= spans[0])
-    if not work:
-        return {"busy_share": None, "device_events": 0}
+    work = [(e.time_range.start, e.time_range.end) for e in events]
     by_name: dict[str, float] = {}
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != span and e.time_range.start >= spans[0]:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy, end = 0.0, work[0][0]
     for a, b in work:
@@ -5222,18 +5264,30 @@ def _host_loops():
         lr_mod._lbfgs_loop_graph, lr_mod._adam_graph = graph, adam
 
 
-def _lr_bound(run) -> dict:
-    """The least time of a fit's K8, K8g, K8c, K8c-g and Adam calls (one
-    more host-loop fit with their wrappers counting each call's bytes and
-    operations, ``_bound_ms`` summed over the calls) and of the state
+# The direction call whose inputs ``_lr_bound`` keeps for ``_hold_lr_kernels``:
+# the memory has wrapped (10 slots) by then.
+HOLD_DIRECTION_AT = 12
+
+
+def _lr_bound(run) -> tuple[dict, dict]:
+    """The least time of a fit's K8, K8g, K8c, K8c-g, ``logloss``,
+    ``lbfgs_direction`` and Adam calls and of each evaluation's dense and
+    Word2Vec products (read once forward and once backward), from one more
+    host-loop fit with their wrappers counting each call's bytes and
+    operations (``_bound_ms`` summed over the calls), and of the state
     kernels' bytes (each trial's and each step's read and write of the
-    rows' state)."""
+    rows' state). Also returns the inputs of the fit's last ``logloss`` call
+    and of its direction at count ``HOLD_DIRECTION_AT`` (or its last, in a
+    shorter fit), the memory as it was before it, for
+    :func:`_hold_lr_kernels`."""
     from albedo_tpu_torch.models import logistic_regression as lr_mod
     from albedo_tpu_torch.ops import lbfgs
     from albedo_tpu_torch.ops import sparse_linear as sl
 
-    parts = {"segment_dot": [0.0, 0], "gather_sum": [0.0, 0], "adam_dense": [0.0, 0]}
+    names = ("segment_dot", "gather_sum", "logloss", "lbfgs_direction", "products", "adam_dense")
+    parts = {n: [0.0, 0] for n in names}
     by = {"bytes": 0.0, "operations": 0.0}
+    captured: dict = {}
 
     def add(part, work):
         ms, bound_by = _bound_ms(work)
@@ -5241,12 +5295,12 @@ def _lr_bound(run) -> dict:
         parts[part][1] += 1
         by[bound_by] += ms
 
-    def k8(x, idx, val, indptr):
+    def k8(x, idx, val, indptr, out=None):
         g = x.shape[0] if x.dim() == 2 else 1
         terms = idx.numel() * (2 if val is not None else 1)
         add("segment_dot", {"bytes": 4 * (terms + indptr.numel() + x.numel() + g * (indptr.numel() - 1)),
                             "flops": g * terms})
-        return segment_dot(x, idx, val, indptr)
+        return segment_dot(x, idx, val, indptr, out=out)
 
     def k8c(base, tables, idxs):
         n = base.shape[-1]
@@ -5255,27 +5309,222 @@ def _lr_bound(run) -> dict:
                            "flops": g * n * len(tables)})
         return gather_sum(base, tables, idxs)
 
-    def adam(p, *rest):
-        add("adam_dense", {"bytes": 32 * p.numel(), "flops": 12 * p.numel()})
-        return adam_dense(p, *rest)
+    def ll(z, y, w, wsum, theta, reg, bias=None):
+        g, n, p = (1 if z.dim() == 1 else z.shape[0]), z.shape[-1], theta.shape[-1]
+        add("logloss", _logloss_work(g, n, p))
+        captured["logloss"] = (z.clone(), y, w, wsum, theta.clone(), reg)
+        return logloss(z, y, w, wsum, theta, reg, bias=bias)
+
+    def direction(grad, params, mem, iters, out=None):
+        count = int(iters.max())
+        g, p = (1 if grad.dim() == 1 else grad.shape[0]), grad.shape[-1]
+        add("lbfgs_direction", _direction_work(g, p, count, mem.slots))
+        if count <= HOLD_DIRECTION_AT:  # the one at that count, or the fit's last
+            captured["direction"] = (grad.clone(), params.clone(),
+                                     lbfgs.Memory(*(t.clone() for t in dataclasses.astuple(mem))), iters.clone())
+        return lbfgs_direction(grad, params, mem, iters, out)
+
+    def products(obj, theta, passes: int) -> None:  # each pass reads the dense and Word2Vec tables once
+        g = theta.shape[0] if theta.dim() == 2 else 1
+        entries = obj.dense.numel() + sum(vals.numel() for _, vals, *_ in obj.vec)
+        add("products", {"bytes": passes * 4 * entries, "flops": passes * 2 * g * entries})
+
+    def value_and_grad(self, theta):
+        products(self, theta, 2)
+        return objective(self, theta)
+
+    def value(self, theta):
+        products(self, theta, 1)
+        return objective_value(self, theta)
 
     segment_dot, gather_sum, adam_dense = sl.segment_dot, sl.gather_sum, lr_mod.adam_dense
-    sl.segment_dot, sl.gather_sum, lr_mod.adam_dense = k8, k8c, adam
+    logloss, lbfgs_direction = sl.logloss, lbfgs.lbfgs_direction
+    objective, objective_value = sl.LogisticObjective.value_and_grad, sl.LogisticObjective.value
+    sl.segment_dot, sl.gather_sum, sl.logloss, lbfgs.lbfgs_direction = k8, k8c, ll, direction
+    sl.LogisticObjective.value_and_grad, sl.LogisticObjective.value = value_and_grad, value
+    lr_mod.adam_dense = lambda p, *rest: (add("adam_dense", {"bytes": 32 * p.numel(), "flops": 12 * p.numel()}),
+                                          adam_dense(p, *rest))[1]
     try:
         with _host_loops():
             out = run()
     finally:
-        sl.segment_dot, sl.gather_sum, lr_mod.adam_dense = segment_dot, gather_sum, adam_dense
+        sl.segment_dot, sl.gather_sum, sl.logloss, lbfgs.lbfgs_direction = segment_dot, gather_sum, logloss, \
+            lbfgs_direction
+        sl.LogisticObjective.value_and_grad, sl.LogisticObjective.value = objective, objective_value
+        lr_mod.adam_dense = adam_dense
     rows = len(out["models"])
     state_bytes = 2 * rows * (4 * lbfgs.NF + 4 * lbfgs.NI + lbfgs.NM) + 12 * rows
     steps = max(m.n_iter_run or 0 for m in out["models"])
     state_ms = _bound_ms({"bytes": state_bytes * (steps + parts["gather_sum"][1]), "flops": 0})[0] if steps else 0.0
-    total = parts["segment_dot"][0] + parts["gather_sum"][0] + parts["adam_dense"][0] + state_ms
-    return {"bound_ms": total, "bound_by": max(by, key=by.get),
-            "bound_parts_ms": {f"K8/K8g ({parts['segment_dot'][1]} calls)": parts["segment_dot"][0],
-                               f"K8c/K8c-g ({parts['gather_sum'][1]} calls)": parts["gather_sum"][0],
-                               f"adam_dense ({parts['adam_dense'][1]} calls)": parts["adam_dense"][0],
-                               "state kernels (bytes)": state_ms}}
+    total = sum(ms for ms, _ in parts.values()) + state_ms
+    labels = {"segment_dot": "K8/K8g", "gather_sum": "K8c/K8c-g", "logloss": "logloss",
+              "lbfgs_direction": "lbfgs_direction", "products": "dense + Word2Vec products", "adam_dense": "adam_dense"}
+    return ({"bound_ms": total, "bound_by": max(by, key=by.get),
+             "bound_parts_ms": dict({f"{labels[n]} ({parts[n][1]} calls)": parts[n][0] for n in names},
+                                    **{"state kernels (bytes)": state_ms})}, captured)
+
+
+def _logloss_work(g: int, n: int, p: int) -> dict:
+    """``logloss``'s least bytes and its operations at G rows of N logits
+    and P parameters: z, w and dz (G N floats each), the labels (N), theta
+    and pen (G P each), wsum, the loss and the bias gradient (G each)."""
+    return {"bytes": 4 * (3 * g * n + n + 2 * g * p + 3 * g), "flops": 20 * g * n + 3 * g * p}
+
+
+def _direction_work(g: int, p: int, count: int, slots: int) -> dict:
+    """``lbfgs_direction``'s least bytes and its operations at iteration
+    ``count`` for G rows of P parameters and a memory of ``slots``, in rows
+    of G P floats. At count 0: read grad and params, write the memory's
+    previous point and gradient and the updates (5 rows). Later: also read
+    the previous point and gradient and write the new secant pair (9 rows),
+    and read the memory's other written pairs, 2 (min(count, slots) - 1)
+    rows (the pair just written need not come back from memory). The
+    operations: the secant pair's dots (or the gradient's norm), 8 a
+    parameter for each written slot in the two loops, the scale and the
+    slope."""
+    written = min(count, slots)
+    rows = 5 if count == 0 else 7 + 2 * written
+    return {"bytes": 4 * g * p * rows, "flops": g * p * (8 * written + 3 + (6 if count else 2))}
+
+
+def _lr_kernel_record(err: tuple, ms: float, plain_ms: float, device_ms, work: dict, **extra) -> dict:
+    bound_ms, bound_by = _bound_ms(work)
+    return dict({"max_abs_err": err[0], "rel_err": err[1], "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": work["bytes"],
+                 "flops": work["flops"]}, **extra)
+
+
+def _nan_err(got: torch.Tensor, want: torch.Tensor, scale) -> tuple[float, float, bool]:
+    """(max |got - want|, max |got - want| / ``scale`` (a number, or a
+    tensor shaped as ``want``: each entry's own), NaN where NaN) off the
+    NaNs."""
+    nan = torch.isnan(want)
+    same_nan = bool(torch.equal(torch.isnan(got), nan))
+    diff = (got.double() - want.double()).abs()
+    rel = diff / torch.as_tensor(scale, dtype=torch.float64, device=diff.device).clamp_min(1e-30)
+    if not bool((~nan).any()):
+        return 0.0, 0.0, same_nan
+    return float(diff[~nan].max()), float(rel[~nan].max()), same_nan
+
+
+def _hold_lr_kernels(captured: dict, edges: bool) -> dict:
+    """``logloss`` and ``lbfgs_direction`` at the fit's recorded inputs
+    against their plain versions on the card, each twice for the same
+    bits, and timed (CUDA events; the card's time by ``torch.profiler``).
+    ``logloss``: the value within 1e-5 of |value|, dz within 1e-5 of
+    max |dz|, the bias gradient within 1e-5 of sum |dz|, the penalty
+    exactly, NaN where NaN; with ``edges`` also at the same inputs with
+    logits set to 0, +-35, +-40, +-1e6 and +-2e6 on a fifth of the rows and
+    (on the grid) the last row's weights 0. ``lbfgs_direction``: within
+    1e-5 of the direction's max-norm, the slope within 1e-5 of
+    sum |updates * grad|, NaN where NaN (a grid row whose gradient is)."""
+    from albedo_tpu_torch.ops import lbfgs
+    from albedo_tpu_torch.ops import sparse_linear as sl
+
+    z, y, w, wsum, theta, reg = captured["logloss"]
+    cases = [("fit", z, w, wsum)]
+    if edges:
+        rng = np.random.default_rng(19)
+        pick = torch.as_tensor(rng.random(tuple(z.shape)) < 0.2, device=z.device)
+        vals = torch.as_tensor(rng.choice(np.array([0.0, 35.0, -35.0, 40.0, -40.0, 1e6, -1e6, 2e6, -2e6], np.float32),
+                                          size=tuple(z.shape)), device=z.device)
+        w_edge = w.clone()
+        if w.dim() == 2:
+            w_edge[-1] = 0.0
+        cases.append(("edges", torch.where(pick, vals, z), w_edge, w_edge.sum(-1).reshape(wsum.shape)))
+    out, ok = {}, True
+    for label, zc, wc, wsc in cases:
+        got = sl.logloss(zc, y, wc, wsc, theta, reg)
+        again = sl.logloss(zc, y, wc, wsc, theta, reg)
+        want = sl.logloss_reference(zc, y, wc, wsc, theta, reg)
+        scale_dz = float(want[1].nan_to_num().abs().max())
+        errs = {"loss": _nan_err(got[0], want[0], want[0].abs()),
+                "dz": _nan_err(got[1], want[1], scale_dz),
+                "bias": _nan_err(got[2], want[2], want[1].abs().sum(-1))}
+        same = all(bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(torch.equal(a.nan_to_num(), b.nan_to_num()))
+                   for a, b in zip(got, again))
+        held = (all(e[1] <= 1e-5 and e[2] for e in errs.values()) and bool(torch.equal(got[3], want[3])) and same)
+        ok &= held
+        out[f"logloss {label}"] = {"held": held, "same_bits": same, "errs": errs,
+                                    "nan_rows": int(torch.isnan(want[0]).sum())}
+    g, n, p = (1 if z.dim() == 1 else z.shape[0]), z.shape[-1], theta.shape[-1]
+    record = _lr_kernel_record(
+        (max(out[f"logloss {c[0]}"]["errs"]["dz"][0] for c in cases), max(out[f"logloss {c[0]}"]["errs"]["dz"][1]
+                                                                           for c in cases)),
+        cuda_ms(lambda: sl.logloss(z, y, w, wsum, theta, reg), reps=20),
+        cuda_ms(lambda: sl.logloss_reference(z, y, w, wsum, theta, reg), reps=20),
+        _device_ms(lambda: sl.logloss(z, y, w, wsum, theta, reg)),
+        _logloss_work(g, n, p), shape={"G": g, "N": n, "P": p})
+    grad, params, mem, iters = captured["direction"]
+
+    def copy():
+        return lbfgs.Memory(*(t.clone() for t in dataclasses.astuple(mem)))
+
+    count = int(iters.max())
+    m_got, m_again, m_plain = copy(), copy(), copy()
+    u, sl_got = lbfgs.lbfgs_direction(grad, params, m_got, iters)
+    u2, sl2 = lbfgs.lbfgs_direction(grad, params, m_again, iters)
+    want_u, want_s = lbfgs.lbfgs_direction_reference(grad, params, m_plain, count)
+    scale_u = float(want_u.nan_to_num().abs().max())
+    err_u, _, nan_u = _nan_err(u, want_u, scale_u)
+    mass = (want_u * grad).abs().sum(-1).clamp_min(1e-30)
+    err_s, _, nan_s = _nan_err(sl_got / mass, want_s / mass, 1.0)
+    same_d = all(bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(torch.equal(a.nan_to_num(), b.nan_to_num()))
+                 for a, b in ((u, u2), (sl_got, sl2), (m_got.rho, m_again.rho)))
+    held_d = err_u <= 1e-5 * scale_u and err_s <= 1e-5 and nan_u and nan_s and same_d
+    ok &= held_d
+    out["lbfgs_direction"] = {"held": held_d, "same_bits": same_d, "count": count, "err": err_u,
+                              "rel_err": err_u / max(scale_u, 1e-30), "slope_rel_err": err_s}
+    timing = copy()
+    slots = min(count, mem.slots)
+    direction = _lr_kernel_record(
+        (err_u, err_u / max(scale_u, 1e-30)),
+        cuda_ms(lambda: lbfgs.lbfgs_direction(grad, params, timing, iters), reps=20),
+        cuda_ms(lambda: lbfgs.lbfgs_direction_reference(grad, params, timing, count), reps=20),
+        _device_ms(lambda: lbfgs.lbfgs_direction(grad, params, timing, iters)),
+        _direction_work(g, p, count, mem.slots), shape={"G": g, "P": p, "count": count, "slots": slots})
+    return {"ok": ok, "held": out, "logloss": record, "lbfgs_direction": direction}
+
+
+# Kernel name fragments -> the replay split's classes, first match wins.
+REPLAY_CLASSES = (("segment_dot", "K8/K8g"), ("gather_sum", "K8c/K8c-g"), ("logloss", "logloss"),
+                  ("lbfgs_direction", "lbfgs_direction"), ("lbfgs_state", "state kernels"),
+                  ("lbfgs_stop", "state kernels"), ("adam_dense", "adam_dense"),
+                  ("set_conditional", "conditional switches"), ("gemv", "gemm/gemv"), ("gemm", "gemm/gemv"),
+                  ("xmma", "gemm/gemv"), ("cutlass", "gemm/gemv"), ("dot_kernel", "gemm/gemv"))
+# Launch counters -> the classes whose kernels they count.
+COUNTED_CLASSES = {"segment_dot": "K8/K8g", "segment_dot_grid": "K8/K8g", "gather_sum": "K8c/K8c-g",
+                   "gather_sum_grid": "K8c/K8c-g", "logloss": "logloss", "lbfgs_direction": "lbfgs_direction",
+                   "lbfgs_state": "state kernels", "lbfgs_stop": "state kernels", "adam_dense": "adam_dense"}
+
+
+def _replay_class(name: str) -> str:
+    return next((c for frag, c in REPLAY_CLASSES if frag in name), "other torch")
+
+
+def _replay_split(prof, span: str, counts: dict) -> dict:
+    """The device time of a graph fit's replays (the kernels in ``span``,
+    :func:`_span_events`) by class: K8/K8g, K8c/K8c-g, ``logloss``,
+    ``lbfgs_direction``, the state kernels, ``adam_dense``, the conditional
+    nodes' switches, gemm/gemv (cuBLAS) and other torch, ms and kernels.
+    ``read`` says whether the trace's kernel names can be trusted: each
+    counted class's kernels in the whole trace (``trace_kernels``) equal
+    the launch counters' ``counts`` of the same run (``counted``)."""
+    split: dict[str, list] = {}
+    for e in _span_events(prof, span):
+        rec = split.setdefault(_replay_class(e.name), [0.0, 0])
+        rec[0] += e.time_range.elapsed_us() / 1e3
+        rec[1] += 1
+    trace, counted = {}, {}
+    for e in prof.events():
+        cls = _replay_class(e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and cls in COUNTED_CLASSES.values():
+            trace[cls] = trace.get(cls, 0) + 1
+    for name, n in counts.items():
+        if name in COUNTED_CLASSES and n:
+            counted[COUNTED_CLASSES[name]] = counted.get(COUNTED_CLASSES[name], 0) + n
+    return {"read": trace == counted, "trace_kernels": trace, "counted": counted,
+            "classes": {c: {"ms": ms, "kernels": k} for c, (ms, k) in sorted(split.items(), key=lambda kv: -kv[1][0])}}
 
 
 def _lr_state_kernels(rows: int) -> dict:
@@ -5297,7 +5546,7 @@ def _lr_state_kernels(rows: int) -> dict:
 
     def state(on):
         return lbfgs.LoopState(torch.tensor(fs, device=on), torch.tensor(ints, device=on),
-                               torch.tensor(masks, device=on), torch.ones(lbfgs.FLAG_SLOT + 10, dtype=torch.bool, device=on))
+                               torch.tensor(masks, device=on), torch.ones(lbfgs.NFLAGS, dtype=torch.bool, device=on))
 
     def same(a, b):  # the same bits, NaN where NaN (the card's NaNs carry other signs and payloads)
         def eq(x, y):
@@ -5337,6 +5586,35 @@ def _lr_state_kernels(rows: int) -> dict:
     return out
 
 
+def _replay_gaps(prof, span: str) -> dict:
+    """Where the card waits during a graph fit's replays (the events in
+    ``span``, :func:`_span_events`): each idle gap before a device event,
+    by what surrounds it — entering a conditional node's body (a
+    ``set_conditional`` switch, then the body's first kernel), a skipped
+    body (two switches in a row), a host read (a copy to the host on either
+    side) or between two kernels of a body — ms, count and mean us."""
+    out: dict[str, list] = {}
+    end, prev = None, None
+    for e in _span_events(prof, span):
+        if end is not None:
+            gap = max(0.0, e.time_range.start - end)
+            switch_before, switch_now = "set_conditional" in prev.name, "set_conditional" in e.name
+            if "Memcpy" in prev.name or "Memcpy" in e.name:
+                kind = "host read"
+            elif switch_before and switch_now:
+                kind = "skipped body"
+            elif switch_before:
+                kind = "body entry"
+            else:
+                kind = "between kernels"
+            rec = out.setdefault(kind, [0.0, 0])
+            rec[0] += gap
+            rec[1] += 1
+        end = e.time_range.end if end is None else max(end, e.time_range.end)
+        prev = e
+    return {k: {"ms": us / 1e3, "count": n, "mean_us": us / max(n, 1)} for k, (us, n) in out.items()}
+
+
 def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
     """K19, the L-BFGS fits as CUDA graphs of blocks of 10 iterations with
     the zoom line search on the card (``lbfgs_state``, ``lbfgs_stop``), and
@@ -5350,12 +5628,15 @@ def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
     (the state kernels besides). Emitted: ``device_s`` and ``compile_s``,
     the card's busy share over the replays (``torch.profiler``), the host
     reads of each loop's warm-up fit (counted, not timed; the host loop's
-    also counts its kernels' bound), the design, and the records of K19
-    (the ``train_lr`` fit), the Adam scan and the state kernels (at 1 and
-    5 rows). Run alone (after ``phase_device`` and ``phase_build``), it
-    records its inputs from the two jobs first."""
-    import dataclasses
-
+    also counts its kernels' bound), the design, each captured piece's
+    graph nodes, the replay's kernel time by class (``_replay_split``), and
+    the idle gaps by kind (``_replay_gaps``), and the records of K19 (the
+    ``train_lr`` fit), the Adam scan, the state
+    kernels (at 1 and 5 rows) and ``logloss`` and ``lbfgs_direction``,
+    held against their plain versions at the two L-BFGS fits' recorded
+    inputs (``_hold_lr_kernels``; G 1 and 5). Run alone (after
+    ``phase_device`` and ``phase_build``), it records its inputs from the
+    two jobs first."""
     from torch.profiler import ProfilerActivity, profile
 
     from albedo_tpu_torch.kernels import launch_counts, reset_launches
@@ -5383,8 +5664,9 @@ def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
     for name, kernel, span, run in configs:
         reads = {}  # the warm-up fits: their host reads counted, and the host loop's kernels' bound
         with _HostReads() as mode:
-            bound = _lr_bound(run)
+            bound, captured = _lr_bound(run)
         reads["host"] = mode.reads
+        hold = None if kernel == "lr_adam_fit" else _hold_lr_kernels(captured, edges=True)
         with _HostReads() as mode:
             run()
         reads["graph"] = mode.reads
@@ -5405,14 +5687,16 @@ def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
                                                             equal_nan=True)
             and all(np.array_equal(m.params[k], w.params[k]) for k in w.params)
             for f in fits["host"] + fits["graph"] for m, w in zip(f["models"], want))
-        shared = [{n: c for n, c in cs.items() if not n.startswith("lbfgs_")} for cs in counts["graph"]]
+        shared = [{n: c for n, c in cs.items() if n not in ("lbfgs_state", "lbfgs_stop")} for cs in counts["graph"]]
         same_counts = all(c == counts["host"][0] for c in counts["host"] + shared)
         state_ran = kernel == "lr_adam_fit" or all(c.get("lbfgs_state", 0) > 0 and c.get("lbfgs_stop", 0) > 0
                                                   for c in counts["graph"])
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         busy = _replay_busy(prof, span)
+        split, gaps = _replay_split(prof, span, launch_counts()), _replay_gaps(prof, span)
         graph_s = [f["report"]["device_s"] for f in fits["graph"]]
         compile_s = [f["report"]["compile_s"] for f in fits["graph"]]
         host_s = [f["report"]["device_s"] for f in fits["host"]]
@@ -5430,13 +5714,16 @@ def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
                "median_host_device_s": float(np.median(host_s)), "host_reads": reads["graph"],
                "host_loop_host_reads": reads["host"], "reported_host_reads": report.get("host_reads"),
                "blocks": report.get("blocks"), "evaluations": report.get("evaluations"),
-               "pieces": report.get("pieces"), **busy,
+               "pieces": report.get("pieces"), "piece_nodes": report.get("piece_nodes"), "replay_split": split,
+               "replay_gaps": gaps,
+               "kernel_holds": None if hold is None else hold["held"], **busy,
                "record": {"ms": 1e3 * float(np.median(total_s)), "plain_ms": 1e3 * float(np.median(host_s)),
                           "max_abs_err": max_abs, "library_ms": None, "launches": sum(counts["graph"][0].values()),
                           **bound}}
-        rec["ok"] = same_bits and same_counts and state_ran and all(np.isfinite(total_s))
+        rec["ok"] = (same_bits and same_counts and state_ran and all(np.isfinite(total_s))
+                     and (hold is None or hold["ok"]))
         emit(rec)
-        records[kernel] = rec
+        records[kernel] = dict(rec, hold=hold)
         ok &= rec["ok"]
     state = {1: _lr_state_kernels(1), 5: _lr_state_kernels(5)}
     held = all(r["same_bits"] for by_rows in state.values() for r in by_rows.values())
@@ -5444,10 +5731,14 @@ def phase_fused_lr(lr_inputs=None, grid_inputs=None) -> dict:
           "by_rows": {str(k): v for k, v in state.items()}})
     if not (ok and held):
         raise SystemExit("chip_smoke: a graph LR fit differs from the host-driven loop in its bits or launches, "
-                         "or a state kernel from its plain version")
+                         "or logloss, lbfgs_direction or a state kernel from its plain version")
     timed = {"lbfgs_fit": records["lbfgs_fit"]["record"], "lr_adam_fit": records["lr_adam_fit"]["record"]}
     for name in ("lbfgs_state", "lbfgs_stop"):
         timed[name] = dict(state[1][name], rows_5=state[5][name])
+    for name in ("logloss", "lbfgs_direction"):
+        timed[name] = dict(records["lbfgs_fit"]["hold"][name], rows_5=records["lbfgs_fit_many"]["hold"][name])
+    emit({"phase": "fused_lr", "config": "K19 kernels", "card": card, "ok": True,
+          "logloss": timed["logloss"], "lbfgs_direction": timed["lbfgs_direction"]})
     return timed
 
 

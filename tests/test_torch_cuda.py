@@ -70,7 +70,17 @@ the pair passed by value. K19, the L-BFGS fits with their state on the card
 drawn states, NaN and inf included, at 1 to 1500 rows), equal the
 host-driven loops bit for bit (``fit``, ``fit_many``, and LR's Adam as a
 graph), K8, K8c, K8g and K8c-g launched as often (they add in a fixed
-order: no atomics); a capture that syncs raises naming the fit. K13's
+order: no atomics); a capture that syncs raises naming the fit. K19's
+``logloss`` against its plain version: the value within 1e-5 of |value|,
+the logits' cotangent within 1e-5 of its max-norm (the same per-row
+arithmetic), the bias gradient within 1e-5 of sum |dz|, the penalty
+exactly, NaN where NaN, the same bits twice, at N 1 to 257 023 and G 1
+and 5; ``lbfgs_direction`` within 1e-5 of the direction's max-norm over a
+wrapping memory at P 1 to 70 000 (shared memory, above 48 KB of it, and a
+global scratch row), the same bits from a twin memory; the flat-vector
+objective launches K8/K8g and K8c/K8c-g as autograd's does plus one
+``logloss``, within 1e-5 of autograd's value and gradient, and captures
+with a direction into a graph that replays its eager bits. K13's
 ranking metrics (a warp a query row) against their plain version on the
 card to 1e-6 (float32 sums in another order), precision exactly the plain
 version's on the CPU, the same bits on a second call, one launch a call,
@@ -2096,7 +2106,7 @@ def _lr_fits(est, data, many: bool):
     kernels.reset_launches()
     models = est.fit_many(fm, y, ws) if many else [est.fit(fm, y, w)]
     torch.cuda.synchronize()
-    counts = {n: c for n, c in kernels.launch_counts().items() if c and not n.startswith("lbfgs_")}
+    counts = {n: c for n, c in kernels.launch_counts().items() if c and n not in ("lbfgs_state", "lbfgs_stop")}
     return models, counts, kernels.launch_counts()
 
 
@@ -2111,7 +2121,9 @@ def _same_models(a, b) -> bool:
 def test_lbfgs_graph_fit_same_bits_as_host_loop(dev, lr_data, monkeypatch, many, max_iter):
     """K19 (blocks of 10 iterations as CUDA graphs) against the host-driven
     loop on the card: the same coefficients, losses and steps per row, and
-    K8, K8c, K8g, K8c-g launched as often; the state kernels ran."""
+    K8, K8c, K8g, K8c-g, ``logloss`` and ``lbfgs_direction`` launched as
+    often (a direction an iteration, a ``logloss`` an evaluation and one
+    for the final loss); the state kernels ran."""
     from albedo_tpu_torch.models.logistic_regression import LogisticRegression
 
     est = LogisticRegression(max_iter=max_iter, reg_param=0.7, device="cuda")
@@ -2123,6 +2135,8 @@ def test_lbfgs_graph_fit_same_bits_as_host_loop(dev, lr_data, monkeypatch, many,
     assert _same_models(got, want)
     assert got_counts == want_counts
     assert all_counts["lbfgs_state"] > 0 and all_counts["lbfgs_stop"] == max(m.n_iter_run for m in got)
+    assert all_counts["lbfgs_direction"] == max(m.n_iter_run for m in got)
+    assert all_counts["logloss"] == report["evaluations"] + 1
     assert report["host_reads"] == report["blocks"] <= -(-(max_iter - 1) // 10)  # one read a block of 10
     assert report["compile_s"] > 0
     if many and max_iter > 2:
@@ -2223,3 +2237,190 @@ def test_k13_evaluator_on_the_card_matches_the_cpu(dev):
         want = RankingEvaluator(metric_name=metric, k=30, device="cpu").evaluate(
             UserItems(users, pred), UserItems(users, actual))
         assert abs(got - want) <= 1e-6, (metric, got, want)
+
+
+# ------------------------------------------- K19's objective and direction
+
+
+def logloss_inputs(n: int, g: int, p: int = 8382, seed: int = 0, on="cpu"):
+    """The ``logloss`` kernel's inputs made with numpy: logits around 0 with
+    the edges (0, +-35, +-40, +-1e6, +-2e6), labels, weights (for g > 1 the
+    last row all zeros: a NaN objective), their sums, and parameters."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) if g == 1 else (g, n)
+    z = (rng.normal(size=shape) * 8).astype(np.float32)
+    edges = np.array([0.0, 35.0, -35.0, 40.0, -40.0, 1e6, -1e6, 2e6, -2e6, 0.0], np.float32)
+    flat = z.reshape(-1, n)
+    for row in flat:
+        pick = rng.random(n) < 0.2
+        row[pick] = rng.choice(edges, size=int(pick.sum()))
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = rng.uniform(0.1, 2.0, size=shape).astype(np.float32)
+    if g > 1:
+        w[-1] = 0.0
+    theta = (rng.normal(size=(p,) if g == 1 else (g, p)) * 0.3).astype(np.float32)
+    t = [torch.as_tensor(x, device=on) for x in (z, y, w, theta)]
+    return t[0], t[1], t[2], t[2].sum(-1).reshape(g), t[3]
+
+
+def _nan_close(got, want, tol) -> bool:
+    """NaN where NaN, else max |got - want| <= tol (a float or a tensor)."""
+    got, want = got.double(), want.double()
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    return bool(((got - want).abs()[~nan] <= (tol if isinstance(tol, float) else tol.double()[~nan])).all())
+
+
+@pytest.mark.parametrize("g", [1, 5])
+@pytest.mark.parametrize("n", [1, 33, 400, 257023])
+def test_logloss_matches_plain(dev, n, g):
+    """The ``logloss`` kernel against ``logloss_reference`` on the card:
+    the value within 1e-5 of |value| (its sum has nonnegative terms, so
+    float32 sums in two orders differ by a few ulps of it), dz within 1e-5
+    of max |dz| (the same per-row arithmetic), the bias gradient within 1e-5
+    of sum |dz| (its round-off's scale), the penalty exactly; NaN where NaN
+    (the zero weight row); the same bits on a second call; one launch."""
+    z, y, w, wsum, theta = logloss_inputs(n, g, on=dev)
+    kernels.reset_launches()
+    got = ops_sl.logloss(z, y, w, wsum, theta, 0.7)
+    assert kernels.LAUNCHES["logloss"] == 1
+    want = ops_sl.logloss_reference(z, y, w, wsum, theta, 0.7)
+    loss, dz, bias, pen = got
+    assert loss.shape == want[0].shape and bias.shape == want[2].shape
+    assert _nan_close(loss, want[0], 1e-5 * want[0].abs().nan_to_num())
+    scale = float(want[1].nan_to_num().abs().max()) if n else 0.0
+    assert _nan_close(dz, want[1], 1e-5 * scale)
+    assert _nan_close(bias, want[2], 1e-5 * want[1].nan_to_num().abs().sum(-1))
+    assert torch.equal(pen, want[3])
+    again = ops_sl.logloss(z, y, w, wsum, theta, 0.7)
+    assert all(_same_bits_or_nan(a, b) for a, b in zip(got, again))
+
+
+def test_logloss_at_the_zero_init_is_minus_w_y(dev):
+    """At the zero init every logit is 0 (the tie slopes): dz = -w y / W,
+    the loss log 2."""
+    z, y, w, wsum, theta = logloss_inputs(4000, 1, on=dev)
+    loss, dz, _, _ = ops_sl.logloss(torch.zeros_like(z), y, w, wsum, torch.zeros_like(theta), 0.7)
+    want = -w * y / wsum
+    assert float((dz - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert abs(float(loss) - float(np.log(2.0))) <= 1e-6
+
+
+def _direction_iterates(p: int, g: int, steps: int = 25, seed: int = 0):
+    """Iterates and gradients of a diagonal convex quadratic a row."""
+    rng = np.random.default_rng(seed)
+    shape = (p,) if g == 1 else (g, p)
+    d = rng.uniform(0.5, 3.0, size=shape).astype(np.float32)
+    x = rng.normal(size=shape).astype(np.float32)
+    out = []
+    for k in range(steps):
+        if k != 7:  # a repeated iterate: a zero secant pair (rho 0)
+            x = (x + rng.normal(size=shape) * 0.3).astype(np.float32)
+        out.append((x.copy(), (d * x + 0.1).astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 5])
+@pytest.mark.parametrize("p", [1, 7, 8382, 20000, 70000])
+def test_lbfgs_direction_matches_plain(dev, p, g):
+    """The ``lbfgs_direction`` kernel against ``lbfgs_direction_reference``
+    on the card over 25 iterates (the 10-slot memory wraps twice; at 20 000
+    vec takes more than the default 48 KB of shared memory; above
+    ``DIRECTION_SMEM_FLOATS`` it lives in a global scratch row): each
+    direction within 1e-5 of its max-norm, the slope within 1e-5 of
+    sum |updates * grad|; a second memory fed the same iterates gives the
+    same bits; one launch a call; the count is the largest of ``iters``."""
+    from albedo_tpu_torch.ops import lbfgs
+
+    its = _direction_iterates(p, g)
+    x0 = torch.as_tensor(its[0][0], device=dev)
+    mem, twin, plain = (lbfgs.new_memory(x0, 10) for _ in range(3))
+    for k, (x, grad) in enumerate(its):
+        x, grad = torch.as_tensor(x, device=dev), torch.as_tensor(grad, device=dev)
+        iters = torch.tensor([k] + [max(k - 2, 0)] * (g - 1), dtype=torch.int32, device=dev)
+        kernels.reset_launches()
+        u, s = lbfgs.lbfgs_direction(grad, x, mem, iters)
+        assert kernels.LAUNCHES["lbfgs_direction"] == 1
+        u2, s2 = lbfgs.lbfgs_direction(grad, x, twin, iters)
+        want_u, want_s = lbfgs.lbfgs_direction_reference(grad, x, plain, k)
+        assert torch.equal(u, u2) and torch.equal(s, s2)
+        assert float((u - want_u).abs().max()) <= 1e-5 * float(want_u.abs().max()), k
+        assert bool(((s - want_s).abs() <= 1e-5 * (want_u * grad).abs().sum(-1)).all()), k
+    assert torch.equal(mem.dw, twin.dw) and torch.equal(mem.rho, twin.rho)
+
+
+def test_lbfgs_direction_smem_mirror_is_the_library(dev):
+    from albedo_tpu_torch.kernels.build import library
+    from albedo_tpu_torch.ops import lbfgs
+
+    assert library("lbfgs_direction").lbfgs_direction_smem_floats() == lbfgs.DIRECTION_SMEM_FLOATS
+
+
+def _objective_on(dev, data, many: bool):
+    from albedo_tpu_torch.models import logistic_regression as lr
+
+    fm, y, w, ws = data
+    scales = ops_sl.inverse_std_scales(fm)
+    center = torch.as_tensor(ops_sl.dense_center(fm), device=dev)
+    layout = lr._Layout(ops_sl.init_params(fm))
+    batch = ops_sl.feature_batch(fm, dev, grad_layout=True)
+    weights = torch.as_tensor(ws if many else w, device=dev)
+    obj = ops_sl.LogisticObjective(layout.sizes, scales, batch, torch.as_tensor(y, device=dev), weights, 0.7, center)
+    rng = np.random.default_rng(5)
+    theta = torch.as_tensor((rng.normal(size=(len(ws), layout.size) if many else layout.size) * 0.1)
+                            .astype(np.float32), device=dev)
+    return obj, theta, layout, scales, batch, weights, center
+
+
+@pytest.mark.parametrize("many", [False, True], ids=["fit", "fit_many"])
+def test_objective_launches_as_autograd_does(dev, lr_data, many):
+    """One evaluation of ``LogisticObjective``: one ``logloss`` launch, and
+    K8/K8g and K8c/K8c-g as often as one forward and backward of the
+    autograd ``weighted_logloss``; value within 1e-5 of it and the
+    gradient within 1e-5 of its max-norm (NaN where NaN: the zero row);
+    the same bits on a second evaluation."""
+    obj, theta, layout, scales, batch, weights, center = _objective_on(dev, lr_data, many)
+    kernels.reset_launches()
+    value, grad = obj.value_and_grad(theta)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in kernels.launch_counts().items() if c}
+    assert counts.pop("logloss") == 1
+    from albedo_tpu_torch.models import logistic_regression as lr
+
+    x = theta.clone().requires_grad_(True)
+    kernels.reset_launches()
+    want = ops_sl.weighted_logloss(layout.views(x), lr._to_device(scales, dev), batch,
+                                   obj.labels, weights, 0.7, center=center)
+    (want_grad,) = torch.autograd.grad(want.sum(), x)
+    torch.cuda.synchronize()
+    assert counts == {n: c for n, c in kernels.launch_counts().items() if c}
+    assert _nan_close(value, want.detach(), 1e-5 * want.detach().abs().nan_to_num())
+    assert _nan_close(grad, want_grad, 1e-5 * float(want_grad.nan_to_num().abs().max()))
+    again = obj.value_and_grad(theta)
+    assert _same_bits_or_nan(value, again[0]) and _same_bits_or_nan(grad, again[1])
+
+
+@pytest.mark.parametrize("many", [False, True], ids=["fit", "fit_many"])
+def test_objective_and_direction_capture_into_a_graph(dev, lr_data, many):
+    """An evaluation and a direction captured into a CUDA graph in
+    ``thread_local`` mode (a host sync would fail the capture) and
+    replayed give the eager bits."""
+    from albedo_tpu_torch.ops import lbfgs
+
+    obj, theta, *_ = _objective_on(dev, lr_data, many)
+    iters = torch.zeros(1, dtype=torch.int32, device=dev)
+    mem_eager, mem_graph = lbfgs.new_memory(theta, 10), lbfgs.new_memory(theta, 10)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        v0, g0 = obj.value_and_grad(theta)
+        u0, s0 = lbfgs.lbfgs_direction(g0, theta, mem_eager, iters)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            v, g = obj.value_and_grad(theta)
+            u, s = lbfgs.lbfgs_direction(g, theta, mem_graph, iters)
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in ((v, v0), (g, g0), (u, u0), (s, s0), (mem_graph.grad, mem_eager.grad)):
+        assert _same_bits_or_nan(a, b)

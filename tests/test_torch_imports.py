@@ -63,7 +63,7 @@ def test_every_module_imports_without_nvcc():
         "als_partials_bf16", "bucket_cg_bf16", "als_partials_bf16_wide", "bucket_cg_bf16_wide",
         "sgns_shared", "masked_select", "masked_topk_select", "sgns_step_wide", "bpr_step_wide",
         "als_partials_tiled", "als_partials_bf16_tiled", "bucket_cg_tiled", "bucket_cg_bf16_tiled",
-        "lbfgs_state", "lbfgs_stop", "ranking_metrics",
+        "lbfgs_state", "lbfgs_stop", "ranking_metrics", "lbfgs_direction", "logloss",
     }
     assert not build._libs  # nothing built or loaded at import
     for name in kernels.LAUNCHES:
